@@ -1,0 +1,46 @@
+// Kernel 2: flash-attention forward for the decoder prefill, with GQA.
+//
+// Replaces the TPU kernel `ops/flash_attention.py` `_flash_fwd_lse`
+// (`_fwd_lse_kernel`), the forward of `flash_attention_trainable` that the
+// prefill reaches through `flash_mha_trainable`. Queries are [B, Sq, H, D],
+// keys and values [B, Skv, KV, D]; query head h reads kv head h / (H / KV)
+// inside the kernel, which replaces the `jnp.repeat` of K and V before the
+// TPU call. Optional causal mask (key j <= query i), a `kv_len` tail mask and
+// an optional fp32 natural-log LSE output [B, H, Sq].
+//
+// Bound on the H100: at the Vicuna-7B prefill (B = 4, S ~ 700, H = 32,
+// D = 128) one causal layer is ~16 GFLOP against ~92 MB of Q, K, V and O,
+// close to the card's bf16 ridge point; the tensor cores set the floor once K/V
+// tiles come from L2. Causal tiles past the block's last query row are skipped
+// and the logits stay on chip. The tile loop is plain mma.sync: no TMA, no
+// wgmma, no copy/compute overlap yet.
+#include "attention_common.cuh"
+
+extern "C" int lvr_flash_attention(const void* q, const void* k, const void* v,
+                                   void* out, void* lse, int batch, int seq_q,
+                                   int seq_kv, int heads, int kv_heads,
+                                   int head_dim, int kv_len, int causal,
+                                   float scale, void* stream) {
+  lvr::AttnArgs args;
+  args.q = static_cast<const lvr::bf16*>(q);
+  args.k = static_cast<const lvr::bf16*>(k);
+  args.v = static_cast<const lvr::bf16*>(v);
+  args.out = static_cast<lvr::bf16*>(out);
+  args.lse = static_cast<float*>(lse);
+  args.sq = seq_q;
+  args.skv = seq_kv;
+  args.kv_len = kv_len;
+  args.heads = heads;
+  args.kv_heads = kv_heads;
+  args.scale_log2 = scale * lvr::kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) {
+    return causal ? lvr::launch_flash_fwd<64, true>(args, batch, s)
+                  : lvr::launch_flash_fwd<64, false>(args, batch, s);
+  }
+  if (head_dim == 128) {
+    return causal ? lvr::launch_flash_fwd<128, true>(args, batch, s)
+                  : lvr::launch_flash_fwd<128, false>(args, batch, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

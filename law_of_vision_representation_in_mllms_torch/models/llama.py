@@ -1,0 +1,243 @@
+"""LLaMA decoder (counterpart of the JAX package's `models/llama.py`).
+
+RMSNorm in fp32, rotate-half RoPE, SwiGLU MLP, grouped-query attention
+(query head h reads kv head h // (H / KV)). The trunk is a per-layer
+`nn.ModuleList` walked by a Python loop instead of a `lax.scan` over stacked
+weights.
+
+Attention routes:
+- a prefill at cache slot 0 (and any no-cache pass with `use_flash=True`)
+  runs kernel 2 (`ops.flash_attention`, causal over array order) on the
+  local K/V, as the JAX `flash_ok` path does; the batch must be right-padded;
+- a decode step (one query token against a cache) runs kernel 3
+  (`ops.decode_attention`) over the cache in its stored layout;
+- everything else runs the plain masked `_attention`.
+
+The KV cache is a list with one `(k, v)` pair of [B, T, KV, Dh] tensors per
+layer (the JAX cache's per-layer layout). A forward writes the new K/V into
+its slots IN PLACE and returns the same list.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.precision import DEFAULT_PRECISION, Precision
+from ..ops.decode_attention import decode_attention
+from ..ops.flash_attention import flash_attention
+from .layers import Dense
+
+Cache = List[Tuple[torch.Tensor, torch.Tensor]]
+INIT_STD = 0.02   # every decoder weight ~ N(0, 0.02), as in the JAX init
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    max_seq_len: int = 2048
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+def vicuna_7b() -> LlamaConfig:
+    """lmsys/vicuna-7b-v1.5, the decoder of every reference model."""
+    return LlamaConfig()
+
+
+def tiny(vocab_size: int = 256, hidden_size: int = 64, num_layers: int = 2,
+         num_heads: int = 4, num_kv_heads: int = 2,
+         intermediate_size: int = 128, max_seq_len: int = 128
+         ) -> LlamaConfig:
+    return LlamaConfig(vocab_size=vocab_size, hidden_size=hidden_size,
+                       intermediate_size=intermediate_size,
+                       num_layers=num_layers, num_heads=num_heads,
+                       num_kv_heads=num_kv_heads, max_seq_len=max_seq_len)
+
+
+def rms_norm(x, weight, eps: float):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def rope_tables(cfg: LlamaConfig, positions):
+    """cos/sin [B, S, Dh] for positions [B, S] (HF rotate-half layout)."""
+    hd = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32,
+                     device=positions.device) / hd))
+    angles = positions.float()[..., None] * inv_freq
+    emb = torch.cat([angles, angles], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope(x, cos, sin):
+    """x [B, S, H, Dh]; cos/sin [B, S, Dh]."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x.float() * cos[..., None, :]
+            + rotated.float() * sin[..., None, :]).to(x.dtype)
+
+
+def _attention(q, k, v, mask, accum_dtype=torch.float32):
+    """Plain masked GQA attention. q [B,S,H,Dh], k/v [B,T,KV,Dh], mask
+    [B,S,T] bool; fp32 softmax, probabilities cast to q.dtype before P·V."""
+    b, s, nh, dh = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, s, nkv, nh // nkv, dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(accum_dtype),
+                          k.to(accum_dtype)) * dh ** -0.5
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.tensor(-1e30, dtype=accum_dtype,
+                                      device=q.device))
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(accum_dtype),
+                       v.to(accum_dtype))
+    return out.reshape(b, s, nh, dh).to(q.dtype)
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, precision: Precision, *,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.precision = precision
+        d, i, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+        nh, nkv = cfg.num_heads, cfg.num_kv_heads
+        kw = dict(device=device, dtype=precision.param_dtype)
+
+        def dense(din, dout):
+            return Dense(din, dout, precision, bias=False, init_std=INIT_STD,
+                         device=device)
+        self.rms1 = nn.Parameter(torch.empty(d, **kw), requires_grad=False)
+        self.wq = dense(d, nh * hd)
+        self.wk = dense(d, nkv * hd)
+        self.wv = dense(d, nkv * hd)
+        self.wo = dense(nh * hd, d)
+        self.rms2 = nn.Parameter(torch.empty(d, **kw), requires_grad=False)
+        self.gate = dense(d, i)
+        self.up = dense(d, i)
+        self.down = dense(i, d)
+
+    def reset_parameters(self, generator):
+        self.rms1.fill_(1.0)
+        self.rms2.fill_(1.0)
+
+    def forward(self, h, cos, sin, mask, kv_cache, cache_index,
+                use_flash: bool):
+        cfg = self.cfg
+        b, s, _ = h.shape
+        nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        x = rms_norm(h, self.rms1, cfg.rms_eps)
+        q = apply_rope(self.wq(x).view(b, s, nh, hd), cos, sin)
+        k = apply_rope(self.wk(x).view(b, s, nkv, hd), cos, sin)
+        v = self.wv(x).view(b, s, nkv, hd)
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            ck[:, cache_index:cache_index + s] = k
+            cv[:, cache_index:cache_index + s] = v
+            k_all, v_all = ck, cv
+        else:
+            k_all, v_all = k, v
+        if use_flash:
+            # right-padded prefill over the local K/V (kernel 2's contract)
+            attn = flash_attention(q, k, v, causal=True)
+        elif s == 1 and k_all.shape[1] > 1:
+            attn = decode_attention(q, k_all, v_all, mask[:, 0])
+        else:
+            attn = _attention(q, k_all, v_all, mask,
+                              self.precision.accum_dtype)
+        h = h + self.wo(attn.reshape(b, s, nh * hd))
+        x = rms_norm(h, self.rms2, cfg.rms_eps)
+        return h + self.down(F.silu(self.gate(x)) * self.up(x))
+
+
+class LlamaModel(nn.Module):
+    """The decoder's weights: embed [V, d], per-layer blocks, final norm,
+    lm_head (a Dense of weight [V, d])."""
+
+    def __init__(self, cfg: LlamaConfig,
+                 precision: Precision = DEFAULT_PRECISION, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.precision = precision
+        kw = dict(device=device, dtype=precision.param_dtype)
+        d = cfg.hidden_size
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, d, **kw),
+                                  requires_grad=False)
+        self.layers = nn.ModuleList(
+            LlamaBlock(cfg, precision, device=device)
+            for _ in range(cfg.num_layers))
+        self.final_norm = nn.Parameter(torch.empty(d, **kw),
+                                       requires_grad=False)
+        self.lm_head = Dense(d, cfg.vocab_size, precision, bias=False,
+                             init_std=INIT_STD, device=device)
+
+    def reset_parameters(self, generator):
+        self.embed.normal_(0.0, INIT_STD, generator=generator)
+        self.final_norm.fill_(1.0)
+
+    def forward(self, embeds, positions, *, attn_mask=None,
+                cache: Optional[Cache] = None,
+                cache_index: Optional[int] = None, use_flash: bool = False):
+        """embeds [B, S, D]; positions [B, S] (RoPE); attn_mask [B, T] bool
+        validity of key slots (T = S without a cache, else the cache
+        length), combined with causality over positions (no cache) or over
+        cache slots (with a cache: the query at slot cache_index + i sees
+        slots <= its own). Returns (hidden [B, S, D], cache)."""
+        cfg = self.cfg
+        b, s, _ = embeds.shape
+        h = embeds.to(self.precision.compute_dtype)
+        cos, sin = rope_tables(cfg, positions)
+        flash_ok = use_flash and s > 1 and (cache is None or cache_index == 0)
+        mask = None
+        if not flash_ok:
+            if cache is None:
+                causal = positions[:, None, :] <= positions[:, :, None]
+            else:
+                t = cache[0][0].shape[1]
+                k_slot = torch.arange(t, device=h.device)
+                q_slot = cache_index + torch.arange(s, device=h.device)
+                causal = (k_slot[None, :] <= q_slot[:, None])[None].expand(
+                    b, s, t)
+            mask = causal if attn_mask is None else (
+                causal & attn_mask[:, None, :])
+        for i, layer in enumerate(self.layers):
+            h = layer(h, cos, sin, mask,
+                      None if cache is None else cache[i], cache_index,
+                      flash_ok)
+        return rms_norm(h, self.final_norm, cfg.rms_eps), cache
+
+
+def logits_fn(params: LlamaModel, hidden):
+    return params.lm_head(hidden).float()
+
+
+def embed_tokens(params: LlamaModel, input_ids):
+    """Token embedding lookup; out-of-range ids (the -200 image token) are
+    clamped, and callers overwrite those positions through the splice."""
+    ids = input_ids.clamp(0, params.embed.shape[0] - 1)
+    return params.embed[ids].to(params.precision.compute_dtype)
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Cache:
+    """Dense KV cache: one zeroed (k, v) pair of [B, T, KV, Dh] per layer."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(cfg.num_layers)]

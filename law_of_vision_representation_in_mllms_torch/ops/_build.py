@@ -1,0 +1,138 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every `*.cu` file in the package's `csrc/` is compiled by `nvcc` for Hopper
+(`sm_90a`) into ONE shared library with a plain C interface, which is loaded
+with `ctypes` (no PyTorch headers, so the build takes seconds, not minutes).
+The library goes to `build/torch_kernels/` at the repository root and its file
+name carries a hash of the sources and flags, so a stale library is never
+loaded. Nothing is built at import time: the first kernel launch builds.
+
+C interface (every pointer and the stream are `void*`, ints are `int`, each
+function returns `cudaGetLastError()` after its launch):
+
+  lvr_encoder_attention(q, k, v, out, B, S, H, D, scale, stream)
+  lvr_flash_attention(q, k, v, out, lse, B, Sq, Skv, H, KV, D, kv_len,
+                      causal, scale, stream)
+  lvr_decode_attention(q, k, v, mask, out, B, T, H, KV, D, scale, stream)
+  lvr_error_string(err) -> const char*
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "lvr_encoder_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "lvr_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _P),
+    "lvr_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"liblvr_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels are built from csrc/ at "
+                       "first use")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed library unless it already exists.
+    Raises RuntimeError with nvcc's stderr on failure."""
+    out = library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stderr}")
+        os.replace(tmp, out)        # atomic: a reader never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.lvr_error_string.argtypes = [ctypes.c_int]
+    lib.lvr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().lvr_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def check_inputs(name: str, tensors: dict, head_dim: int) -> None:
+    """What every attention kernel requires of its bf16 operands: one CUDA
+    device, contiguous, 16-byte aligned, head size 64 or 128."""
+    device = next(iter(tensors.values())).device
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {arg} must be bfloat16 on CUDA, "
+                             f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    if head_dim not in (64, 128):
+        raise ValueError(f"{name}: head_dim {head_dim} not in (64, 128)")
+
+
+def stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
