@@ -24,7 +24,8 @@ from ..models import llava as M
 from .api import Instance, LMM
 
 _NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
-               "(ROADMAP, queue 1: 9, generation and serving)")
+               "(ROADMAP, queue 1: {item})")
+_BACKENDS = "6, serving backends"
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -41,7 +42,7 @@ class LlavaLMM(LMM):
                  gen_backend: str = "greedy"):
         if gen_backend != "greedy":
             raise NotImplementedError(_NOT_PORTED.format(
-                what=f"gen_backend {gen_backend!r}"))
+                what=f"gen_backend {gen_backend!r}", item=_BACKENDS))
         self.params = params
         self.cfg = cfg
         self.tok = tokenizer
@@ -106,10 +107,10 @@ class LlavaLMM(LMM):
                 temperature = 0.0
             if temperature > 0:
                 raise NotImplementedError(_NOT_PORTED.format(
-                    what="sampling (temperature > 0)"))
+                    what="sampling (temperature > 0)", item=_BACKENDS))
             if int(kwargs.get("num_beams", 1) or 1) > 1:
                 raise NotImplementedError(_NOT_PORTED.format(
-                    what="beam search"))
+                    what="beam search", item=_BACKENDS))
             ids, mask, pixels = self._encode_batch(chunk)
             toks = M.generate_greedy(
                 self.params, self.cfg, ids, mask, pixels,
@@ -129,4 +130,5 @@ class LlavaLMM(LMM):
 
     def loglikelihood(self, requests: List[Instance]
                       ) -> List[Tuple[float, bool]]:
-        raise NotImplementedError(_NOT_PORTED.format(what="loglikelihood"))
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="loglikelihood", item="4, the rest of the CLI and eval"))

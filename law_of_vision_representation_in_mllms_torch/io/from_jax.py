@@ -1,4 +1,4 @@
-"""JAX parameter trees -> the port's state dicts.
+"""JAX parameter trees <-> the port's state dicts.
 
 Input: the nested dict/list tree of numpy arrays that
 `jax.tree.map(np.asarray, params)` or `io.param_io.load_params` gives for the
@@ -13,7 +13,12 @@ Layout mapping:
 - `patch_kernel (p, p, c, D)` reshapes to [p*p*c, D] in the NHWC unfold order
   of the tower's patch embedding, then transposes;
 - LayerNorm `ln/scale`, `ln/bias` become `weight`, `bias`;
-- the projector's `layers/#i/{kernel,bias}` become `layers.i.{weight,bias}`.
+- the projector's `layers/#i/{kernel,bias}` become `layers.i.{weight,bias}`;
+- a feature pseudo-tower has no weights (an empty tree, an `nn.Identity`).
+
+The `*_tree` functions are the inverse: the port's state dicts back to the
+JAX trees of numpy fp32 arrays, which `param_io.save_params` writes and the
+JAX package (or `load_llava_npz`) reads.
 """
 
 from __future__ import annotations
@@ -102,8 +107,10 @@ def llama_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
 def llava_state_dict(params: Dict[str, Any]) -> StateDict:
     """Full JAX LLaVA params -> LlavaParams state dict."""
     out: StateDict = {}
-    for i, tower in enumerate(params["towers"]):
-        out.update(vit_state_dict(tower, f"towers.{i}."))
+    # a tree of feature pseudo-towers only saves no "towers" key at all
+    for i, tower in enumerate(params.get("towers", [])):
+        if tower:                       # {} for a feature pseudo-tower
+            out.update(vit_state_dict(tower, f"towers.{i}."))
     out.update(projector_state_dict(params["projector"], "projector."))
     out.update(llama_state_dict(params["decoder"], "decoder."))
     return out
@@ -112,3 +119,87 @@ def llava_state_dict(params: Dict[str, Any]) -> StateDict:
 def load_llava_npz(path: str) -> StateDict:
     """A `param_io.save_params` .npz of full JAX LLaVA params -> state dict."""
     return llava_state_dict(load_params(path))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _sub(sd: StateDict, prefix: str) -> StateDict:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _dense_tree(sd: StateDict, prefix: str) -> Dict[str, np.ndarray]:
+    out = {"kernel": _np(sd[f"{prefix}.weight"]).T.copy()}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _np(sd[f"{prefix}.bias"])
+    return out
+
+
+def _ln_tree(sd: StateDict, prefix: str) -> Dict[str, Any]:
+    return {"ln": {"scale": _np(sd[f"{prefix}.weight"]),
+                   "bias": _np(sd[f"{prefix}.bias"])}}
+
+
+def projector_tree(sd: StateDict) -> Dict[str, Any]:
+    """Inverse of `projector_state_dict`: {"layers": [{"kernel" [in, out],
+    "bias"}, ...]}."""
+    n = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
+    return {"layers": [_dense_tree(sd, f"layers.{i}") for i in range(n)]}
+
+
+def vit_tree(sd: StateDict, patch_size: int,
+             num_channels: int = 3) -> Dict[str, Any]:
+    """Inverse of `vit_state_dict` for one ViTTower state dict."""
+    e = "encoder"
+    kernel = _np(sd[f"{e}.patch_embed.weight"]).T
+    enc: Dict[str, Any] = {"patch_kernel": kernel.reshape(
+        patch_size, patch_size, num_channels, kernel.shape[-1]).copy()}
+    if f"{e}.patch_embed.bias" in sd:
+        enc["patch_bias"] = _np(sd[f"{e}.patch_embed.bias"])
+    if f"{e}.cls_token" in sd:
+        enc["cls_token"] = _np(sd[f"{e}.cls_token"])
+    enc["pos_embed"] = _np(sd[f"{e}.pos_embed"])
+    if f"{e}.pre_ln.weight" in sd:
+        enc["pre_ln"] = _ln_tree(sd, f"{e}.pre_ln")
+    n_blocks = len({k.split(".")[2] for k in sd
+                    if k.startswith(f"{e}.blocks.")})
+    for i in range(n_blocks):
+        bp = f"{e}.blocks.{i}"
+        blk: Dict[str, Any] = {"ln1": _ln_tree(sd, f"{bp}.ln1"),
+                               "ln2": _ln_tree(sd, f"{bp}.ln2")}
+        for name in _VIT_DENSES:
+            blk[name] = _dense_tree(sd, f"{bp}.{name}")
+        for name in ("ls1", "ls2"):
+            if f"{bp}.{name}" in sd:
+                blk[name] = _np(sd[f"{bp}.{name}"])
+        enc[f"block_{i}"] = blk
+    return {"encoder": enc}
+
+
+def llama_tree(sd: StateDict) -> Dict[str, Any]:
+    """Inverse of `llama_state_dict`: per-layer weights stacked to [L, ...],
+    Dense weights back to [in, out] kernels."""
+    n = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
+    layers = {name: np.stack([_np(sd[f"layers.{i}.{name}.weight"]).T
+                              for i in range(n)])
+              for name in _LLAMA_DENSES}
+    for name in ("rms1", "rms2"):
+        layers[name] = np.stack([_np(sd[f"layers.{i}.{name}"])
+                                 for i in range(n)])
+    return {"embed": _np(sd["embed"]), "layers": layers,
+            "final_norm": _np(sd["final_norm"]),
+            "lm_head": _np(sd["lm_head.weight"]).T.copy()}
+
+
+def llava_tree(params) -> Dict[str, Any]:
+    """A `models.llava.LlavaParams` -> the JAX LLaVA params tree (numpy)."""
+    sd = params.state_dict()
+    towers = []
+    for i, tower in enumerate(params.towers):
+        tsd = _sub(sd, f"towers.{i}.")
+        towers.append(vit_tree(tsd, tower.cfg.patch_size,
+                               tower.cfg.num_channels) if tsd else {})
+    return {"towers": towers,
+            "projector": projector_tree(_sub(sd, "projector.")),
+            "decoder": llama_tree(_sub(sd, "decoder."))}

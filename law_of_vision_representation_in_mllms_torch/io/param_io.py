@@ -1,9 +1,10 @@
-"""Reader for the flat .npz parameter files of the JAX package.
+"""The flat .npz parameter files of the JAX package (a copy of its
+`io/param_io.py`).
 
-`law_of_vision_representation_in_mllms_tpu/io/param_io.save_params` flattens
-a parameter tree with '/'-joined keys (list indices as `#i`) into one .npz;
-`load_params` rebuilds the nested dict/list tree of numpy arrays, which
-`io.from_jax` turns into the port's state dicts.
+`save_params` flattens a parameter tree with '/'-joined keys (list indices as
+`#i`) into one .npz; `load_params` rebuilds the nested dict/list tree of
+numpy arrays, which `io.from_jax` turns into the port's state dicts (and its
+`*_tree` functions turn back).
 """
 
 from __future__ import annotations
@@ -11,6 +12,23 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+
+
+def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}/{k}" if prefix else str(k), out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}/#{i}", out)
+    else:
+        out[prefix] = np.asarray(tree)
+
+
+def save_params(path: str, tree: Any) -> None:
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    np.savez(path, **flat)
 
 
 def load_params(path: str) -> Any:

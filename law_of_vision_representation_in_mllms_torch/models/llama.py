@@ -6,9 +6,10 @@ RMSNorm in fp32, rotate-half RoPE, SwiGLU MLP, grouped-query attention
 weights.
 
 Attention routes:
-- a prefill at cache slot 0 (and any no-cache pass with `use_flash=True`)
-  runs kernel 2 (`ops.flash_attention`, causal over array order) on the
-  local K/V, as the JAX `flash_ok` path does; the batch must be right-padded;
+- a prefill at cache slot 0 (and any no-cache pass with `use_flash=True`,
+  training included) runs kernel 2 (`ops.flash_attention`, causal over array
+  order) on the local K/V, as the JAX `flash_ok` path does; the batch must be
+  right-padded. Under autograd its backward is kernels 5 and 6;
 - a decode step (one query token against a cache) runs kernel 3
   (`ops.decode_attention`) over the cache in its stored layout;
 - everything else runs the plain masked `_attention`.
@@ -16,16 +17,23 @@ Attention routes:
 The KV cache is a list with one `(k, v)` pair of [B, T, KV, Dh] tensors per
 layer (the JAX cache's per-layer layout). A forward writes the new K/V into
 its slots IN PLACE and returns the same list.
+
+Training: a no-cache pass takes `remat` / `remat_policy` (the JAX `_remat`):
+"block" checkpoints every block (`torch.utils.checkpoint`, non-reentrant),
+"dots" checkpoints it selectively, saving the outputs of the block's weight
+matmuls and recomputing the rest. `causal_lm_loss` is the JAX loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops.decode_attention import decode_attention
@@ -166,6 +174,32 @@ class LlamaBlock(nn.Module):
         return h + self.down(F.silu(self.gate(x)) * self.up(x))
 
 
+# "dots": the non-batched matmuls (the block's weight products) are saved;
+# batched products (plain attention) and every elementwise op recompute
+# (JAX `checkpoint_dots_with_no_batch_dims`)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(block, policy: Optional[str]):
+    """Per-block gradient checkpointing (JAX `models/llama._remat`): "block"
+    (or None, "full") keeps only the block's inputs and re-runs its forward
+    in the backward; "dots" keeps the weight-matmul outputs too."""
+    if policy in (None, "block", "full"):
+        return functools.partial(ckpt.checkpoint, block, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, block, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
 class LlamaModel(nn.Module):
     """The decoder's weights: embed [V, d], per-layer blocks, final norm,
     lm_head (a Dense of weight [V, d])."""
@@ -193,12 +227,14 @@ class LlamaModel(nn.Module):
 
     def forward(self, embeds, positions, *, attn_mask=None,
                 cache: Optional[Cache] = None,
-                cache_index: Optional[int] = None, use_flash: bool = False):
+                cache_index: Optional[int] = None, use_flash: bool = False,
+                remat: bool = False, remat_policy: Optional[str] = None):
         """embeds [B, S, D]; positions [B, S] (RoPE); attn_mask [B, T] bool
         validity of key slots (T = S without a cache, else the cache
         length), combined with causality over positions (no cache) or over
         cache slots (with a cache: the query at slot cache_index + i sees
-        slots <= its own). Returns (hidden [B, S, D], cache)."""
+        slots <= its own). `remat` checkpoints every block of a no-cache
+        pass with `remat_policy`. Returns (hidden [B, S, D], cache)."""
         cfg = self.cfg
         b, s, _ = embeds.shape
         h = embeds.to(self.precision.compute_dtype)
@@ -216,10 +252,13 @@ class LlamaModel(nn.Module):
                     b, s, t)
             mask = causal if attn_mask is None else (
                 causal & attn_mask[:, None, :])
+        if remat and cache is not None:
+            raise ValueError("remat applies to no-cache (training) passes")
         for i, layer in enumerate(self.layers):
-            h = layer(h, cos, sin, mask,
-                      None if cache is None else cache[i], cache_index,
-                      flash_ok)
+            run = _remat(layer, remat_policy) if remat else layer
+            h = run(h, cos, sin, mask,
+                    None if cache is None else cache[i], cache_index,
+                    flash_ok)
         return rms_norm(h, self.final_norm, cfg.rms_eps), cache
 
 
@@ -241,3 +280,18 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.num_layers)]
+
+
+def causal_lm_loss(logits, labels, ignore_index: int = -100):
+    """Next-token cross-entropy with IGNORE_INDEX masking (HF shift
+    convention, JAX `causal_lm_loss`). Labels outside the vocab are ignored
+    too; the log-softmax runs in fp32. Mean over the valid targets."""
+    shift_logits = logits[:, :-1]
+    shift_labels = labels[:, 1:]
+    valid = ((shift_labels != ignore_index) & (shift_labels >= 0)
+             & (shift_labels < logits.shape[-1]))
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    logp = torch.log_softmax(shift_logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp_min(1)

@@ -1,21 +1,26 @@
 """LLaVA-1.5: tower(s) -> concat -> mm_projector -> splice -> LLaMA
-(counterpart of the JAX package's `models/llava.py`, serving path).
+(counterpart of the JAX package's `models/llava.py`, serving and training).
 
 - `init_params` builds the model's weights directly on the target device in
   the param dtype and fills them from one `torch.Generator`;
-- `encode_images` runs the ViT tower(s) (kernel 1), concatenates channels and
-  applies the projector; `dump_image_embeds` is the A-score hook;
+- `encode_images` runs the ViT tower(s) (kernel 1) under `torch.no_grad()`
+  (the JAX `stop_gradient`: towers never train), passes precomputed features
+  of a feature pseudo-tower through, concatenates channels and applies the
+  projector; `dump_image_embeds` is the A-score hook;
+- `loss_fn` is the training loss: splice, decoder (kernel 2 forward and
+  kernels 5/6 backward on the flash route, optional remat), causal LM loss;
 - `generate_greedy` is `prefill` (kernel 2) + a Python loop of
   `decode_step`s (kernel 3) over a per-layer KV cache.
 
-Not ported yet: `visual_keep` pruning, MoF and perceiver projectors, the
-training loss, beam search, sampling and speculative decoding.
+Not ported yet: `visual_keep` pruning, MoF and perceiver projectors, LoRA,
+context and pipeline parallelism, beam search, sampling and speculative
+decoding.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -58,15 +63,18 @@ def _select_feature(cfg: LlavaConfig, entry: TowerEntry) -> str:
 
 
 class LlavaParams(nn.Module):
-    """The weights of one LLaVA: `towers` (one ViTTower per spec entry),
-    `projector` and `decoder` — the JAX params tree's three subtrees."""
+    """The weights of one LLaVA: `towers` (one ViTTower per spec entry; an
+    `nn.Identity` holds the place of a feature pseudo-tower, which has no
+    weights), `projector` and `decoder` — the JAX params tree's three
+    subtrees."""
 
     def __init__(self, cfg: LlavaConfig,
                  precision: Precision = DEFAULT_PRECISION, *, device=None):
         super().__init__()
         self.towers = nn.ModuleList(
             ViTTower(e.vit_config, cfg.select_layer, _select_feature(cfg, e),
-                     precision, device=device)
+                     precision, device=device) if e.kind == "vit"
+            else nn.Identity()
             for e in cfg.tower_spec.entries)
         self.projector = Projector(cfg.projector_type,
                                    cfg.tower_spec.mm_hidden_size,
@@ -87,11 +95,14 @@ def init_params(generator: torch.Generator, cfg: LlavaConfig,
 
 def encode_images(params: LlavaParams, cfg: LlavaConfig,
                   pixel_values: List[torch.Tensor]) -> torch.Tensor:
-    """pixel_values: one NHWC tensor per tower entry. Returns projected
-    features [B, P, D_llm] in the compute dtype."""
+    """pixel_values: one NHWC tensor per tower entry (precomputed features
+    [B, P, C] for a feature pseudo-tower). Returns projected features
+    [B, P, D_llm] in the compute dtype. The towers run without autograd:
+    they are frozen in every stage."""
     cd = params.decoder.precision.compute_dtype
-    feats = [tower(px).to(cd) for tower, px in zip(params.towers,
-                                                   pixel_values)]
+    with torch.no_grad():
+        feats = [tower(px).to(cd) for tower, px in zip(params.towers,
+                                                       pixel_values)]
     cat = torch.cat(feats, dim=-1) if len(feats) > 1 else feats[0]
     return params.projector(cat)
 
@@ -100,6 +111,31 @@ def dump_image_embeds(params: LlavaParams, cfg: LlavaConfig, pixel_values):
     """A-score hook: the post-projector per-image embeddings
     (`llava_arch.py:229-248,475-476`)."""
     return encode_images(params, cfg, pixel_values)
+
+
+def loss_fn(params: LlavaParams, cfg: LlavaConfig,
+            batch: Dict[str, torch.Tensor], *, remat: bool = False,
+            remat_policy: Optional[str] = None, use_flash: bool = False,
+            cp=None, pp=None):
+    """Training loss (JAX `loss_fn`). batch: input_ids [B, L] (with -200
+    image slots), labels [B, L], text_mask [B, L] bool, pixel_values: a list
+    of NHWC tensors (or feature tensors) per tower entry. `use_flash` runs
+    the decoder's attention through kernel 2 forward and kernels 5/6
+    backward; the spliced batch is right-padded, as they require. Context
+    (`cp`) and pipeline (`pp`) parallelism are not ported."""
+    if cp is not None or pp is not None:
+        raise NotImplementedError(
+            "context and pipeline parallelism are not ported to the PyTorch "
+            "package yet (ROADMAP, queue 1: 10, parallelism)")
+    dec = params.decoder
+    plan = splice_plan(batch["input_ids"], batch["labels"],
+                       batch["text_mask"], cfg.num_patches)
+    img = encode_images(params, cfg, batch["pixel_values"])
+    txt = L.embed_tokens(dec, batch["input_ids"])
+    embeds = splice_embeds(plan, txt, img)
+    h, _ = dec(embeds, plan.positions, attn_mask=plan.attn_mask,
+               use_flash=use_flash, remat=remat, remat_policy=remat_policy)
+    return L.causal_lm_loss(L.logits_fn(dec, h), plan.labels)
 
 
 @dataclasses.dataclass

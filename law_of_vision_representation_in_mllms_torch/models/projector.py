@@ -39,7 +39,7 @@ class Projector(nn.Module):
         if kind == "perceiver":
             raise NotImplementedError(
                 f"projector {proj_type} is not ported to the PyTorch package "
-                "yet (ROADMAP, queue 1: 4, projector and image encoding)")
+                "yet (ROADMAP, queue 1: 5, diffusion towers)")
         self.precision = precision
         dims = []
         if kind == "linear":

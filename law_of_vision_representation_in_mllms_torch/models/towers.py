@@ -1,9 +1,12 @@
 """Tower registry + multi-tower specs (counterpart of the JAX package's
-`models/towers.py`, ViT entries only).
+`models/towers.py`, ViT and precomputed-feature entries).
 
 A spec string names one tower, or several joined by '.' (channel concat into
-one shared projector). Diffusion towers, precomputed-feature pseudo-towers
-and ',' (MoF, per-tower projectors) specs are not ported yet and raise
+one shared projector). A `*_feature` name is the precomputed-feature
+pseudo-tower (JAX `kind="feature"`, the reference's `build_vision_tower`): the
+dataset hands its features in and `encode_images` passes them through, so
+feature-cached training runs no tower. Diffusion towers and ',' (MoF,
+per-tower projectors) specs are not ported yet and raise
 NotImplementedError.
 """
 
@@ -32,8 +35,11 @@ DIFFUSION_TOWERS = (
     "lambdalabs/sd-image-variations-diffusers",
     "facebook/DiT-XL-2-512",
     "stabilityai/stable-diffusion-3-medium-diffusers",
-    "runwayml/stable-diffusion-v1-5_feature",
 )
+# precomputed-feature pseudo-towers: name -> feature width; 576 tokens each
+# (the reference's dummy feature, `train.py:830-831`)
+FEATURE_TOWERS = {"runwayml/stable-diffusion-v1-5_feature": 1280}
+FEATURE_TOKENS = 576
 
 _NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
                "(ROADMAP, queue 1: {item})")
@@ -42,7 +48,7 @@ _NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
 @dataclasses.dataclass(frozen=True)
 class TowerEntry:
     name: str
-    kind: str                      # "vit"
+    kind: str                      # "vit" | "feature"
     vit_config: Optional[ViTConfig] = None
     vit_family: Optional[str] = None
     hidden_size: int = 0
@@ -76,9 +82,13 @@ def _make_entry(name: str) -> TowerEntry:
                           hidden_size=cfg.hidden_size,
                           num_patches=cfg.num_patches,
                           img_size=cfg.image_size)
+    if name in FEATURE_TOWERS:
+        return TowerEntry(name=name, kind="feature",
+                          hidden_size=FEATURE_TOWERS[name],
+                          num_patches=FEATURE_TOKENS)
     if name in DIFFUSION_TOWERS:
         raise NotImplementedError(_NOT_PORTED.format(
-            what=f"diffusion tower {name}", item="8, diffusion towers"))
+            what=f"diffusion tower {name}", item="5, diffusion towers"))
     raise ValueError(f"Unknown vision tower: {name}")
 
 
@@ -88,20 +98,22 @@ def parse_tower_spec(spec: str) -> TowerSpec:
     if "," in spec:
         raise NotImplementedError(_NOT_PORTED.format(
             what=f"the MoF tower spec {spec!r}",
-            item="4, projector and image encoding"))
-    if "." in spec and spec not in VIT_FAMILIES \
-            and spec not in DIFFUSION_TOWERS:
+            item="5, diffusion towers"))
+    if "." in spec and spec not in _known():
         names, join = _split_dot(spec), "concat"
     else:
         names, join = [spec], "single"
     return TowerSpec(entries=[_make_entry(n) for n in names], join=join)
 
 
+def _known() -> list:
+    return [*VIT_FAMILIES, *DIFFUSION_TOWERS, *FEATURE_TOWERS]
+
+
 def _split_dot(spec: str):
     """Split on '.' with longest-match against known names (HF ids may
     contain dots)."""
-    known = sorted(list(VIT_FAMILIES) + list(DIFFUSION_TOWERS), key=len,
-                   reverse=True)
+    known = sorted(_known(), key=len, reverse=True)
     parts, rest = [], spec
     while rest:
         for k in known:

@@ -1,8 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every `*.cu` file in the package's `csrc/` is compiled by `nvcc` for Hopper
-(`sm_90a`) into ONE shared library with a plain C interface, which is loaded
-with `ctypes` (no PyTorch headers, so the build takes seconds, not minutes).
+(`sm_90a`), one `nvcc` process per source, all started together, and the
+objects are linked into ONE shared library with a plain C interface, which
+is loaded with `ctypes` (no PyTorch headers, so the build takes seconds, not
+minutes).
 The library goes to `build/torch_kernels/` at the repository root and its file
 name carries a hash of the sources and flags, so a stale library is never
 loaded. Nothing is built at import time: the first kernel launch builds.
@@ -14,6 +16,10 @@ function returns `cudaGetLastError()` after its launch):
   lvr_flash_attention(q, k, v, out, lse, B, Sq, Skv, H, KV, D, kv_len,
                       causal, scale, stream)
   lvr_decode_attention(q, k, v, mask, out, B, T, H, KV, D, scale, stream)
+  lvr_flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
+                             KV, D, kv_len, causal, scale, stream)
+  lvr_flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv,
+                              H, KV, D, kv_len, causal, scale, stream)
   lvr_error_string(err) -> const char*
 """
 
@@ -32,8 +38,9 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler",
+              "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +50,10 @@ _SIGNATURES = {
     "lvr_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P),
     "lvr_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "lvr_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _F, _P),
+    "lvr_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 
@@ -74,25 +85,37 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it already exists.
-    Raises RuntimeError with nvcc's stderr on failure."""
+    """Compile csrc/*.cu into the hashed library unless it already exists:
+    one `nvcc -c` per source in parallel, then one link. Raises RuntimeError
+    with nvcc's stderr on failure."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs, objects = [], []
+        for src in sources():
+            objects.append(os.path.join(tmp, src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objects[-1], str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objects]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stderr}")
-        os.replace(tmp, out)        # atomic: a reader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                               f"{' '.join(cmd)}\n{res.stderr}")
+        os.replace(lib, out)        # atomic: a reader never sees half a file
     return out
 
 
@@ -132,6 +155,16 @@ def check_inputs(name: str, tensors: dict, head_dim: int) -> None:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
     if head_dim not in (64, 128):
         raise ValueError(f"{name}: head_dim {head_dim} not in (64, 128)")
+
+
+def forbid_grad(name: str, *tensors) -> None:
+    """A forward-only kernel's wrapper refuses to run where autograd would
+    need its gradient: its result would carry no `grad_fn` and cut the
+    graph without an error."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: call it under torch.no_grad() or on "
+            f"inputs that do not require grad")
 
 
 def stream_handle(device) -> int:

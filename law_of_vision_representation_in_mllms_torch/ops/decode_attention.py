@@ -63,6 +63,7 @@ def decode_attention(q, k, v, mask, k_scale=None, v_scale=None):
     if tuple(mask.shape) != (b, t) or mask.dtype != torch.bool:
         raise ValueError(f"decode_attention: mask must be bool [{b}, {t}], "
                          f"got {mask.dtype} {tuple(mask.shape)}")
+    _build.forbid_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, mask)
     if q.device.type != "cuda":

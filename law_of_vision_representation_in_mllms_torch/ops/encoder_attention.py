@@ -32,6 +32,7 @@ def encoder_attention(q, k, v):
         raise ValueError(f"encoder_attention: q, k, v must share a "
                          f"[B, S, H, D] shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _build.forbid_grad("encoder_attention", q, k, v)
     if q.device.type == "cpu":
         return encoder_attention_plain(q, k, v)
     if q.device.type != "cuda":

@@ -1,25 +1,37 @@
-"""Kernel 2: flash-attention forward for the decoder prefill (GQA in-kernel).
+"""Kernels 2, 5 and 6: flash attention for the decoder, forward and backward
+(GQA in-kernel).
 
-Replaces the TPU kernel `ops/flash_attention.py` `_flash_fwd_lse` (the
-forward `pl.pallas_call` of `flash_attention_trainable`, body
-`_fwd_lse_kernel`) of the JAX package, which the prefill reaches through
-`flash_mha_trainable`; the backward kernels are not ported yet. Source:
-`csrc/flash_attention.cu` on the tile loop of `csrc/attention_common.cuh`.
+Replaces the TPU kernels of `flash_attention_trainable` in the JAX package's
+`ops/flash_attention.py`, which the prefill and training reach through
+`flash_mha_trainable`:
+- kernel 2, `_flash_fwd_lse` (forward + LSE, body `_fwd_lse_kernel`):
+  `csrc/flash_attention.cu` on the tile loop of `csrc/attention_common.cuh`;
+- kernel 5, the dq `pl.pallas_call` of `_bwd` (`_bwd_dq_kernel`) and
+  kernel 6, the dk/dv one (`_bwd_dkv_kernel`): `csrc/flash_attention_bwd.cu`.
 
-What bounds it on the H100: at the Vicuna-7B prefill (B = 4, S ~ 700,
+`FlashAttention` is the `torch.autograd.Function` around them (the JAX
+`custom_vjp`): its forward is kernel 2 with the LSE, its backward takes
+δ = rowsum(dO·O) in fp32 (a torch reduction, as the JAX `_bwd` computes it
+outside any kernel) and launches kernels 5 and 6. `flash_attention` goes
+through it whenever grad mode is on and an input requires grad.
+
+What bounds them on the H100: at the Vicuna-7B prefill (B = 4, S ~ 700,
 H = 32, D = 128) a causal layer is ~16 GFLOP against ~92 MB of Q, K, V and
-O, near the bf16 ridge point. The kernel never writes logits, skips causal
-tiles past each query tile, and maps query head h to kv head h // (H / KV)
-itself, so K and V are read at their true size instead of repeated.
+O, near the bf16 ridge point; the backward does ~2.5 × the forward's FLOPs
+over ~2 × its bytes, so the tensor cores set its floor. No kernel writes
+logits or probabilities; causal tiles past the diagonal are skipped; query
+head h reads kv head h // (H / KV) itself, so K and V are read at their true
+size instead of repeated, and kernel 6 sums a group's dk/dv in registers.
 
 Padding contract (kept from the JAX flash prefill, `models/llama.py`): the
-kernel takes no key-padding mask, only causality and a `kv_len` tail. A
-prefill batch must be RIGHT-padded: every row's valid tokens come first, so a
-valid query never sees a pad key. The splice guarantees it (text is
-right-padded, the image is spliced before the pad).
+kernels take no key-padding mask, only causality and a `kv_len` tail. A batch
+must be RIGHT-padded: every row's valid tokens come first, so a valid query
+never sees a pad key. The splice guarantees it (text is right-padded, the
+image is spliced before the pad); a pad row's labels are ignored, so its dO
+is zero.
 
-`flash_attention` takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises.
+Every wrapper takes the plain version only for CPU tensors; for CUDA tensors
+it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,25 +41,34 @@ import torch
 from . import _build
 
 
+def _visible(sq: int, skv: int, kv_len: int, causal: bool, device):
+    """[Sq, Skv] bool: key j is visible to query i iff j < kv_len and (not
+    causal or j <= i)."""
+    j = torch.arange(skv, device=device)
+    visible = (j < kv_len)[None, :].expand(sq, skv)
+    if causal:
+        visible = visible & (j[None, :] <= torch.arange(sq, device=device)
+                             [:, None])
+    return visible
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = False,
                           kv_len: int | None = None,
                           return_lse: bool = False):
-    """fp32 reference. q [B, Sq, H, D]; k, v [B, Skv, KV, D]. Key j is
-    visible to query i iff j < kv_len and (not causal or j <= i). A row that
-    sees no key gives 0 and LSE 0, as the TPU kernel does."""
+    """Reference in fp32 (fp64 for fp64 inputs). q [B, Sq, H, D]; k, v
+    [B, Skv, KV, D]. Key j is visible to query i iff j < kv_len and (not
+    causal or j <= i). A row that sees no key gives 0 and LSE 0, as the TPU
+    kernel does."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     if kv_len is None:
         kv_len = skv
-    kf = k.float().repeat_interleave(g, dim=2)
-    vf = v.float().repeat_interleave(g, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * d ** -0.5
-    j = torch.arange(skv, device=q.device)
-    visible = (j < kv_len)[None, :].expand(sq, skv)
-    if causal:
-        visible = visible & (j[None, :] <= torch.arange(sq, device=q.device)
-                             [:, None])
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(acc).repeat_interleave(g, dim=2)
+    vf = v.to(acc).repeat_interleave(g, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), kf) * d ** -0.5
+    visible = _visible(sq, skv, kv_len, causal, q.device)
     logits = logits.masked_fill(~visible, float("-inf"))
     any_visible = visible.any(dim=-1)                        # [Sq]
     lse = torch.logsumexp(logits, dim=-1)                    # [B, H, Sq]
@@ -59,27 +80,63 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = False,
-                    kv_len: int | None = None, return_lse: bool = False):
-    """q [B, Sq, H, D]; k, v [B, Skv, KV, D] with H % KV == 0. Returns
-    [B, Sq, H, D] (and the fp32 natural-log LSE [B, H, Sq] if asked)."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_attention: q [B,Sq,H,D], k/v [B,Skv,KV,D]")
+def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = False,
+                              kv_len: int | None = None):
+    """The explicit backward formulas of the JAX `_bwd` / `_recompute_p`, in
+    fp32 (fp64 for fp64 inputs). q, do, out [B, Sq, H, D]; k, v
+    [B, Skv, KV, D]; lse [B, H, Sq]. Query head h reads kv head h // G;
+    dk and dv of a kv head sum over its group's G query heads. Returns
+    (dq, dk, dv) in the dtypes of q, k, v."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    if kv_len is None:
+        kv_len = skv
+    scale = d ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, dof = q.to(acc), do.to(acc)
+    kf = k.to(acc).repeat_interleave(g, dim=2)
+    vf = v.to(acc).repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    visible = _visible(sq, skv, kv_len, causal, q.device)
+    # masked slots are never exponentiated: P = 0 there even where LSE = 0
+    p = torch.exp((s - lse.to(acc)[..., None]).masked_fill(~visible,
+                                                           float("-inf")))
+    delta = (dof * out.to(acc)).sum(dim=-1).transpose(1, 2)   # [B, H, Sq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, skv, kvh, g, d).sum(dim=3)
+    dv = dv.reshape(b, skv, kvh, g, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_shapes(name: str, q, k, v, kv_len):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: q [B,Sq,H,D], k/v [B,Skv,KV,D]")
+    b, _, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or h % kvh:
-        raise ValueError(f"flash_attention: incompatible shapes "
-                         f"{tuple(q.shape)} vs {tuple(k.shape)}")
+        raise ValueError(f"{name}: incompatible shapes {tuple(q.shape)} vs "
+                         f"{tuple(k.shape)}")
     if kv_len is None:
         kv_len = skv
     if not 0 <= kv_len <= skv:
-        raise ValueError(f"flash_attention: kv_len {kv_len} outside "
-                         f"[0, {skv}]")
+        raise ValueError(f"{name}: kv_len {kv_len} outside [0, {skv}]")
+    return int(kv_len)
+
+
+def _flash_forward(q, k, v, causal: bool, kv_len: int, return_lse: bool):
+    """Kernel 2 (or its plain version for CPU tensors), no autograd."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
     _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v}, d)
     out = q.new_empty(q.shape)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -88,7 +145,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     err = lib.lvr_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        b, sq, skv, h, kvh, d, int(kv_len), int(bool(causal)), d ** -0.5,
+        b, sq, skv, h, kvh, d, kv_len, int(bool(causal)), d ** -0.5,
         _build.stream_handle(q.device))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -97,4 +154,121 @@ def flash_attention(q, k, v, *, causal: bool = False,
     return out
 
 
+def _check_bwd_inputs(name: str, q, k, v, do, lse, delta):
+    d = q.shape[3]
+    _build.check_inputs(name, {"q": q, "k": k, "v": v, "do": do}, d)
+    b, sq, h, _ = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"{name}: do {tuple(do.shape)} != q "
+                         f"{tuple(q.shape)}")
+    for arg, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name}: {arg} must be contiguous fp32 "
+                             f"[{b}, {h}, {sq}] on {q.device}")
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, do, delta, *,
+                           causal: bool = False, kv_len: int | None = None):
+    """Kernel 5: dq [B, Sq, H, D] from the forward's inputs, its LSE, dO and
+    δ = rowsum(dO·O) [B, H, Sq] fp32."""
+    kv_len = _check_shapes("flash_attention_bwd_dq", q, k, v, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal, kv_len=kv_len)[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dq: unsupported device "
+                         f"{q.device}")
+    _check_bwd_inputs("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    dq = q.new_empty(q.shape)
+    err = _build.library().lvr_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, skv, h, kvh,
+        d, kv_len, int(bool(causal)), d ** -0.5,
+        _build.stream_handle(q.device))
+    _build.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, do, delta, *,
+                            causal: bool = False, kv_len: int | None = None):
+    """Kernel 6: (dk, dv) [B, Skv, KV, D], each summed over its group's query
+    heads."""
+    kv_len = _check_shapes("flash_attention_bwd_dkv", q, k, v, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal, kv_len=kv_len)[1:]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dkv: unsupported device "
+                         f"{q.device}")
+    _check_bwd_inputs("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    dk, dv = k.new_empty(k.shape), v.new_empty(v.shape)
+    err = _build.library().lvr_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        sq, skv, h, kvh, d, kv_len, int(bool(causal)), d ** -0.5,
+        _build.stream_handle(q.device))
+    _build.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
+                        kv_len: int | None = None):
+    """(dq, dk, dv): the plain backward for CPU tensors, else δ in fp32 and
+    kernels 5 and 6."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal, kv_len=kv_len)
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    delta = delta.contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, out, lse, do, delta, causal=causal,
+                                kv_len=kv_len)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, do, delta,
+                                     causal=causal, kv_len=kv_len)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: kernel 2 forward (with LSE), kernels
+    5 and 6 backward. Returns (out, lse); the LSE takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kv_len: int):
+        out, lse = _flash_forward(q, k, v, causal, kv_len, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.kv_len = causal, kv_len
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, d_out, _d_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         d_out.contiguous(),
+                                         causal=ctx.causal,
+                                         kv_len=ctx.kv_len)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    kv_len: int | None = None, return_lse: bool = False):
+    """q [B, Sq, H, D]; k, v [B, Skv, KV, D] with H % KV == 0. Returns
+    [B, Sq, H, D] (and the fp32 natural-log LSE [B, H, Sq] if asked).
+    Differentiable in q, k and v through `FlashAttention`."""
+    kv_len = _check_shapes("flash_attention", q, k, v, kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = FlashAttention.apply(q, k, v, bool(causal), kv_len)
+        return (out, lse) if return_lse else out
+    return _flash_forward(q, k, v, causal, kv_len, return_lse)
+
+
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -1,35 +1,78 @@
-"""Model and tokenizer construction from a RunConfig (the parts of the JAX
-package's `train/runner.py` that `eval.runner.build_lmm` needs).
+"""RunConfig -> model, tokenizer and the stage-1/2 training loop
+(counterpart of the JAX package's `train/runner.py`).
 
-`build_model` supports ViT towers with seeded random weights, per-tower
-weights from `model.tower_weights` (JAX `param_io` .npz files), and a full
-LLaVA parameter file in `model.checkpoint` (a `param_io` .npz, such as the
-JAX CLI's `consolidate` writes). The training loop itself is not ported yet.
+`build_model` supports ViT towers and the precomputed-feature pseudo-tower
+with seeded random weights, per-tower weights from `model.tower_weights`
+(JAX `param_io` .npz files), a full LLaVA parameter file in
+`model.checkpoint` (a `param_io` .npz such as the JAX CLI's `consolidate` or
+the port's `save_train_state` writes, or a directory of `checkpoint-{step}`),
+and a stage-1 projector in `train.pretrain_mm_mlp_adapter`.
+
+`run_training` is the single-device loop of the reference's `train.py` +
+`scripts/v1_5/train/{pretrain,finetune}.sh`: datasets, the modality-grouped
+sampler, batches prefetched on a host thread, `make_train_step`, JSONL
+metrics, `checkpoint-{step}` saves and the projector-only stage-1 save.
+
+Precision and attention route: `DEFAULT_PRECISION` (fp32 weights, bf16
+compute) when `train.bf16`, else fp32 throughout, as in the JAX runner. On a
+CUDA device with bf16 compute the decoder takes the flash route: kernel 2
+forward, kernels 5 and 6 backward. fp32 compute on CUDA takes the plain
+masked attention in the decoder (kernel 2 is bf16-only); a ViT tower's
+kernel 1 is bf16-only too and raises on fp32, so fp32 runs on CUDA train
+feature-cached. The CPU takes the plain attention as well, where the flash
+route would only run the kernels' plain versions. (The JAX runner
+never turns `use_flash` on in training; the port takes the route the JAX
+package takes on its own accelerator when it serves.)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..core.config import RunConfig
-from ..core.precision import DEFAULT_PRECISION, Precision
+from ..core.precision import DEFAULT_PRECISION, FP32_PRECISION, Precision
+from ..data import (FeatureDataset, SupervisedDataset, collate_batch,
+                    get_template, length_grouped_indices)
 from ..data.preprocess import SimpleTokenizer
-from ..io import from_jax
+from ..io import checkpoint, from_jax
 from ..io.param_io import load_params
 from ..models import llama, llava
 from ..models.towers import parse_tower_spec
+from ..utils import MetricsLogger, map_prefetch, rank0_print
+from .train_step import TrainConfig, init_train_state, make_train_step
 
+_NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
+               "(ROADMAP, queue 1: {item})")
 # RunConfig fields whose features the port does not have yet: field -> the
 # ROADMAP queue-1 item that brings them
 _UNPORTED = {
-    "quantize": "9, generation and serving",
-    "kv_quant": "9, generation and serving",
-    "visual_keep": "4, projector and image encoding",
-    "tower_attn_impl": "2, ViT tower",
-    "diffusion_attn_impl": "8, diffusion towers",
+    ("model", "quantize"): "7, quantisation",
+    ("model", "kv_quant"): "7, quantisation",
+    ("model", "visual_keep"): "5, diffusion towers",
+    ("model", "tower_attn_impl"): "1, serving slice",
+    ("model", "diffusion_attn_impl"): "5, diffusion towers",
 }
+_UNPORTED_TRAIN = {
+    ("train", "quantize_base"): "7, quantisation",
+    ("train", "lora_enable"): "9, training variants",
+    ("train", "switch_enable"): "9, training variants",
+    ("parallel", "zero"): "10, parallelism",
+    ("parallel", "offload_opt_state"): "10, parallelism",
+    ("parallel", "offload_params"): "10, parallelism",
+}
+
+
+def _refuse(cfg: RunConfig, table: Dict) -> None:
+    for (section, field), item in table.items():
+        if getattr(getattr(cfg, section), field):
+            raise NotImplementedError(_NOT_PORTED.format(
+                what=f"{section}.{field}", item=item))
 
 
 def build_tokenizer(cfg: RunConfig):
@@ -46,18 +89,14 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
     """(LlavaConfig, LlavaParams) on `device`. Random weights come from
     `generator`, by default a generator on `device` seeded with
     `cfg.train.seed`."""
-    for field, item in _UNPORTED.items():
-        if getattr(cfg.model, field):
-            raise NotImplementedError(
-                f"model.{field} is not ported to the PyTorch package yet "
-                f"(ROADMAP, queue 1: {item})")
+    _refuse(cfg, _UNPORTED)
     spec = parse_tower_spec(cfg.model.vision_tower)
     if cfg.model.tower_fast_act:
         # erf-GELU -> tanh-GELU substitution, only where the act is "gelu"
         spec = dataclasses.replace(spec, entries=[
             dataclasses.replace(e, vit_config=dataclasses.replace(
                 e.vit_config, hidden_act="gelu_tanh"))
-            if e.vit_config.hidden_act == "gelu" else e
+            if e.kind == "vit" and e.vit_config.hidden_act == "gelu" else e
             for e in spec.entries])
     if cfg.model.decoder == "vicuna-7b":
         dec = llama.vicuna_7b()
@@ -87,14 +126,145 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
         if path:
             tower.load_state_dict(from_jax.vit_state_dict(load_params(path)))
     if cfg.model.checkpoint:
-        if not cfg.model.checkpoint.endswith(".npz"):
+        path = cfg.model.checkpoint
+        latest = checkpoint.latest_checkpoint(path)
+        if latest is not None:
+            path = os.path.join(latest, "params.npz")
+        if not path.endswith(".npz"):
             raise NotImplementedError(
-                "model.checkpoint must be a flat params .npz in the PyTorch "
-                "package (turn an orbax checkpoint into one with the JAX "
-                "CLI's `consolidate`)")
-        params.load_state_dict(from_jax.load_llava_npz(cfg.model.checkpoint))
+                "model.checkpoint must be a flat params .npz or a directory "
+                "of checkpoint-{step} saves in the PyTorch package (turn an "
+                "orbax checkpoint into one with the JAX CLI's `consolidate`)")
+        params.load_state_dict(from_jax.load_llava_npz(path))
     if cfg.train.pretrain_mm_mlp_adapter:
-        raise NotImplementedError(
-            "train.pretrain_mm_mlp_adapter is not ported to the PyTorch "
-            "package yet (ROADMAP, queue 1: 5, decoder and training)")
+        params.projector.load_state_dict(
+            checkpoint.load_projector(cfg.train.pretrain_mm_mlp_adapter))
     return model_cfg, params
+
+
+def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """A `collate_batch` dict of numpy arrays -> tensors on `device` (ids and
+    labels as int64)."""
+    def t(x, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)
+    return {"input_ids": t(batch["input_ids"], torch.long),
+            "labels": t(batch["labels"], torch.long),
+            "text_mask": t(batch["text_mask"]),
+            "pixel_values": [t(x) for x in batch["pixel_values"]]}
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What `run_training` leaves: the final state ({"params", "step"}) and
+    optimizer, and what built them, so a caller can inspect or continue."""
+    state: Dict[str, Any]
+    opt: Any
+    model_cfg: llava.LlavaConfig
+    train_cfg: TrainConfig
+    step_fn: Any
+    dataset: Any
+
+
+def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
+    """Train on one device (`cuda` by default; the CPU runs only when asked
+    for). Writes `<output_dir>/train.jsonl` (per step: loss, grad_norm,
+    skipped_nonfinite, tokens, step_seconds), `checkpoint-{step}` every
+    `save_steps`, and at the end the stage-1 projector (`mm_projector.npz`,
+    `mm_projector.bin`, `config.json`) or, in stage 2, a final
+    `checkpoint-{step}`."""
+    _refuse(cfg, _UNPORTED_TRAIN)
+    if (cfg.parallel.n_data or 1) * cfg.parallel.n_model * cfg.parallel.seq \
+            * cfg.parallel.pipeline > 1:
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="training on more than one device", item="10, parallelism"))
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to train with "
+                           "the plain PyTorch path on the CPU")
+    precision = DEFAULT_PRECISION if cfg.train.bf16 else FP32_PRECISION
+    tokenizer = build_tokenizer(cfg)
+    template = get_template("plain" if cfg.train.stage == 1
+                            else cfg.model.conv_template)
+    model_cfg, params = build_model(cfg, device=device, precision=precision)
+
+    if cfg.data.feature_folder:
+        ds = FeatureDataset(cfg.data.data_path, cfg.data.feature_folder,
+                            template, tokenizer,
+                            max_length=cfg.train.max_length)
+    else:
+        ds = SupervisedDataset(cfg.data.data_path, cfg.data.image_folder,
+                               model_cfg.tower_spec, template, tokenizer,
+                               pad_square=cfg.data.image_aspect_ratio
+                               == "pad", max_length=cfg.train.max_length)
+    bs = cfg.train.batch_size
+    if bs % max(1, cfg.train.grad_accum):
+        raise ValueError("batch_size must divide by grad_accum")
+    total = max(1, len(ds) // bs) * cfg.train.epochs
+    tcfg = TrainConfig(stage=cfg.train.stage,
+                       learning_rate=cfg.train.learning_rate,
+                       weight_decay=cfg.train.weight_decay,
+                       warmup_ratio=cfg.train.warmup_ratio,
+                       total_steps=total,
+                       remat=cfg.train.gradient_checkpointing,
+                       remat_policy=cfg.train.remat_policy,
+                       use_flash=(device.type == "cuda"
+                                  and precision.compute_dtype
+                                  == torch.bfloat16),
+                       fused_optimizer=cfg.train.fused_optimizer,
+                       grad_accum=cfg.train.grad_accum)
+    state, opt = init_train_state(params, tcfg)
+    step_fn = make_train_step(model_cfg, tcfg, opt)
+
+    def make_batch(sl):
+        samples = [ds[int(i)] for i in sl]
+        return batch_to_device(
+            collate_batch(samples, max_length=cfg.train.max_length), device)
+
+    logger = MetricsLogger(cfg.train.output_dir, "train",
+                           every=cfg.train.logging_steps)
+    step = 0
+    try:
+        for epoch in range(cfg.train.epochs):
+            if cfg.train.group_by_modality_length and hasattr(ds,
+                                                              "lengths"):
+                order = length_grouped_indices(ds.lengths(), bs, 1,
+                                               seed=cfg.train.seed + epoch)
+            else:
+                order = np.random.default_rng(
+                    cfg.train.seed + epoch).permutation(len(ds))
+            slices = [order[s:s + bs]
+                      for s in range(0, len(order) - bs + 1, bs)]
+            # batch N+1 decodes, collates and uploads on a host thread
+            # while step N runs
+            for batch in map_prefetch(make_batch, slices, depth=2):
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                out = {k: float(metrics[k]) for k in
+                       ("loss", "grad_norm", "skipped_nonfinite")}
+                out["step_seconds"] = time.perf_counter() - t0
+                b, n = batch["input_ids"].shape
+                out["tokens"] = b * (n + model_cfg.num_patches - 1)
+                out["epoch"] = epoch
+                step += 1
+                logger.log(step, out)
+                if step % cfg.train.save_steps == 0:
+                    checkpoint.save_train_state(
+                        cfg.train.output_dir, params, opt, step,
+                        keep=cfg.train.save_total_limit or None)
+
+        if cfg.train.stage == 1:
+            checkpoint.save_projector(
+                cfg.train.output_dir, params.projector,
+                config={"mm_projector_type": cfg.model.projector_type,
+                        "mm_hidden_size":
+                        model_cfg.tower_spec.mm_hidden_size},
+                proj_type=cfg.model.projector_type)
+            rank0_print(f"stage-1 projector saved to "
+                        f"{cfg.train.output_dir}")
+        else:
+            checkpoint.save_train_state(cfg.train.output_dir, params, opt,
+                                        step)
+    finally:
+        logger.close()
+    return TrainRun(state=state, opt=opt, model_cfg=model_cfg,
+                    train_cfg=tcfg, step_fn=step_fn, dataset=ds)

@@ -22,7 +22,8 @@ from law_of_vision_representation_in_mllms_torch.ops.decode_attention import (
 from law_of_vision_representation_in_mllms_torch.ops.encoder_attention import (
     encoder_attention, encoder_attention_plain)
 from law_of_vision_representation_in_mllms_torch.ops.flash_attention import (
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_bwd_plain, flash_attention_plain)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -90,6 +91,35 @@ def test_decode_kernel(cuda_device, h, kvh, d, t):
     got = decode_attention(q, k, v, mask)
     torch.cuda.synchronize()
     assert _close(got, decode_attention_plain(q, k, v, mask))
+
+
+@pytest.mark.parametrize("causal,kv_len,s,h,kvh,d", [
+    (True, None, 190, 4, 4, 64), (True, 150, 190, 8, 2, 128),
+    (False, 75, 100, 4, 1, 64), (True, None, 639, 32, 8, 128)])
+def test_flash_function_backward(cuda_device, causal, kv_len, s, h, kvh, d):
+    """Autograd through `flash_attention` on the card: kernel 2 forward,
+    kernels 5 and 6 backward, against the plain backward on the same bf16
+    inputs, saved output and LSE."""
+    b = 2
+    q, k, v = (_randn((b, s, n, d), i, cuda_device).requires_grad_()
+               for i, n in enumerate((h, kvh, kvh)))
+    do = _randn((b, s, h, d), 3, cuda_device)
+    launches = (flash_attention_bwd_dq.launches,
+                flash_attention_bwd_dkv.launches)
+    out, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                               return_lse=True)
+    assert out.grad_fn is not None
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (launches[0] + 1,
+                                                  launches[1] + 1)
+    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                     out.detach(), lse, do, causal=causal,
+                                     kv_len=kv_len)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert got.dtype == torch.bfloat16
+        assert _close(got, w)
 
 
 def test_kernels_reject_bad_inputs(cuda_device):
