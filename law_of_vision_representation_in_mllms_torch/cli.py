@@ -3,6 +3,11 @@
 Commands:
   train             stage-1/2 LLaVA training from a RunConfig YAML
   generate          one-shot inference (image + prompt -> answer)
+  eval              benchmark evaluation through the eval harness
+  tasks             list the bundled eval tasks
+  extract-embeds    dump post-projector embeddings for the A score
+  a-score           A score over dumped embeddings (kernel 9 on the card)
+  policy            fit / predict / validate the AC policy over a results CSV
 
 The other commands of the JAX CLI are not ported yet (ROADMAP, queue 1).
 Run on the card with `--device cuda` (the default); there is no silent CPU
@@ -12,6 +17,7 @@ fallback, a CPU run takes an explicit `--device cpu`.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -21,14 +27,29 @@ def _add_common(p):
                    help="override, e.g. --set model.decoder=tiny")
 
 
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu must be explicit)")
+
+
+def _device(args):
+    """The requested torch device; a CUDA request without a card raises
+    instead of falling back to the CPU."""
+    import torch
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run the "
+                           "plain PyTorch path on the CPU")
+    return device
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="lvr-torch", description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("train", help="LLaVA stage-1/2 training")
     _add_common(p)
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu must be explicit)")
+    _add_device(p)
 
     p = sub.add_parser("generate",
                        help="one-shot inference: image + prompt -> answer "
@@ -43,8 +64,47 @@ def main(argv=None):
                    help="0 = greedy (sampling is not ported yet)")
     p.add_argument("--top-p", type=float, default=1.0,
                    help="nucleus sampling mass (with --temperature > 0)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu must be explicit)")
+    _add_device(p)
+
+    p = sub.add_parser("eval", help="benchmark evaluation")
+    _add_common(p)
+    p.add_argument("--tasks", nargs="+", required=True)
+    p.add_argument("--limit", type=int)
+    p.add_argument("--output", default="eval_results.json")
+    p.add_argument("--model", default="llava",
+                   help="adapter name (only llava is ported)")
+    p.add_argument("--log-samples", action="store_true",
+                   help="write per-doc records next to --output "
+                        "(lmms-eval --log_samples)")
+    _add_device(p)
+
+    p = sub.add_parser("tasks", help="list bundled eval tasks")
+    _add_device(p)
+
+    p = sub.add_parser("extract-embeds", help="A-score embedding dump")
+    _add_common(p)
+    p.add_argument("--task", required=True)
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--limit", type=int, default=100)
+    _add_device(p)
+
+    p = sub.add_parser("a-score")
+    p.add_argument("--base-folder", required=True)
+    p.add_argument("--reps", nargs="+", required=True)
+    p.add_argument("--n-images", type=int, default=100)
+    _add_device(p)
+
+    p = sub.add_parser("policy")
+    p.add_argument("action", choices=["fit", "predict", "validate"])
+    p.add_argument("--csv", required=True)
+    p.add_argument("--benchmark")
+    p.add_argument("--data", default="AC",
+                   choices=["AC", "A", "C", "random", "Ar"])
+    p.add_argument("--model", default="polynomial",
+                   choices=["polynomial", "linear"])
+    p.add_argument("--train-models", nargs="*")
+    p.add_argument("--top", type=int, default=1)
+    _add_device(p)
 
     args = parser.parse_args(argv)
     return DISPATCH[args.cmd](args)
@@ -69,18 +129,13 @@ def _cmd_generate(args):
     """One-shot inference (`llava/eval/run_llava.py:1-100` eval_model):
     template-rendered prompt + one image through the adapter; the answer
     prints to stdout."""
-    import torch
-
     from .eval.api import Instance
     from .eval.runner import build_lmm
     if args.temperature > 0:
         raise NotImplementedError(
             "--temperature > 0 (sampling) is not ported to the PyTorch "
             "package yet (ROADMAP, queue 1: 6, serving backends)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run the "
-                           "plain PyTorch path on the CPU")
+    device = _device(args)
     cfg = _run_config(args)
     if args.gen_backend:
         cfg.model.gen_backend = args.gen_backend
@@ -98,9 +153,94 @@ def _cmd_generate(args):
     return 0
 
 
+def _cmd_eval(args):
+    """`lmms_eval --model llava --tasks ...`: results JSON to `--output`
+    (and per-doc `*_samples.jsonl` with `--log-samples`), the task values to
+    stdout."""
+    import os
+
+    from .eval.runner import run_evaluation
+    res = run_evaluation(_run_config(args), args.tasks, device=_device(args),
+                         limit=args.limit, model=args.model,
+                         log_samples=args.log_samples)
+    with open(args.output, "w") as f:
+        json.dump({k: {kk: vv for kk, vv in v.items() if kk != "samples"}
+                   for k, v in res.items()}, f, indent=1)
+    if args.log_samples:
+        base, _ = os.path.splitext(args.output)
+        for task, v in res.items():
+            with open(f"{base}_{task}_samples.jsonl", "w") as f:
+                for rec in v.get("samples") or []:
+                    f.write(json.dumps(rec) + "\n")
+    print(json.dumps({k: v["value"] for k, v in res.items()}, indent=1))
+    return 0
+
+
+def _cmd_tasks(args):
+    import glob
+    import os
+
+    _device(args)
+    from .eval.tasks import TASK_DIR
+    for path in sorted(glob.glob(os.path.join(TASK_DIR, "*.yaml"))):
+        name = os.path.splitext(os.path.basename(path))[0]
+        desc = ""
+        with open(path) as f:
+            first = f.readline().strip()
+            if first.startswith("#"):
+                desc = first.lstrip("# ")
+        print(f"{name:28s} {desc}")
+    return 0
+
+
+def _cmd_extract_embeds(args):
+    from .eval.runner import run_embed_extraction
+    n = run_embed_extraction(_run_config(args), args.task, args.out_dir,
+                             device=_device(args), limit=args.limit)
+    print(f"dumped {n} embeddings to {args.out_dir}")
+    return 0
+
+
+def _cmd_a_score(args):
+    from .pipeline.a_score_run import compute_a_scores
+    scores = compute_a_scores(args.base_folder, args.reps,
+                              n_images=args.n_images, device=_device(args))
+    print(json.dumps(scores, indent=1))
+    return 0
+
+
+def _cmd_policy(args):
+    from .policy import (ALL_MODELS, BENCHMARKS, fit_policy, load_ac_csv,
+                         prediction_accuracy, validate_run)
+    # the 6-feature least-squares fit is numpy on the host; the command
+    # still refuses to run unasked on a machine without a card
+    _device(args)
+    table = load_ac_csv(args.csv)
+    if args.action == "fit":
+        for b in ([args.benchmark] if args.benchmark else BENCHMARKS):
+            fit = fit_policy(table, b, data=args.data, model=args.model)
+            print(f"{b}: r2={fit.r2:.4f} mse={fit.mse:.5f}")
+    elif args.action == "validate":
+        ok, top = validate_run(table, args.benchmark,
+                               args.train_models or ALL_MODELS,
+                               top=args.top)
+        print(json.dumps({"hit": bool(ok), "top": list(top)}))
+    else:
+        for k in (4, 8, 12):
+            acc = prediction_accuracy(table, k=k, data=args.data,
+                                      model=args.model, top=args.top)
+            print(f"k={k}: accuracy={acc:.4f}")
+    return 0
+
+
 DISPATCH = {
     "train": _cmd_train,
     "generate": _cmd_generate,
+    "eval": _cmd_eval,
+    "tasks": _cmd_tasks,
+    "extract-embeds": _cmd_extract_embeds,
+    "a-score": _cmd_a_score,
+    "policy": _cmd_policy,
 }
 
 

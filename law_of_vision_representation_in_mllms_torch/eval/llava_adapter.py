@@ -6,13 +6,17 @@ per-tower image preprocessing, greedy decode (`models.llava.generate_greedy`)
 with prompts right-padded to a power-of-two bucket, as the JAX adapter pads
 them. A request's visual is a PIL image (preprocessed here; PIL is imported
 only then) or an HWC float array already preprocessed to the tower's crop
-size. Sampling, beam search, the chunked/speculative backends and
-`loglikelihood` are not ported yet and raise NotImplementedError.
+size. `loglikelihood` batches requests sorted by total length into
+power-of-two buckets and gathers the continuation's hidden rows before the
+`lm_head`; `dump_image_embeds_for_docs` is the A-score embedding dump.
+Sampling, beam search and the chunked/speculative backends are not ported
+yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +24,9 @@ import torch
 from ..data.conversation import IMAGE_PLACEHOLDER, Conversation
 from ..data.image_processing import preprocess_image, processor_for_tower
 from ..data.preprocess import tokenizer_image_token
+from ..models import llama as L
 from ..models import llava as M
+from ..models.splice import IGNORE_INDEX, splice_embeds, splice_plan
 from .api import Instance, LMM
 
 _NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
@@ -50,6 +56,12 @@ class LlavaLMM(LMM):
         self.batch_size = batch_size
         self.pad_square = pad_square
         self.device = params.decoder.embed.device
+        for e in cfg.tower_spec.entries:
+            if e.kind == "feature":
+                raise ValueError(
+                    "precomputed-feature towers are train-only (the eval "
+                    "harness feeds images); evaluate with the real tower "
+                    f"instead of {e.name}")
         self.processors = [processor_for_tower(e.name, e.img_size)
                            for e in cfg.tower_spec.entries]
 
@@ -128,7 +140,97 @@ class LlavaLMM(LMM):
                 out.append(text.strip())
         return out
 
+    @torch.inference_mode()
+    def _ll_batch(self, ids, mask, tgt, klen, pixels):
+        """Summed continuation log-probs, greedy-match flags and greedy
+        margins of one bucket. ids, mask [B, L] (right-padded context +
+        continuation); tgt [B, k_max] continuation ids; klen [B]. The
+        prefill is kernel 2's right-padded contract, as in
+        `generate_until`."""
+        dec = self.params.decoder
+        plan = splice_plan(ids, torch.full_like(ids, IGNORE_INDEX), mask,
+                           self.cfg.num_patches)
+        img = M.encode_images(self.params, self.cfg, pixels)
+        embeds = splice_embeds(plan, L.embed_tokens(dec, ids), img)
+        h, _ = dec(embeds, plan.positions, attn_mask=plan.attn_mask,
+                   use_flash=True)
+        # continuation tokens are the LAST klen valid positions of each
+        # (right-padded) row; their logits sit one position earlier
+        # (next-token convention). Gather hidden states BEFORE the lm_head:
+        # full-sequence fp32 logits would be [B, L_out, 32000] for k_max
+        # useful rows
+        k_max = tgt.shape[1]
+        steps = torch.arange(k_max, device=ids.device)[None]
+        base = plan.attn_mask.sum(dim=1) - klen - 1
+        idx = (base[:, None] + steps).clamp(0, h.shape[1] - 1)
+        h_sel = torch.gather(h, 1, idx[..., None].expand(-1, -1, h.shape[2]))
+        rows = torch.log_softmax(L.logits_fn(dec, h_sel), dim=-1)
+        tok_lp = torch.gather(rows, -1, tgt[..., None])[..., 0]
+        jmask = steps < klen[:, None]
+        sum_lp = torch.where(jmask, tok_lp, torch.zeros_like(tok_lp)).sum(1)
+        greedy = ((rows.argmax(dim=-1) == tgt) | ~jmask).all(dim=1)
+        top2 = rows.topk(2, dim=-1).values
+        gap = torch.where(jmask, top2[..., 0] - top2[..., 1],
+                          torch.full_like(tok_lp, float("inf")))
+        return sum_lp, greedy, gap.amin(dim=1)
+
     def loglikelihood(self, requests: List[Instance]
                       ) -> List[Tuple[float, bool]]:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="loglikelihood", item="4, the rest of the CLI and eval"))
+        return [(lp, greedy) for lp, greedy, _ in self._ll_rows(requests)]
+
+    def _ll_rows(self, requests: List[Instance]
+                 ) -> List[Tuple[float, bool, float]]:
+        """Per request: summed log-prob, greedy flag and the smallest gap
+        between the top two log-probs over its continuation positions (a
+        flag whose gap is under a comparison's tolerance may differ between
+        two precisions of the same model)."""
+        n = len(requests)
+        enc = []
+        for r in requests:
+            ctx_ids = tokenizer_image_token(self._prompt(r.args[0]),
+                                            self.tok)
+            cont_ids = list(self.tok.encode(r.args[1],
+                                            add_special_tokens=False))
+            enc.append((ctx_ids, cont_ids))
+        # sort by total length so same-bucket requests batch together
+        order = sorted(range(n),
+                       key=lambda i: len(enc[i][0]) + len(enc[i][1]))
+        out: List[Optional[Tuple[float, bool, float]]] = [None] * n
+        for s in range(0, n, self.batch_size):
+            sel = order[s:s + self.batch_size]
+            tot = _bucket(max(len(enc[i][0]) + len(enc[i][1]) for i in sel))
+            kmax = _bucket(max(len(enc[i][1]) for i in sel), minimum=8)
+            ids = np.zeros((len(sel), tot), np.int64)
+            mask = np.zeros((len(sel), tot), bool)
+            tgt = np.zeros((len(sel), kmax), np.int64)
+            klen = np.zeros((len(sel),), np.int64)
+            for row, i in enumerate(sel):
+                full = enc[i][0] + enc[i][1]
+                ids[row, :len(full)] = full
+                mask[row, :len(full)] = True
+                tgt[row, :len(enc[i][1])] = enc[i][1]
+                klen[row] = len(enc[i][1])
+            sum_lp, greedy, margin = (x.cpu().numpy() for x in self._ll_batch(
+                *(torch.from_numpy(x).to(self.device)
+                  for x in (ids, mask, tgt, klen)),
+                self._pixels([requests[i] for i in sel])))
+            for row, i in enumerate(sel):
+                out[i] = (float(sum_lp[row]), bool(greedy[row]),
+                          float(margin[row]))
+        return out
+
+    @torch.inference_mode()
+    def dump_image_embeds_for_docs(self, requests: List[Instance],
+                                   out_dir: str, limit: int = 100) -> int:
+        """A-score embedding dump (`A_score/compute.py` protocol: first
+        `limit` docs, post-projector embeddings, one request at a time,
+        fp32 `.npy`, 1-indexed files)."""
+        os.makedirs(out_dir, exist_ok=True)
+        n = 0
+        for r in requests[:limit]:
+            emb = M.dump_image_embeds(self.params, self.cfg,
+                                      self._pixels([r]))
+            np.save(os.path.join(out_dir, f"tensor_{n + 1}.npy"),
+                    emb[0].float().cpu().numpy())
+            n += 1
+        return n

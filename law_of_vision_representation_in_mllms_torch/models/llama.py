@@ -41,6 +41,7 @@ from ..ops.flash_attention import flash_attention
 from .layers import Dense
 
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
+DECODE_ATTN_ROUTES = ("xla", "pallas", "pallas_stacked")
 INIT_STD = 0.02   # every decoder weight ~ N(0, 0.02), as in the JAX init
 
 
@@ -55,6 +56,18 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     max_seq_len: int = 2048
+    # accepted so that the JAX package's RunConfigs load; it selects nothing
+    # here. The JAX names are "xla", "pallas" (the TPU kernel
+    # `decode_attention`) and "pallas_stacked" (`decode_attention_stacked`,
+    # which indexes the layer inside the stacked cache). The port's cache is
+    # a list of per-layer tensors, which is the slice the stacked kernel
+    # reads, so every name runs kernel 3; only an unknown name raises.
+    decode_attn: str = "xla"
+
+    def __post_init__(self):
+        if self.decode_attn not in DECODE_ATTN_ROUTES:
+            raise ValueError(f"unknown decode_attn {self.decode_attn!r}; "
+                             f"one of {DECODE_ATTN_ROUTES}")
 
     @property
     def head_dim(self) -> int:

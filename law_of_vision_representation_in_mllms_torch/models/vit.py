@@ -7,13 +7,25 @@ tower are all `ViTConfig`s. The patch embedding is an unfold in NHWC order
 `patch_kernel (p, p, c, D)` maps onto it by a reshape. `ViTTower` builds only
 the blocks `select_layer` needs (`select_layer=-2` runs N-1 blocks).
 
-The attention of every block is kernel 1 (`ops.encoder_attention`), the
-counterpart of `attn_impl="encoder"` in the JAX tower.
+`ViTConfig.attn_impl` takes the JAX tower's names (`model.tower_attn_impl`)
+and maps each onto the Hopper kernel that computes the same function:
+- `auto`, `encoder`, `encoder2*` (the per-head 2-D-dot TPU kernel
+  `encoder_mha_v2`; its `_nt`, `_pad`, `_hbN` options change the TPU layout
+  only) and `tpu_flash` (the JAX library's TPU flash kernel) run kernel 1
+  (`ops.encoder_attention`);
+- `flash` (the TPU kernel `flash_attention_bhsd`, non-causal, no ALiBi) runs
+  kernel 2 (`ops.flash_attention`) non-causal with `kv_len = S`;
+- `xla`, `xla_post`, `xla_blocked`, `xla_expclamp*` name XLA formulations of
+  the same softmax attention that exist to steer the TPU compiler; a fused
+  kernel never writes logits, so they run kernel 1 too.
+An unknown name raises ValueError. For CPU tensors every route is the
+wrapper's plain version.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import torch
 from torch import nn
@@ -21,7 +33,31 @@ from torch import nn
 from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops.activations import ACT2FN
 from ..ops.encoder_attention import encoder_attention
+from ..ops.flash_attention import flash_attention
 from .layers import Dense, LayerNorm32
+
+
+_KERNEL1_IMPLS = re.compile(
+    r"auto|encoder|encoder2(_nt|_pad|_hb\d+)*|tpu_flash|xla|xla_post|"
+    r"xla_blocked|xla_expclamp(_fused)?")
+
+
+def attention_route(attn_impl: str) -> str:
+    """The port's kernel for a JAX `attn_impl` name: "encoder" (kernel 1) or
+    "flash" (kernel 2, non-causal)."""
+    if attn_impl == "flash":
+        return "flash"
+    if isinstance(attn_impl, str) and _KERNEL1_IMPLS.fullmatch(attn_impl):
+        return "encoder"
+    raise ValueError(f"unknown tower attn_impl {attn_impl!r}")
+
+
+def attend(route: str, q, k, v):
+    """Non-causal attention over a whole tower sequence, q, k, v
+    [B, S, H, D], through the kernel of `route` (see `attention_route`)."""
+    if route == "flash":
+        return flash_attention(q, k, v, causal=False)
+    return encoder_attention(q, k, v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +77,8 @@ class ViTConfig:
     num_channels: int = 3
     # patch-embedding stride; None -> patch_size (non-overlapping tiling)
     stride: int | None = None
+    # a JAX tower route name; see `attention_route`
+    attn_impl: str = "auto"
 
     @property
     def stride_(self) -> int:
@@ -124,6 +162,7 @@ class ViTBlock(nn.Module):
     def __init__(self, cfg: ViTConfig, precision: Precision, *, device=None):
         super().__init__()
         self.cfg = cfg
+        self.route = attention_route(cfg.attn_impl)
         d, i = cfg.hidden_size, cfg.intermediate_size
         eps = cfg.layer_norm_eps
         self.ln1 = LayerNorm32(d, eps, precision, device=device)
@@ -149,8 +188,8 @@ class ViTBlock(nn.Module):
         h = self.ln1(x)
         b, s, _ = h.shape
         shape = (b, s, cfg.num_heads, cfg.head_dim)
-        attn = encoder_attention(self.q(h).view(shape), self.k(h).view(shape),
-                                 self.v(h).view(shape))
+        attn = attend(self.route, self.q(h).view(shape),
+                      self.k(h).view(shape), self.v(h).view(shape))
         attn = self.o(attn.reshape(b, s, cfg.hidden_size))
         if cfg.use_layerscale:
             attn = attn * self.ls1.to(attn.dtype)

@@ -20,6 +20,8 @@ function returns `cudaGetLastError()` after its launch):
                              KV, D, kv_len, causal, scale, stream)
   lvr_flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv,
                               H, KV, D, kv_len, causal, scale, stream)
+  lvr_a_score(target, anchor, target_mask, anchor_mask, partial_sum,
+              partial_count, out, N, St, Sa, D, dtype, vec, stream)
   lvr_error_string(err) -> const char*
 """
 
@@ -54,6 +56,7 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _I, _F, _P),
     "lvr_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _F, _P),
+    "lvr_a_score": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

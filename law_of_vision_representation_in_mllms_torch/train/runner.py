@@ -44,6 +44,7 @@ from ..io import checkpoint, from_jax
 from ..io.param_io import load_params
 from ..models import llama, llava
 from ..models.towers import parse_tower_spec
+from ..models.vit import attention_route
 from ..utils import MetricsLogger, map_prefetch, rank0_print
 from .train_step import TrainConfig, init_train_state, make_train_step
 
@@ -55,7 +56,6 @@ _UNPORTED = {
     ("model", "quantize"): "7, quantisation",
     ("model", "kv_quant"): "7, quantisation",
     ("model", "visual_keep"): "5, diffusion towers",
-    ("model", "tower_attn_impl"): "1, serving slice",
     ("model", "diffusion_attn_impl"): "5, diffusion towers",
 }
 _UNPORTED_TRAIN = {
@@ -91,6 +91,14 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
     `cfg.train.seed`."""
     _refuse(cfg, _UNPORTED)
     spec = parse_tower_spec(cfg.model.vision_tower)
+    if cfg.model.tower_attn_impl:
+        # a JAX route name; each maps onto kernel 1 or kernel 2
+        # (models/vit.attention_route), an unknown name raises
+        attention_route(cfg.model.tower_attn_impl)
+        spec = dataclasses.replace(spec, entries=[
+            dataclasses.replace(e, vit_config=dataclasses.replace(
+                e.vit_config, attn_impl=cfg.model.tower_attn_impl))
+            if e.kind == "vit" else e for e in spec.entries])
     if cfg.model.tower_fast_act:
         # erf-GELU -> tanh-GELU substitution, only where the act is "gelu"
         spec = dataclasses.replace(spec, entries=[
@@ -106,6 +114,8 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
         raise ValueError(f"unknown decoder {cfg.model.decoder}")
     if cfg.model.decoder_layers:
         dec = dataclasses.replace(dec, num_layers=cfg.model.decoder_layers)
+    if cfg.model.decode_attn:
+        dec = dataclasses.replace(dec, decode_attn=cfg.model.decode_attn)
     model_cfg = llava.LlavaConfig(
         tower_spec=spec, decoder=dec,
         projector_type=cfg.model.projector_type,

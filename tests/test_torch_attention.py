@@ -100,6 +100,52 @@ def test_decode_attention_matches_pallas_decode(h, kvh):
     _close(got, want)
 
 
+@pytest.mark.parametrize("h,kvh", [(4, 4), (4, 2)])
+def test_decode_attention_matches_stacked_pallas_decode(h, kvh):
+    """`decode_attn="pallas_stacked"`: the TPU kernel indexes the layer
+    inside the stacked [L, B, T, KV, Dh] cache; the port's per-layer cache
+    tensor is that slice, so kernel 3's wrapper gets `cache[layer]`. Holes
+    and a fully masked tile, never a fully masked row."""
+    layers, b, t, d = 3, 2, 300, 16
+    q = _randn(50, b, 1, h, d)
+    ck, cv = _randn(51, layers, b, t, kvh, d), _randn(52, layers, b, t, kvh, d)
+    mask = _decode_mask(b, t, 53)
+    for layer in (0, 2):
+        want = jdec.decode_attention_stacked(
+            jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), layer,
+            jnp.asarray(mask), interpret=True)
+        got = decode_attention(torch.from_numpy(q),
+                               torch.from_numpy(ck)[layer],
+                               torch.from_numpy(cv)[layer],
+                               torch.from_numpy(mask))
+        _close(got, want)
+
+
+@pytest.mark.parametrize("kw", [{}, {"pretransposed": False},
+                                {"pad_d": 128}, {"head_block": 2}])
+def test_encoder_attention_matches_encoder_mha_v2(kw):
+    """`tower_attn_impl="encoder2*"`: the per-head 2-D-dot TPU kernel and its
+    layout options compute kernel 1's function."""
+    q, k, v = (_randn(60 + i, 2, 77, 4, 16) for i in range(3))
+    want = jenc.encoder_mha_v2(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), interpret=True, **kw)
+    got = encoder_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("s", [77, 130])
+def test_flash_attention_matches_flash_mha_noncausal(s):
+    """`tower_attn_impl="flash"`: the TPU kernel `flash_attention_bhsd`
+    (through `flash_mha`, non-causal, no ALiBi) against the port's kernel-2
+    wrapper with `causal=False` and `kv_len = S`."""
+    q, k, v = (_randn(70 + i, 2, s, 4, 16) for i in range(3))
+    want = jflash.flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=False, interpret=True)
+    got = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                          causal=False)
+    _close(got, want)
+
+
 def test_decode_attention_rejects_quantized_cache():
     q = torch.zeros(1, 1, 2, 8)
     kv = torch.zeros(1, 4, 2, 8)

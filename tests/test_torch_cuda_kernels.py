@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from law_of_vision_representation_in_mllms_torch.ops.a_score import (
+    a_score_plain, max_cos)
 from law_of_vision_representation_in_mllms_torch.ops.decode_attention import (
     decode_attention, decode_attention_plain)
 from law_of_vision_representation_in_mllms_torch.ops.encoder_attention import (
@@ -120,6 +122,96 @@ def test_flash_function_backward(cuda_device, causal, kv_len, s, h, kvh, d):
     for got, w in zip((q.grad, k.grad, v.grad), want):
         assert got.dtype == torch.bfloat16
         assert _close(got, w)
+
+
+A_TOL = 1e-5      # fp32 in, fp32 sums over D; cosines lie in [-1, 1]
+
+
+def _a_inputs(n, st, sa, d, dtype, device, masks):
+    rng = np.random.RandomState(7)
+    t = torch.from_numpy(rng.randn(n, st, d).astype(np.float32))
+    a = torch.from_numpy(rng.randn(n, sa, d).astype(np.float32))
+    tm = am = None
+    if masks:
+        tm = torch.from_numpy(rng.rand(n, st) < 0.7)
+        am = torch.from_numpy(rng.rand(n, sa) < 0.6)
+        tm[-1] = False                     # an image with no valid target row
+        am[:, 0] = True                    # never a row with no valid anchor
+        tm, am = tm.to(device), am.to(device)
+    return t.to(device, dtype), a.to(device, dtype), tm, am
+
+
+@pytest.mark.parametrize("n,st,sa,d,dtype,masks", [
+    (100, 576, 576, 4096, torch.float32, False),
+    (100, 576, 256, 4096, torch.float32, False),
+    (5, 150, 77, 1000, torch.float32, True),
+    (3, 65, 130, 37, torch.float32, True),        # D no vector load divides
+    (4, 576, 256, 4096, torch.bfloat16, True),
+    (2, 100, 64, 256, torch.float16, False)])
+def test_a_score_kernel(cuda_device, n, st, sa, d, dtype, masks):
+    t, a, tm, am = _a_inputs(n, st, sa, d, dtype, cuda_device, masks)
+    before = max_cos.launches
+    got = max_cos(t, a, tm, am)
+    again = max_cos(t, a, tm, am)
+    torch.cuda.synchronize()
+    assert max_cos.launches == before + 2
+    assert got.shape == (n,) and got.dtype == torch.float32
+    assert torch.equal(got, again)                 # fixed-order sums
+    want = a_score_plain(t, a, tm, am)
+    assert (got - want).abs().max().item() <= A_TOL
+    if masks:
+        assert got[-1].item() == 0.0
+
+
+def test_a_score_kernel_self_anchor(cuda_device):
+    t, _, _, _ = _a_inputs(6, 200, 200, 512, torch.float32, cuda_device,
+                           False)
+    got = max_cos(t, t.clone())
+    assert (got - 1.0).abs().max().item() <= A_TOL
+
+
+def test_a_score_kernel_rejects_bad_inputs(cuda_device):
+    t, a, _, _ = _a_inputs(2, 10, 12, 16, torch.float32, cuda_device, False)
+    with pytest.raises(ValueError):
+        max_cos(t, a.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        max_cos(t.transpose(1, 2), a)
+    with pytest.raises(ValueError):
+        max_cos(t, a, torch.ones(2, 10, device=cuda_device))
+    with pytest.raises(RuntimeError):
+        max_cos(t.requires_grad_(), a)
+
+
+@pytest.mark.parametrize("impl,counter", [("flash", flash_attention),
+                                          ("encoder2", encoder_attention),
+                                          ("tpu_flash", encoder_attention)])
+def test_tower_routes(cuda_device, impl, counter):
+    """`tower_attn_impl` routes on the card: a narrow 336 px tower (S = 577,
+    head_dim 64) in bf16 through kernel 2 non-causal (`flash`) or kernel 1,
+    against the same weights on the CPU in fp32 (plain attention)."""
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        BF16_PRECISION, FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        init_weights)
+    from law_of_vision_representation_in_mllms_torch.models.vit import (
+        ViTConfig, ViTTower)
+    cfg = ViTConfig(image_size=336, patch_size=14, hidden_size=256,
+                    num_layers=3, num_heads=4, intermediate_size=512,
+                    attn_impl=impl)
+    cpu = ViTTower(cfg, -2, "patch", FP32_PRECISION)
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    gpu = ViTTower(cfg, -2, "patch", BF16_PRECISION, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    px = torch.from_numpy(
+        np.random.RandomState(1).randn(2, 336, 336, 3).astype(np.float32))
+    before = counter.launches
+    with torch.no_grad():
+        got = gpu(px.to(cuda_device))
+        want = cpu(px)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2          # one per block run
+    err = (got.float().cpu() - want).abs().max().item()
+    assert err <= 5e-2 * want.abs().max().item()
 
 
 def test_kernels_reject_bad_inputs(cuda_device):

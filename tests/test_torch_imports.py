@@ -49,11 +49,52 @@ def test_every_port_module_imports_without_jax():
     assert out["tpu"] == []
     for mod in ("cli", "models.llava", "ops.encoder_attention",
                 "ops.flash_attention", "ops.decode_attention", "ops._build",
-                "io.from_jax", "eval.llava_adapter", "train.runner"):
+                "io.from_jax", "eval.llava_adapter", "train.runner",
+                "ops.a_score", "metrics.a_score", "pipeline.a_score_run",
+                "eval.evaluator", "eval.task", "eval.metrics", "eval.tasks",
+                "eval.tasks.paper_tasks", "eval.runner", "policy",
+                "policy.fit", "policy.data", "policy.predict",
+                "policy.validate"):
         assert f"{PKG}.{mod}" in out["names"]
 
 
-@pytest.mark.parametrize("op", ["encoder", "flash", "decode"])
+def test_cli_tasks_runs_without_jax():
+    """`lvr-torch tasks` lists the bundled paper tasks and loads no JAX."""
+    out = _run(f"""
+        import contextlib, io, json, sys
+        from {PKG} import cli
+        from {PKG}.eval.tasks import PAPER_TASKS
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["tasks", "--device", "cpu"])
+        listed = [line.split()[0] for line in buf.getvalue().splitlines()]
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                         "{TPU}")]
+        print(json.dumps({{"rc": rc, "listed": listed,
+                          "paper": sorted(PAPER_TASKS), "loaded": loaded}}))
+    """)
+    assert out["rc"] == 0
+    assert out["listed"] == out["paper"] and len(out["listed"]) == 11
+    assert out["loaded"] == []
+
+
+def test_no_port_source_names_a_jax_import():
+    """No module of the port and no line of chip_smoke.py imports JAX, Flax,
+    Optax, Orbax or the JAX package (a static check beside the runtime
+    one, which also covers lazy imports inside functions)."""
+    import re
+    pattern = re.compile(
+        rf"^\s*(import|from)\s+(jax|flax|optax|orbax|{TPU})\b", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, PKG)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    for path in files:
+        assert not pattern.search(open(path).read()), path
+
+
+@pytest.mark.parametrize("op", ["encoder", "flash", "decode", "a_score"])
 def test_wrappers_take_plain_path_on_cpu(op):
     out = _run(f"""
         import json, sys
@@ -65,6 +106,7 @@ def test_wrappers_take_plain_path_on_cpu(op):
                                                flash_attention_plain)
         from {PKG}.ops.decode_attention import (decode_attention,
                                                 decode_attention_plain)
+        from {PKG}.ops.a_score import a_score_plain, max_cos
         g = torch.Generator().manual_seed(0)
         q = torch.randn(2, 20, 4, 8, generator=g)
         kv = torch.randn(2, 20, 2, 8, generator=g)
@@ -79,10 +121,15 @@ def test_wrappers_take_plain_path_on_cpu(op):
             same = torch.equal(
                 flash_attention(q, kv, kv, causal=True, kv_len=15),
                 flash_attention_plain(q, kv, kv, causal=True, kv_len=15))
-        else:
+        elif "{op}" == "decode":
             wrapper = decode_attention
             same = torch.equal(decode_attention(q[:, :1], kv, kv, mask),
                                decode_attention_plain(q[:, :1], kv, kv, mask))
+        else:
+            wrapper = max_cos
+            t, a = q[:, :, 0], kv[:, :12, 0]
+            same = torch.equal(max_cos(t, a, mask, mask[:, :12]),
+                               a_score_plain(t, a, mask, mask[:, :12]))
         print(json.dumps({{"same": same, "launches": wrapper.launches,
                           "built": _build.library.cache_info().currsize,
                           "jax": "jax" in sys.modules}}))

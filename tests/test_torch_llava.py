@@ -292,3 +292,36 @@ def test_unported_options_raise():
         build_lmm(RunConfig.from_dict(
             {"model": dict(TINY["model"], gen_backend="chunked")}),
             device="cpu")
+    # what no longer raises: the JAX route names build, an unknown one is a
+    # ValueError (not a not-ported error)
+    for key, value in (("tower_attn_impl", "encoder2_nt"),
+                       ("tower_attn_impl", "flash"),
+                       ("decode_attn", "pallas_stacked")):
+        lmm = build_lmm(RunConfig.from_dict(
+            {"model": dict(TINY["model"], **{key: value}),
+             "train": TINY["train"]}), device="cpu")
+        if key == "decode_attn":
+            assert lmm.cfg.decoder.decode_attn == value
+        else:
+            assert lmm.cfg.tower_spec.entries[0].vit_config.attn_impl == value
+    for key in ("tower_attn_impl", "decode_attn"):
+        with pytest.raises(ValueError, match=key.replace("tower_", "")):
+            build_lmm(RunConfig.from_dict(
+                {"model": dict(TINY["model"], **{key: "no_such_route"}),
+                 "train": TINY["train"]}), device="cpu")
+
+
+@pytest.mark.parametrize("decode_attn", ["xla", "pallas", "pallas_stacked"])
+def test_decode_attn_routes_match_jax(tiny, decode_attn):
+    """Every `model.decode_attn` name: the JAX decoder under that route (its
+    Pallas decode kernels in interpret mode) and the port, whose every route
+    is kernel 3's wrapper, generate the same tokens."""
+    jcfg, jparams, tcfg, params = tiny
+    jcfg = dataclasses.replace(jcfg, decoder=dataclasses.replace(
+        jcfg.decoder, decode_attn=decode_attn))
+    tcfg = dataclasses.replace(tcfg, decoder=dataclasses.replace(
+        tcfg.decoder, decode_attn=decode_attn))
+    ids, mask, px = _batch()
+    want = _jax_generate(jcfg, jparams, ids, mask, px, eos_id=-1, n=5)
+    got = _port_generate(tcfg, params, ids, mask, px, eos_id=-1, n=5)
+    np.testing.assert_array_equal(got, want)

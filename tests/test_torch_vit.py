@@ -91,6 +91,39 @@ def test_vit_tower_matches_jax(name):
     _rel_close(got, want)
 
 
+@pytest.mark.parametrize("impl,jax_impl", [
+    ("encoder2", "encoder2"), ("encoder2_nt", "encoder2_nt"),
+    ("encoder2_pad_hb2", "encoder2_pad_hb2"), ("flash", "flash"),
+    ("tpu_flash", "xla"), ("xla_expclamp_fused", "xla"), ("auto", "auto")])
+def test_tower_attn_impl_routes_match_jax(impl, jax_impl):
+    """Every `tower_attn_impl` name the port accepts, against the JAX tower
+    under the same name (its Pallas kernels in interpret mode). `tpu_flash`
+    (the JAX library's TPU kernel has no interpret route) and the XLA
+    formulations are held against the JAX `xla` tower."""
+    jcfg = dataclasses.replace(TOWERS["clip"][0], attn_impl=jax_impl)
+    jmod = JV.ViTTower(jcfg, -2, "patch", J_FP32)
+    px = np.random.RandomState(8).randn(2, 28, 28, 3).astype(np.float32)
+    params = _perturbed(jmod.init(jax.random.PRNGKey(2), jnp.asarray(px))
+                        ["params"], 9)
+    want = jmod.apply({"params": params}, jnp.asarray(px))
+    tcfg = dataclasses.replace(_port_cfg(jcfg), attn_impl=impl)
+    tower = TV.ViTTower(tcfg, -2, "patch", FP32_PRECISION)
+    route = "flash" if impl == "flash" else "encoder"
+    assert {blk.route for blk in tower.encoder.blocks} == {route}
+    tower.load_state_dict(from_jax.vit_state_dict(params))
+    _rel_close(tower(torch.from_numpy(px)), want)
+
+
+def test_unknown_tower_attn_impl_raises():
+    for bad in ("encoder3", "flashy", "", "xla_expclamp_v2"):
+        with pytest.raises(ValueError, match="attn_impl"):
+            TV.attention_route(bad)
+        with pytest.raises(ValueError, match="attn_impl"):
+            TV.ViTTower(dataclasses.replace(TV.tiny_vit(), attn_impl=bad))
+    assert TV.attention_route("encoder2_nt_hb4") == "encoder"
+    assert TV.attention_route("flash") == "flash"
+
+
 def test_vit_tower_weights_through_npz(tmp_path):
     """JAX `param_io.save_params` -> port `load_params` -> `from_jax`."""
     jcfg, select = TOWERS["clip"]
