@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training and law-chain paths on
-one NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port's serving, training, law-chain and quantised
+serving paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -19,7 +19,15 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      (S=577, and S=257 for CLIP@224). Beside each kernel: the least time the card could take
      (`bound_ms`, from the bytes and operations of this run's inputs) and
      the time of the one PyTorch call that computes the same function
-     (`scaled_dot_product_attention`), a yardstick the port never calls;
+     (`scaled_dot_product_attention`), a yardstick the port never calls.
+     Quantisation: kernel 10 (W4A16 matmul) at the 7B shapes 4096->4096,
+     4096->11008, 11008->4096, 4096->32000 at M=4 and M=2,812 (library:
+     `torch.matmul` on the bf16 weight), timed over rotating copies of the
+     weight so every launch reads it from HBM, not from L2; kernel 3's int8
+     branch at B=4 T=704 H=32 Dh=128 with holes and a GQA case (library:
+     SDPA on the dequantised cache); kernel 3 dense against int8 at B=1, 4,
+     16, 32 over rotating caches (the kv8 crossover); and what the int8
+     weights' cast costs a call;
   3. a narrow LLaVA (4-layer 336 px tower, head_dim 64, 3 decoder layers with
      GQA): the logits of the prefill and of 3 decode steps on CUDA with the
      kernels in bf16 against the same weights on the CPU with the plain path
@@ -30,6 +38,12 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      within stated tolerances, and the loss falls on both sides;
   3c. `LlavaLMM.loglikelihood` of the narrow LLaVA, 8 requests of mixed
      lengths: CUDA bf16 with the kernels against CPU fp32 plain;
+  3d. the narrow LLaVA (intermediate 768, so every contraction dim is whole
+     128-element tiles) quantised: `quantize=int4` + `kv_quant=int8`, then
+     `quantize=int8`, CUDA with kernel 10 and the int8 branch against the
+     same codes and scales on the CPU in fp32; and 3 stage-1 training steps
+     through the int4 frozen decoder (`train.quantize_base`), CUDA against
+     CPU as in 3b;
   4. the serving slice at full width: LLaVA-1.5-7B (CLIP-L/14-336 +
      mlp2x_gelu + Vicuna-7B) with seeded random bf16 weights answers 4
      requests through `LlavaLMM.generate_until`; every serving kernel's
@@ -50,7 +64,18 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      `run_embed_extraction` (100 images), for the target also
      `run_evaluation` over both tasks (`generate_until` and
      `loglikelihood` at 7B width); then `compute_a_scores` on the card
-     (kernel 9, two launches a rep) and one `fit_policy`.
+     (kernel 9, two launches a rep) and one `fit_policy`;
+  7. (run right after phase 4, before the first profiler session of the
+     process) quantised serving at full width: LLaVA-1.5-7B through `build_lmm` with
+     `model.quantize=int4` + `model.kv_quant=int8` (and the decode route
+     name `pallas_stacked`, whose int8 form rides on the same branch), the 4
+     requests of phase 4: kernel 10 and the int8 branch launched, the dense branch of kernel 3
+     not; identical tokens over two runs; finite logits; prefill ms, decode
+     tokens/s and peak memory beside phase 4's bf16 figures, the peak below
+     the bf16 run's. Then the same with `model.quantize=int8`;
+  8. a torch.profiler split of the decode step's device time for the three
+     weight formats (last: the profiler's tracing stays attached to the
+     process and slows every later launch).
 
 TF32 is switched off (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`) so every plain version runs in
@@ -63,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -105,6 +131,17 @@ A_SCORE_TOL = 1e-5
 # relative, ~0.5 % of a token's log-prob
 LL_REL_TOL = 2e-2
 LL_MIN_FLAGS = 2                # greedy flags that must have been compared
+# kernel 10 vs its plain version: both sum exact bf16 x integer products in
+# fp32 (in another order) and round the result to bf16; two results that
+# straddle a rounding boundary differ by one bf16 ulp, 2^-7 of the value:
+# 2 ulps of the largest output
+INT4_REL_TOL = 2.0 ** -6
+L2_BYTES = 50e6                 # rotate over more than twice this
+# the serving runs: phase 4, then phase 7's two (the route name
+# `pallas_stacked` rides on the int4 run: its int8 form is the same branch)
+SERVING_FORMATS = ({}, {"quantize": "int4", "kv_quant": "int8",
+                        "decode_attn": "pallas_stacked"},
+                   {"quantize": "int8"})
 LAW_IMAGES = 100                # the A-score protocol's image count
 LAW_HIDDEN = 4096               # the LLM width the embeddings live in
 LAW_EVAL_LIMIT = 8
@@ -465,6 +502,210 @@ def check_a_score(tag: str, dev) -> dict:
     return {"a_score": dict(reported, err=max(errs))}
 
 
+def rotating(make, nbytes: float) -> list:
+    """Enough copies of `make()` (each `nbytes` large) to exceed twice the L2
+    cache. A kernel timed over them in turn (`itertools.cycle`) reads its
+    operand from HBM at every launch, as a decode step does when it walks 32
+    layers."""
+    return [make() for _ in range(max(2, int(2.5 * L2_BYTES / nbytes) + 1))]
+
+
+def check_int4_matmul(tag: str, dev) -> dict:
+    """Phase 2, kernel 10 against its plain version at the four 7B weight
+    shapes, at a decode step's M and a prefill's. Library yardstick:
+    `torch.matmul` on the same weight dequantised to bf16."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        int4_matmul as K, quant as Q)
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    cases, headline = [], None
+    for di, do in ((4096, 4096), (4096, 11008), (11008, 4096),
+                   (4096, 32000)):
+        def make_leaf():
+            w = torch.randn((do, di), generator=g, device=dev) * 0.02
+            return Q.quantize_int4(w)
+        wbytes = do * di // 2 + (di // 128) * do * 4
+        leaves = rotating(make_leaf, wbytes)
+        dense = [Q.dequantize_int4(leaf, torch.bfloat16) for leaf in leaves]
+        leaf_turn, dense_turn = itertools.cycle(leaves), itertools.cycle(dense)
+        for m in (4, 2812):
+            x = torch.randn((m, di), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            leaf = leaves[0]
+            got = K.int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
+            ref = K.int4_matmul_plain(x, leaf["q4"], leaf["scale"])
+            tol = INT4_REL_TOL * max(1.0, ref.float().abs().max().item())
+            lib_err = max_err(x @ dense[0].T, ref)
+
+            def kernel():
+                lf = next(leaf_turn)
+                return K.int4_matmul_kernel(x, lf["q4"], lf["scale"])
+
+            def library():
+                return x @ next(dense_turn).T
+            timer = graph_ms if m <= 16 else cuda_ms
+            r = dict(
+                err=max_err(got, ref), tol=tol, ms=timer(kernel),
+                plain_ms=cuda_ms(lambda: K.int4_matmul_plain(
+                    x, leaf["q4"], leaf["scale"]), iters=3, warmup=1),
+                library_ms=timer(library), library_err=lib_err,
+                shape=f"M={m} {di}->{do} group 128, {len(leaves)} weights "
+                      f"in turn",
+                # packed words and scales once, x in, out written; the
+                # operations run on the bf16 tensor cores
+                **bound(wbytes + x.numel() * 2 + m * do * 2,
+                        2.0 * m * di * do, H100_BF16_TFLOPS))
+            report_kernel(tag, "int4_matmul", r)
+            # the library multiplies bf16(code * scale), rounded once more:
+            # a looser bound than the kernel's
+            if not lib_err <= 4 * tol:
+                fail(f"the library yardstick of int4_matmul computes "
+                     f"another function: err {lib_err}")
+            cases.append({k: r[k] for k in (
+                "shape", "err", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")})
+            if (di, do, m) == (4096, 4096, 4):
+                headline = r
+        del leaves, dense
+    return {"int4_matmul": dict(headline, cases=cases,
+                                err=max(c["err"] for c in cases))}
+
+
+def check_decode_int8(tag: str, dev) -> dict:
+    """Phase 2, kernel 3's int8 branch against its plain version on
+    `quantize_kv` codes and scales (B=4 T=704 H=KV=32 Dh=128 with holes and
+    a masked tile; a GQA case), the SDPA yardstick on the dequantised cache,
+    and the dense and int8 branches side by side at B=1, 4, 16, 32 over
+    rotating caches (the kv8 crossover by batch)."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        decode_attention as dec, quant as Q)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    t, h, d = 704, 32, 128
+    reported, errs = None, []
+    for b, kvh in ((4, 32), (4, 8)):
+        q = randn(b, 1, h, d)
+        k, v = randn(b, t, kvh, d), randn(b, t, kvh, d)
+        (kc, ks), (vc, vs) = Q.quantize_kv(k), Q.quantize_kv(v)
+        mask = torch.rand(b, t, generator=g, device=dev) < 0.8
+        mask[:, 256:384] = False
+        mask[:, 0] = True
+        ref = dec.decode_attention_plain(q, kc, vc, mask, ks, vs)
+        got = dec.decode_attention(q, kc, vc, mask, ks, vs)
+        kd = (kc.float() * ks[..., None]).to(torch.bfloat16)
+        vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
+        rep = h // kvh
+        lib_mask = mask[:, None, None, :]
+
+        def library():
+            return sdpa(q, kd.repeat_interleave(rep, dim=2) if rep > 1 else kd,
+                        vd.repeat_interleave(rep, dim=2) if rep > 1 else vd,
+                        attn_mask=lib_mask)
+        visible = int(mask.sum().item())
+        r = dict(
+            err=max_err(got, ref), tol=kernel_tol(ref),
+            ms=graph_ms(lambda: dec.decode_attention(q, kc, vc, mask, ks,
+                                                     vs)),
+            plain_ms=cuda_ms(lambda: dec.decode_attention_plain(
+                q, kc, vc, mask, ks, vs)),
+            library_ms=graph_ms(library), library_err=max_err(library(), ref),
+            shape=f"B={b} T={t} H={h} KV={kvh} Dh={d} int8 cache, holes + "
+                  f"masked 128-slot tile ({visible} of {b * t} slots "
+                  f"visible)",
+            # the visible slots' codes and scales once
+            **bound(2 * visible * kvh * (d + 4) + mask.numel()
+                    + 2 * q.numel() * 2, 4 * visible * h * d,
+                    H100_BF16_TFLOPS))
+        report_kernel(tag, "decode_attention_int8", r)
+        if not r["library_err"] <= r["tol"]:
+            fail(f"the library yardstick of decode_attention_int8 computes "
+                 f"another function: err {r['library_err']}")
+        errs.append(r["err"])
+        reported = reported or r
+
+    # the crossover: every slot visible, caches in turn so each launch reads
+    # HBM (a decode step walks 32 layers' caches, ~23 MB each at B=4)
+    cross = []
+    for b in (1, 4, 16, 32):
+        q = randn(b, 1, h, d)
+        mask = torch.ones((b, t), dtype=torch.bool, device=dev)
+        per = 2 * b * t * h * d
+        caches = rotating(lambda: (randn(b, t, h, d), randn(b, t, h, d)),
+                          per * 2)
+        qcaches = [Q.quantize_kv(k) + Q.quantize_kv(v) for k, v in caches]
+        cache_turn, q_turn = itertools.cycle(caches), itertools.cycle(qcaches)
+
+        def dense():
+            k, v = next(cache_turn)
+            return dec.decode_attention(q, k, v, mask)
+
+        def int8():
+            kc, ks, vc, vs = next(q_turn)
+            return dec.decode_attention(q, kc, vc, mask, ks, vs)
+        row = dict(batch=b, dense_ms=graph_ms(dense), int8_ms=graph_ms(int8),
+                   dense_bound_ms=per * 2 / H100_HBM_BYTES_S * 1e3,
+                   int8_bound_ms=(per + 2 * b * t * h * 4)
+                   / H100_HBM_BYTES_S * 1e3)
+        cross.append(row)
+        print(f"{tag} kv8 crossover B={b} T={t} H=KV={h} Dh={d}, all slots "
+              f"visible, {len(caches)} caches in turn: kernel 3 dense "
+              f"{row['dense_ms']:.4f} ms (bound {row['dense_bound_ms']:.4f}),"
+              f" int8 {row['int8_ms']:.4f} ms (bound "
+              f"{row['int8_bound_ms']:.4f}); int8 / dense "
+              f"{row['int8_ms'] / row['dense_ms']:.2f}")
+        del caches, qcaches
+    return {"decode_attention_int8": dict(reported, err=max(errs),
+                                          crossover=cross)}
+
+
+def check_int8_weight_cost(tag: str, dev) -> None:
+    """What `int8_matmul` costs on this card: `q8.to(bf16)` writes a bf16
+    copy of the weight at every call before the product (plain PyTorch, as
+    the JAX package leaves this product to XLA). Beside it: the product on a
+    ready bf16 weight and kernel 10 on the same weight in int4."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        int4_matmul as K, quant as Q)
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    for di, do in ((4096, 4096), (4096, 11008)):
+        def make():
+            w = torch.randn((do, di), generator=g, device=dev) * 0.02
+            return (Q.quantize_int8(w), Q.quantize_int4(w),
+                    w.to(torch.bfloat16))
+        sets = rotating(make, do * di)
+        turn = itertools.cycle(sets)
+        x = torch.randn((4, di), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        ref = (x.float() @ Q.dequantize_int8(sets[0][0]).T)
+        err = max_err(Q.int8_matmul(x, sets[0][0]), ref)
+        tol = KERNEL_REL_TOL * max(1.0, ref.abs().max().item())
+        if not err <= tol:
+            fail(f"int8_matmul disagrees with its fp32 value: {err} > {tol}")
+        t8 = graph_ms(lambda: Q.int8_matmul(x, next(turn)[0]))
+        cast = graph_ms(lambda: next(turn)[0]["q8"].to(torch.bfloat16))
+        t16 = graph_ms(lambda: x @ next(turn)[2].T)
+
+        def int4():
+            leaf = next(turn)[1]
+            return K.int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
+        t4 = graph_ms(int4)
+        print(f"{tag} int8 weights, M=4 {di}->{do}, {len(sets)} weights in "
+              f"turn: int8_matmul {t8:.4f} ms (of it the cast to bf16 "
+              f"{cast:.4f} ms: reads {do * di / 1e6:.1f} MB, writes "
+              f"{2 * do * di / 1e6:.1f} MB), max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}); the same product on a bf16 weight {t16:.4f} ms; "
+              f"kernel 10 on the int4 weight {t4:.4f} ms")
+        del sets
+
+
 def check_routes(tag: str, dev) -> None:
     """Phase 2, the tower routes of `model.tower_attn_impl`, each against
     the plain `mha`: `flash` runs kernel 2 non-causal, `encoder2` and
@@ -506,9 +747,11 @@ def check_routes(tag: str, dev) -> None:
                      f"B={b} S={s}: {err}")
 
 
-def narrow_config():
-    """The narrow LLaVA of phases 3 and 3b: a 4-layer 336 px tower
-    (head_dim 64) and 3 decoder layers with GQA (head_dim 64)."""
+def narrow_config(intermediate_size: int = 688):
+    """The narrow LLaVA of phases 3 to 3d: a 4-layer 336 px tower
+    (head_dim 64) and 3 decoder layers with GQA (head_dim 64). The quantised
+    phases take `intermediate_size=768`: kernel 10 wants whole 128-element
+    k-tiles."""
     from law_of_vision_representation_in_mllms_torch.models import llama as L
     from law_of_vision_representation_in_mllms_torch.models import llava as M
     from law_of_vision_representation_in_mllms_torch.models.towers import (
@@ -524,12 +767,26 @@ def narrow_config():
     return M.LlavaConfig(
         tower_spec=TowerSpec(entries=[entry], join="single"),
         decoder=L.LlamaConfig(vocab_size=1000, hidden_size=256,
-                              intermediate_size=688, num_layers=3,
+                              intermediate_size=intermediate_size,
+                              num_layers=3,
                               num_heads=4, num_kv_heads=2))
 
 
-def check_narrow_llava(tag: str, dev) -> None:
-    """Phase 3: narrow LLaVA, CUDA kernels in bf16 vs CPU plain fp32."""
+def quantise_pair(cpu, gpu, bits: int) -> None:
+    """Quantise the CPU model's decoder and give the CUDA model the SAME
+    codes and scales (quantising its own bf16-rounded weights would give
+    other codes)."""
+    from law_of_vision_representation_in_mllms_torch.ops import quant as Q
+    Q.quantize_decoder(cpu.decoder, bits=bits)
+    Q.quantize_decoder(gpu.decoder, bits=bits)       # the module structure
+    gpu.load_state_dict(cpu.state_dict())
+
+
+def check_narrow_llava(tag: str, dev, quantize=None, kv_quant=None) -> None:
+    """Phase 3: narrow LLaVA, CUDA kernels in bf16 vs CPU plain fp32. Phase
+    3d: the same with the decoder's weights quantised (`quantize`: "int4"
+    runs kernel 10, "int8" the cast-and-matmul) and the int8 KV cache
+    (kernel 3's int8 branch), the same codes and scales on both sides."""
     import numpy as np
     import torch
     from law_of_vision_representation_in_mllms_torch.core.precision import (
@@ -537,12 +794,22 @@ def check_narrow_llava(tag: str, dev) -> None:
     from law_of_vision_representation_in_mllms_torch.models import llava as M
     from law_of_vision_representation_in_mllms_torch.models.splice import (
         IMAGE_TOKEN_INDEX)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        decode_attention as dec, int4_matmul as K)
 
-    cfg = narrow_config()
+    cfg = narrow_config(768 if quantize else 688)
+    cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
     cpu = M.init_params(torch.Generator().manual_seed(0), cfg,
                         FP32_PRECISION, "cpu")
     gpu = M.LlavaParams(cfg, BF16_PRECISION, device=dev)
     gpu.load_state_dict(cpu.state_dict())
+    if quantize:
+        quantise_pair(cpu, gpu, 4 if quantize == "int4" else 8)
+    label = (f"narrow LLaVA quantize={quantize} kv_quant={kv_quant}"
+             if quantize or kv_quant else "narrow LLaVA")
+    before = (K.int4_matmul_kernel.launches,
+              dec.decode_attention_int8.launches,
+              dec.decode_attention.launches)
 
     rng = np.random.RandomState(0)
     ids = rng.randint(3, 1000, size=(2, 24)).astype(np.int64)
@@ -575,20 +842,31 @@ def check_narrow_llava(tag: str, dev) -> None:
                                    max_new_tokens=NARROW_STEPS, eos_id=-1)
     agree = (greedy_got.cpu() == greedy_ref).float().mean().item()
     first = (got[0].argmax(-1) == ref[0].argmax(-1)).tolist()
-    print(f"{tag} narrow LLaVA logits, prefill + {NARROW_STEPS - 1} decode "
+    ran = [a - b for a, b in zip((K.int4_matmul_kernel.launches,
+                                  dec.decode_attention_int8.launches,
+                                  dec.decode_attention.launches), before)]
+    if quantize == "int4" and ran[0] == 0:
+        fail(f"{label}: kernel 10 was not launched")
+    if (ran[1] == 0) != (kv_quant is None) or (ran[2] == 0) != (
+            kv_quant is not None):
+        fail(f"{label}: wrong branch of kernel 3 (int8 {ran[1]}, dense "
+             f"{ran[2]} launches)")
+    print(f"{tag} {label} logits, prefill + {NARROW_STEPS - 1} decode "
           f"steps (CUDA bf16 kernels vs CPU fp32 plain): max_abs_err "
           f"{err:.4e} (tol {tol:.4e} = {LOGITS_REL_TOL} x max|logit|); "
           f"first-step argmax agree {first}; generate_greedy tokens agree "
           f"{agree:.3f}")
     if not (torch.isfinite(got).all() and err <= tol):
-        fail(f"narrow LLaVA logits disagree: {err} > {tol}")
+        fail(f"{label} logits disagree: {err} > {tol}")
 
 
-def check_narrow_training(tag: str, dev) -> None:
+def check_narrow_training(tag: str, dev, quantize_base=None) -> None:
     """Phase 3b: 3 stage-1 `make_train_step` steps on one batch of the
     narrow LLaVA, CUDA bf16 compute (fp32 weights; flash route with kernels
     2, 5 and 6 under block remat) against CPU fp32 plain attention, from the
-    same weights. Per step: the loss and the projector gradient."""
+    same weights. Per step: the loss and the projector gradient. Phase 3d
+    repeats it through an int4 frozen decoder (`quantize_base`): kernel 10
+    forward under autograd, `dy @ dequant(W)` backward."""
     import numpy as np
     import torch
     from law_of_vision_representation_in_mllms_torch.core.precision import (
@@ -601,11 +879,18 @@ def check_narrow_training(tag: str, dev) -> None:
     from law_of_vision_representation_in_mllms_torch.train import (
         train_step as TS)
 
-    cfg = narrow_config()
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        int4_matmul as K)
+    cfg = narrow_config(768 if quantize_base else 688)
     cpu = M.init_params(torch.Generator().manual_seed(1), cfg,
                         FP32_PRECISION, "cpu")
     gpu = M.LlavaParams(cfg, DEFAULT_PRECISION, device=dev)
     gpu.load_state_dict(cpu.state_dict())
+    if quantize_base:
+        quantise_pair(cpu, gpu, 4 if quantize_base == "int4" else 8)
+    k10_before = K.int4_matmul_kernel.launches
+    what = ("narrow training" if not quantize_base
+            else f"narrow training quantize_base={quantize_base}")
 
     rng = np.random.RandomState(1)
     b, n = 4, 40
@@ -654,7 +939,7 @@ def check_narrow_training(tag: str, dev) -> None:
                 fail(f"narrow training step {step + 1} was skipped")
         ref, got = losses[0][-1], losses[1][-1]
         loss_rel = abs(got - ref) / abs(ref)
-        print(f"{tag} narrow training step {step + 1} (CUDA bf16 kernels vs "
+        print(f"{tag} {what} step {step + 1} (CUDA bf16 kernels vs "
               f"CPU fp32 plain): loss {got:.6f} vs {ref:.6f}, rel err "
               f"{loss_rel:.3e} (tol {TRAIN_LOSS_REL_TOL}); projector grad "
               f"rel err {rel:.3e} (tol {TRAIN_GRAD_REL_TOL})")
@@ -664,6 +949,8 @@ def check_narrow_training(tag: str, dev) -> None:
             fail(f"narrow projector gradient disagrees at step {step + 1}")
     if [c.launches for c in bwd] == before:
         fail("narrow training on CUDA launched no backward kernel")
+    if quantize_base == "int4" and K.int4_matmul_kernel.launches == k10_before:
+        fail("narrow training through the int4 base launched no kernel 10")
     for side, ls in zip(("CPU", "CUDA"), losses):
         if not ls[-1] < ls[0]:
             fail(f"narrow training loss did not fall on the {side}: {ls}")
@@ -785,24 +1072,119 @@ def _requests(n: int, crop: int):
     return reqs
 
 
-def run_full_width(tag: str, dev, counters) -> dict:
-    """Phase 4: LLaVA-1.5-7B at full width through the adapter."""
+def profile_decode(tag: str, label: str, lmm, ids, mask, pixels,
+                   steps: int = 4) -> None:
+    """torch.profiler over `steps` warm decode steps after a prefill: device
+    time a step by kernel family, the step's wall time and the device's idle
+    share of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+
+    pre = M.prefill(lmm.params, lmm.cfg, ids, mask, pixels,
+                    max_new_tokens=steps + 2)
+    tok = pre.logits.argmax(-1)
+    tok = M.decode_step(lmm.params, pre, tok, 0).argmax(-1)      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, steps + 1):
+            tok = M.decode_step(lmm.params, pre, tok, t).argmax(-1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    families, launched = {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name, low = e.name, e.name.lower()
+        if "int4_small_kernel" in name or "int4_big_kernel" in name:
+            fam = "kernel 10 (int4 matmul)"
+        elif "decode_kernel" in name:
+            fam = "kernel 3 (decode attention)"
+        elif any(x in low for x in ("gemm", "gemv", "cutlass", "xmma",
+                                    "nvjet", "cublas")):
+            fam = "matmul (cuBLAS)"
+        elif "memcpy" in low or "memset" in low:
+            fam = "copies and memsets"
+        else:
+            fam = "elementwise, reductions, casts"
+        families[fam] = families.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+        launched += 1
+    busy = sum(families.values()) / steps
+    if busy == 0.0:
+        print(f"{tag} [{label}] profiler: no device time recorded; decode "
+              f"split not measured")
+        return
+    print(f"{tag} [{label}] profiled decode step (mean of {steps}, profiler "
+          f"on): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.3f}, {launched // steps} device "
+          f"activities a step: " + ", ".join(
+              f"{fam} {ms / steps:.2f} ms"
+              for fam, ms in sorted(families.items(), key=lambda kv: -kv[1])))
+
+
+def profile_formats(tag: str, dev) -> None:
+    """Phase 8: the decode step's device-time split for the three weight
+    formats, each model built again (half a second). It runs last: a
+    torch.profiler session leaves its tracing attached to the process, and
+    every later launch costs the host more."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.config import (
+        RunConfig)
+    from law_of_vision_representation_in_mllms_torch.eval.runner import (
+        build_lmm)
+    for model in SERVING_FORMATS:
+        lmm = build_lmm(RunConfig.from_dict({"model": model}), device=dev)
+        ids, mask, pixels = lmm._encode_batch(
+            _requests(4, lmm.processors[0].crop))
+        profile_decode(tag, format_label(model), lmm, ids, mask, pixels)
+        del lmm, ids, mask, pixels
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def format_label(model: dict) -> str:
+    return ", ".join(f"{k}={v}" for k, v in model.items()
+                     if k != "decode_attn") or "bf16"
+
+
+def run_full_width(tag: str, dev, counters, model=None, bf16=None):
+    """Phase 4: LLaVA-1.5-7B at full width through the adapter. Phase 7: the
+    same requests with the `model` knobs of quantised serving (`quantize`,
+    `kv_quant`), its figures printed beside the bf16 run's (`bf16`). Returns
+    (launches of the counted run, figures)."""
     import torch
     from law_of_vision_representation_in_mllms_torch.core.config import (
         RunConfig)
     from law_of_vision_representation_in_mllms_torch.eval.runner import (
         build_lmm)
     from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.ops.quant import (
+        quantized_bytes)
 
+    model = model or {}
+    quantize, kv_quant = model.get("quantize"), model.get("kv_quant")
+    label = format_label(model)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    lmm = build_lmm(RunConfig(), device=dev)
+    lmm = build_lmm(RunConfig.from_dict({"model": model}), device=dev)
     torch.cuda.synchronize(dev)
     n_params = sum(p.numel() for p in lmm.params.parameters())
-    print(f"{tag} LLaVA-1.5-7B ({n_params / 1e9:.3f} B params, bf16, seeded "
-          f"random) built on the card in {time.perf_counter() - t0:.2f} s")
+    build_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    resident_gb = quantized_bytes(lmm.params) / 1e9
+    print(f"{tag} LLaVA-1.5-7B [{label}] ({n_params / 1e9:.3f} B dense "
+          f"params, seeded random) built on the card in "
+          f"{time.perf_counter() - t0:.2f} s; weights resident "
+          f"{resident_gb:.2f} GB, {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+          f" GB allocated after the build, peak during it "
+          f"{build_peak_gb:.2f} GB")
+    # from here on the peak is the serving run's own
+    torch.cuda.reset_peak_memory_stats(dev)
     reqs = _requests(4, lmm.processors[0].crop)
     dec = lmm.cfg.decoder
+    dec_name = "decode_attention_int8" if kv_quant else "decode_attention"
 
     # the main path, counted
     for c in counters.values():
@@ -810,15 +1192,25 @@ def run_full_width(tag: str, dev, counters) -> dict:
     texts = lmm.generate_until(reqs)
     torch.cuda.synchronize(dev)
     launches = {name: c.launches for name, c in counters.items()}
-    steps = launches["decode_attention"] // dec.num_layers
-    print(f"{tag} main path launches {launches} ({steps} decode steps)")
+    steps = launches[dec_name] // dec.num_layers
+    print(f"{tag} [{label}] main path launches {launches} ({steps} decode "
+          f"steps)")
     if launches["encoder_attention"] < 23:
         fail("encoder_attention ran fewer than 23 times in one tower call")
     if launches["flash_attention"] < dec.num_layers:
         fail("flash_attention ran fewer than 32 times in the prefill")
-    if (launches["decode_attention"] < dec.num_layers
-            or launches["decode_attention"] % dec.num_layers):
-        fail("decode_attention did not run 32 times per decode step")
+    if launches[dec_name] < dec.num_layers or launches[dec_name] % \
+            dec.num_layers:
+        fail(f"{dec_name} did not run 32 times per decode step")
+    if kv_quant and launches["decode_attention"]:
+        fail(f"the dense branch of kernel 3 ran {launches['decode_attention']}"
+             f" times over an int8 cache")
+    if not kv_quant and launches["decode_attention_int8"]:
+        fail("the int8 branch of kernel 3 ran over a dense cache")
+    # 7 weight matmuls a layer and the lm_head, in the prefill and each step
+    k10 = (7 * dec.num_layers + 1) * (steps + 1) if quantize == "int4" else 0
+    if launches["int4_matmul"] != k10:
+        fail(f"kernel 10 ran {launches['int4_matmul']} times, not {k10}")
 
     # token ids: in range, deterministic, consistent with the adapter's text
     ids, mask, pixels = lmm._encode_batch(reqs)
@@ -839,6 +1231,13 @@ def run_full_width(tag: str, dev, counters) -> dict:
         row = row[:row.index(eos)] if eos in row else row
         if lmm.tok.decode(row).strip() != text:
             fail("generate_until text differs from the decoded tokens")
+    pre = M.prefill(lmm.params, lmm.cfg, ids, mask, pixels, max_new_tokens=2)
+    step_logits = M.decode_step(lmm.params, pre, pre.logits.argmax(-1), 0)
+    if not (torch.isfinite(pre.logits).all()
+            and torch.isfinite(step_logits).all()
+            and step_logits.shape == (ids.shape[0], dec.vocab_size)):
+        fail(f"[{label}] the logits are not finite [B, V]")
+    del pre, step_logits
 
     # phase timings (host clock around synchronised work)
     def timed(fn, reps=3):
@@ -854,25 +1253,42 @@ def run_full_width(tag: str, dev, counters) -> dict:
         tower_s = timed(lambda: lmm.params.towers[0](pixels[0]))
     prefill_s = timed(lambda: M.prefill(lmm.params, lmm.cfg, ids, mask,
                                         pixels, max_new_tokens=32))
-    counters["decode_attention"].launches = 0
+    counters[dec_name].launches = 0
     gen_s = timed(generate)                       # 1 warm-up + 3 timed runs
-    gen_steps = counters["decode_attention"].launches // dec.num_layers // 4
+    gen_steps = counters[dec_name].launches // dec.num_layers // 4
     if gen_steps == 0:
         fail("the timed generate ran no decode step")
     b = ids.shape[0]
-    decode_tok_s = b * gen_steps / (gen_s - prefill_s)
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    fig = dict(prefill_ms=prefill_s * 1e3,
+               decode_tok_s=b * gen_steps / (gen_s - prefill_s),
+               step_ms=(gen_s - prefill_s) / gen_steps * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               build_peak_gb=build_peak_gb, resident_gb=resident_gb)
     seq = ids.shape[1] + lmm.cfg.num_patches - 1
-    print(f"{tag} tower (CLIP-L/14-336, B={b}): {b / tower_s:.1f} images/s "
-          f"({tower_s * 1e3:.2f} ms)")
-    print(f"{tag} prefill (tower + projector + splice + 32-layer prefill, "
-          f"B={b}, S={seq}): {prefill_s * 1e3:.2f} ms")
-    print(f"{tag} decode (B={b}, {gen_steps} steps, (generate - prefill) "
-          f"time): {decode_tok_s:.1f} tokens/s "
-          f"({(gen_s - prefill_s) / gen_steps * 1e3:.2f} ms/step)")
-    print(f"{tag} peak memory allocated: {peak_gb:.2f} GB")
-    print(f"{tag} sample answer: {texts[0][:80]!r}")
-    return launches
+    print(f"{tag} [{label}] tower (CLIP-L/14-336, B={b}): "
+          f"{b / tower_s:.1f} images/s ({tower_s * 1e3:.2f} ms)")
+    print(f"{tag} [{label}] prefill (tower + projector + splice + 32-layer "
+          f"prefill, B={b}, S={seq}): {fig['prefill_ms']:.2f} ms")
+    print(f"{tag} [{label}] decode (B={b}, {gen_steps} steps, (generate - "
+          f"prefill) time): {fig['decode_tok_s']:.1f} tokens/s "
+          f"({fig['step_ms']:.2f} ms/step)")
+    print(f"{tag} [{label}] peak memory allocated while serving: "
+          f"{fig['peak_gb']:.2f} GB")
+    print(f"{tag} [{label}] sample answer: {texts[0][:80]!r}")
+    if bf16 is not None:
+        print(f"{tag} [{label}] beside the bf16 run: prefill "
+              f"{fig['prefill_ms']:.2f} vs {bf16['prefill_ms']:.2f} ms, "
+              f"decode {fig['decode_tok_s']:.1f} vs "
+              f"{bf16['decode_tok_s']:.1f} tokens/s ({fig['step_ms']:.2f} "
+              f"vs {bf16['step_ms']:.2f} ms/step), weights "
+              f"{fig['resident_gb']:.2f} vs {bf16['resident_gb']:.2f} GB, "
+              f"serving peak {fig['peak_gb']:.2f} vs {bf16['peak_gb']:.2f} "
+              f"GB")
+        if not fig["peak_gb"] < bf16["peak_gb"]:
+            fail(f"[{label}] the serving peak {fig['peak_gb']:.2f} GB is not "
+                 f"below the bf16 run's {bf16['peak_gb']:.2f} GB: a dense "
+                 f"weight survived the quantisation")
+    return launches, fig
 
 
 def _training_records(folder: str) -> str:
@@ -1408,7 +1824,8 @@ def main() -> int:
     try:
         from law_of_vision_representation_in_mllms_torch.ops import (
             _build, a_score as asc, decode_attention as dec,
-            encoder_attention as enc, flash_attention as fl)
+            encoder_attention as enc, flash_attention as fl,
+            int4_matmul as k10)
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1430,26 +1847,48 @@ def main() -> int:
     kernels = check_kernels(tag, dev)
     kernels.update(check_flash_bwd(tag, dev))
     kernels.update(check_a_score(tag, dev))
+    kernels.update(check_int4_matmul(tag, dev))
+    kernels.update(check_decode_int8(tag, dev))
+    check_int8_weight_cost(tag, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     check_routes(tag, dev)
     check_narrow_llava(tag, dev)
     check_narrow_training(tag, dev)
     check_narrow_loglikelihood(tag, dev)
+    check_narrow_llava(tag, dev, quantize="int4", kv_quant="int8")
+    check_narrow_llava(tag, dev, quantize="int8")
+    check_narrow_training(tag, dev, quantize_base="int4")
     counters = {"encoder_attention": enc.encoder_attention,
                 "flash_attention": fl.flash_attention,
                 "decode_attention": dec.decode_attention,
                 "flash_attention_bwd_dq": fl.flash_attention_bwd_dq,
                 "flash_attention_bwd_dkv": fl.flash_attention_bwd_dkv,
-                "a_score": asc.max_cos}
+                "a_score": asc.max_cos,
+                "decode_attention_int8": dec.decode_attention_int8,
+                "int4_matmul": k10.int4_matmul_kernel}
+    # the serving runs come before any torch.profiler session (phase 5 holds
+    # the first): its tracing stays attached to the process afterwards and
+    # makes every launch dearer for the host, which is what bounds a decode
+    # step
     paths = {}
-    paths["serve"] = run_full_width(tag, dev, counters)
+    paths["serve"], bf16_fig = run_full_width(tag, dev, counters)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"{tag} after the serving phase: "
           f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB still allocated")
+    for name, model in zip(("serve_int4_kv8", "serve_int8"),
+                           SERVING_FORMATS[1:]):
+        paths[name], _ = run_full_width(tag, dev, counters, model, bf16_fig)
+        gc.collect()
+        torch.cuda.empty_cache()
     paths["train"] = run_full_width_training(tag, dev, counters)
     gc.collect()
     torch.cuda.empty_cache()
     paths["law_chain"] = run_law_chain(tag, dev, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_formats(tag, dev)
     # every kernel must have launched on at least one main path
     for name in counters:
         if sum(p[name] for p in paths.values()) == 0:
@@ -1467,6 +1906,10 @@ def main() -> int:
         "flash_attention_bwd_dq": f"{TPU_PKG}/ops/flash_attention.py:473",
         "flash_attention_bwd_dkv": f"{TPU_PKG}/ops/flash_attention.py:508",
         "a_score": f"{TPU_PKG}/ops/a_score_pallas.py:76",
+        # the same `pallas_call` as kernel 3's dense branch: `_kernel` with
+        # `quantized=True`
+        "decode_attention_int8": f"{TPU_PKG}/ops/decode_attention.py:341",
+        "int4_matmul": f"{TPU_PKG}/ops/int4_kernel.py:157",
     }
     # the JAX package's other kernels of the same function, routed onto
     # these (launched in the law chain and held to the plain mha in phase 2;
@@ -1482,15 +1925,20 @@ def main() -> int:
         "decode_attention": [
             f"{TPU_PKG}/ops/decode_attention.py:190 "
             f"(decode_attention_stacked, decode_attn=pallas_stacked)"],
+        "decode_attention_int8": [
+            f"{TPU_PKG}/ops/decode_attention.py:190 "
+            f"(decode_attention_stacked with ks_all/vs_all, "
+            f"decode_attn=pallas_stacked)"],
     }
     sources = {name: f"{PKG}/csrc/{name}.cu" for name in replaces}
     sources["flash_attention_bwd_dq"] = f"{PKG}/csrc/flash_attention_bwd.cu"
     sources["flash_attention_bwd_dkv"] = f"{PKG}/csrc/flash_attention_bwd.cu"
+    sources["decode_attention_int8"] = f"{PKG}/csrc/decode_attention.cu"
     print(f"{tag} chip_smoke phases took "
           f"{time.perf_counter() - t_start:.1f} s")
-    # launches: the serving run (phase 4), the training run (phase 5) and
-    # the law chain (phase 6), each counted from 0; the split is in
-    # "launches_by_path"
+    # launches: the serving run (phase 4), the training run (phase 5), the
+    # law chain (phase 6) and the two quantised serving runs (phase 7), each
+    # counted from 0; the split is in "launches_by_path"
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "routes": routes.get(name, []),
@@ -1498,7 +1946,8 @@ def main() -> int:
          "launches_by_path": {path: p[name] for path, p in paths.items()},
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], "shape": r["shape"]}
+         "library_ms": r["library_ms"], "shape": r["shape"],
+         **{k: r[k] for k in ("cases", "crossover") if k in r}}
         for name, r in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

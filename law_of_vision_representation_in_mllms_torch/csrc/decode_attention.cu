@@ -1,20 +1,33 @@
 // Kernel 3: single-token (decode-step) attention over the KV cache.
 //
 // Replaces the TPU kernel `ops/decode_attention.py` `decode_attention`
-// (`_kernel`, dense-cache branch). q is [B, 1, H, Dh]; the cache k/v is read
-// in place in its stored [B, T, KV, Dh] layout; query head h reads kv head
+// (`_kernel`, both branches). q is [B, 1, H, Dh]; the cache k/v is read in
+// place in its stored [B, T, KV, Dh] layout; query head h reads kv head
 // h / (H / KV); `mask` is a [B, T] byte mask (1 = visible) that may have holes
 // (the prompt's pad slots) and whole masked stretches. A masked slot is never
 // loaded and contributes exactly 0 (the TPU kernel had to multiply by the
 // mask because exp(NEG - NEG) = 1 on a fully masked tile). Softmax is fp32.
 //
+// The cache is bf16 (dense branch) or int8 codes with one fp32 scale per
+// (slot, kv head), `k_scale`/`v_scale` [B, T, KV] (int8 branch). There the K
+// scale multiplies the slot's logit after the q.k sum, the softmax
+// denominator adds up the raw probabilities, and the V scale enters the
+// numerator only: out = sum_t p_t * vs_t * v_t / sum_t p_t.
+//
 // Bound on the H100: a step reads every visible cache byte once, ~0.1 FLOP per
 // byte, so HBM bandwidth is the floor (Vicuna-7B, B = 4, T ~ 700: ~46 MB per
-// layer). Design: one block per (kv head, batch row); eight warps stride over
-// the slots, four slots in flight per warp, each lane holding Dh / 32 elements
-// of a row so a warp reads one 256-byte row in one coalesced load; every warp
+// layer in bf16, half that in int8). Design: one block per (kv head, batch
+// row); its warps stride over the slots, four slots in flight per warp, each
+// lane holding Dh / 32 elements of a row so a warp reads one row (256 bytes of
+// bf16, 128 of int8: a 4-byte load a lane) in one coalesced load; every warp
 // keeps an online softmax for the G query heads of its kv head, and the warps
-// merge through shared memory at the end.
+// merge through shared memory at the end. At B = 4 there are only 128 blocks
+// for 132 SMs, so what hides the HBM latency is the warps inside a block: 32
+// of them for G <= 2, 16 for G = 4, 8 for G = 8 (the merge buffer, warps x G x
+// Dh floats, stays within 32 KB). Eight warps for every G would make the loop
+// over 704 slots 22 dependent rounds of loads: the kernel would run at the
+// latency, not the bandwidth, and the int8 branch, which moves half the bytes
+// in as many rounds, would be no faster than the dense one.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -23,7 +36,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kWarps = 8;
 constexpr int kUnroll = 4;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -45,6 +57,23 @@ __device__ __forceinline__ void load_row(const bf16* p, float out[VPL]) {
   }
 }
 
+// int8 codes: Dh / 32 of them a lane, one 4-byte (or 2-byte) load
+template <int VPL>
+__device__ __forceinline__ void load_row(const int8_t* p, float out[VPL]) {
+  if constexpr (VPL == 4) {
+    const char4 raw = *reinterpret_cast<const char4*>(p);
+    out[0] = static_cast<float>(raw.x);
+    out[1] = static_cast<float>(raw.y);
+    out[2] = static_cast<float>(raw.z);
+    out[3] = static_cast<float>(raw.w);
+  } else {
+    static_assert(VPL == 2, "head_dim must be 64 or 128");
+    const char2 raw = *reinterpret_cast<const char2*>(p);
+    out[0] = static_cast<float>(raw.x);
+    out[1] = static_cast<float>(raw.y);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -53,13 +82,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int DH, int G>
+// KV = bf16: dense cache, the scale pointers are not read. KV = int8_t: codes
+// with `k_scale`/`v_scale` [B, T, KV].
+template <int DH, int G, typename KV, int kWarps>
 __global__ void __launch_bounds__(kWarps * 32)
-    decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v,
+    decode_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
+                  const KV* __restrict__ v, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
                   const uint8_t* __restrict__ mask, bf16* __restrict__ out,
                   int T, int kv_heads, float scale_log2) {
   constexpr int VPL = DH / 32;
+  constexpr bool kQuant = sizeof(KV) == 1;
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
   __shared__ float sm_acc[kWarps][G][DH];
@@ -89,12 +122,15 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 
   const long rs = static_cast<long>(kv_heads) * DH;  // slot stride
-  const bf16* kb = k + static_cast<long>(b) * T * rs + kvh * DH + lane * VPL;
-  const bf16* vb = v + static_cast<long>(b) * T * rs + kvh * DH + lane * VPL;
+  const KV* kb = k + static_cast<long>(b) * T * rs + kvh * DH + lane * VPL;
+  const KV* vb = v + static_cast<long>(b) * T * rs + kvh * DH + lane * VPL;
   const uint8_t* mb = mask + static_cast<long>(b) * T;
+  // scale of slot tt: [b, tt, kvh]
+  const long sc0 = static_cast<long>(b) * T * kv_heads + kvh;
 
   for (int t0 = warp * kUnroll; t0 < T; t0 += kWarps * kUnroll) {
     float kr[kUnroll][VPL], vr[kUnroll][VPL];
+    float ks[kUnroll], vs[kUnroll];
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -103,6 +139,10 @@ __global__ void __launch_bounds__(kWarps * 32)
       if (ok[u]) {
         load_row<VPL>(kb + tt * rs, kr[u]);
         load_row<VPL>(vb + tt * rs, vr[u]);
+        if constexpr (kQuant) {
+          ks[u] = k_scale[sc0 + static_cast<long>(tt) * kv_heads];
+          vs[u] = v_scale[sc0 + static_cast<long>(tt) * kv_heads];
+        }
       }
     }
 #pragma unroll
@@ -114,12 +154,15 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
         for (int i = 0; i < VPL; ++i) s += qv[gi][i] * kr[u][i];
         s = warp_sum(s);
+        if constexpr (kQuant) s *= ks[u];
         const float mn = fmaxf(m[gi], s);
         const float alpha = exp2f(m[gi] - mn);  // 0 while m is still -inf
         const float pr = exp2f(s - mn);
-        l[gi] = l[gi] * alpha + pr;
+        l[gi] = l[gi] * alpha + pr;  // the raw probability
+        float pv = pr;
+        if constexpr (kQuant) pv *= vs[u];
 #pragma unroll
-        for (int i = 0; i < VPL; ++i) acc[gi][i] = acc[gi][i] * alpha + pr * vr[u][i];
+        for (int i = 0; i < VPL; ++i) acc[gi][i] = acc[gi][i] * alpha + pv * vr[u][i];
         m[gi] = mn;
       }
     }
@@ -155,24 +198,40 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int DH>
-int launch_dh(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask,
-              bf16* out, int batch, int T, int kv_heads, int group,
-              float scale_log2, cudaStream_t stream) {
-  const dim3 grid(kv_heads, batch);
-  const dim3 block(kWarps * 32);
+// warps a block: as many as keep the merge buffer within 32 KB, at most 32
+constexpr int warps_for(int group) { return group <= 2 ? 32 : 64 / group; }
+
+template <int DH, int G, typename KV>
+void launch_g(const bf16* q, const KV* k, const KV* v, const float* k_scale,
+              const float* v_scale, const uint8_t* mask, bf16* out, int batch,
+              int T, int kv_heads, float scale_log2, cudaStream_t stream) {
+  constexpr int kWarps = warps_for(G);
+  decode_kernel<DH, G, KV, kWarps>
+      <<<dim3(kv_heads, batch), dim3(kWarps * 32), 0, stream>>>(
+          q, k, v, k_scale, v_scale, mask, out, T, kv_heads, scale_log2);
+}
+
+template <int DH, typename KV>
+int launch_dh(const bf16* q, const KV* k, const KV* v, const float* k_scale,
+              const float* v_scale, const uint8_t* mask, bf16* out, int batch,
+              int T, int kv_heads, int group, float scale_log2,
+              cudaStream_t stream) {
   switch (group) {
     case 1:
-      decode_kernel<DH, 1><<<grid, block, 0, stream>>>(q, k, v, mask, out, T, kv_heads, scale_log2);
+      launch_g<DH, 1, KV>(q, k, v, k_scale, v_scale, mask, out, batch, T,
+                          kv_heads, scale_log2, stream);
       break;
     case 2:
-      decode_kernel<DH, 2><<<grid, block, 0, stream>>>(q, k, v, mask, out, T, kv_heads, scale_log2);
+      launch_g<DH, 2, KV>(q, k, v, k_scale, v_scale, mask, out, batch, T,
+                          kv_heads, scale_log2, stream);
       break;
     case 4:
-      decode_kernel<DH, 4><<<grid, block, 0, stream>>>(q, k, v, mask, out, T, kv_heads, scale_log2);
+      launch_g<DH, 4, KV>(q, k, v, k_scale, v_scale, mask, out, batch, T,
+                          kv_heads, scale_log2, stream);
       break;
     case 8:
-      decode_kernel<DH, 8><<<grid, block, 0, stream>>>(q, k, v, mask, out, T, kv_heads, scale_log2);
+      launch_g<DH, 8, KV>(q, k, v, k_scale, v_scale, mask, out, batch, T,
+                          kv_heads, scale_log2, stream);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -180,31 +239,58 @@ int launch_dh(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int lvr_decode_attention(const void* q, const void* k,
-                                    const void* v, const void* mask, void* out,
-                                    int batch, int T, int heads, int kv_heads,
-                                    int head_dim, float scale, void* stream) {
+template <typename KV>
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* mask, void* out, int batch, int T,
+           int heads, int kv_heads, int head_dim, float scale, void* stream) {
   if (kv_heads <= 0 || heads % kv_heads != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int group = heads / kv_heads;
   const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
+  const auto* kp = static_cast<const KV*>(k);
+  const auto* vp = static_cast<const KV*>(v);
+  const auto* ksp = static_cast<const float*>(k_scale);
+  const auto* vsp = static_cast<const float*>(v_scale);
   const auto* mp = static_cast<const uint8_t*>(mask);
   auto* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * kLog2e;
   switch (head_dim) {
     case 64:
-      return launch_dh<64>(qp, kp, vp, mp, op, batch, T, kv_heads, group, sl2, s);
+      return launch_dh<64, KV>(qp, kp, vp, ksp, vsp, mp, op, batch, T,
+                               kv_heads, group, sl2, s);
     case 128:
-      return launch_dh<128>(qp, kp, vp, mp, op, batch, T, kv_heads, group, sl2, s);
+      return launch_dh<128, KV>(qp, kp, vp, ksp, vsp, mp, op, batch, T,
+                                kv_heads, group, sl2, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// dense bf16 cache
+extern "C" int lvr_decode_attention(const void* q, const void* k,
+                                    const void* v, const void* mask, void* out,
+                                    int batch, int T, int heads, int kv_heads,
+                                    int head_dim, float scale, void* stream) {
+  return launch<bf16>(q, k, v, nullptr, nullptr, mask, out, batch, T, heads,
+                      kv_heads, head_dim, scale, stream);
+}
+
+// int8 codes [B, T, KV, Dh] with fp32 scales [B, T, KV]
+extern "C" int lvr_decode_attention_int8(const void* q, const void* k,
+                                         const void* v, const void* k_scale,
+                                         const void* v_scale, const void* mask,
+                                         void* out, int batch, int T,
+                                         int heads, int kv_heads, int head_dim,
+                                         float scale, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch<int8_t>(q, k, v, k_scale, v_scale, mask, out, batch, T, heads,
+                        kv_heads, head_dim, scale, stream);
 }
 
 extern "C" const char* lvr_error_string(int err) {

@@ -14,7 +14,13 @@ Layout mapping:
   of the tower's patch embedding, then transposes;
 - LayerNorm `ln/scale`, `ln/bias` become `weight`, `bias`;
 - the projector's `layers/#i/{kernel,bias}` become `layers.i.{weight,bias}`;
-- a feature pseudo-tower has no weights (an empty tree, an `nn.Identity`).
+- a feature pseudo-tower has no weights (an empty tree, an `nn.Identity`);
+- a weight-only quantised decoder leaf of the JAX `ops/quant.py` becomes the
+  buffers of a `QuantDense`: `{"q8" [in, out], "scale" [1, out]}` ->
+  `q8` [out, in], `scale` [out]; `{"q4" [in / 2, out] bytes, "scale"
+  [G, out]}` -> `q4` int32 [out, in / 8] in the port's nibble order
+  (`ops.quant.pack_int4`), `scale` [G, out]. The codes and scales are the
+  same numbers, so the two packages compute with the same weights.
 
 The `*_tree` functions are the inverse: the port's state dicts back to the
 JAX trees of numpy fp32 arrays, which `param_io.save_params` writes and the
@@ -28,6 +34,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..ops import quant
 from .param_io import load_params
 
 StateDict = Dict[str, torch.Tensor]
@@ -41,6 +48,52 @@ def _t(x) -> torch.Tensor:
     if a.dtype.name == "bfloat16":          # ml_dtypes bf16 from JAX
         a = a.astype(np.float32)
     return torch.from_numpy(np.array(a))       # a writable copy
+
+
+def _unpack_q4_jax(q4: np.ndarray, ng: int) -> np.ndarray:
+    """JAX packed bytes [in / 2, out] -> signed codes [in, out]: byte row j
+    of a group holds contraction row j in its low nibble and row j + half a
+    group in its high one."""
+    b = np.asarray(q4).astype(np.uint8).astype(np.int16)
+    lo, hi = b & 0xF, b >> 4
+    lo, hi = np.where(lo >= 8, lo - 16, lo), np.where(hi >= 8, hi - 16, hi)
+    half, do = b.shape[0] // ng, b.shape[1]
+    codes = np.concatenate([lo.reshape(ng, half, do),
+                            hi.reshape(ng, half, do)], axis=1)
+    return codes.reshape(2 * b.shape[0], do).astype(np.int8)
+
+
+def _pack_q4_jax(codes: np.ndarray, ng: int) -> np.ndarray:
+    """Signed codes [in, out] -> the JAX packed bytes [in / 2, out]."""
+    di, do = codes.shape
+    g = codes.astype(np.int16).reshape(ng, di // ng, do)
+    lo, hi = g[:, :di // ng // 2], g[:, di // ng // 2:]
+    packed = (lo & 0xF) | ((hi & 0xF) << 4)
+    return packed.astype(np.uint8).view(np.int8).reshape(di // 2, do)
+
+
+def _quant_leaf(leaf, prefix: str, out: StateDict) -> None:
+    """One (per-layer) JAX quantised leaf -> `QuantDense` buffers."""
+    scale = np.asarray(leaf["scale"], np.float32)
+    if "q8" in leaf:
+        out[f"{prefix}.q8"] = _t(np.asarray(leaf["q8"]).T)
+        out[f"{prefix}.scale"] = _t(scale.reshape(-1))
+    else:
+        codes = _unpack_q4_jax(leaf["q4"], scale.shape[0])
+        out[f"{prefix}.q4"] = quant.pack_int4(_t(codes.T))
+        out[f"{prefix}.scale"] = _t(scale)
+
+
+def _llama_dense(leaf, prefix: str, out: StateDict, layer=None) -> None:
+    """A decoder matmul weight, dense [in, out] or quantised, stacked over
+    layers when `layer` is given."""
+    if quant.is_quantized(leaf):
+        if layer is not None:
+            leaf = {k: np.asarray(v)[layer] for k, v in leaf.items()}
+        _quant_leaf(leaf, prefix, out)
+    else:
+        w = np.asarray(leaf) if layer is None else np.asarray(leaf[layer])
+        out[f"{prefix}.weight"] = _t(w.T)
 
 
 def _dense(tree, prefix: str, out: StateDict) -> None:
@@ -89,16 +142,17 @@ def projector_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
 
 
 def llama_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
-    """Stacked decoder params -> LlamaModel state dict."""
+    """Stacked decoder params -> LlamaModel state dict. Quantised leaves
+    (`quantize_decoder` on the JAX side) give the state dict of a decoder
+    that `ops.quant.quantize_decoder` has quantised the same way."""
     layers = tree["layers"]
     out: StateDict = {f"{prefix}embed": _t(tree["embed"]),
-                      f"{prefix}final_norm": _t(tree["final_norm"]),
-                      f"{prefix}lm_head.weight": _t(
-                          np.asarray(tree["lm_head"]).T)}
-    for i in range(np.asarray(layers["wq"]).shape[0]):
+                      f"{prefix}final_norm": _t(tree["final_norm"])}
+    _llama_dense(tree["lm_head"], f"{prefix}lm_head", out)
+    for i in range(np.asarray(layers["rms1"]).shape[0]):
         lp = f"{prefix}layers.{i}"
         for name in _LLAMA_DENSES:
-            out[f"{lp}.{name}.weight"] = _t(np.asarray(layers[name][i]).T)
+            _llama_dense(layers[name], f"{lp}.{name}", out, layer=i)
         out[f"{lp}.rms1"] = _t(np.asarray(layers["rms1"][i]))
         out[f"{lp}.rms2"] = _t(np.asarray(layers["rms2"][i]))
     return out
@@ -177,19 +231,39 @@ def vit_tree(sd: StateDict, patch_size: int,
     return {"encoder": enc}
 
 
+def _llama_dense_tree(sd: StateDict, prefix: str):
+    """Inverse of `_llama_dense` for one module: a dense [in, out] kernel or
+    the JAX quantised leaf."""
+    if f"{prefix}.weight" in sd:
+        return _np(sd[f"{prefix}.weight"]).T.copy()
+    scale = _np(sd[f"{prefix}.scale"])
+    if f"{prefix}.q8" in sd:
+        return {"q8": sd[f"{prefix}.q8"].cpu().numpy().T.copy(),
+                "scale": scale.reshape(1, -1)}
+    codes = quant._unpack_int4(sd[f"{prefix}.q4"].cpu(), torch.int8).numpy()
+    return {"q4": _pack_q4_jax(codes.T, scale.shape[0]), "scale": scale}
+
+
+def _stack(leaves):
+    if isinstance(leaves[0], dict):
+        return {k: np.stack([leaf[k] for leaf in leaves]) for k in leaves[0]}
+    return np.stack(leaves)
+
+
 def llama_tree(sd: StateDict) -> Dict[str, Any]:
     """Inverse of `llama_state_dict`: per-layer weights stacked to [L, ...],
-    Dense weights back to [in, out] kernels."""
+    Dense weights back to [in, out] kernels, `QuantDense` buffers back to
+    the JAX quantised leaves."""
     n = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
-    layers = {name: np.stack([_np(sd[f"layers.{i}.{name}.weight"]).T
-                              for i in range(n)])
+    layers = {name: _stack([_llama_dense_tree(sd, f"layers.{i}.{name}")
+                            for i in range(n)])
               for name in _LLAMA_DENSES}
     for name in ("rms1", "rms2"):
         layers[name] = np.stack([_np(sd[f"layers.{i}.{name}"])
                                  for i in range(n)])
     return {"embed": _np(sd["embed"]), "layers": layers,
             "final_norm": _np(sd["final_norm"]),
-            "lm_head": _np(sd["lm_head.weight"]).T.copy()}
+            "lm_head": _llama_dense_tree(sd, "lm_head")}
 
 
 def llava_tree(params) -> Dict[str, Any]:

@@ -8,6 +8,10 @@ on the target device; `init_weights(module, generator)` fills every module
 that defines `reset_parameters(generator)`, sampling on that device. Each
 `reset_parameters` fills only the module's own parameters, not its
 children's, so every weight is sampled once.
+
+`QuantDense` stands where a `Dense` stood once `ops.quant.quantize_decoder`
+has run: it holds the integer codes and the scales as buffers and no dense
+weight.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import Precision
+from ..ops import quant
 
 
 class Dense(nn.Module):
@@ -45,6 +50,27 @@ class Dense(nn.Module):
         self.weight.normal_(0.0, std, generator=generator)
         if self.bias is not None:
             self.bias.zero_()
+
+
+class QuantDense(nn.Module):
+    """y = x @ dequant(leaf).T for a weight-only quantised leaf of
+    `ops.quant` (`{"q8" | "q4", "scale"}`, no bias). The codes and scales
+    are buffers, so `state_dict`, `.to()` and `load_state_dict` carry them;
+    int4 on a CUDA tensor runs kernel 10."""
+
+    def __init__(self, leaf, precision: Precision):
+        super().__init__()
+        self.precision = precision
+        self.kind = "q4" if "q4" in leaf else "q8"
+        self.register_buffer(self.kind, leaf[self.kind])
+        self.register_buffer("scale", leaf["scale"])
+
+    def leaf(self):
+        return {self.kind: getattr(self, self.kind), "scale": self.scale}
+
+    def forward(self, x):
+        return quant.quant_matmul(x.to(self.precision.compute_dtype),
+                                  self.leaf())
 
 
 class LayerNorm32(nn.Module):

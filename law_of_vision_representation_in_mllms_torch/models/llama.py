@@ -16,7 +16,16 @@ Attention routes:
 
 The KV cache is a list with one `(k, v)` pair of [B, T, KV, Dh] tensors per
 layer (the JAX cache's per-layer layout). A forward writes the new K/V into
-its slots IN PLACE and returns the same list.
+its slots IN PLACE and returns the same list. `init_cache(quant="int8")`
+gives each layer `(k, v, k_scale, v_scale)`: int8 codes and fp32 scales
+[B, T, KV] (`ops.quant.quantize_kv`). Fresh K/V are quantised on write; a
+decode step reads codes and scales through kernel 3's int8 branch, the plain
+`_attention` takes them too, and the flash prefill attends over the fresh
+bf16 K/V, as in the JAX package.
+
+Weight-only quantisation: after `ops.quant.quantize_decoder` the blocks'
+`Dense` modules and the `lm_head` are `QuantDense` (int8: a plain PyTorch
+product on the cast codes; int4: kernel 10), called like a `Dense`.
 
 Training: a no-cache pass takes `remat` / `remat_policy` (the JAX `_remat`):
 "block" checkpoints every block (`torch.utils.checkpoint`, non-reentrant),
@@ -38,9 +47,10 @@ from torch.utils import checkpoint as ckpt
 from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
+from ..ops.quant import quantize_kv
 from .layers import Dense
 
-Cache = List[Tuple[torch.Tensor, torch.Tensor]]
+Cache = List[Tuple[torch.Tensor, ...]]
 DECODE_ATTN_ROUTES = ("xla", "pallas", "pallas_stacked")
 INIT_STD = 0.02   # every decoder weight ~ N(0, 0.02), as in the JAX init
 
@@ -114,18 +124,28 @@ def apply_rope(x, cos, sin):
             + rotated.float() * sin[..., None, :]).to(x.dtype)
 
 
-def _attention(q, k, v, mask, accum_dtype=torch.float32):
+def _attention(q, k, v, mask, accum_dtype=torch.float32, k_scale=None,
+               v_scale=None):
     """Plain masked GQA attention. q [B,S,H,Dh], k/v [B,T,KV,Dh], mask
-    [B,S,T] bool; fp32 softmax, probabilities cast to q.dtype before P·V."""
+    [B,S,T] bool; fp32 softmax, probabilities cast to q.dtype before P·V.
+    With `k_scale`/`v_scale` [B,T,KV], k and v are int8 cache codes: the K
+    scale multiplies the logits along the key axis, the V scale the fp32
+    probabilities before their cast."""
     b, s, nh, dh = q.shape
     nkv = k.shape[2]
     qg = q.reshape(b, s, nkv, nh // nkv, dh)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(accum_dtype),
                           k.to(accum_dtype)) * dh ** -0.5
+    if k_scale is not None:
+        logits = logits * k_scale.transpose(1, 2)[:, :, None, None, :].to(
+            logits.dtype)
     logits = torch.where(mask[:, None, None], logits,
                          torch.tensor(-1e30, dtype=accum_dtype,
                                       device=q.device))
-    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.transpose(1, 2)[:, :, None, None, :]
+    probs = probs.to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(accum_dtype),
                        v.to(accum_dtype))
     return out.reshape(b, s, nh, dh).to(q.dtype)
@@ -167,10 +187,18 @@ class LlamaBlock(nn.Module):
         q = apply_rope(self.wq(x).view(b, s, nh, hd), cos, sin)
         k = apply_rope(self.wk(x).view(b, s, nkv, hd), cos, sin)
         v = self.wv(x).view(b, s, nkv, hd)
+        k_sc = v_sc = None
         if kv_cache is not None:
-            ck, cv = kv_cache
-            ck[:, cache_index:cache_index + s] = k
-            cv[:, cache_index:cache_index + s] = v
+            ck, cv = kv_cache[:2]
+            new = slice(cache_index, cache_index + s)
+            if len(kv_cache) == 4:
+                # int8 cache: the fresh block is quantised on write
+                k_sc, v_sc = kv_cache[2:]
+                (ck[:, new], k_sc[:, new]) = quantize_kv(k)
+                (cv[:, new], v_sc[:, new]) = quantize_kv(v)
+            else:
+                ck[:, new] = k
+                cv[:, new] = v
             k_all, v_all = ck, cv
         else:
             k_all, v_all = k, v
@@ -178,10 +206,10 @@ class LlamaBlock(nn.Module):
             # right-padded prefill over the local K/V (kernel 2's contract)
             attn = flash_attention(q, k, v, causal=True)
         elif s == 1 and k_all.shape[1] > 1:
-            attn = decode_attention(q, k_all, v_all, mask[:, 0])
+            attn = decode_attention(q, k_all, v_all, mask[:, 0], k_sc, v_sc)
         else:
             attn = _attention(q, k_all, v_all, mask,
-                              self.precision.accum_dtype)
+                              self.precision.accum_dtype, k_sc, v_sc)
         h = h + self.wo(attn.reshape(b, s, nh * hd))
         x = rms_norm(h, self.rms2, cfg.rms_eps)
         return h + self.down(F.silu(self.gate(x)) * self.up(x))
@@ -287,11 +315,23 @@ def embed_tokens(params: LlamaModel, input_ids):
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> Cache:
-    """Dense KV cache: one zeroed (k, v) pair of [B, T, KV, Dh] per layer."""
+               dtype=torch.bfloat16, device=None,
+               quant: Optional[str] = None) -> Cache:
+    """KV cache: one zeroed (k, v) pair of [B, T, KV, Dh] per layer; with
+    `quant="int8"` int8 codes plus fp32 scales [B, T, KV] a layer, `(k, v,
+    k_scale, v_scale)`: half the bytes, resident and read at every step."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if quant is None:
+        return [(zeros(shape, dtype), zeros(shape, dtype))
+                for _ in range(cfg.num_layers)]
+    if quant != "int8":
+        raise ValueError(f"unknown kv cache quant {quant!r}")
+    return [(zeros(shape, torch.int8), zeros(shape, torch.int8),
+             zeros(shape[:-1], torch.float32),
+             zeros(shape[:-1], torch.float32))
             for _ in range(cfg.num_layers)]
 
 

@@ -10,7 +10,9 @@
 - `loss_fn` is the training loss: splice, decoder (kernel 2 forward and
   kernels 5/6 backward on the flash route, optional remat), causal LM loss;
 - `generate_greedy` is `prefill` (kernel 2) + a Python loop of
-  `decode_step`s (kernel 3) over a per-layer KV cache.
+  `decode_step`s (kernel 3) over a per-layer KV cache, int8 under
+  `LlavaConfig.kv_quant`. A decoder whose weights `ops.quant.
+  quantize_decoder` has quantised runs through the same functions.
 
 Not ported yet: `visual_keep` pruning, MoF and perceiver projectors, LoRA,
 context and pipeline parallelism, beam search, sampling and speculative
@@ -41,6 +43,11 @@ class LlavaConfig:
     projector_type: str = "mlp2x_gelu"
     select_layer: int = -2
     select_feature: str = "patch"
+    # KV-cache quantisation for generation ("int8" | None): int8 codes and
+    # per-(slot, head) scales (`ops.quant.quantize_kv`) halve the cache's
+    # bytes, resident and read by every decode step (kernel 3's int8
+    # branch). The weights are untouched; None is the exact bf16 cache.
+    kv_quant: Optional[str] = None
 
     @classmethod
     def build(cls, tower: str, decoder: Optional[L.LlamaConfig] = None,
@@ -163,7 +170,8 @@ def prefill(params: LlavaParams, cfg: LlavaConfig, input_ids, text_mask,
     embeds = splice_embeds(plan, txt, img)
     l_out = embeds.shape[1]
     cache = L.init_cache(cfg.decoder, b, l_out + max_new_tokens,
-                         dec.precision.compute_dtype, embeds.device)
+                         dec.precision.compute_dtype, embeds.device,
+                         quant=cfg.kv_quant)
     slot_valid = torch.cat(
         [plan.attn_mask,
          torch.zeros((b, max_new_tokens), dtype=torch.bool,

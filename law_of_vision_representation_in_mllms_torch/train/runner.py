@@ -7,6 +7,9 @@ with seeded random weights, per-tower weights from `model.tower_weights`
 `model.checkpoint` (a `param_io` .npz such as the JAX CLI's `consolidate` or
 the port's `save_train_state` writes, or a directory of `checkpoint-{step}`),
 and a stage-1 projector in `train.pretrain_mm_mlp_adapter`.
+`model.kv_quant=int8` gives generation the int8 KV cache;
+`train.quantize_base=int4|int8` trains stage 1 through a weight-only
+quantised frozen decoder (`ops.quant.quantize_decoder`).
 
 `run_training` is the single-device loop of the reference's `train.py` +
 `scripts/v1_5/train/{pretrain,finetune}.sh`: datasets, the modality-grouped
@@ -45,6 +48,7 @@ from ..io.param_io import load_params
 from ..models import llama, llava
 from ..models.towers import parse_tower_spec
 from ..models.vit import attention_route
+from ..ops.quant import quantize_decoder
 from ..utils import MetricsLogger, map_prefetch, rank0_print
 from .train_step import TrainConfig, init_train_state, make_train_step
 
@@ -53,13 +57,10 @@ _NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
 # RunConfig fields whose features the port does not have yet: field -> the
 # ROADMAP queue-1 item that brings them
 _UNPORTED = {
-    ("model", "quantize"): "7, quantisation",
-    ("model", "kv_quant"): "7, quantisation",
     ("model", "visual_keep"): "5, diffusion towers",
     ("model", "diffusion_attn_impl"): "5, diffusion towers",
 }
 _UNPORTED_TRAIN = {
-    ("train", "quantize_base"): "7, quantisation",
     ("train", "lora_enable"): "9, training variants",
     ("train", "switch_enable"): "9, training variants",
     ("parallel", "zero"): "10, parallelism",
@@ -120,7 +121,10 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
         tower_spec=spec, decoder=dec,
         projector_type=cfg.model.projector_type,
         select_layer=cfg.model.select_layer,
-        select_feature=cfg.model.select_feature)
+        select_feature=cfg.model.select_feature,
+        kv_quant=cfg.model.kv_quant)
+    if cfg.model.kv_quant not in (None, "int8"):
+        raise ValueError(f"unknown model.kv_quant {cfg.model.kv_quant!r}")
 
     device = torch.device(device)
     if generator is None:
@@ -196,6 +200,19 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
     template = get_template("plain" if cfg.train.stage == 1
                             else cfg.model.conv_template)
     model_cfg, params = build_model(cfg, device=device, precision=precision)
+    if cfg.train.quantize_base:
+        # quantised frozen base (`train.py:908-932` load_in_{4,8}bit): the
+        # integer weights take no updates, so the decoder must be frozen.
+        # The activation gradient flows through kernel 10's autograd Function
+        # (int4) or the plain cast-and-matmul (int8)
+        if cfg.train.stage != 1:
+            raise ValueError("train.quantize_base requires a frozen decoder "
+                             "(stage 1)")
+        bits = {"int8": 8, "int4": 4}.get(cfg.train.quantize_base)
+        if bits is None:
+            raise ValueError(f"train.quantize_base must be int4/int8: "
+                             f"{cfg.train.quantize_base!r}")
+        quantize_decoder(params.decoder, bits=bits)
 
     if cfg.data.feature_folder:
         ds = FeatureDataset(cfg.data.data_path, cfg.data.feature_folder,

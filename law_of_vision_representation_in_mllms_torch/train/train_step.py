@@ -14,9 +14,12 @@ but computes no frozen weight gradient, and the optimizer sees only the
 trainable parameters. The step mutates the parameters and the optimizer
 state in place.
 
-The sharded, ZeRO and offload variants, LoRA, QLoRA and the switch ablation
-are not ported (ROADMAP, queue 1: 10, parallelism; 9, training variants;
-7, quantisation).
+A decoder quantised by `ops.quant.quantize_decoder` (`train.quantize_base`,
+stage 1) holds buffers, not parameters, so it is frozen by construction.
+
+The sharded, ZeRO and offload variants, LoRA (so QLoRA's adapters) and the
+switch ablation are not ported (ROADMAP, queue 1: 10, parallelism; 9,
+training variants).
 """
 
 from __future__ import annotations

@@ -147,12 +147,18 @@ def test_flash_attention_matches_flash_mha_noncausal(s):
 
 
 def test_decode_attention_rejects_quantized_cache():
+    """An int8 cache is taken with both of its scales in the cache's
+    [B, T, KV] shape (tests/test_torch_quant.py holds the values); half a
+    pair or another shape is refused."""
     q = torch.zeros(1, 1, 2, 8)
-    kv = torch.zeros(1, 4, 2, 8)
+    kv = torch.zeros(1, 4, 2, 8, dtype=torch.int8)
     scales = torch.ones(1, 4, 2)
-    with pytest.raises(NotImplementedError):
-        decode_attention(q, kv, kv, torch.ones(1, 4, dtype=torch.bool),
-                         scales, scales)
+    mask = torch.ones(1, 4, dtype=torch.bool)
+    assert decode_attention(q, kv, kv, mask, scales, scales).shape == q.shape
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        decode_attention(q, kv, kv, mask, scales, None)
+    with pytest.raises(ValueError, match="v_scale must be"):
+        decode_attention(q, kv, kv, mask, scales, scales[..., :1])
 
 
 def test_plain_mha_and_causal_mask_match_jax():

@@ -20,12 +20,16 @@ import torch
 from law_of_vision_representation_in_mllms_torch.ops.a_score import (
     a_score_plain, max_cos)
 from law_of_vision_representation_in_mllms_torch.ops.decode_attention import (
-    decode_attention, decode_attention_plain)
+    decode_attention, decode_attention_int8, decode_attention_plain)
 from law_of_vision_representation_in_mllms_torch.ops.encoder_attention import (
     encoder_attention, encoder_attention_plain)
 from law_of_vision_representation_in_mllms_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_bwd_plain, flash_attention_plain)
+from law_of_vision_representation_in_mllms_torch.ops.int4_matmul import (
+    int4_matmul_kernel, int4_matmul_plain)
+from law_of_vision_representation_in_mllms_torch.ops.quant import (
+    dequantize_int4, quantize_int4, quantize_kv)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -93,6 +97,75 @@ def test_decode_kernel(cuda_device, h, kvh, d, t):
     got = decode_attention(q, k, v, mask)
     torch.cuda.synchronize()
     assert _close(got, decode_attention_plain(q, k, v, mask))
+
+
+@pytest.mark.parametrize("h,kvh,d,t", [(4, 4, 64, 300), (32, 32, 128, 700),
+                                       (32, 8, 128, 513)])
+def test_decode_kernel_int8_cache(cuda_device, h, kvh, d, t):
+    """Kernel 3's int8 branch on `quantize_kv` codes and scales, against the
+    plain version on the same codes; the dense counter stays put."""
+    b = 3
+    q = _randn((b, 1, h, d), 0, cuda_device)
+    kc, ks = quantize_kv(_randn((b, t, kvh, d), 1, cuda_device))
+    vc, vs = quantize_kv(_randn((b, t, kvh, d), 2, cuda_device))
+    rng = np.random.RandomState(3)
+    mask = rng.rand(b, t) < 0.7
+    mask[:, 128:256] = False
+    mask[:, 0] = True
+    mask = torch.from_numpy(mask).to(cuda_device)
+    before = (decode_attention.launches, decode_attention_int8.launches)
+    got = decode_attention(q, kc, vc, mask, ks, vs)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches, decode_attention_int8.launches) == (
+        before[0], before[1] + 1)
+    assert _close(got, decode_attention_plain(q, kc, vc, mask, ks, vs))
+    with pytest.raises(ValueError, match="k must be"):
+        decode_attention(q, kc.float(), vc, mask, ks, vs)
+
+
+@pytest.mark.parametrize("m,di,do,group", [
+    (1, 128, 8, 128), (4, 4096, 4096, 128), (7, 512, 1000, 128),
+    (13, 1024, 264, 256), (16, 11008, 512, 128), (17, 256, 72, 128),
+    (300, 4096, 1024, 128), (129, 768, 1000, None)])
+def test_int4_matmul_kernel(cuda_device, m, di, do, group):
+    """Kernel 10 against its plain version: both bodies (M <= 16 with 8 and
+    16 rows, M > 16), ragged M and channel counts no tile divides, groups of
+    one and several k-tiles. The sums are exact products in fp32 in another
+    order, the outputs bf16: 2 bf16 ulps of the largest output."""
+    rng = np.random.RandomState(m + di)
+    w = torch.from_numpy(rng.randn(do, di).astype(np.float32) * 0.05)
+    leaf = {k: v.to(cuda_device)
+            for k, v in quantize_int4(w, group_size=group).items()}
+    x = _randn((m, di), 1, cuda_device)
+    before = int4_matmul_kernel.launches
+    got = int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
+    torch.cuda.synchronize()
+    assert int4_matmul_kernel.launches == before + 1
+    want = int4_matmul_plain(x, leaf["q4"], leaf["scale"])
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2 ** -6 * max(1.0, want.float().abs().max().item())
+    assert torch.equal(got, int4_matmul_kernel(x, leaf["q4"], leaf["scale"]))
+
+
+def test_int4_matmul_kernel_gradient_and_errors(cuda_device):
+    """Autograd through kernel 10 gives dx = dy @ dequant(W); shapes the
+    kernel does not take raise on a CUDA tensor instead of falling back."""
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy(rng.randn(64, 256).astype(np.float32) * 0.05)
+    leaf = {k: v.to(cuda_device) for k, v in quantize_int4(w).items()}
+    x = _randn((5, 256), 1, cuda_device).requires_grad_()
+    dy = _randn((5, 64), 2, cuda_device)
+    y = int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
+    (dx,) = torch.autograd.grad(y, x, dy)
+    want = dy.float() @ dequantize_int4(leaf)
+    assert _close(dx, want)
+    small = {k: v.to(cuda_device)
+             for k, v in quantize_int4(torch.zeros(16, 64)).items()}
+    with pytest.raises(ValueError, match="CUDA kernel needs"):
+        int4_matmul_kernel(_randn((2, 64), 3, cuda_device), small["q4"],
+                           small["scale"])
+    with pytest.raises(ValueError, match="bfloat16"):
+        int4_matmul_kernel(x.detach().float(), leaf["q4"], leaf["scale"])
 
 
 @pytest.mark.parametrize("causal,kv_len,s,h,kvh,d", [

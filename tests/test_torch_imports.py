@@ -54,7 +54,8 @@ def test_every_port_module_imports_without_jax():
                 "eval.evaluator", "eval.task", "eval.metrics", "eval.tasks",
                 "eval.tasks.paper_tasks", "eval.runner", "policy",
                 "policy.fit", "policy.data", "policy.predict",
-                "policy.validate"):
+                "policy.validate", "ops.quant", "ops.int4_matmul",
+                "models.layers"):
         assert f"{PKG}.{mod}" in out["names"]
 
 
@@ -94,7 +95,8 @@ def test_no_port_source_names_a_jax_import():
         assert not pattern.search(open(path).read()), path
 
 
-@pytest.mark.parametrize("op", ["encoder", "flash", "decode", "a_score"])
+@pytest.mark.parametrize("op", ["encoder", "flash", "decode", "a_score",
+                                "decode_int8", "int4"])
 def test_wrappers_take_plain_path_on_cpu(op):
     out = _run(f"""
         import json, sys
@@ -105,7 +107,11 @@ def test_wrappers_take_plain_path_on_cpu(op):
         from {PKG}.ops.flash_attention import (flash_attention,
                                                flash_attention_plain)
         from {PKG}.ops.decode_attention import (decode_attention,
+                                                decode_attention_int8,
                                                 decode_attention_plain)
+        from {PKG}.ops.int4_matmul import (int4_matmul_kernel,
+                                           int4_matmul_plain)
+        from {PKG}.ops.quant import quantize_int4, quantize_kv
         from {PKG}.ops.a_score import a_score_plain, max_cos
         g = torch.Generator().manual_seed(0)
         q = torch.randn(2, 20, 4, 8, generator=g)
@@ -125,6 +131,20 @@ def test_wrappers_take_plain_path_on_cpu(op):
             wrapper = decode_attention
             same = torch.equal(decode_attention(q[:, :1], kv, kv, mask),
                                decode_attention_plain(q[:, :1], kv, kv, mask))
+        elif "{op}" == "decode_int8":
+            wrapper = decode_attention_int8
+            (kc, ks), (vc, vs) = quantize_kv(kv), quantize_kv(kv + 1)
+            same = torch.equal(
+                decode_attention(q[:, :1], kc, vc, mask, ks, vs),
+                decode_attention_plain(q[:, :1], kc, vc, mask, ks, vs))
+            same = same and decode_attention.launches == 0
+        elif "{op}" == "int4":
+            wrapper = int4_matmul_kernel
+            leaf = quantize_int4(torch.randn(16, 256, generator=g))
+            x = torch.randn(3, 256, generator=g)
+            same = torch.equal(
+                int4_matmul_kernel(x, leaf["q4"], leaf["scale"]),
+                int4_matmul_plain(x, leaf["q4"], leaf["scale"]))
         else:
             wrapper = max_cos
             t, a = q[:, :, 0], kv[:, :12, 0]

@@ -287,7 +287,7 @@ def test_unported_options_raise():
         parse_tower_spec("runwayml/stable-diffusion-v1-5")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lmm(RunConfig.from_dict(
-            {"model": dict(TINY["model"], kv_quant="int8")}), device="cpu")
+            {"model": dict(TINY["model"], visual_keep=0.5)}), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lmm(RunConfig.from_dict(
             {"model": dict(TINY["model"], gen_backend="chunked")}),

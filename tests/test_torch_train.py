@@ -14,6 +14,10 @@ Tolerances (fp32 on both sides, same formulas, summation order differs):
 loss 1e-5 relative; gradients 1e-6 absolute + 1e-4 relative; parameters
 after 3 AdamW steps 1e-6 absolute + 1e-4 relative (Adam divides by
 sqrt(v), which amplifies a gradient's rounding where v is tiny).
+The runner tests (`_check_run`) add that amplification to the parameter
+tolerance entry by entry: their captions go through the hash tokenizer,
+whose ids change with the process, so each run trains on other ids and now
+and then meets an entry whose gradient is ~100 times smaller than the rest.
 """
 
 import dataclasses
@@ -64,6 +68,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_RTOL = 1e-5
 GRAD_TOL = dict(atol=1e-6, rtol=1e-4)
 PARAM_TOL = dict(atol=1e-6, rtol=1e-4)
+# the two packages' gradients differ in their last bits (other summation
+# orders); the largest entries are ~1, so 1e-7 is about two fp32 ulps of them
+GRAD_ROUNDING = 1e-7
 
 
 def _configs(seed=0):
@@ -322,22 +329,61 @@ def _run_both(tmp_path, raw):
     return want, run, traw["train"]["output_dir"]
 
 
-def _check_run(want, run, out_dir):
+def _logs(out_dir):
     lines = open(os.path.join(out_dir, "train.jsonl")).read().split("\n")
-    logs = [json.loads(ln) for ln in lines if ln]
+    return [json.loads(ln) for ln in lines if ln]
+
+
+def _adam_tolerance(run, name, w):
+    """Entry-wise bound on |port - JAX| for a trained parameter: PARAM_TOL
+    plus what Adam makes of the gradients' rounding. An update is
+    lr * m_hat / (sqrt(v_hat) + eps), so a gradient off by GRAD_ROUNDING
+    moves it by about lr * GRAD_ROUNDING / sqrt(v_hat): next to nothing where
+    the gradient is of ordinary size, up to the whole step (lr) where it is
+    near zero. Summed over the steps taken and capped at 2 * lr a step. A
+    wrong schedule, weight decay or layout moves the ordinary entries by
+    ~lr * 1e-2 or more, far outside it."""
+    opt = run.opt
+    nu = dict(zip((n for n, _ in opt.named_params), opt.nu))[name]
+    v_hat = nu.float().numpy() / (1.0 - opt.cfg.b2 ** opt.count)
+    lr = opt.cfg.learning_rate
+    amplified = opt.count * lr * np.minimum(
+        GRAD_ROUNDING / (np.sqrt(v_hat) + 1e-8), 2.0)
+    return PARAM_TOL["atol"] + PARAM_TOL["rtol"] * np.abs(w) + amplified
+
+
+def _check_run(want, run, out_dir):
+    logs = _logs(out_dir)
     assert len(logs) == run.state["step"] >= 2
     assert all(np.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0.0
                for r in logs)
+    # step by step against the JAX runner's log: from step 2 on the loss and
+    # the gradient norm depend on every update before them
+    jlogs = _logs(out_dir[:-len("_port")])
+    assert len(jlogs) == len(logs)
+    for r, jr in zip(logs, jlogs):
+        np.testing.assert_allclose(r["loss"], jr["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(r["grad_norm"], jr["grad_norm"],
+                                   rtol=GRAD_TOL["rtol"])
     for f in ("mm_projector.npz", "mm_projector.bin", "config.json"):
         assert os.path.exists(os.path.join(out_dir, f))
     got = tckpt.load_projector(out_dir)
     assert torch.equal(got["layers.0.weight"],
                        run.state["params"].projector.layers[0].weight)
+    n_tight = n_all = 0
     for i, layer in enumerate(want["layers"]):
-        np.testing.assert_allclose(got[f"layers.{i}.weight"].numpy(),
-                                   layer["kernel"].T, **PARAM_TOL)
-        np.testing.assert_allclose(got[f"layers.{i}.bias"].numpy(),
-                                   layer["bias"], **PARAM_TOL)
+        for name, w in (("weight", layer["kernel"].T),
+                        ("bias", layer["bias"])):
+            key = f"layers.{i}.{name}"
+            diff = np.abs(got[key].numpy() - w)
+            tol = _adam_tolerance(run, f"projector.{key}", w)
+            assert (diff <= tol).all(), (key, float((diff - tol).max()))
+            n_tight += int((diff <= PARAM_TOL["atol"]
+                            + PARAM_TOL["rtol"] * np.abs(w)).sum())
+            n_all += diff.size
+    # the amplified entries are the exception: PARAM_TOL alone holds for
+    # all but a few in ten thousand
+    assert n_tight >= 0.999 * n_all, (n_tight, n_all)
 
 
 def test_run_training_feature_cached_matches_jax(tmp_path):
@@ -354,7 +400,7 @@ def test_run_training_feature_cached_matches_jax(tmp_path):
                      "decoder": "tiny"},
            "train": {"stage": 1, "batch_size": 2, "epochs": 1,
                      "bf16": False, "max_length": 64, "learning_rate": 1e-2,
-                     "warmup_ratio": 0.0,
+                     "warmup_ratio": 0.0, "weight_decay": 0.1,
                      "output_dir": str(tmp_path / "out"), "save_steps": 1000},
            "data": {"data_path": _write_data(tmp_path),
                     "feature_folder": str(feats)},
@@ -471,7 +517,6 @@ def test_unported_training_options_raise():
             "train": {"bf16": False}}
     for section, key, value in (("train", "lora_enable", True),
                                 ("train", "switch_enable", True),
-                                ("train", "quantize_base", "int4"),
                                 ("parallel", "zero", 2),
                                 ("parallel", "n_model", 2)):
         raw = json.loads(json.dumps(base))
