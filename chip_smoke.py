@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training, law-chain and quantised
-serving paths on one NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port's serving, training, law-chain, quantised
+serving, MPT and training-variant paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -27,7 +27,12 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      branch at B=4 T=704 H=32 Dh=128 with holes and a GQA case (library:
      SDPA on the dequantised cache); kernel 3 dense against int8 at B=1, 4,
      16, 32 over rotating caches (the kv8 crossover); and what the int8
-     weights' cast costs a call;
+     weights' cast costs a call. ALiBi: kernels 2, 5 and 6 with the
+     in-kernel bias at MPT-7B's shape (B=2, S=2,048, H=32, D=128, causal), a
+     ragged S, H=6 at D=64, a GQA case with a kv_len tail, and each LSE;
+     timed in turns with the same kernels without the bias (what the term
+     costs); library: SDPA with the bias materialised as `attn_mask`, and
+     its backward;
   3. a narrow LLaVA (4-layer 336 px tower, head_dim 64, 3 decoder layers with
      GQA): the logits of the prefill and of 3 decode steps on CUDA with the
      kernels in bf16 against the same weights on the CPU with the plain path
@@ -44,6 +49,10 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      same codes and scales on the CPU in fp32; and 3 stage-1 training steps
      through the int4 frozen decoder (`train.quantize_base`), CUDA against
      CPU as in 3b;
+  3e. a narrow MPT (3 layers, 4 heads of 64): logits and `wqkv` gradients,
+     CUDA bf16 through the ALiBi kernels against CPU fp32 on the plain
+     biased attention; and 3b's three steps for the training variants: LoRA
+     (rank 8), QLoRA (the same over the int4 base) and the switch matrix;
   4. the serving slice at full width: LLaVA-1.5-7B (CLIP-L/14-336 +
      mlp2x_gelu + Vicuna-7B) with seeded random bf16 weights answers 4
      requests through `LlavaLMM.generate_until`; every serving kernel's
@@ -75,7 +84,19 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      the bf16 run's. Then the same with `model.quantize=int8`;
   8. a torch.profiler split of the decode step's device time for the three
      weight formats (last: the profiler's tracing stays attached to the
-     process and slows every later launch).
+     process and slows every later launch);
+  9. (after phase 7, before phase 5) MPT-7B at full width (vocab 50,432,
+     d 4,096, 32 layers, 32 heads; seeded random bf16): a forward at B=2,
+     S=2,048 and a forward + backward of the next-token loss; finite logits
+     and gradients; the ALiBi form of kernel 2 launched 32 times a pass, of
+     kernels 5 and 6 32 times each; tokens/s and peak memory;
+  10. (after phase 9) LLaVA-1.5-7B through `run_training`, stage 2, 3 steps
+     of 16: `train.lora_enable` (r=128, alpha=256), the same with
+     `train.quantize_base=int4` (QLoRA: kernel 10 under autograd) and
+     `train.switch_enable`. Finite losses, no skipped step, the frozen
+     weights bitwise those of a fresh build, every B non-zero (only W moved
+     under switch), the saved files load back, and `load_pretrained` (which
+     merges the adapters) then a prefill gives the adapted logits.
 
 TF32 is switched off (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`) so every plain version runs in
@@ -90,6 +111,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -336,7 +358,9 @@ def report_kernel(tag: str, name: str, r: dict) -> None:
 def check_flash_bwd(tag: str, dev) -> dict:
     """Phase 2, training kernels: 5 (dq) and 6 (dk/dv) against the plain
     backward on the same bf16 inputs and saved output/LSE (kernel 2's), at
-    the training step's shape, a GQA case and a ragged S."""
+    the stage-1 step's shape (S=639), the stage-2 steps' (S=703: LoRA,
+    QLoRA, switch), a GQA case and a ragged S. Kernel 2's causal forward
+    and LSE are held to their plain version at each of these shapes too."""
     import torch
     from law_of_vision_representation_in_mllms_torch.ops import (
         flash_attention as fl)
@@ -350,10 +374,20 @@ def check_flash_bwd(tag: str, dev) -> dict:
     errs = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
     times = {}
     for b, s, kvh, timed in ((16, 639, 32, True), (16, 639, 8, True),
-                             (16, 100, 32, False)):
+                             (16, 703, 32, False), (16, 100, 32, False)):
         q, do = randn(b, s, 32, 128), randn(b, s, 32, 128)
         k, v = randn(b, s, kvh, 128), randn(b, s, kvh, 128)
         out, lse = fl.flash_attention(q, k, v, causal=True, return_lse=True)
+        ro, rl = fl.flash_attention_plain(q, k, v, causal=True,
+                                          return_lse=True)
+        e_out, e_lse = max_err(out, ro), max_err(lse, rl)
+        print(f"{tag} kernel 2 [B={b} S={s} H=32 KV={kvh} D=128 causal]: "
+              f"max_abs_err {e_out:.3e} (tol {kernel_tol(ro):.3e}), LSE "
+              f"{e_lse:.3e} (tol {LSE_TOL})")
+        if not (e_out <= kernel_tol(ro) and e_lse <= LSE_TOL):
+            fail(f"kernel 2 disagrees with its plain version at B={b} "
+                 f"S={s} KV={kvh}: out {e_out}, LSE {e_lse}")
+        del ro, rl
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
         delta = delta.contiguous()
         args = (q, k, v, out, lse, do, delta)
@@ -407,7 +441,8 @@ def check_flash_bwd(tag: str, dev) -> dict:
                      f"{t['library']:.4f} ms" if "library" in t else ""))
             times.setdefault("t", t)          # the MHA case is reported
         del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv
-    shape = "B=16 S=639 H=KV=32 D=128 causal (+ GQA KV=8, ragged S=100)"
+    shape = ("B=16 S=639 H=KV=32 D=128 causal (+ GQA KV=8, S=703, ragged "
+             "S=100)")
     t = times["t"]
     # causal pairs of one head; recomputed S and dP, then dQ (kernel 5) or
     # dV and dK (kernel 6): 3 and 4 products of 2*D flops a pair. Bytes:
@@ -432,6 +467,175 @@ def check_flash_bwd(tag: str, dev) -> dict:
               f"{r['bound_by']} ({r['bound_ms'] / r['ms']:.1%} of it "
               f"reached); the library's one backward call does the work of "
               f"kernels 5 and 6 together")
+    return results
+
+
+def reset_counts(counters: dict) -> None:
+    """`counters` maps a kernel's name to (wrapper, attribute): the wrapper's
+    own count of its launches (`launches`), or of those among them that ran
+    its ALiBi instantiation (`alibi_launches`)."""
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: getattr(wrapper, attr)
+            for name, (wrapper, attr) in counters.items()}
+
+
+def check_flash_alibi(tag: str, dev) -> dict:
+    """Phase 2, kernels 2, 5 and 6 with the in-kernel ALiBi bias against
+    their plain versions (materialised bias) in bf16: MPT-7B's shape (B=2,
+    S=2,048, H=32, D=128, causal), a ragged S, H=6 at D=64 (interleaved
+    slopes), a GQA case with a kv_len tail, and the LSE of each. At MPT-7B's
+    shape: the ALiBi and the non-ALiBi instantiations timed in turns (what
+    the term costs), the bound, and the library yardstick: one
+    `scaled_dot_product_attention` call with the materialised bias and the
+    causal mask as `attn_mask`, and its backward."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models.mpt import (
+        alibi_slopes)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        flash_attention as fl)
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    names = ("flash_attention_alibi", "flash_attention_bwd_dq_alibi",
+             "flash_attention_bwd_dkv_alibi")
+    errs = {n: [] for n in names}
+    t = {}
+    for b, s, h, kvh, d, kv_len, timed in (
+            (2, 2048, 32, 32, 128, None, True), (2, 333, 8, 8, 128, None, False),
+            (2, 190, 6, 6, 64, None, False), (2, 190, 8, 2, 128, 150, False)):
+        q, do = randn(b, s, h, d), randn(b, s, h, d)
+        k, v = randn(b, s, kvh, d), randn(b, s, kvh, d)
+        slopes = alibi_slopes(h, device=dev)
+        kw = dict(causal=True, kv_len=kv_len, alibi_slopes=slopes)
+        out, lse = fl.flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = fl.flash_attention_plain(q, k, v, return_lse=True,
+                                                **kw)
+        e_lse = max_err(lse, ref_lse)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        args = (q, k, v, out, lse, do, delta)
+        dq = fl.flash_attention_bwd_dq(*args, **kw)
+        dk, dv = fl.flash_attention_bwd_dkv(*args, **kw)
+        rq, rk, rv = fl.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        case = (f"B={b} S={s} H={h} KV={kvh} D={d} causal ALiBi"
+                + (f" kv_len={kv_len}" if kv_len else ""))
+        e = {n: (max_err(got, r), kernel_tol(r))
+             for n, got, r in (("out", out, ref), ("dq", dq, rq),
+                               ("dk", dk, rk), ("dv", dv, rv))}
+        print(f"{tag} kernels 2/5/6 [{case}]: " + ", ".join(
+            f"{n} max_abs_err {err:.3e} (tol {tol:.3e})"
+            for n, (err, tol) in e.items())
+            + f", LSE max_abs_err {e_lse:.3e} (tol {LSE_TOL}; LSE down to "
+              f"{ref_lse.min().item():.1f})")
+        if e_lse > LSE_TOL:
+            fail(f"flash_attention ALiBi LSE err {e_lse} > {LSE_TOL} at "
+                 f"{case}")
+        for n, (err, tol) in e.items():
+            if not err <= tol:
+                fail(f"ALiBi {n} disagrees with the plain version at "
+                     f"{case}: {err} > {tol}")
+        # the bias is really in the kernels: without it they give another
+        # result
+        if max_err(fl.flash_attention(q, k, v, causal=True, kv_len=kv_len),
+                   ref) <= e["out"][1]:
+            fail(f"the ALiBi bias changes nothing at {case}")
+        errs[names[0]].append(e["out"])
+        errs[names[1]].append(e["dq"])
+        errs[names[2]] += [e["dk"], e["dv"]]
+        if not timed:
+            continue
+        nokw = dict(causal=True)
+        out0, lse0 = fl.flash_attention(q, k, v, return_lse=True, **nokw)
+        delta0 = (do.float() * out0.float()).sum(-1).transpose(1, 2)
+        args0 = (q, k, v, out0, lse0, do, delta0.contiguous())
+        runs = {
+            "fwd": (lambda: fl.flash_attention(q, k, v, **kw),
+                    lambda: fl.flash_attention(q, k, v, **nokw)),
+            "dq": (lambda: fl.flash_attention_bwd_dq(*args, **kw),
+                   lambda: fl.flash_attention_bwd_dq(*args0, **nokw)),
+            "dkv": (lambda: fl.flash_attention_bwd_dkv(*args, **kw),
+                    lambda: fl.flash_attention_bwd_dkv(*args0, **nokw))}
+        for name, (with_bias, without) in runs.items():
+            # in turns on one card: without, with, with, without
+            a0, b0 = graph_ms(without, 10, 5), graph_ms(with_bias, 10, 5)
+            b1, a1 = graph_ms(with_bias, 10, 5), graph_ms(without, 10, 5)
+            t[name], t[name + "_nobias"] = (b0 + b1) / 2, (a0 + a1) / 2
+        t["plain_fwd"] = cuda_ms(lambda: fl.flash_attention_plain(
+            q, k, v, **kw), iters=5)
+        t["plain_bwd"] = cuda_ms(lambda: fl.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, **kw), iters=3, warmup=1)
+        # the library: the bias and the causal mask materialised as one
+        # additive [1, H, S, S] mask, which SDPA takes in the inputs' bf16.
+        # In the kernels' form slope * (j - (S - 1)) a row's near keys sit
+        # at a bias of hundreds, where bf16 no longer tells neighbouring
+        # keys apart; the mask holds slope * (j - i) instead, which differs
+        # by a constant per row and gives the same output and gradients
+        pos = torch.arange(s, device=dev, dtype=torch.float32)
+        bias = slopes[:, None, None] * (pos[None, :] - pos[:, None])
+        causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        lib_mask = bias.masked_fill(~causal, float("-inf"))[None].to(
+            torch.bfloat16)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_out = sdpa(ql, kl, vl, attn_mask=lib_mask)
+        lib_grads = torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                        retain_graph=True)
+        # the library rounds the bias to bf16, the kernels keep it in fp32:
+        # twice the kernels' tolerance
+        for n, got, r in zip(("out", "dq", "dk", "dv"),
+                             (lib_out,) + lib_grads, (ref, rq, rk, rv)):
+            lib_err = max_err(got, r)
+            print(f"{tag} library (SDPA with a bf16 bias mask) {n} "
+                  f"max_abs_err {lib_err:.3e} vs the plain version")
+            if not lib_err <= 2 * kernel_tol(r):
+                fail(f"the ALiBi library yardstick's {n} computes another "
+                     f"function: {lib_err}")
+        with torch.no_grad():
+            t["lib_fwd"] = graph_ms(lambda: sdpa(q, k, v, attn_mask=lib_mask),
+                                    10, 5)
+        t["lib_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do, retain_graph=True), iters=10)
+        del ql, kl, vl, lib_out, lib_grads, lib_mask, bias, causal
+        pairs = s * (s + 1) // 2
+        tensor, stats = b * s * h * d * 2, b * h * s * 4
+        bounds = {
+            names[0]: bound(4 * tensor, 4 * d * pairs * b * h,
+                            H100_BF16_TFLOPS),
+            names[1]: bound(5 * tensor + 2 * stats, 6 * d * pairs * b * h,
+                            H100_BF16_TFLOPS),
+            names[2]: bound(6 * tensor + 2 * stats, 8 * d * pairs * b * h,
+                            H100_BF16_TFLOPS)}
+        shape = (f"B={b} S={s} H=KV={h} D={d} causal ALiBi (+ ragged S=333, "
+                 f"H=6 D=64, GQA KV=2 kv_len=150)")
+        del out0, lse0, delta0, args0
+    results = {
+        names[0]: dict(ms=t["fwd"], noalibi_ms=t["fwd_nobias"],
+                       plain_ms=t["plain_fwd"], library_ms=t["lib_fwd"]),
+        names[1]: dict(ms=t["dq"], noalibi_ms=t["dq_nobias"],
+                       plain_ms=t["plain_bwd"], library_ms=t["lib_bwd"]),
+        names[2]: dict(ms=t["dkv"], noalibi_ms=t["dkv_nobias"],
+                       plain_ms=t["plain_bwd"], library_ms=t["lib_bwd"])}
+    for name, r in results.items():
+        r.update(err=max(e for e, _ in errs[name]),
+                 tol=min(tol for _, tol in errs[name]), shape=shape,
+                 **bounds[name])
+        print(f"{tag} kernel {name} [{shape}]: {r['ms']:.4f} ms with the "
+              f"bias, {r['noalibi_ms']:.4f} ms without it (x"
+              f"{r['ms'] / r['noalibi_ms']:.3f}); plain "
+              f"{r['plain_ms']:.4f} ms"
+              + (" (dq, dk, dv together)" if "bwd" in name else "")
+              + f"; library {r['library_ms']:.4f} ms"
+              + (" (its one backward call does the work of kernels 5 and 6 "
+                 "together)" if "bwd" in name else "")
+              + f"; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['bound_ms'] / r['ms']:.1%} of it reached)")
     return results
 
 
@@ -512,8 +716,10 @@ def rotating(make, nbytes: float) -> list:
 
 def check_int4_matmul(tag: str, dev) -> dict:
     """Phase 2, kernel 10 against its plain version at the four 7B weight
-    shapes, at a decode step's M and a prefill's. Library yardstick:
-    `torch.matmul` on the same weight dequantised to bf16."""
+    shapes, at a decode step's M (4), a prefill's (4 x 703) and a QLoRA
+    training step's (16 x 703, where also its plain backward `dx = dy @
+    dequant(W)` is timed). Library yardstick: `torch.matmul` on the same
+    weight dequantised to bf16."""
     import torch
     from law_of_vision_representation_in_mllms_torch.ops import (
         int4_matmul as K, quant as Q)
@@ -529,12 +735,19 @@ def check_int4_matmul(tag: str, dev) -> dict:
         leaves = rotating(make_leaf, wbytes)
         dense = [Q.dequantize_int4(leaf, torch.bfloat16) for leaf in leaves]
         leaf_turn, dense_turn = itertools.cycle(leaves), itertools.cycle(dense)
-        for m in (4, 2812):
+        for m in (4, 2812, 11248):
             x = torch.randn((m, di), generator=g, device=dev,
                             dtype=torch.bfloat16)
             leaf = leaves[0]
+
+            def plain():
+                # the plain version holds an fp32 partial for every group:
+                # rows go through it 2,812 at a time
+                parts = [K.int4_matmul_plain(rows, leaf["q4"], leaf["scale"])
+                         for rows in x.split(2812)]
+                return parts[0] if len(parts) == 1 else torch.cat(parts)
             got = K.int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
-            ref = K.int4_matmul_plain(x, leaf["q4"], leaf["scale"])
+            ref = plain()
             tol = INT4_REL_TOL * max(1.0, ref.float().abs().max().item())
             lib_err = max_err(x @ dense[0].T, ref)
 
@@ -547,8 +760,7 @@ def check_int4_matmul(tag: str, dev) -> dict:
             timer = graph_ms if m <= 16 else cuda_ms
             r = dict(
                 err=max_err(got, ref), tol=tol, ms=timer(kernel),
-                plain_ms=cuda_ms(lambda: K.int4_matmul_plain(
-                    x, leaf["q4"], leaf["scale"]), iters=3, warmup=1),
+                plain_ms=cuda_ms(plain, iters=3, warmup=1),
                 library_ms=timer(library), library_err=lib_err,
                 shape=f"M={m} {di}->{do} group 128, {len(leaves)} weights "
                       f"in turn",
@@ -567,6 +779,18 @@ def check_int4_matmul(tag: str, dev) -> dict:
                 "bound_by")})
             if (di, do, m) == (4096, 4096, 4):
                 headline = r
+            if m == 11248:
+                # what autograd runs for kernel 10's input gradient
+                dy = torch.randn((m, do), generator=g, device=dev,
+                                 dtype=torch.bfloat16)
+                bwd_ms = cuda_ms(lambda: dy @ Q.dequantize_int4(
+                    next(leaf_turn), torch.bfloat16))
+                mm_ms = cuda_ms(lambda: dy @ next(dense_turn))
+                print(f"{tag} int4_matmul backward [M={m} {di}->{do}]: dx = "
+                      f"dy @ dequant(W) {bwd_ms:.4f} ms, of which the "
+                      f"product alone {mm_ms:.4f} ms")
+                del dy
+            del x, got, ref
         del leaves, dense
     return {"int4_matmul": dict(headline, cases=cases,
                                 err=max(c["err"] for c in cases))}
@@ -860,18 +1084,25 @@ def check_narrow_llava(tag: str, dev, quantize=None, kv_quant=None) -> None:
         fail(f"{label} logits disagree: {err} > {tol}")
 
 
-def check_narrow_training(tag: str, dev, quantize_base=None) -> None:
+def check_narrow_training(tag: str, dev, quantize_base=None,
+                          variant=None) -> None:
     """Phase 3b: 3 stage-1 `make_train_step` steps on one batch of the
     narrow LLaVA, CUDA bf16 compute (fp32 weights; flash route with kernels
     2, 5 and 6 under block remat) against CPU fp32 plain attention, from the
-    same weights. Per step: the loss and the projector gradient. Phase 3d
-    repeats it through an int4 frozen decoder (`quantize_base`): kernel 10
-    forward under autograd, `dy @ dequant(W)` backward."""
+    same weights. Per step: the loss and the gradient of what trains (the
+    projector). Phase 3d repeats it through an int4 frozen decoder
+    (`quantize_base`): kernel 10 forward under autograd, `dy @ dequant(W)`
+    backward. `variant="lora"` trains rank-8 adapters (with a small non-zero
+    B, so that A's gradient is not 0) and the projector over the frozen
+    decoder, with `quantize_base` over the int4 one (QLoRA);
+    `variant="switch"` trains the switch matrix alone."""
     import numpy as np
     import torch
     from law_of_vision_representation_in_mllms_torch.core.precision import (
         DEFAULT_PRECISION, FP32_PRECISION)
     from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models import (
+        lora as LR, switch as SW)
     from law_of_vision_representation_in_mllms_torch.models.splice import (
         IGNORE_INDEX, IMAGE_TOKEN_INDEX)
     from law_of_vision_representation_in_mllms_torch.ops import (
@@ -885,12 +1116,39 @@ def check_narrow_training(tag: str, dev, quantize_base=None) -> None:
     cpu = M.init_params(torch.Generator().manual_seed(1), cfg,
                         FP32_PRECISION, "cpu")
     gpu = M.LlavaParams(cfg, DEFAULT_PRECISION, device=dev)
+    extra = {}
+    if variant == "lora":
+        lcfg = LR.LoraConfig(rank=8, alpha=16.0)
+        cpu.lora = LR.init_lora(torch.Generator().manual_seed(2), cfg.decoder,
+                                lcfg, FP32_PRECISION, "cpu")
+        with torch.no_grad():
+            for layer in cpu.lora.layers:
+                for t in layer.targets:
+                    getattr(layer, f"{t}_b").normal_(
+                        0.0, 0.02, generator=torch.Generator().manual_seed(3))
+        gpu.lora = LR.LoraAdapters(cfg.decoder, lcfg, DEFAULT_PRECISION,
+                                   device=dev)
+        # Adam moves every entry by about lr a step whatever its gradient's
+        # size, so where a tiny gradient's sign differs between the sides
+        # the parameters part by 2 lr; a tenth of phase 3b's rate keeps the
+        # third step's gradients comparable (A's entries are ~0.01 themselves)
+        extra = dict(stage=2, lora_rank=lcfg.rank, lora_alpha=lcfg.alpha,
+                     learning_rate=1e-3)
+    elif variant == "switch":
+        cpu.switch = SW.init_switch(torch.Generator().manual_seed(2),
+                                    cfg.decoder.hidden_size, FP32_PRECISION,
+                                    "cpu")
+        gpu.switch = SW.Switch(cfg.decoder.hidden_size, DEFAULT_PRECISION,
+                               device=dev)
+        extra = dict(stage=2, switch_sigma=1.0)
     gpu.load_state_dict(cpu.state_dict())
     if quantize_base:
         quantise_pair(cpu, gpu, 4 if quantize_base == "int4" else 8)
     k10_before = K.int4_matmul_kernel.launches
-    what = ("narrow training" if not quantize_base
-            else f"narrow training quantize_base={quantize_base}")
+    what = " ".join(["narrow training"] + ([f"variant={variant}"] if variant
+                                           else [])
+                    + ([f"quantize_base={quantize_base}"] if quantize_base
+                       else []))
 
     rng = np.random.RandomState(1)
     b, n = 4, 40
@@ -910,29 +1168,42 @@ def check_narrow_training(tag: str, dev, quantize_base=None) -> None:
                 "text_mask": torch.from_numpy(mask).to(device),
                 "pixel_values": [torch.from_numpy(px).to(device)]}
 
-    tc_ref = TS.TrainConfig(stage=1, learning_rate=1e-2, warmup_ratio=0.0,
-                            total_steps=TRAIN_STEPS)
+    tc_ref = TS.TrainConfig(**dict(dict(
+        stage=1, learning_rate=1e-2, warmup_ratio=0.0,
+        total_steps=TRAIN_STEPS), **extra))
     tc_got = dataclasses.replace(tc_ref, use_flash=True, remat=True)
     sides = []
     for params, tc, device in ((cpu, tc_ref, "cpu"), (gpu, tc_got, dev)):
         state, opt = TS.init_train_state(params, tc)
         sides.append((params, tc, batch(device), state,
-                      TS.make_train_step(cfg, tc, opt)))
+                      TS.make_train_step(cfg, tc, opt),
+                      [p for _, p in opt.named_params]))
+    trained = sorted({n.split(".")[0] for n, _ in opt.named_params})
+    if trained != {None: ["projector"], "lora": ["lora", "projector"],
+                   "switch": ["switch"]}[variant]:
+        fail(f"{what}: the trainable subtrees are {trained}")
 
-    def projector_grad(params, tc, bt):
-        loss = M.loss_fn(params, cfg, bt, use_flash=tc.use_flash,
-                         remat=tc.remat)
-        grads = torch.autograd.grad(loss, list(params.projector.parameters()))
+    def trainable_grad(params, tc, bt, trainable):
+        kw = dict(use_flash=tc.use_flash, remat=tc.remat)
+        if tc.switch_sigma:
+            loss = SW.switch_loss_fn(params, cfg, bt, tc.switch_sigma, **kw)
+        else:
+            loss = M.loss_fn(params, cfg, bt, lora_scaling=tc.lora_scaling,
+                             **kw)
+        grads = torch.autograd.grad(loss, trainable)
         return torch.cat([g.float().flatten().cpu() for g in grads])
 
     losses = ([], [])
-    bwd = (fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv)
+    # the switch sits behind the decoder: its step runs kernel 2 and no
+    # decoder backward
+    bwd = ((fl.flash_attention,) if variant == "switch" else
+           (fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv))
     before = [c.launches for c in bwd]
     for step in range(TRAIN_STEPS):
-        g_ref, g_got = (projector_grad(p, tc, bt)
-                        for p, tc, bt, _, _ in sides)
+        g_ref, g_got = (trainable_grad(p, tc, bt, trainable)
+                        for p, tc, bt, _, _, trainable in sides)
         rel = ((g_got - g_ref).norm() / g_ref.norm()).item()
-        for i, (_, _, bt, state, step_fn) in enumerate(sides):
+        for i, (_, _, bt, state, step_fn, _) in enumerate(sides):
             _, m = step_fn(state, bt)
             losses[i].append(float(m["loss"]))
             if float(m["skipped_nonfinite"]) != 0.0:
@@ -941,14 +1212,16 @@ def check_narrow_training(tag: str, dev, quantize_base=None) -> None:
         loss_rel = abs(got - ref) / abs(ref)
         print(f"{tag} {what} step {step + 1} (CUDA bf16 kernels vs "
               f"CPU fp32 plain): loss {got:.6f} vs {ref:.6f}, rel err "
-              f"{loss_rel:.3e} (tol {TRAIN_LOSS_REL_TOL}); projector grad "
-              f"rel err {rel:.3e} (tol {TRAIN_GRAD_REL_TOL})")
+              f"{loss_rel:.3e} (tol {TRAIN_LOSS_REL_TOL}); "
+              f"{' + '.join(trained)} grad rel err {rel:.3e} (tol "
+              f"{TRAIN_GRAD_REL_TOL})")
         if not (np.isfinite(got) and loss_rel <= TRAIN_LOSS_REL_TOL):
-            fail(f"narrow training loss disagrees at step {step + 1}")
+            fail(f"{what}: the loss disagrees at step {step + 1}")
         if not rel <= TRAIN_GRAD_REL_TOL:
-            fail(f"narrow projector gradient disagrees at step {step + 1}")
-    if [c.launches for c in bwd] == before:
-        fail("narrow training on CUDA launched no backward kernel")
+            fail(f"{what}: the gradient disagrees at step {step + 1}")
+    if any(c.launches == n for c, n in zip(bwd, before)):
+        fail(f"{what} on CUDA did not launch "
+             f"{[c.__name__ for c in bwd]}")
     if quantize_base == "int4" and K.int4_matmul_kernel.launches == k10_before:
         fail("narrow training through the int4 base launched no kernel 10")
     for side, ls in zip(("CPU", "CUDA"), losses):
@@ -1053,6 +1326,153 @@ def check_narrow_loglikelihood(tag: str, dev) -> None:
           f"{LL_REL_TOL}); sums {got[0][0]:.4f} .. {got[-1][0]:.4f}; greedy "
           f"flags compared on {compared} of 8, True and False among them "
           f"(the others' top two log-probs are closer than the tolerance)")
+
+
+def check_narrow_mpt(tag: str, dev) -> None:
+    """A narrow MPT (3 layers, 4 heads of 64): logits and the `wqkv`
+    gradients of a next-token loss, CUDA bf16 compute through kernels 2, 5
+    and 6 with the in-kernel ALiBi bias against CPU fp32 on the plain biased
+    `mha`, from the same fp32 weights."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION, FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models import mpt
+    from law_of_vision_representation_in_mllms_torch.models.llama import (
+        causal_lm_loss)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        flash_attention as fl)
+
+    cfg = mpt.MptConfig(vocab_size=1000, hidden_size=256, num_layers=3,
+                        num_heads=4)
+    cpu = mpt.init_params(torch.Generator().manual_seed(3), cfg,
+                          FP32_PRECISION, "cpu")
+    gpu = mpt.MptModel(cfg, DEFAULT_PRECISION, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, size=(2, 200)))
+    wrappers = (fl.flash_attention, fl.flash_attention_bwd_dq,
+                fl.flash_attention_bwd_dkv)
+    before = [w.alibi_launches for w in wrappers]
+    sides = []
+    for model, x, use_flash in ((cpu, ids, False), (gpu, ids.to(dev), None)):
+        wqkv = [layer.wqkv.weight.requires_grad_() for layer in model.layers]
+        logits = model(x, use_flash=use_flash)
+        grads = torch.autograd.grad(causal_lm_loss(logits, x), wqkv)
+        sides.append((logits.detach().float().cpu(),
+                      torch.cat([g.float().flatten().cpu() for g in grads])))
+    torch.cuda.synchronize()
+    ran = [w.alibi_launches - n for w, n in zip(wrappers, before)]
+    if ran != [cfg.num_layers] * 3:
+        fail(f"narrow MPT on CUDA: ALiBi launches of kernels 2, 5, 6 {ran}, "
+             f"not {cfg.num_layers} each")
+    (ref, g_ref), (got, g_got) = sides
+    err, tol = max_err(got, ref), LOGITS_REL_TOL * ref.abs().max().item()
+    rel = ((g_got - g_ref).norm() / g_ref.norm()).item()
+    print(f"{tag} narrow MPT (3 layers, H=4, D=64, B=2, S=200; CUDA bf16 "
+          f"ALiBi kernels vs CPU fp32 plain): logits max_abs_err {err:.4e} "
+          f"(tol {tol:.4e} = {LOGITS_REL_TOL} x max|logit|); wqkv grad rel "
+          f"err {rel:.3e} (tol {TRAIN_GRAD_REL_TOL})")
+    if not (torch.isfinite(got).all() and err <= tol):
+        fail(f"narrow MPT logits disagree: {err} > {tol}")
+    if not rel <= TRAIN_GRAD_REL_TOL:
+        fail(f"narrow MPT wqkv gradients disagree: {rel}")
+
+
+def run_full_width_mpt(tag: str, dev, counters) -> dict:
+    """MPT-7B at full width (`MptConfig()`: vocab 50,432, d 4,096, 32 layers,
+    32 heads, expansion 4) on seeded random bf16 weights: a forward at B=2,
+    S=2,048 and a forward + backward of the next-token loss. Kernel 2 (one
+    pass) and kernels 5, 6 must each have launched their ALiBi form 32
+    times."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        BF16_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models import mpt
+    from law_of_vision_representation_in_mllms_torch.models.llama import (
+        causal_lm_loss)
+
+    cfg = mpt.MptConfig()
+    b, s = 2, 2048
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = mpt.init_params(g, cfg, BF16_PRECISION, dev)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    torch.cuda.synchronize(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{tag} MPT-7B ({n_params / 1e9:.3f} B params, seeded random bf16) "
+          f"built on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+
+    def sync_time(fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t
+
+    # the main path, counted: one forward, one forward + backward
+    reset_counts(counters)
+    with torch.no_grad():
+        logits = model(ids)
+    torch.cuda.synchronize(dev)
+    fwd = read_counts(counters)
+    if not (logits.shape == (b, s, cfg.vocab_size)
+            and logits.dtype == torch.float32
+            and torch.isfinite(logits).all()):
+        fail("MPT-7B logits are not finite fp32 [B, S, V]")
+    spread = logits.std().item()
+    del logits
+    for p in model.parameters():
+        p.requires_grad_(True)
+
+    def train_pass():
+        loss = causal_lm_loss(model(ids), ids)
+        loss.backward()
+        return loss.detach()
+    loss, _ = sync_time(train_pass)
+    launches = read_counts(counters)
+    print(f"{tag} MPT-7B main path launches: forward {fwd}; forward + "
+          f"backward after it {launches}")
+    want = {"flash_attention_alibi": 2 * cfg.num_layers,
+            "flash_attention_bwd_dq_alibi": cfg.num_layers,
+            "flash_attention_bwd_dkv_alibi": cfg.num_layers}
+    if fwd["flash_attention_alibi"] != cfg.num_layers:
+        fail(f"kernel 2 (ALiBi) ran {fwd['flash_attention_alibi']} times in "
+             f"one MPT-7B forward, not {cfg.num_layers}")
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{name} ran {launches[name]} times over the two MPT-7B "
+                 f"passes, not {n}")
+    if not torch.isfinite(loss):
+        fail(f"MPT-7B loss is not finite: {loss.item()}")
+    worst = 0.0
+    for name, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            fail(f"MPT-7B gradient of {name} is missing or not finite")
+        worst = max(worst, p.grad.float().abs().max().item())
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    # timings: warm passes, host clock around synchronised work
+    with torch.no_grad():
+        _, fwd_s = sync_time(lambda: [model(ids) for _ in range(2)])
+    fwd_s /= 2
+    for p in model.parameters():
+        p.grad = None
+    _, train_s = sync_time(train_pass)
+    print(f"{tag} MPT-7B (B={b}, S={s}): forward {fwd_s * 1e3:.1f} ms "
+          f"({b * s / fwd_s:.0f} tokens/s); forward + backward "
+          f"{train_s * 1e3:.1f} ms ({b * s / train_s:.0f} tokens/s); loss "
+          f"{loss.item():.4f} (log V = {math.log(cfg.vocab_size):.4f}), logit "
+          f"std {spread:.4f}, largest |gradient| {worst:.3e}; peak memory "
+          f"allocated {peak_gb:.2f} GB")
+    for p in model.parameters():
+        p.grad = None
+    del model, ids, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _requests(n: int, crop: int):
@@ -1187,11 +1607,10 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
     dec_name = "decode_attention_int8" if kv_quant else "decode_attention"
 
     # the main path, counted
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     texts = lmm.generate_until(reqs)
     torch.cuda.synchronize(dev)
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = read_counts(counters)
     steps = launches[dec_name] // dec.num_layers
     print(f"{tag} [{label}] main path launches {launches} ({steps} decode "
           f"steps)")
@@ -1253,9 +1672,9 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
         tower_s = timed(lambda: lmm.params.towers[0](pixels[0]))
     prefill_s = timed(lambda: M.prefill(lmm.params, lmm.cfg, ids, mask,
                                         pixels, max_new_tokens=32))
-    counters[dec_name].launches = 0
+    setattr(*counters[dec_name], 0)
     gen_s = timed(generate)                       # 1 warm-up + 3 timed runs
-    gen_steps = counters[dec_name].launches // dec.num_layers // 4
+    gen_steps = getattr(*counters[dec_name]) // dec.num_layers // 4
     if gen_steps == 0:
         fail("the timed generate ran no decode step")
     b = ids.shape[0]
@@ -1291,14 +1710,14 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
     return launches, fig
 
 
-def _training_records(folder: str) -> str:
-    """FULL_RECORDS `plain`-template records, each a random 336x336 PNG
-    (written with PIL) and a 20-40-word caption. Returns the JSON path."""
+def _training_records(folder: str, n: int = FULL_RECORDS) -> str:
+    """`n` `plain`-template records, each a random 336x336 PNG (written with
+    PIL) and a 20-40-word caption. Returns the JSON path."""
     import numpy as np
     from PIL import Image
     rng = np.random.RandomState(0)
     recs = []
-    for i in range(FULL_RECORDS):
+    for i in range(n):
         Image.fromarray(rng.randint(0, 256, (336, 336, 3), dtype=np.uint8)
                         ).save(os.path.join(folder, f"img{i}.png"))
         caption = " ".join(rng.choice(WORDS, size=rng.randint(20, 41)))
@@ -1349,7 +1768,8 @@ def profile_step(tag: str, run, batch) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"matmul (cuBLAS)": 0.0, "kernel 1 (tower attention)": 0.0,
                 "kernel 2 (flash forward)": 0.0, "kernel 5 (dq)": 0.0,
-                "kernel 6 (dk/dv)": 0.0, "copies and memsets": 0.0,
+                "kernel 6 (dk/dv)": 0.0, "kernel 10 (int4 matmul)": 0.0,
+                "copies and memsets": 0.0,
                 "elementwise, reductions, optimizer": 0.0}
     names, launched = {}, 0
     for e in prof.events():
@@ -1365,6 +1785,8 @@ def profile_step(tag: str, run, batch) -> None:
             fam = "kernel 1 (tower attention)"
         elif "flash_fwd_kernel" in name:
             fam = "kernel 2 (flash forward)"
+        elif "int4_big_kernel" in name or "int4_small_kernel" in name:
+            fam = "kernel 10 (int4 matmul)"
         elif any(x in low for x in ("gemm", "gemv", "cutlass", "xmma",
                                     "nvjet", "cublas")):
             fam = "matmul (cuBLAS)"
@@ -1413,13 +1835,12 @@ def run_full_width_training(tag: str, dev, counters) -> dict:
             "data": {"data_path": _training_records(tmp),
                      "image_folder": tmp}})
         torch.cuda.reset_peak_memory_stats(dev)
-        for c in counters.values():
-            c.launches = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         run = runner.run_training(cfg, device=dev)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-        launches = {name: c.launches for name, c in counters.items()}
+        launches = read_counts(counters)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         with open(os.path.join(out_dir, "train.jsonl")) as f:
             logs = [json.loads(line) for line in f if line.strip()]
@@ -1508,6 +1929,235 @@ def run_full_width_training(tag: str, dev, counters) -> dict:
             [run.dataset[i] for i in range(FULL_BATCH)],
             max_length=cfg.train.max_length), dev)
         profile_step(tag, run, batch)
+    return launches
+
+
+VARIANT_STEPS = 3
+VARIANT_TRAIN = {
+    # `finetune.sh`'s rate: Adam moves each of W's 4,096 entries a row by
+    # about lr a step, and at 1e-3 the third step's loss left 12 for 59
+    "switch": {"stage": 2, "switch_enable": True, "switch_sigma": 1.0,
+               "learning_rate": 2e-5},
+    # `finetune_lora.sh`: r 128, alpha 256 (~320 M adapter parameters). The
+    # rate is 10x the script's 2e-4 so that three steps (the first at the
+    # warm-up's lr 0) move B far enough for the merge check to tell the
+    # adapted model from its base
+    "lora": {"stage": 2, "lora_enable": True, "lora_r": 128,
+             "lora_alpha": 256.0, "learning_rate": 2e-3},
+    "qlora": {"stage": 2, "lora_enable": True, "lora_r": 128,
+              "lora_alpha": 256.0, "learning_rate": 2e-3,
+              "quantize_base": "int4"},
+}
+
+
+def run_full_width_variant(tag: str, dev, counters, variant: str) -> dict:
+    """LLaVA-1.5-7B at full width through `run_training`, stage 2, with
+    `train.lora_enable` (r=128, alpha=256), the same over an int4 base
+    (`train.quantize_base`: QLoRA, kernel 10 under autograd) or
+    `train.switch_enable`: VARIANT_STEPS steps of FULL_BATCH. Finite losses,
+    no skipped step, the frozen weights bitwise those of a fresh build from
+    the seed, B non-zero (only W moved under switch), the saved files load
+    back, and for LoRA `load_pretrained` (which merges the adapters) then a
+    prefill gives the adapted model's logits. The LoRA and the QLoRA run end
+    with a torch.profiler split of one more step."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.config import (
+        RunConfig)
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.data import (
+        collate_batch)
+    from law_of_vision_representation_in_mllms_torch.io import (
+        checkpoint, from_jax)
+    from law_of_vision_representation_in_mllms_torch.io.param_io import (
+        load_params)
+    from law_of_vision_representation_in_mllms_torch.models import (
+        llama as L, llava as M, switch as SW)
+    from law_of_vision_representation_in_mllms_torch.models.splice import (
+        IGNORE_INDEX, splice_embeds, splice_plan)
+    from law_of_vision_representation_in_mllms_torch.ops.quant import (
+        quantize_decoder)
+    from law_of_vision_representation_in_mllms_torch.train import runner
+
+    what = f"run_training [{variant}]"
+    with tempfile.TemporaryDirectory(prefix="lvr_smoke_variant_") as tmp:
+        out_dir = os.path.join(tmp, "out")
+        cfg = RunConfig.from_dict({
+            "train": dict({"batch_size": FULL_BATCH, "epochs": 1,
+                           "gradient_checkpointing": True,
+                           "save_steps": 1000, "output_dir": out_dir},
+                          **VARIANT_TRAIN[variant]),
+            "data": {"data_path": _training_records(
+                tmp, VARIANT_STEPS * FULL_BATCH), "image_folder": tmp}})
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        run = runner.run_training(cfg, device=dev)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = read_counts(counters)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        held_gb = torch.cuda.memory_allocated(dev) / 1e9
+        with open(os.path.join(out_dir, "train.jsonl")) as f:
+            logs = [json.loads(line) for line in f if line.strip()]
+        params = run.state["params"]
+        trainable = sum(p.numel() for _, p in run.opt.named_params)
+        subtrees = sorted({n.split(".")[0] for n, _ in run.opt.named_params})
+        print(f"{tag} {what}: LLaVA-1.5-7B stage 2, fp32 weights, bf16 "
+              f"compute, block remat, flash route {run.train_cfg.use_flash}; "
+              f"{trainable / 1e6:.1f} M trainable parameters in "
+              f"{subtrees}; {len(logs)} steps of {FULL_BATCH}, {wall:.1f} s "
+              f"in all (model build and data included)")
+        print(f"{tag} {what} launches {launches}")
+        print(f"{tag} {what} losses "
+              + " ".join(f"{r['loss']:.5f}" for r in logs) + "; grad norms "
+              + " ".join(f"{r['grad_norm']:.4g}" for r in logs))
+        if len(logs) != VARIANT_STEPS:
+            fail(f"{what} took {len(logs)} steps, not {VARIANT_STEPS}")
+        if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                   for r in logs):
+            fail(f"{what}: a loss or gradient norm is not finite")
+        if any(r["skipped_nonfinite"] != 0.0 for r in logs):
+            fail(f"{what}: a step was skipped as nonfinite")
+        if run.train_cfg.use_flash is not True:
+            fail(f"{what} did not take the flash route on the card")
+        if subtrees != (["switch"] if variant == "switch"
+                        else ["lora", "projector"]):
+            fail(f"{what}: the trainable subtrees are {subtrees}")
+        # per step: the tower's 23 blocks; the decoder's 32 flash forwards,
+        # under LoRA once more in the remat recompute, and 32 of each
+        # backward kernel. The switch sits behind the decoder: one forward,
+        # no decoder backward at all
+        lora = variant != "switch"
+        per_step = {"encoder_attention": 23,
+                    "flash_attention": 64 if lora else 32,
+                    "flash_attention_bwd_dq": 32 if lora else 0,
+                    "flash_attention_bwd_dkv": 32 if lora else 0}
+        for name, n in per_step.items():
+            if launches[name] != n * VARIANT_STEPS:
+                fail(f"{what}: {name} launched {launches[name]} times in "
+                     f"{VARIANT_STEPS} steps, not {n} per step")
+        if (launches["int4_matmul"] == 0) != (variant != "qlora"):
+            fail(f"{what}: kernel 10 launched {launches['int4_matmul']} "
+                 f"times")
+        step_s = float(np.median([r["step_seconds"] for r in logs[1:]]))
+        seq = max(int(r["tokens"]) // FULL_BATCH for r in logs)
+        print(f"{tag} {what} step (B={FULL_BATCH}, S={seq} spliced): median "
+              f"of steps 2-{VARIANT_STEPS} {step_s * 1e3:.1f} ms (steps "
+              + " ".join(f"{r['step_seconds'] * 1e3:.1f}" for r in logs)
+              + f" ms); {FULL_BATCH * seq / step_s:.0f} tokens/s; peak "
+              f"memory allocated {peak_gb:.2f} GB (the fp32 model's build "
+              f"included, which under QLoRA comes before the quantisation); "
+              f"weights, adapters and moments held after the run "
+              f"{held_gb:.2f} GB")
+
+        # the same seed rebuilds the initial weights (and the same codes):
+        # what is frozen must be bitwise what it was
+        _, fresh = runner.build_model(cfg, device=dev,
+                                      precision=DEFAULT_PRECISION)
+        if variant == "qlora":
+            quantize_decoder(fresh.decoder, bits=4)
+        trained = params.state_dict()
+        moved = set()
+        for name, t in fresh.state_dict().items():
+            if not torch.equal(t, trained[name]):
+                moved.add(name.split(".")[0])
+        if moved != ({"projector"} if lora else set()):
+            fail(f"{what}: weights moved in {sorted(moved)}")
+
+        files = sorted(os.listdir(out_dir))
+        if variant == "switch":
+            g = torch.Generator(device=dev).manual_seed(cfg.train.seed + 2)
+            w0 = SW.init_switch(g, run.model_cfg.decoder.hidden_size,
+                                DEFAULT_PRECISION, dev).w
+            w = params.switch.w
+            saved = from_jax.switch_state_dict(load_params(
+                os.path.join(out_dir, checkpoint.SWITCH_NPZ)))["w"]
+            if not torch.equal(saved, w.cpu()):
+                fail("switch.npz differs from the trained W")
+            step_size = (w - w0).abs().max().item()
+            if not 0 < step_size:
+                fail("the switch matrix did not move")
+            print(f"{tag} {what}: only W moved (largest |W - W0| "
+                  f"{step_size:.3e}); {files} written, switch.npz loads "
+                  f"back equal")
+        else:
+            saved = from_jax.lora_state_dict(load_params(
+                os.path.join(out_dir, checkpoint.LORA_NPZ)))
+            b_max = 0.0
+            for name, t in params.lora.state_dict().items():
+                if not torch.equal(saved[name], t.cpu()):
+                    fail(f"lora_adapters.npz {name} differs from the "
+                         f"trained adapters")
+                if name.endswith("_b"):
+                    if not (t != 0).any():
+                        fail(f"{what}: {name} is still zero")
+                    b_max = max(b_max, t.abs().max().item())
+            proj = checkpoint.load_projector(out_dir)
+            for name, t in params.projector.state_dict().items():
+                if not torch.equal(proj[name], t.cpu()):
+                    fail(f"mm_projector.npz {name} differs")
+            with open(os.path.join(out_dir, "config.json")) as f:
+                saved_cfg = json.load(f)
+            if saved_cfg != {"lora_r": 128, "lora_alpha": 256.0}:
+                fail(f"{what}: config.json holds {saved_cfg}")
+            print(f"{tag} {what}: the frozen base is bitwise unchanged, "
+                  f"every B is non-zero (largest |B| {b_max:.3e}); {files} "
+                  f"written and load back equal")
+        if variant == "lora":
+            # serving: the adapted model's prefill logits, then the base's,
+            # then `load_pretrained` (merge + projector) over the base
+            batch = runner.batch_to_device(collate_batch(
+                [run.dataset[i] for i in range(4)],
+                max_length=cfg.train.max_length), dev)
+            ids, mask, px = (batch["input_ids"], batch["text_mask"],
+                             batch["pixel_values"])
+            mcfg = run.model_cfg
+
+            with torch.inference_mode():
+                plan = splice_plan(ids, torch.full_like(ids, IGNORE_INDEX),
+                                   mask, mcfg.num_patches)
+                embeds = splice_embeds(
+                    plan, L.embed_tokens(params.decoder, ids),
+                    M.encode_images(params, mcfg, px))
+                h, _ = params.decoder(
+                    embeds, plan.positions, attn_mask=plan.attn_mask,
+                    use_flash=True, lora=params.lora,
+                    lora_scaling=run.train_cfg.lora_scaling)
+                last = plan.attn_mask.sum(dim=1) - 1
+                adapted = L.logits_fn(
+                    params.decoder, h[torch.arange(len(last)), last])
+            base = M.prefill(fresh, mcfg, ids, mask, px,
+                             max_new_tokens=1).logits
+            if checkpoint.load_pretrained(out_dir, fresh) is not fresh:
+                fail("load_pretrained did not return the model it was given")
+            merged = M.prefill(fresh, mcfg, ids, mask, px,
+                               max_new_tokens=1).logits
+            err = max_err(merged, adapted)
+            apart = max_err(base, adapted)
+            tol = LOGITS_REL_TOL * adapted.abs().max().item()
+            print(f"{tag} {what}: load_pretrained (merge_lora + projector) "
+                  f"then prefill vs the adapted forward: logits max_abs_err "
+                  f"{err:.4e} (tol {tol:.4e} = {LOGITS_REL_TOL} x "
+                  f"max|logit|); the unmerged base lies {apart:.4e} away")
+            if not (torch.isfinite(merged).all() and err <= tol):
+                fail(f"merged logits disagree with the adapted: {err}")
+            if not err < apart:
+                fail(f"the merge brought the base no closer to the adapted "
+                     f"model ({err} vs {apart})")
+        del fresh, trained
+        gc.collect()
+        torch.cuda.empty_cache()
+        if lora:
+            # where a LoRA and a QLoRA step spend the device's time, after
+            # every check of the trained state (the profiled steps train on)
+            profile_step(f"{tag} {what}", run, runner.batch_to_device(
+                collate_batch([run.dataset[i] for i in range(FULL_BATCH)],
+                              max_length=cfg.train.max_length), dev))
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1618,8 +2268,7 @@ def run_law_chain(tag: str, dev, counters) -> dict:
         base = os.path.join(tmp, "embeds")
 
         torch.cuda.reset_peak_memory_stats(dev)
-        for c in counters.values():
-            c.launches = 0
+        reset_counts(counters)
         # the main path, counted ------------------------------------------
         dump_s = {}
         for rep, raw in reps.items():
@@ -1634,7 +2283,7 @@ def run_law_chain(tag: str, dev, counters) -> dict:
                 fail(f"{rep}: dumped {n} embeddings, not {LAW_IMAGES}")
             gc.collect()
             torch.cuda.empty_cache()
-        after_dump = {name: c.launches for name, c in counters.items()}
+        after_dump = read_counts(counters)
 
         t0 = time.perf_counter()
         results = runner.run_evaluation(
@@ -1644,7 +2293,7 @@ def run_law_chain(tag: str, dev, counters) -> dict:
         eval_s = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
-        after_eval = {name: c.launches for name, c in counters.items()}
+        after_eval = read_counts(counters)
 
         t0 = time.perf_counter()
         scores = a_score_run.compute_a_scores(
@@ -1667,7 +2316,7 @@ def run_law_chain(tag: str, dev, counters) -> dict:
                   for b in policy.BENCHMARKS},
             a={b: a_col for b in policy.BENCHMARKS}, c=c_col)
         fit = policy.fit_policy(table, "mme")
-        launches = {name: c.launches for name, c in counters.items()}
+        launches = read_counts(counters)
         # ---------------------------------------------------------------
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
@@ -1846,6 +2495,9 @@ def main() -> int:
 
     kernels = check_kernels(tag, dev)
     kernels.update(check_flash_bwd(tag, dev))
+    kernels.update(check_flash_alibi(tag, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels.update(check_a_score(tag, dev))
     kernels.update(check_int4_matmul(tag, dev))
     kernels.update(check_decode_int8(tag, dev))
@@ -1859,14 +2511,24 @@ def main() -> int:
     check_narrow_llava(tag, dev, quantize="int4", kv_quant="int8")
     check_narrow_llava(tag, dev, quantize="int8")
     check_narrow_training(tag, dev, quantize_base="int4")
-    counters = {"encoder_attention": enc.encoder_attention,
-                "flash_attention": fl.flash_attention,
-                "decode_attention": dec.decode_attention,
-                "flash_attention_bwd_dq": fl.flash_attention_bwd_dq,
-                "flash_attention_bwd_dkv": fl.flash_attention_bwd_dkv,
-                "a_score": asc.max_cos,
-                "decode_attention_int8": dec.decode_attention_int8,
-                "int4_matmul": k10.int4_matmul_kernel}
+    check_narrow_mpt(tag, dev)
+    check_narrow_training(tag, dev, variant="lora")
+    check_narrow_training(tag, dev, quantize_base="int4", variant="lora")
+    check_narrow_training(tag, dev, variant="switch")
+    counters = {name: (wrapper, "launches") for name, wrapper in (
+        ("encoder_attention", enc.encoder_attention),
+        ("flash_attention", fl.flash_attention),
+        ("decode_attention", dec.decode_attention),
+        ("flash_attention_bwd_dq", fl.flash_attention_bwd_dq),
+        ("flash_attention_bwd_dkv", fl.flash_attention_bwd_dkv),
+        ("a_score", asc.max_cos),
+        ("decode_attention_int8", dec.decode_attention_int8),
+        ("int4_matmul", k10.int4_matmul_kernel))}
+    # the launches of kernels 2, 5 and 6 that ran their ALiBi instantiation
+    # (a share of the counts above)
+    counters.update({name + "_alibi": (wrapper, "alibi_launches")
+                     for name, (wrapper, _) in counters.items()
+                     if hasattr(wrapper, "alibi_launches")})
     # the serving runs come before any torch.profiler session (phase 5 holds
     # the first): its tracing stays attached to the process afterwards and
     # makes every launch dearer for the host, which is what bounds a decode
@@ -1882,6 +2544,15 @@ def main() -> int:
         paths[name], _ = run_full_width(tag, dev, counters, model, bf16_fig)
         gc.collect()
         torch.cuda.empty_cache()
+    # MPT-7B and the switch variant, also before torch.profiler first runs;
+    # the LoRA and QLoRA variants each end with a profiled step, after their
+    # own steps are timed. Every training step here keeps the device busy
+    # (idle share ~0.03 in phase 5's split), so the tracing's cost to the
+    # host does not show in the later step times
+    paths["mpt"] = run_full_width_mpt(tag, dev, counters)
+    for variant in VARIANT_TRAIN:
+        paths[f"train_{variant}"] = run_full_width_variant(tag, dev, counters,
+                                                           variant)
     paths["train"] = run_full_width_training(tag, dev, counters)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1910,6 +2581,13 @@ def main() -> int:
         # `quantized=True`
         "decode_attention_int8": f"{TPU_PKG}/ops/decode_attention.py:341",
         "int4_matmul": f"{TPU_PKG}/ops/int4_kernel.py:157",
+        # the same `pallas_call`s as kernels 2, 5 and 6 with `alibi=True`
+        # (`_fwd_lse_kernel`, `_bwd_dq_kernel`, `_bwd_dkv_kernel`)
+        "flash_attention_alibi": f"{TPU_PKG}/ops/flash_attention.py:377",
+        "flash_attention_bwd_dq_alibi":
+            f"{TPU_PKG}/ops/flash_attention.py:473",
+        "flash_attention_bwd_dkv_alibi":
+            f"{TPU_PKG}/ops/flash_attention.py:508",
     }
     # the JAX package's other kernels of the same function, routed onto
     # these (launched in the law chain and held to the plain mha in phase 2;
@@ -1922,6 +2600,9 @@ def main() -> int:
         "flash_attention": [
             f"{TPU_PKG}/ops/flash_attention.py:130 (flash_attention_bhsd "
             f"without ALiBi, tower_attn_impl=flash)"],
+        "flash_attention_alibi": [
+            f"{TPU_PKG}/ops/flash_attention.py:130 (flash_attention_bhsd "
+            f"with alibi_slopes: the same function without the LSE)"],
         "decode_attention": [
             f"{TPU_PKG}/ops/decode_attention.py:190 "
             f"(decode_attention_stacked, decode_attn=pallas_stacked)"],
@@ -1934,11 +2615,16 @@ def main() -> int:
     sources["flash_attention_bwd_dq"] = f"{PKG}/csrc/flash_attention_bwd.cu"
     sources["flash_attention_bwd_dkv"] = f"{PKG}/csrc/flash_attention_bwd.cu"
     sources["decode_attention_int8"] = f"{PKG}/csrc/decode_attention.cu"
+    sources["flash_attention_alibi"] = f"{PKG}/csrc/flash_attention.cu"
+    for name in ("flash_attention_bwd_dq_alibi",
+                 "flash_attention_bwd_dkv_alibi"):
+        sources[name] = f"{PKG}/csrc/flash_attention_bwd.cu"
     print(f"{tag} chip_smoke phases took "
           f"{time.perf_counter() - t_start:.1f} s")
     # launches: the serving run (phase 4), the training run (phase 5), the
-    # law chain (phase 6) and the two quantised serving runs (phase 7), each
-    # counted from 0; the split is in "launches_by_path"
+    # law chain (phase 6), the two quantised serving runs (phase 7), MPT-7B
+    # (phase 9) and the three training variants (phase 10), each counted
+    # from 0; the split is in "launches_by_path"
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "routes": routes.get(name, []),
@@ -1947,7 +2633,8 @@ def main() -> int:
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],
-         **{k: r[k] for k in ("cases", "crossover") if k in r}}
+         **{k: r[k] for k in ("cases", "crossover", "noalibi_ms")
+            if k in r}}
         for name, r in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

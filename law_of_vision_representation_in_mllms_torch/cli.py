@@ -1,7 +1,10 @@
 """CLI of the PyTorch port (counterpart of the JAX package's `cli.py`).
 
 Commands:
-  train             stage-1/2 LLaVA training from a RunConfig YAML
+  train             stage-1/2 LLaVA training from a RunConfig YAML (LoRA,
+                    QLoRA and the switch ablation through `--set
+                    train.lora_enable=true`, `train.quantize_base=int4`,
+                    `train.switch_enable=true`)
   generate          one-shot inference (image + prompt -> answer)
   eval              benchmark evaluation through the eval harness
   tasks             list the bundled eval tasks

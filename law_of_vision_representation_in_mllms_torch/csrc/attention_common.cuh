@@ -95,7 +95,38 @@ struct AttnArgs {
   float* lse;       // [B, H, Sq] natural-log LSE, or nullptr
   int sq, skv, kv_len, heads, kv_heads;
   float scale_log2;  // softmax scale * log2(e)
+  // [B, H] fp32 ALiBi slopes of the query heads; read only by the ALIBI
+  // instantiations
+  const float* slopes = nullptr;
 };
+
+// ALiBi (MPT): logit (i, j) of query head h gains slope[b, h]·(j − (kv_len − 1))
+// before the mask. The kernels work in base 2, so the slope is taken times
+// log2(e) once. The per-row constant −slope·(kv_len − 1) cancels in the softmax
+// but not in the LSE, which is an output: it is kept, so the LSE is the one of
+// the biased logits and the backward kernels subtract it from the same
+// logits.
+//
+// An int→float convert a logit would cost as much as eight FMAs, so no kernel
+// converts in its inner loop: the caller forms the bias of a base key once
+// (a tile's first key of this lane, or in kernel 6 the lane's own two keys)
+// with `alibi_bias2`, and a logit `off` keys further on (a constant once the
+// loops are unrolled) is `alibi_logit2`: two FMAs where the unbiased kernel
+// has one multiply. The base bias is rounded before the offset joins it: an
+// error of one ulp of the bias (1.2e-4 at −1,721), far under bf16's rounding
+// of P.
+__device__ __forceinline__ float alibi_bias2(float slope2, int key,
+                                             int kv_len) {
+  return slope2 * static_cast<float>(key - (kv_len - 1));
+}
+
+// s·scale_log2 + slope2·off + base: `base` is alibi_bias2 of the base key,
+// in the backward kernels with the row's LSE already taken off
+__device__ __forceinline__ float alibi_logit2(float s, float scale_log2,
+                                              float slope2, int off,
+                                              float base) {
+  return fmaf(s, scale_log2, fmaf(slope2, static_cast<float>(off), base));
+}
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
@@ -110,7 +141,9 @@ namespace {
 
 // grid (ceil(Sq / 64), H, B); query head h reads kv head h / (H / KV).
 // Key j is visible to query i iff j < kv_len and (not CAUSAL or j <= i).
-template <int D, bool CAUSAL>
+// ALIBI adds the in-kernel bias above; it is a compile-time branch, so the
+// instantiations without it are the kernels they were.
+template <int D, bool CAUSAL, bool ALIBI = false>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const AttnArgs p) {
   constexpr int kLd = D + 8;
@@ -155,6 +188,8 @@ __global__ void __launch_bounds__(kThreads)
   float l[2] = {0.f, 0.f};
   const int row_a = q0 + r0 + g;  // this thread's two query rows
   const int row_b = row_a + 8;
+  float slope2 = 0.f;
+  if (ALIBI) slope2 = p.slopes[b * p.heads + h] * kLog2e;
 
   int kv_end = p.kv_len;
   if (CAUSAL) kv_end = min(kv_end, q0 + kBlockQ);
@@ -179,6 +214,8 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     float mx[2] = {-INFINITY, -INFINITY};
+    float bias_t = 0.f;  // of this lane's first key of the tile
+    if (ALIBI) bias_t = alibi_bias2(slope2, k0 + 2 * t, p.kv_len);
 #pragma unroll
     for (int n = 0; n < kBlockK / 8; ++n) {
 #pragma unroll
@@ -186,7 +223,12 @@ __global__ void __launch_bounds__(kThreads)
         const int col = k0 + n * 8 + 2 * t + (i & 1);
         const int row = (i < 2) ? row_a : row_b;
         const bool ok = col < p.kv_len && (!CAUSAL || col <= row);
-        const float x = ok ? s[n][i] * p.scale_log2 : -INFINITY;
+        float x = -INFINITY;
+        if (ok) {
+          x = ALIBI ? alibi_logit2(s[n][i], p.scale_log2, slope2,
+                                   n * 8 + (i & 1), bias_t)
+                    : s[n][i] * p.scale_log2;
+        }
         s[n][i] = x;
         mx[i >> 1] = fmaxf(mx[i >> 1], x);
       }
@@ -264,15 +306,15 @@ __global__ void __launch_bounds__(kThreads)
 // Launch the tile loop for head size D on `stream`; returns cudaGetLastError().
 // (Kernel and launcher have internal linkage, so every .cu file that includes
 // this header owns its instantiations.)
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool ALIBI = false>
 int launch_flash_fwd(const AttnArgs& args, int batch, cudaStream_t stream) {
   constexpr int smem = attn_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, CAUSAL>,
+      flash_fwd_kernel<D, CAUSAL, ALIBI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((args.sq + kBlockQ - 1) / kBlockQ, args.heads, batch);
-  flash_fwd_kernel<D, CAUSAL><<<grid, kThreads, smem, stream>>>(args);
+  flash_fwd_kernel<D, CAUSAL, ALIBI><<<grid, kThreads, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,9 @@
 // keys and values [B, Skv, KV, D]; query head h reads kv head h / (H / KV)
 // inside the kernel, which replaces the `jnp.repeat` of K and V before the
 // TPU call. Optional causal mask (key j <= query i), a `kv_len` tail mask and
-// an optional fp32 natural-log LSE output [B, H, Sq].
+// an optional fp32 natural-log LSE output [B, H, Sq]. With `slopes` (fp32
+// [B, H], MPT's ALiBi) logit (i, j) gains slope[b, h]·(j − (kv_len − 1)) inside
+// the kernel, as the TPU kernel's `alibi` flag does; no bias tensor exists.
 //
 // Bound on the H100: at the Vicuna-7B prefill (B = 4, S ~ 700, H = 32,
 // D = 128) one causal layer is ~16 GFLOP against ~92 MB of Q, K, V and O,
@@ -17,10 +19,10 @@
 #include "attention_common.cuh"
 
 extern "C" int lvr_flash_attention(const void* q, const void* k, const void* v,
-                                   void* out, void* lse, int batch, int seq_q,
-                                   int seq_kv, int heads, int kv_heads,
-                                   int head_dim, int kv_len, int causal,
-                                   float scale, void* stream) {
+                                   void* out, void* lse, const void* slopes,
+                                   int batch, int seq_q, int seq_kv, int heads,
+                                   int kv_heads, int head_dim, int kv_len,
+                                   int causal, float scale, void* stream) {
   lvr::AttnArgs args;
   args.q = static_cast<const lvr::bf16*>(q);
   args.k = static_cast<const lvr::bf16*>(k);
@@ -33,12 +35,22 @@ extern "C" int lvr_flash_attention(const void* q, const void* k, const void* v,
   args.heads = heads;
   args.kv_heads = kv_heads;
   args.scale_log2 = scale * lvr::kLog2e;
+  args.slopes = static_cast<const float*>(slopes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool alibi = slopes != nullptr;
   if (head_dim == 64) {
+    if (alibi) {
+      return causal ? lvr::launch_flash_fwd<64, true, true>(args, batch, s)
+                    : lvr::launch_flash_fwd<64, false, true>(args, batch, s);
+    }
     return causal ? lvr::launch_flash_fwd<64, true>(args, batch, s)
                   : lvr::launch_flash_fwd<64, false>(args, batch, s);
   }
   if (head_dim == 128) {
+    if (alibi) {
+      return causal ? lvr::launch_flash_fwd<128, true, true>(args, batch, s)
+                    : lvr::launch_flash_fwd<128, false, true>(args, batch, s);
+    }
     return causal ? lvr::launch_flash_fwd<128, true>(args, batch, s)
                   : lvr::launch_flash_fwd<128, false>(args, batch, s);
   }

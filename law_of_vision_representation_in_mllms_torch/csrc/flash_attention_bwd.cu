@@ -19,6 +19,16 @@
 // zero-filled at load and masked in the scores; a masked slot is never
 // exponentiated, so a row that sees no key (LSE 0) gets P = 0.
 //
+// ALiBi (the TPU kernels' `alibi` flag, `_recompute_p`): with `slopes` (fp32
+// [B, H]) the recomputed logit (i, j) of query head h gains
+// slope[b, h]·(j − (kv_len − 1)), the expression kernel 2 used when it wrote
+// the LSE. In kernel 6, which holds Sᵀ, the key is the row variable (a lane
+// keeps its two keys for the whole block, so their biases are formed once a
+// head), and the slope is the query head's, so it changes inside the loop
+// over a group's heads. Both kernels take the LSE off the bias before the
+// logit joins, where the two large numbers nearly cancel. The slopes get no
+// gradient. The bias is a compile-time branch.
+//
 // Split of the work (no atomics, the same split as the two TPU calls):
 // - kernel 5: a block of four warps owns 64 query rows of one (b, h) and
 //   walks the 64-key tiles of kv head h / G up to the causal bound; dQ stays
@@ -60,6 +70,7 @@ struct BwdArgs {
   int sq, skv, kv_len, heads, kv_heads;
   float scale;        // softmax scale
   float scale_log2;   // softmax scale * log2(e)
+  const float* slopes;  // [B, H] ALiBi slopes, or nullptr
 };
 
 template <int D>
@@ -117,7 +128,7 @@ __device__ __forceinline__ void c_to_a(uint32_t a[4], const float lo[4],
 }
 
 // Kernel 5. grid (ceil(Sq / 64), H, B).
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool ALIBI>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const BwdArgs p) {
   constexpr int kLd = D + 8;
@@ -152,6 +163,8 @@ __global__ void __launch_bounds__(kThreads)
                          row_b < p.sq ? lse_b[row_b] * kLog2e : 0.f};
   const float dl[2] = {row_a < p.sq ? delta_b[row_a] : 0.f,
                        row_b < p.sq ? delta_b[row_b] : 0.f};
+  float slope2 = 0.f;
+  if (ALIBI) slope2 = p.slopes[b * p.heads + h] * kLog2e;
 
   float dq[D / 8][4];
 #pragma unroll
@@ -189,7 +202,14 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // dS = P∘(dP − δ), into s
+    // dS = P∘(dP − δ), into s. With ALiBi: the bias of this lane's first
+    // key of the tile less each row's LSE, formed once a tile
+    float base[2] = {0.f, 0.f};
+    if (ALIBI) {
+      const float bias_t = alibi_bias2(slope2, k0 + 2 * t, p.kv_len);
+      base[0] = bias_t - lse2[0];
+      base[1] = bias_t - lse2[1];
+    }
 #pragma unroll
     for (int n = 0; n < kDqTileK / 8; ++n) {
 #pragma unroll
@@ -198,8 +218,12 @@ __global__ void __launch_bounds__(kThreads)
         const int row = (i < 2) ? row_a : row_b;
         const bool ok =
             col < p.kv_len && row < p.sq && (!CAUSAL || col <= row);
-        const float pr =
-            ok ? exp2f(s[n][i] * p.scale_log2 - lse2[i >> 1]) : 0.f;
+        float pr = 0.f;
+        if (ok) {
+          pr = exp2f(ALIBI ? alibi_logit2(s[n][i], p.scale_log2, slope2,
+                                          n * 8 + (i & 1), base[i >> 1])
+                           : s[n][i] * p.scale_log2 - lse2[i >> 1]);
+        }
         s[n][i] = pr * (dp[n][i] - dl[i >> 1]);
       }
     }
@@ -236,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Kernel 6. grid (ceil(Skv / 64), KV, B).
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool ALIBI>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const BwdArgs p) {
   constexpr int kLd = D + 8;
@@ -285,6 +309,14 @@ __global__ void __launch_bounds__(kThreads)
     const float* lse_b = p.lse + (static_cast<long>(b) * p.heads + h) * p.sq;
     const float* delta_b =
         p.delta + (static_cast<long>(b) * p.heads + h) * p.sq;
+    // the bias of this lane's two keys under the QUERY head's slope (not the
+    // kv head's): it changes with every head of the group
+    float bias_a = 0.f, bias_b = 0.f;
+    if (ALIBI) {
+      const float slope2 = p.slopes[b * p.heads + h] * kLog2e;
+      bias_a = alibi_bias2(slope2, key_a, p.kv_len);
+      bias_b = alibi_bias2(slope2, key_b, p.kv_len);
+    }
     for (int qt = 0; qt < n_q_tiles; ++qt) {
       const int q0 = q_start + qt * kDkvTileQ;
       __syncthreads();  // every warp is done with the previous query tile
@@ -329,8 +361,12 @@ __global__ void __launch_bounds__(kThreads)
           const int key = (i < 2) ? key_a : key_b;
           const bool ok =
               key < p.kv_len && query < p.sq && (!CAUSAL || key <= query);
-          const float pr =
-              ok ? exp2f(st[n][i] * p.scale_log2 - s_lse[qi]) : 0.f;
+          float pr = 0.f;
+          if (ok) {
+            pr = exp2f(ALIBI ? fmaf(st[n][i], p.scale_log2,
+                                    ((i < 2) ? bias_a : bias_b) - s_lse[qi])
+                             : st[n][i] * p.scale_log2 - s_lse[qi]);
+          }
           st[n][i] = pr;
           dpt[n][i] = pr * (dpt[n][i] - s_dl[qi]);
         }
@@ -377,35 +413,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool ALIBI>
 int launch_dq(const BwdArgs& args, int batch, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, CAUSAL>,
+      flash_bwd_dq_kernel<D, CAUSAL, ALIBI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((args.sq + kDqBlockQ - 1) / kDqBlockQ, args.heads, batch);
-  flash_bwd_dq_kernel<D, CAUSAL><<<grid, kThreads, smem, stream>>>(args);
+  flash_bwd_dq_kernel<D, CAUSAL, ALIBI>
+      <<<grid, kThreads, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool ALIBI>
 int launch_dkv(const BwdArgs& args, int batch, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, CAUSAL>,
+      flash_bwd_dkv_kernel<D, CAUSAL, ALIBI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((args.skv + kDkvBlockK - 1) / kDkvBlockK, args.kv_heads,
                   batch);
-  flash_bwd_dkv_kernel<D, CAUSAL><<<grid, kThreads, smem, stream>>>(args);
+  flash_bwd_dkv_kernel<D, CAUSAL, ALIBI>
+      <<<grid, kThreads, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
-                  void* dq, void* dk, void* dv, int seq_q, int seq_kv,
-                  int heads, int kv_heads, int kv_len, float scale) {
+                  void* dq, void* dk, void* dv, const void* slopes, int seq_q,
+                  int seq_kv, int heads, int kv_heads, int kv_len,
+                  float scale) {
   BwdArgs a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -423,48 +462,57 @@ BwdArgs make_args(const void* q, const void* k, const void* v,
   a.kv_heads = kv_heads;
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
+  a.slopes = static_cast<const float*>(slopes);
   return a;
 }
+
+// head size x causal x ALiBi -> one instantiation of LAUNCH
+#define LVR_DISPATCH_BWD(LAUNCH, a, batch, s, head_dim, causal)              \
+  do {                                                                        \
+    const bool alibi_ = (a).slopes != nullptr;                                \
+    if ((head_dim) == 64) {                                                   \
+      if (alibi_) {                                                           \
+        return (causal) ? LAUNCH<64, true, true>(a, batch, s)                 \
+                        : LAUNCH<64, false, true>(a, batch, s);               \
+      }                                                                       \
+      return (causal) ? LAUNCH<64, true, false>(a, batch, s)                  \
+                      : LAUNCH<64, false, false>(a, batch, s);                \
+    }                                                                         \
+    if ((head_dim) == 128) {                                                  \
+      if (alibi_) {                                                           \
+        return (causal) ? LAUNCH<128, true, true>(a, batch, s)                \
+                        : LAUNCH<128, false, true>(a, batch, s);              \
+      }                                                                       \
+      return (causal) ? LAUNCH<128, true, false>(a, batch, s)                 \
+                      : LAUNCH<128, false, false>(a, batch, s);               \
+    }                                                                         \
+    return static_cast<int>(cudaErrorInvalidValue);                           \
+  } while (0)
 
 }  // namespace
 }  // namespace lvr
 
 extern "C" int lvr_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int batch, int seq_q,
-    int seq_kv, int heads, int kv_heads, int head_dim, int kv_len, int causal,
-    float scale, void* stream) {
+    const void* lse, const void* delta, void* dq, const void* slopes,
+    int batch, int seq_q, int seq_kv, int heads, int kv_heads, int head_dim,
+    int kv_len, int causal, float scale, void* stream) {
   const lvr::BwdArgs a =
-      lvr::make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, seq_q,
-                     seq_kv, heads, kv_heads, kv_len, scale);
+      lvr::make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, slopes,
+                     seq_q, seq_kv, heads, kv_heads, kv_len, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) {
-    return causal ? lvr::launch_dq<64, true>(a, batch, s)
-                  : lvr::launch_dq<64, false>(a, batch, s);
-  }
-  if (head_dim == 128) {
-    return causal ? lvr::launch_dq<128, true>(a, batch, s)
-                  : lvr::launch_dq<128, false>(a, batch, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  LVR_DISPATCH_BWD(lvr::launch_dq, a, batch, s, head_dim, causal);
 }
 
 extern "C" int lvr_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int batch,
-    int seq_q, int seq_kv, int heads, int kv_heads, int head_dim, int kv_len,
-    int causal, float scale, void* stream) {
+    const void* lse, const void* delta, void* dk, void* dv,
+    const void* slopes, int batch, int seq_q, int seq_kv, int heads,
+    int kv_heads, int head_dim, int kv_len, int causal, float scale,
+    void* stream) {
   const lvr::BwdArgs a =
-      lvr::make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, seq_q,
-                     seq_kv, heads, kv_heads, kv_len, scale);
+      lvr::make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, slopes,
+                     seq_q, seq_kv, heads, kv_heads, kv_len, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) {
-    return causal ? lvr::launch_dkv<64, true>(a, batch, s)
-                  : lvr::launch_dkv<64, false>(a, batch, s);
-  }
-  if (head_dim == 128) {
-    return causal ? lvr::launch_dkv<128, true>(a, batch, s)
-                  : lvr::launch_dkv<128, false>(a, batch, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  LVR_DISPATCH_BWD(lvr::launch_dkv, a, batch, s, head_dim, causal);
 }

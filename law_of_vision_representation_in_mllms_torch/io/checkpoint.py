@@ -14,6 +14,15 @@
   state dict. Orbax is not available to the port: the layout of the
   parameters, not the container, is what matches. `keep` prunes to the
   newest checkpoints (HF `save_total_limit`).
+- `save_lora` / `save_switch`: the LoRA-split save (`train.py:1122-1132`:
+  the adapters, `lora_adapters.npz` in the JAX `lora` tree's layout, beside
+  the projector and a `config.json` with `lora_r` / `lora_alpha`; not the
+  frozen base) and the switch matrix (`switch.npz`). The JAX package's
+  `param_io.load_params` reads both.
+- `load_pretrained`: a checkpoint directory applied over a model the way
+  the reference's `load_pretrained_model` resolves one: a full
+  train state, or LoRA adapters (merged into the decoder) and/or a projector,
+  whichever is present.
 """
 
 from __future__ import annotations
@@ -28,9 +37,11 @@ import torch
 
 from ..models.projector import Projector, parse_projector_type
 from . import from_jax
-from .param_io import save_params
+from .param_io import load_params, save_params
 
 PROJECTOR_NPZ = "mm_projector.npz"
+LORA_NPZ = "lora_adapters.npz"
+SWITCH_NPZ = "switch.npz"
 
 
 def export_projector_torch_sd(projector: Projector,
@@ -113,3 +124,79 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     if not steps:
         return None
     return os.path.join(os.path.abspath(ckpt_dir), f"checkpoint-{steps[-1]}")
+
+
+def save_lora(ckpt_dir: str, params, lora_r: int, lora_alpha: float) -> str:
+    """The LoRA-split save: `lora_adapters.npz`, the projector and a
+    `config.json` holding `lora_r` and `lora_alpha`. Returns the adapters'
+    path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, LORA_NPZ)
+    save_params(path, from_jax.lora_tree(params.lora.state_dict()))
+    save_projector(ckpt_dir, params.projector,
+                   config={"lora_r": lora_r, "lora_alpha": lora_alpha})
+    return path
+
+
+def save_switch(ckpt_dir: str, switch) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, SWITCH_NPZ)
+    save_params(path, from_jax.switch_tree(switch.state_dict()))
+    return path
+
+
+def load_pretrained(model_dir: str, params, *, lora_cfg=None):
+    """Apply the checkpoint directory `model_dir` over `params` (a
+    `LlavaParams`, changed IN PLACE and returned): the newest
+    `checkpoint-{step}` if there is one; else LoRA adapters, merged into the
+    decoder's dense weights, and/or a projector (`mm_projector.npz`, then
+    `mm_projector.bin`).
+
+    The adapters are read from `lora_adapters.npz`, the name the runners of
+    both packages write, or from `lora.npz`, the name the JAX
+    `load_pretrained` looks for. Without `lora_cfg` the rank comes from the
+    adapters' shape and alpha from the directory's `config.json`
+    (`lora_alpha`, as `save_lora` writes it), else from `LoraConfig()`."""
+    from ..models.lora import LoraAdapters, LoraConfig, merge_lora
+    latest = latest_checkpoint(model_dir)
+    if latest is not None:
+        sd = from_jax.load_llava_npz(os.path.join(latest, "params.npz"))
+        have = set(params.state_dict())
+        params.load_state_dict({k: v for k, v in sd.items() if k in have})
+        return params
+    for name in (LORA_NPZ, "lora.npz"):
+        path = os.path.join(model_dir, name)
+        if not os.path.exists(path):
+            continue
+        tree = load_params(path)
+        if lora_cfg is None:
+            saved = {}
+            cfg_path = os.path.join(model_dir, "config.json")
+            if os.path.exists(cfg_path):
+                with open(cfg_path) as f:
+                    saved = json.load(f)
+            rank = next(v for k, v in tree.items()
+                        if k.endswith("_a")).shape[-1]
+            lora_cfg = LoraConfig(
+                rank=rank, alpha=saved.get("lora_alpha", LoraConfig().alpha),
+                targets=tuple(sorted({k[:-2] for k in tree})))
+        dec = params.decoder
+        # on the decoder's device, so that the merge's products run there
+        lora = LoraAdapters(dec.cfg, lora_cfg, dec.precision,
+                            device=dec.embed.device)
+        lora.load_state_dict(from_jax.lora_state_dict(tree))
+        merge_lora(dec, lora, lora_cfg)
+        break
+    proj_path = os.path.join(model_dir, PROJECTOR_NPZ)
+    torch_proj = os.path.join(model_dir, "mm_projector.bin")
+    if os.path.exists(proj_path):
+        params.projector.load_state_dict(load_projector(proj_path))
+    elif os.path.exists(torch_proj):
+        sd = torch.load(torch_proj, map_location="cpu", weights_only=True)
+        weights = sorted((k for k in sd if k.endswith(".weight")),
+                         key=lambda k: [int(t) for t in k.split(".")
+                                        if t.isdigit()])
+        params.projector.load_state_dict({
+            f"layers.{i}.{kind}": sd[w[:-len("weight")] + kind]
+            for i, w in enumerate(weights) for kind in ("weight", "bias")})
+    return params

@@ -15,6 +15,12 @@ Layout mapping:
 - LayerNorm `ln/scale`, `ln/bias` become `weight`, `bias`;
 - the projector's `layers/#i/{kernel,bias}` become `layers.i.{weight,bias}`;
 - a feature pseudo-tower has no weights (an empty tree, an `nn.Identity`);
+- the MPT tree (`embed`, stacked `layers.{wqkv, wo, up, down}` [L, in, out]
+  and `layers.{ln1, ln2}` [L, d], `final_ln`) becomes a `models.mpt.MptModel`
+  state dict (`layers.i.wqkv.weight` [out, in], `layers.i.ln1` [d]);
+- the optional `lora` subtree (`{t}_a` [L, din, r], `{t}_b` [L, r, dout])
+  becomes `lora.layers.i.{t}_a` [din, r], `{t}_b` [r, dout], not transposed,
+  and `switch.w` [D, D] stays as it is;
 - a weight-only quantised decoder leaf of the JAX `ops/quant.py` becomes the
   buffers of a `QuantDense`: `{"q8" [in, out], "scale" [1, out]}` ->
   `q8` [out, in], `scale` [out]; `{"q4" [in / 2, out] bytes, "scale"
@@ -41,6 +47,7 @@ StateDict = Dict[str, torch.Tensor]
 
 _VIT_DENSES = ("q", "k", "v", "o", "fc1", "fc2")
 _LLAMA_DENSES = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+_MPT_DENSES = ("wqkv", "wo", "up", "down")
 
 
 def _t(x) -> torch.Tensor:
@@ -158,8 +165,36 @@ def llama_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
     return out
 
 
+def mpt_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
+    """Stacked JAX MPT params -> `models.mpt.MptModel` state dict."""
+    layers = tree["layers"]
+    out: StateDict = {f"{prefix}embed": _t(tree["embed"]),
+                      f"{prefix}final_ln": _t(tree["final_ln"])}
+    for i in range(np.asarray(layers["ln1"]).shape[0]):
+        lp = f"{prefix}layers.{i}"
+        for name in _MPT_DENSES:
+            out[f"{lp}.{name}.weight"] = _t(np.asarray(layers[name][i]).T)
+        out[f"{lp}.ln1"] = _t(np.asarray(layers["ln1"][i]))
+        out[f"{lp}.ln2"] = _t(np.asarray(layers["ln2"][i]))
+    return out
+
+
+def lora_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
+    """The JAX `lora` tree -> `models.lora.LoraAdapters` state dict."""
+    out: StateDict = {}
+    for name, stacked in tree.items():
+        for i, leaf in enumerate(np.asarray(stacked)):
+            out[f"{prefix}layers.{i}.{name}"] = _t(leaf)
+    return out
+
+
+def switch_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
+    return {f"{prefix}w": _t(tree["w"])}
+
+
 def llava_state_dict(params: Dict[str, Any]) -> StateDict:
-    """Full JAX LLaVA params -> LlavaParams state dict."""
+    """Full JAX LLaVA params -> LlavaParams state dict (with the `lora` and
+    `switch` subtrees where the tree has them)."""
     out: StateDict = {}
     # a tree of feature pseudo-towers only saves no "towers" key at all
     for i, tower in enumerate(params.get("towers", [])):
@@ -167,6 +202,10 @@ def llava_state_dict(params: Dict[str, Any]) -> StateDict:
             out.update(vit_state_dict(tower, f"towers.{i}."))
     out.update(projector_state_dict(params["projector"], "projector."))
     out.update(llama_state_dict(params["decoder"], "decoder."))
+    if "lora" in params:
+        out.update(lora_state_dict(params["lora"], "lora."))
+    if "switch" in params:
+        out.update(switch_state_dict(params["switch"], "switch."))
     return out
 
 
@@ -266,14 +305,45 @@ def llama_tree(sd: StateDict) -> Dict[str, Any]:
             "lm_head": _llama_dense_tree(sd, "lm_head")}
 
 
+def mpt_tree(sd: StateDict) -> Dict[str, Any]:
+    """Inverse of `mpt_state_dict`."""
+    n = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
+    layers = {name: np.stack([_np(sd[f"layers.{i}.{name}.weight"]).T
+                              for i in range(n)]) for name in _MPT_DENSES}
+    for name in ("ln1", "ln2"):
+        layers[name] = np.stack([_np(sd[f"layers.{i}.{name}"])
+                                 for i in range(n)])
+    return {"embed": _np(sd["embed"]), "layers": layers,
+            "final_ln": _np(sd["final_ln"])}
+
+
+def lora_tree(sd: StateDict) -> Dict[str, Any]:
+    """Inverse of `lora_state_dict`: `{t}_a` [L, din, r], `{t}_b`
+    [L, r, dout]."""
+    n = len({k.split(".")[1] for k in sd})
+    names = sorted({k.split(".")[2] for k in sd})
+    return {name: np.stack([_np(sd[f"layers.{i}.{name}"]) for i in range(n)])
+            for name in names}
+
+
+def switch_tree(sd: StateDict) -> Dict[str, Any]:
+    return {"w": _np(sd["w"])}
+
+
 def llava_tree(params) -> Dict[str, Any]:
-    """A `models.llava.LlavaParams` -> the JAX LLaVA params tree (numpy)."""
+    """A `models.llava.LlavaParams` -> the JAX LLaVA params tree (numpy),
+    with `lora` / `switch` where the params carry them."""
     sd = params.state_dict()
     towers = []
     for i, tower in enumerate(params.towers):
         tsd = _sub(sd, f"towers.{i}.")
         towers.append(vit_tree(tsd, tower.cfg.patch_size,
                                tower.cfg.num_channels) if tsd else {})
-    return {"towers": towers,
+    tree = {"towers": towers,
             "projector": projector_tree(_sub(sd, "projector.")),
             "decoder": llama_tree(_sub(sd, "decoder."))}
+    if params.lora is not None:
+        tree["lora"] = lora_tree(_sub(sd, "lora."))
+    if params.switch is not None:
+        tree["switch"] = switch_tree(_sub(sd, "switch."))
+    return tree

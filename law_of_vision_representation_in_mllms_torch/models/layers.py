@@ -16,6 +16,8 @@ weight.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -102,3 +104,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         reset = getattr(m, "reset_parameters", None)
         if reset is not None:
             reset(generator)
+
+
+@functools.lru_cache(maxsize=None)
+def round_to_dtype(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as a Python float: a scalar factor that
+    multiplies a `dtype` tensor the way the JAX package's `jnp.asarray(value,
+    x.dtype)` does. Cached, so a forward pays for the rounding once."""
+    return torch.tensor(value, dtype=dtype).item()

@@ -27,6 +27,10 @@ Weight-only quantisation: after `ops.quant.quantize_decoder` the blocks'
 `Dense` modules and the `lm_head` are `QuantDense` (int8: a plain PyTorch
 product on the cast codes; int4: kernel 10), called like a `Dense`.
 
+LoRA: `forward(lora=...)` hands block i the adapters `lora.layers[i]`
+(`models/lora.py`); every weight product of the block, `QuantDense` included
+(QLoRA), gains its rank-r delta.
+
 Training: a no-cache pass takes `remat` / `remat_policy` (the JAX `_remat`):
 "block" checkpoints every block (`torch.utils.checkpoint`, non-reentrant),
 "dots" checkpoints it selectively, saving the outputs of the block's weight
@@ -179,14 +183,23 @@ class LlamaBlock(nn.Module):
         self.rms2.fill_(1.0)
 
     def forward(self, h, cos, sin, mask, kv_cache, cache_index,
-                use_flash: bool):
+                use_flash: bool, lora=None, lora_scaling: float = 1.0):
+        """`lora`: this block's `models.lora.LoraLayer` or None. Each weight
+        product, dense or quantised, gains its rank-r delta on top."""
         cfg = self.cfg
         b, s, _ = h.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+        def mm(x_, name):
+            y = getattr(self, name)(x_)
+            delta = None if lora is None else lora.delta(
+                x_.to(y.dtype), name, lora_scaling)
+            return y if delta is None else y + delta
+
         x = rms_norm(h, self.rms1, cfg.rms_eps)
-        q = apply_rope(self.wq(x).view(b, s, nh, hd), cos, sin)
-        k = apply_rope(self.wk(x).view(b, s, nkv, hd), cos, sin)
-        v = self.wv(x).view(b, s, nkv, hd)
+        q = apply_rope(mm(x, "wq").view(b, s, nh, hd), cos, sin)
+        k = apply_rope(mm(x, "wk").view(b, s, nkv, hd), cos, sin)
+        v = mm(x, "wv").view(b, s, nkv, hd)
         k_sc = v_sc = None
         if kv_cache is not None:
             ck, cv = kv_cache[:2]
@@ -210,9 +223,9 @@ class LlamaBlock(nn.Module):
         else:
             attn = _attention(q, k_all, v_all, mask,
                               self.precision.accum_dtype, k_sc, v_sc)
-        h = h + self.wo(attn.reshape(b, s, nh * hd))
+        h = h + mm(attn.reshape(b, s, nh * hd), "wo")
         x = rms_norm(h, self.rms2, cfg.rms_eps)
-        return h + self.down(F.silu(self.gate(x)) * self.up(x))
+        return h + mm(F.silu(mm(x, "gate")) * mm(x, "up"), "down")
 
 
 # "dots": the non-batched matmuls (the block's weight products) are saved;
@@ -269,13 +282,16 @@ class LlamaModel(nn.Module):
     def forward(self, embeds, positions, *, attn_mask=None,
                 cache: Optional[Cache] = None,
                 cache_index: Optional[int] = None, use_flash: bool = False,
-                remat: bool = False, remat_policy: Optional[str] = None):
+                remat: bool = False, remat_policy: Optional[str] = None,
+                lora=None, lora_scaling: float = 1.0):
         """embeds [B, S, D]; positions [B, S] (RoPE); attn_mask [B, T] bool
         validity of key slots (T = S without a cache, else the cache
         length), combined with causality over positions (no cache) or over
         cache slots (with a cache: the query at slot cache_index + i sees
         slots <= its own). `remat` checkpoints every block of a no-cache
-        pass with `remat_policy`. Returns (hidden [B, S, D], cache)."""
+        pass with `remat_policy`. `lora`: optional `models.lora.LoraAdapters`,
+        applied per block with `lora_scaling` (alpha / r). Returns (hidden
+        [B, S, D], cache)."""
         cfg = self.cfg
         b, s, _ = embeds.shape
         h = embeds.to(self.precision.compute_dtype)
@@ -299,7 +315,8 @@ class LlamaModel(nn.Module):
             run = _remat(layer, remat_policy) if remat else layer
             h = run(h, cos, sin, mask,
                     None if cache is None else cache[i], cache_index,
-                    flash_ok)
+                    flash_ok, None if lora is None else lora.layers[i],
+                    lora_scaling)
         return rms_norm(h, self.final_norm, cfg.rms_eps), cache
 
 

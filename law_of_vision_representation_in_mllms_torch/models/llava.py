@@ -9,12 +9,14 @@
   projector; `dump_image_embeds` is the A-score hook;
 - `loss_fn` is the training loss: splice, decoder (kernel 2 forward and
   kernels 5/6 backward on the flash route, optional remat), causal LM loss;
+  with `LlavaParams.lora` set the decoder runs with the rank-r adapters
+  (`models/lora.py`), and `models/switch.py` holds the switch variant's loss;
 - `generate_greedy` is `prefill` (kernel 2) + a Python loop of
   `decode_step`s (kernel 3) over a per-layer KV cache, int8 under
   `LlavaConfig.kv_quant`. A decoder whose weights `ops.quant.
   quantize_decoder` has quantised runs through the same functions.
 
-Not ported yet: `visual_keep` pruning, MoF and perceiver projectors, LoRA,
+Not ported yet: `visual_keep` pruning, MoF and perceiver projectors,
 context and pipeline parallelism, beam search, sampling and speculative
 decoding.
 """
@@ -73,7 +75,9 @@ class LlavaParams(nn.Module):
     """The weights of one LLaVA: `towers` (one ViTTower per spec entry; an
     `nn.Identity` holds the place of a feature pseudo-tower, which has no
     weights), `projector` and `decoder` — the JAX params tree's three
-    subtrees."""
+    subtrees — and the two optional ones of the training variants: `lora`
+    (`models.lora.LoraAdapters`) and `switch` (`models.switch.Switch`), None
+    until a caller sets them."""
 
     def __init__(self, cfg: LlavaConfig,
                  precision: Precision = DEFAULT_PRECISION, *, device=None):
@@ -88,6 +92,8 @@ class LlavaParams(nn.Module):
                                    cfg.decoder.hidden_size, precision,
                                    device=device)
         self.decoder = L.LlamaModel(cfg.decoder, precision, device=device)
+        self.register_module("lora", None)
+        self.register_module("switch", None)
 
 
 def init_params(generator: torch.Generator, cfg: LlavaConfig,
@@ -123,12 +129,14 @@ def dump_image_embeds(params: LlavaParams, cfg: LlavaConfig, pixel_values):
 def loss_fn(params: LlavaParams, cfg: LlavaConfig,
             batch: Dict[str, torch.Tensor], *, remat: bool = False,
             remat_policy: Optional[str] = None, use_flash: bool = False,
-            cp=None, pp=None):
+            lora_scaling: float = 1.0, cp=None, pp=None):
     """Training loss (JAX `loss_fn`). batch: input_ids [B, L] (with -200
     image slots), labels [B, L], text_mask [B, L] bool, pixel_values: a list
     of NHWC tensors (or feature tensors) per tower entry. `use_flash` runs
     the decoder's attention through kernel 2 forward and kernels 5/6
-    backward; the spliced batch is right-padded, as they require. Context
+    backward; the spliced batch is right-padded, as they require. With
+    `params.lora` set the decoder runs with the adapters applied at
+    `lora_scaling` (alpha / r; the reference's peft-LoRA finetune). Context
     (`cp`) and pipeline (`pp`) parallelism are not ported."""
     if cp is not None or pp is not None:
         raise NotImplementedError(
@@ -141,7 +149,8 @@ def loss_fn(params: LlavaParams, cfg: LlavaConfig,
     txt = L.embed_tokens(dec, batch["input_ids"])
     embeds = splice_embeds(plan, txt, img)
     h, _ = dec(embeds, plan.positions, attn_mask=plan.attn_mask,
-               use_flash=use_flash, remat=remat, remat_policy=remat_policy)
+               use_flash=use_flash, remat=remat, remat_policy=remat_policy,
+               lora=params.lora, lora_scaling=lora_scaling)
     return L.causal_lm_loss(L.logits_fn(dec, h), plan.labels)
 
 

@@ -13,15 +13,17 @@ C interface (every pointer and the stream are `void*`, ints are `int`, each
 function returns `cudaGetLastError()` after its launch):
 
   lvr_encoder_attention(q, k, v, out, B, S, H, D, scale, stream)
-  lvr_flash_attention(q, k, v, out, lse, B, Sq, Skv, H, KV, D, kv_len,
-                      causal, scale, stream)
+  lvr_flash_attention(q, k, v, out, lse, slopes, B, Sq, Skv, H, KV, D,
+                      kv_len, causal, scale, stream)
   lvr_decode_attention(q, k, v, mask, out, B, T, H, KV, D, scale, stream)
   lvr_decode_attention_int8(q, k, v, k_scale, v_scale, mask, out, B, T, H,
                             KV, D, scale, stream)
-  lvr_flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
-                             KV, D, kv_len, causal, scale, stream)
-  lvr_flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv,
-                              H, KV, D, kv_len, causal, scale, stream)
+  lvr_flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq, slopes, B, Sq,
+                             Skv, H, KV, D, kv_len, causal, scale, stream)
+  lvr_flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, slopes, B,
+                              Sq, Skv, H, KV, D, kv_len, causal, scale,
+                              stream)
+(`slopes`: fp32 [B, H] ALiBi slopes, or NULL for no bias)
   lvr_a_score(target, anchor, target_mask, anchor_mask, partial_sum,
               partial_count, out, N, St, Sa, D, dtype, vec, stream)
   lvr_int4_matmul(x, q4, scale, out, M, K, N, groups, stream)
@@ -52,15 +54,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "lvr_encoder_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "lvr_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _P),
+    "lvr_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _P),
     "lvr_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "lvr_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _F, _P),
-    "lvr_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _F, _P),
-    "lvr_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _F, _P),
+    "lvr_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _F, _P),
+    "lvr_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "lvr_a_score": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lvr_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

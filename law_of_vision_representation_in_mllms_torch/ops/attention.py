@@ -10,15 +10,18 @@ from __future__ import annotations
 import torch
 
 
-def mha(q, k, v, *, mask=None):
+def mha(q, k, v, *, bias=None, mask=None):
     """Multi-head attention.
 
     q: [B, Sq, H, D]; k, v: [B, Skv, H, D] (the caller repeats kv heads for
-    GQA); mask broadcastable to [B, H, Sq, Skv] bool, False -> -1e30.
-    Returns [B, Sq, H, D] in q.dtype.
+    GQA); bias broadcastable to [B, H, Sq, Skv], added to the scaled logits
+    in fp32 (ALiBi); mask broadcastable to [B, H, Sq, Skv] bool, False ->
+    -1e30. Returns [B, Sq, H, D] in q.dtype.
     """
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                           k.float()) * q.shape[-1] ** -0.5
+    if bias is not None:
+        logits = logits + bias.float()
     if mask is not None:
         logits = torch.where(mask, logits, torch.tensor(
             -1e30, dtype=torch.float32, device=logits.device))

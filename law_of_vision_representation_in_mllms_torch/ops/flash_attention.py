@@ -23,6 +23,20 @@ logits or probabilities; causal tiles past the diagonal are skipped; query
 head h reads kv head h // (H / KV) itself, so K and V are read at their true
 size instead of repeated, and kernel 6 sums a group's dk/dv in registers.
 
+ALiBi (MPT, the TPU kernels' `alibi` flag): with `alibi_slopes` (fp32 [H]
+or [B, H], the slope of each QUERY head) logit (i, j) gains
+slope[b, h] * (j - (kv_len - 1)) before the mask, inside all three kernels;
+no [Sq, Skv] bias tensor exists on the card. The kernels add the bias in
+exactly that form, as one fused multiply-add onto the scaled score in fp32
+(in base 2: slope and scale are taken times log2(e)). The per-row constant
+-slope * (kv_len - 1) cancels in the softmax but is kept, because the LSE is
+an output and must be the LSE of the biased logits, which is also what the
+JAX kernel returns and what kernels 5 and 6 subtract from the same
+expression. Its price is resolution: at S = 2,048 and slope 2^-0.25 the bias
+reaches -1,721, where one fp32 ulp is 1.2e-4, so P carries a relative error
+of that size, the same as in the JAX kernels and well under bf16's rounding
+of P (3.9e-3). The slopes take no gradient (the JAX `_bwd` returns zeros).
+
 Padding contract (kept from the JAX flash prefill, `models/llama.py`): the
 kernels take no key-padding mask, only causality and a `kv_len` tail. A batch
 must be RIGHT-padded: every row's valid tokens come first, so a valid query
@@ -52,13 +66,40 @@ def _visible(sq: int, skv: int, kv_len: int, causal: bool, device):
     return visible
 
 
+def _slopes_bh(name: str, alibi_slopes, b: int, h: int, device):
+    """`alibi_slopes` [H] or [B, H] -> contiguous fp32 [B, H] (None stays
+    None). The slopes must already lie on the inputs' device."""
+    if alibi_slopes is None:
+        return None
+    sl = alibi_slopes
+    if not isinstance(sl, torch.Tensor) or sl.dtype != torch.float32:
+        raise ValueError(f"{name}: alibi_slopes must be an fp32 tensor")
+    if sl.device != device:
+        raise ValueError(f"{name}: alibi_slopes is on {sl.device}, not "
+                         f"{device}")
+    if tuple(sl.shape) == (h,):
+        sl = sl[None].expand(b, h)
+    elif tuple(sl.shape) != (b, h):
+        raise ValueError(f"{name}: alibi_slopes must be [{h}] or "
+                         f"[{b}, {h}], got {tuple(sl.shape)}")
+    return sl.contiguous()
+
+
+def _alibi_bias(slopes, skv: int, kv_len: int, acc):
+    """The materialised bias [B, H, 1, Skv] of slopes [B, H]:
+    slope * (j - (kv_len - 1))."""
+    dist = torch.arange(skv, device=slopes.device) - (kv_len - 1)
+    return slopes.to(acc)[:, :, None, None] * dist.to(acc)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = False,
                           kv_len: int | None = None,
-                          return_lse: bool = False):
+                          return_lse: bool = False, alibi_slopes=None):
     """Reference in fp32 (fp64 for fp64 inputs). q [B, Sq, H, D]; k, v
     [B, Skv, KV, D]. Key j is visible to query i iff j < kv_len and (not
-    causal or j <= i). A row that sees no key gives 0 and LSE 0, as the TPU
-    kernel does."""
+    causal or j <= i). `alibi_slopes` [H] or [B, H] adds the materialised
+    bias slope * (j - (kv_len - 1)) to the scaled logits. A row that sees no
+    key gives 0 and LSE 0, as the TPU kernel does."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -68,6 +109,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
     kf = k.to(acc).repeat_interleave(g, dim=2)
     vf = v.to(acc).repeat_interleave(g, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), kf) * d ** -0.5
+    slopes = _slopes_bh("flash_attention_plain", alibi_slopes, b, h, q.device)
+    if slopes is not None:
+        logits = logits + _alibi_bias(slopes, skv, kv_len, acc)
     visible = _visible(sq, skv, kv_len, causal, q.device)
     logits = logits.masked_fill(~visible, float("-inf"))
     any_visible = visible.any(dim=-1)                        # [Sq]
@@ -81,12 +125,13 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = False,
-                              kv_len: int | None = None):
+                              kv_len: int | None = None, alibi_slopes=None):
     """The explicit backward formulas of the JAX `_bwd` / `_recompute_p`, in
     fp32 (fp64 for fp64 inputs). q, do, out [B, Sq, H, D]; k, v
     [B, Skv, KV, D]; lse [B, H, Sq]. Query head h reads kv head h // G;
-    dk and dv of a kv head sum over its group's G query heads. Returns
-    (dq, dk, dv) in the dtypes of q, k, v."""
+    dk and dv of a kv head sum over its group's G query heads. With
+    `alibi_slopes` P is recomputed from the biased logits (the LSE is the
+    biased forward's). Returns (dq, dk, dv) in the dtypes of q, k, v."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -98,6 +143,10 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = False,
     kf = k.to(acc).repeat_interleave(g, dim=2)
     vf = v.to(acc).repeat_interleave(g, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    slopes = _slopes_bh("flash_attention_bwd_plain", alibi_slopes, b, h,
+                        q.device)
+    if slopes is not None:
+        s = s + _alibi_bias(slopes, skv, kv_len, acc)
     visible = _visible(sq, skv, kv_len, causal, q.device)
     # masked slots are never exponentiated: P = 0 there even where LSE = 0
     p = torch.exp((s - lse.to(acc)[..., None]).masked_fill(~visible,
@@ -128,11 +177,14 @@ def _check_shapes(name: str, q, k, v, kv_len):
     return int(kv_len)
 
 
-def _flash_forward(q, k, v, causal: bool, kv_len: int, return_lse: bool):
-    """Kernel 2 (or its plain version for CPU tensors), no autograd."""
+def _flash_forward(q, k, v, causal: bool, kv_len: int, return_lse: bool,
+                   slopes=None):
+    """Kernel 2 (or its plain version for CPU tensors), no autograd.
+    `slopes`: None or fp32 [B, H] from `_slopes_bh`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
-                                     return_lse=return_lse)
+                                     return_lse=return_lse,
+                                     alibi_slopes=slopes)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape
@@ -145,10 +197,12 @@ def _flash_forward(q, k, v, causal: bool, kv_len: int, return_lse: bool):
     err = lib.lvr_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
+        slopes.data_ptr() if slopes is not None else None,
         b, sq, skv, h, kvh, d, kv_len, int(bool(causal)), d ** -0.5,
         _build.stream_handle(q.device))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.alibi_launches += slopes is not None
     if return_lse:
         return out, lse
     return out
@@ -169,13 +223,17 @@ def _check_bwd_inputs(name: str, q, k, v, do, lse, delta):
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, do, delta, *,
-                           causal: bool = False, kv_len: int | None = None):
+                           causal: bool = False, kv_len: int | None = None,
+                           alibi_slopes=None):
     """Kernel 5: dq [B, Sq, H, D] from the forward's inputs, its LSE, dO and
-    δ = rowsum(dO·O) [B, H, Sq] fp32."""
+    δ = rowsum(dO·O) [B, H, Sq] fp32; `alibi_slopes` as in the forward."""
     kv_len = _check_shapes("flash_attention_bwd_dq", q, k, v, kv_len)
+    slopes = _slopes_bh("flash_attention_bwd_dq", alibi_slopes, q.shape[0],
+                        q.shape[2], q.device)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                         causal=causal, kv_len=kv_len)[0]
+                                         causal=causal, kv_len=kv_len,
+                                         alibi_slopes=slopes)[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_dq: unsupported device "
                          f"{q.device}")
@@ -185,22 +243,28 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, delta, *,
     dq = q.new_empty(q.shape)
     err = _build.library().lvr_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, skv, h, kvh,
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        slopes.data_ptr() if slopes is not None else None, b, sq, skv, h, kvh,
         d, kv_len, int(bool(causal)), d ** -0.5,
         _build.stream_handle(q.device))
     _build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.alibi_launches += slopes is not None
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, do, delta, *,
-                            causal: bool = False, kv_len: int | None = None):
+                            causal: bool = False, kv_len: int | None = None,
+                            alibi_slopes=None):
     """Kernel 6: (dk, dv) [B, Skv, KV, D], each summed over its group's query
-    heads."""
+    heads; `alibi_slopes` (per query head) as in the forward."""
     kv_len = _check_shapes("flash_attention_bwd_dkv", q, k, v, kv_len)
+    slopes = _slopes_bh("flash_attention_bwd_dkv", alibi_slopes, q.shape[0],
+                        q.shape[2], q.device)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                         causal=causal, kv_len=kv_len)[1:]
+                                         causal=causal, kv_len=kv_len,
+                                         alibi_slopes=slopes)[1:]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_dkv: unsupported device "
                          f"{q.device}")
@@ -210,39 +274,45 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, delta, *,
     dk, dv = k.new_empty(k.shape), v.new_empty(v.shape)
     err = _build.library().lvr_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        sq, skv, h, kvh, d, kv_len, int(bool(causal)), d ** -0.5,
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        slopes.data_ptr() if slopes is not None else None, b, sq, skv, h, kvh,
+        d, kv_len, int(bool(causal)), d ** -0.5,
         _build.stream_handle(q.device))
     _build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.alibi_launches += slopes is not None
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
-                        kv_len: int | None = None):
+                        kv_len: int | None = None, alibi_slopes=None):
     """(dq, dk, dv): the plain backward for CPU tensors, else δ in fp32 and
     kernels 5 and 6."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                         causal=causal, kv_len=kv_len)
+                                         causal=causal, kv_len=kv_len,
+                                         alibi_slopes=alibi_slopes)
     delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2)
     delta = delta.contiguous()
     dq = flash_attention_bwd_dq(q, k, v, out, lse, do, delta, causal=causal,
-                                kv_len=kv_len)
+                                kv_len=kv_len, alibi_slopes=alibi_slopes)
     dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, do, delta,
-                                     causal=causal, kv_len=kv_len)
+                                     causal=causal, kv_len=kv_len,
+                                     alibi_slopes=alibi_slopes)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: kernel 2 forward (with LSE), kernels
-    5 and 6 backward. Returns (out, lse); the LSE takes no gradient."""
+    5 and 6 backward. Returns (out, lse); the LSE takes no gradient, nor
+    do the ALiBi slopes (None or fp32 [B, H]), which are saved for the
+    backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, kv_len: int):
-        out, lse = _flash_forward(q, k, v, causal, kv_len, True)
+    def forward(ctx, q, k, v, causal: bool, kv_len: int, slopes=None):
+        out, lse = _flash_forward(q, k, v, causal, kv_len, True, slopes)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.kv_len = causal, kv_len
+        ctx.causal, ctx.kv_len, ctx.slopes = causal, kv_len, slopes
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -252,23 +322,35 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          d_out.contiguous(),
                                          causal=ctx.causal,
-                                         kv_len=ctx.kv_len)
-        return dq, dk, dv, None, None
+                                         kv_len=ctx.kv_len,
+                                         alibi_slopes=ctx.slopes)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
-                    kv_len: int | None = None, return_lse: bool = False):
+                    kv_len: int | None = None, return_lse: bool = False,
+                    alibi_slopes=None):
     """q [B, Sq, H, D]; k, v [B, Skv, KV, D] with H % KV == 0. Returns
     [B, Sq, H, D] (and the fp32 natural-log LSE [B, H, Sq] if asked).
-    Differentiable in q, k and v through `FlashAttention`."""
+    `alibi_slopes`: optional fp32 [H] or [B, H] on the inputs' device, the
+    ALiBi slope of each query head (`models.mpt.alibi_slopes`): logit (i, j)
+    gains slope * (j - (kv_len - 1)), and the LSE is that of the biased
+    logits (see the module docstring). Differentiable in q, k and v through
+    `FlashAttention`; the slopes take no gradient."""
     kv_len = _check_shapes("flash_attention", q, k, v, kv_len)
+    slopes = _slopes_bh("flash_attention", alibi_slopes, q.shape[0],
+                        q.shape[2], q.device)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out, lse = FlashAttention.apply(q, k, v, bool(causal), kv_len)
+        out, lse = FlashAttention.apply(q, k, v, bool(causal), kv_len,
+                                        slopes)
         return (out, lse) if return_lse else out
-    return _flash_forward(q, k, v, causal, kv_len, return_lse)
+    return _flash_forward(q, k, v, causal, kv_len, return_lse, slopes)
 
 
-flash_attention.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+# `launches` counts every launch of a wrapper's kernel, `alibi_launches` those
+# of them that ran its ALiBi instantiation
+for _wrapper in (flash_attention, flash_attention_bwd_dq,
+                 flash_attention_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.alibi_launches = 0

@@ -8,13 +8,21 @@ with seeded random weights, per-tower weights from `model.tower_weights`
 the port's `save_train_state` writes, or a directory of `checkpoint-{step}`),
 and a stage-1 projector in `train.pretrain_mm_mlp_adapter`.
 `model.kv_quant=int8` gives generation the int8 KV cache;
-`train.quantize_base=int4|int8` trains stage 1 through a weight-only
-quantised frozen decoder (`ops.quant.quantize_decoder`).
+`train.quantize_base=int4|int8` trains through a weight-only quantised
+frozen decoder (`ops.quant.quantize_decoder`): stage 1, or with
+`train.lora_enable` (QLoRA: dense adapters on top of the integer base).
+`train.lora_enable` attaches LoRA adapters (`models/lora.py`, rank
+`train.lora_r`, `train.lora_alpha`; the decoder base freezes, adapters and
+projector train), `train.switch_enable` the switch matrix
+(`models/switch.py`; only W trains).
 
 `run_training` is the single-device loop of the reference's `train.py` +
 `scripts/v1_5/train/{pretrain,finetune}.sh`: datasets, the modality-grouped
 sampler, batches prefetched on a host thread, `make_train_step`, JSONL
-metrics, `checkpoint-{step}` saves and the projector-only stage-1 save.
+metrics, `checkpoint-{step}` saves and the projector-only stage-1 save, in
+stage 2 `switch.npz` for a switch run and the LoRA-split save
+(`lora_adapters.npz`, the projector, `config.json` with `lora_r` and
+`lora_alpha`) for a LoRA run.
 
 Precision and attention route: `DEFAULT_PRECISION` (fp32 weights, bf16
 compute) when `train.bf16`, else fp32 throughout, as in the JAX runner. On a
@@ -46,6 +54,8 @@ from ..data.preprocess import SimpleTokenizer
 from ..io import checkpoint, from_jax
 from ..io.param_io import load_params
 from ..models import llama, llava
+from ..models.lora import LoraConfig, init_lora
+from ..models.switch import init_switch
 from ..models.towers import parse_tower_spec
 from ..models.vit import attention_route
 from ..ops.quant import quantize_decoder
@@ -61,8 +71,6 @@ _UNPORTED = {
     ("model", "diffusion_attn_impl"): "5, diffusion towers",
 }
 _UNPORTED_TRAIN = {
-    ("train", "lora_enable"): "9, training variants",
-    ("train", "switch_enable"): "9, training variants",
     ("parallel", "zero"): "10, parallelism",
     ("parallel", "offload_opt_state"): "10, parallelism",
     ("parallel", "offload_params"): "10, parallelism",
@@ -184,8 +192,8 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
     for). Writes `<output_dir>/train.jsonl` (per step: loss, grad_norm,
     skipped_nonfinite, tokens, step_seconds), `checkpoint-{step}` every
     `save_steps`, and at the end the stage-1 projector (`mm_projector.npz`,
-    `mm_projector.bin`, `config.json`) or, in stage 2, a final
-    `checkpoint-{step}`."""
+    `mm_projector.bin`, `config.json`) or, in stage 2, `switch.npz`, the
+    LoRA-split save, or a final `checkpoint-{step}`."""
     _refuse(cfg, _UNPORTED_TRAIN)
     if (cfg.parallel.n_data or 1) * cfg.parallel.n_model * cfg.parallel.seq \
             * cfg.parallel.pipeline > 1:
@@ -204,15 +212,29 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
         # quantised frozen base (`train.py:908-932` load_in_{4,8}bit): the
         # integer weights take no updates, so the decoder must be frozen.
         # The activation gradient flows through kernel 10's autograd Function
-        # (int4) or the plain cast-and-matmul (int8)
-        if cfg.train.stage != 1:
+        # (int4) or the plain cast-and-matmul (int8). With `lora_enable`
+        # this is QLoRA: the adapters stay dense on top
+        if not (cfg.train.lora_enable or cfg.train.stage == 1):
             raise ValueError("train.quantize_base requires a frozen decoder "
-                             "(stage 1)")
+                             "(stage 1 or lora_enable)")
         bits = {"int8": 8, "int4": 4}.get(cfg.train.quantize_base)
         if bits is None:
             raise ValueError(f"train.quantize_base must be int4/int8: "
                              f"{cfg.train.quantize_base!r}")
         quantize_decoder(params.decoder, bits=bits)
+
+    def seeded(offset):
+        g = torch.Generator(device=device)
+        g.manual_seed(cfg.train.seed + offset)
+        return g
+    if cfg.train.lora_enable:
+        params.lora = init_lora(
+            seeded(1), model_cfg.decoder,
+            LoraConfig(rank=cfg.train.lora_r, alpha=cfg.train.lora_alpha),
+            precision, device)
+    if cfg.train.switch_enable:
+        params.switch = init_switch(seeded(2), model_cfg.decoder.hidden_size,
+                                    precision, device)
 
     if cfg.data.feature_folder:
         ds = FeatureDataset(cfg.data.data_path, cfg.data.feature_folder,
@@ -238,7 +260,12 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
                                   and precision.compute_dtype
                                   == torch.bfloat16),
                        fused_optimizer=cfg.train.fused_optimizer,
-                       grad_accum=cfg.train.grad_accum)
+                       grad_accum=cfg.train.grad_accum,
+                       lora_rank=cfg.train.lora_r if cfg.train.lora_enable
+                       else 0,
+                       lora_alpha=cfg.train.lora_alpha,
+                       switch_sigma=cfg.train.switch_sigma
+                       if cfg.train.switch_enable else 0.0)
     state, opt = init_train_state(params, tcfg)
     step_fn = make_train_step(model_cfg, tcfg, opt)
 
@@ -288,6 +315,15 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
                 proj_type=cfg.model.projector_type)
             rank0_print(f"stage-1 projector saved to "
                         f"{cfg.train.output_dir}")
+        elif cfg.train.switch_enable:
+            checkpoint.save_switch(cfg.train.output_dir, params.switch)
+            rank0_print(f"switch W saved to {cfg.train.output_dir}")
+        elif cfg.train.lora_enable:
+            # LoRA-split save (`train.py:1122-1132`): the adapters and the
+            # other trainables (the projector), not the frozen base
+            checkpoint.save_lora(cfg.train.output_dir, params,
+                                 cfg.train.lora_r, cfg.train.lora_alpha)
+            rank0_print(f"LoRA adapters saved to {cfg.train.output_dir}")
         else:
             checkpoint.save_train_state(cfg.train.output_dir, params, opt,
                                         step)

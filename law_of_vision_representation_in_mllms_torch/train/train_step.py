@@ -15,11 +15,18 @@ trainable parameters. The step mutates the parameters and the optimizer
 state in place.
 
 A decoder quantised by `ops.quant.quantize_decoder` (`train.quantize_base`,
-stage 1) holds buffers, not parameters, so it is frozen by construction.
+stage 1 or QLoRA) holds buffers, not parameters, so it is frozen by
+construction and its integer codes never enter the gradient norm (the JAX
+step hands them zero gradients to the same effect).
 
-The sharded, ZeRO and offload variants, LoRA (so QLoRA's adapters) and the
-switch ablation are not ported (ROADMAP, queue 1: 10, parallelism; 9,
-training variants).
+Training variants (JAX `_freeze_labels`): with `LlavaParams.lora` set
+(`TrainConfig.lora_rank`) the decoder base is frozen and the adapters and the
+projector train (peft semantics, `train.py:969-985`); with
+`LlavaParams.switch` set (`TrainConfig.switch_sigma`) only W trains
+(`train_switch.py:895-898`) and the loss is `models.switch.switch_loss_fn`.
+
+The sharded, ZeRO and offload variants are not ported (ROADMAP, queue 1: 10,
+parallelism).
 """
 
 from __future__ import annotations
@@ -31,8 +38,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 from ..models import llava
-
-_VARIANTS = "ROADMAP, queue 1: 9, training variants"
+from ..models.switch import switch_loss_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,21 +58,35 @@ class TrainConfig:
     use_flash: bool = False          # kernels 2, 5 and 6 in the decoder
     # sequential microbatches per step (HF gradient_accumulation_steps)
     grad_accum: int = 1
-    lora_rank: int = 0               # LoRA: not ported
+    # LoRA finetune (`finetune_lora.sh`: r 128, alpha 256): rank > 0 expects
+    # `params.lora`; the decoder base freezes, adapters and projector train
+    lora_rank: int = 0
     lora_alpha: float = 256.0
-    switch_sigma: float = 0.0        # switch ablation: not ported
+    # switch ablation: a nonzero sigma expects `params.switch`; only W trains
+    switch_sigma: float = 0.0
     # FusedAdamW below; False = torch.optim.AdamW + clip_grad_norm_, the
     # counterpart of the JAX optax chain (the parity oracle)
     fused_optimizer: bool = True
 
+    @property
+    def lora_scaling(self) -> float:
+        return self.lora_alpha / self.lora_rank if self.lora_rank else 1.0
+
 
 def _freeze_labels(params: llava.LlavaParams, stage: int) -> Dict[str, str]:
     """Parameter name -> 'train' | 'freeze'. Towers never train (the
-    reference freezes them in both stages); stage 1 freezes the decoder."""
+    reference freezes them in both stages); stage 1 freezes the decoder.
+    With a switch present only W trains; with LoRA adapters present the
+    decoder base freezes and the adapters (and the projector) train."""
+    names = [name for name, _ in params.named_parameters()]
+    if params.switch is not None:
+        return {name: "train" if name.startswith("switch.") else "freeze"
+                for name in names}
+    freeze_decoder = stage == 1 or params.lora is not None
     labels = {}
-    for name, _ in params.named_parameters():
+    for name in names:
         frozen = name.startswith("towers.") or (
-            stage == 1 and name.startswith("decoder."))
+            freeze_decoder and name.startswith("decoder."))
         labels[name] = "freeze" if frozen else "train"
     return labels
 
@@ -211,11 +231,19 @@ def make_optimizer(named_params: List[Tuple[str, torch.nn.Parameter]],
 
 def init_train_state(params: llava.LlavaParams, train_cfg: TrainConfig):
     """Freeze per stage and build the optimizer over the trainable
-    parameters. Returns ({"params", "step"}, optimizer)."""
-    if train_cfg.lora_rank or train_cfg.switch_sigma:
-        raise NotImplementedError(
-            f"LoRA and the switch ablation are not ported to the PyTorch "
-            f"package yet ({_VARIANTS})")
+    parameters. Returns ({"params", "step"}, optimizer). `lora_rank` and
+    `switch_sigma` must agree with what `params` carries: the labels follow
+    the parameters, the loss follows the config."""
+    if train_cfg.lora_rank and params.lora is None:
+        raise ValueError(
+            f"TrainConfig.lora_rank={train_cfg.lora_rank} but params.lora "
+            f"is None: attach `models.lora.init_lora(...)` as params.lora")
+    if bool(train_cfg.switch_sigma) != (params.switch is not None):
+        raise ValueError(
+            f"TrainConfig.switch_sigma={train_cfg.switch_sigma} but "
+            f"params.switch is "
+            f"{'set' if params.switch is not None else 'None'}: attach "
+            f"`models.switch.init_switch(...)` as params.switch")
     opt = make_optimizer(apply_freeze(params, train_cfg.stage), train_cfg)
     return {"params": params, "step": 0}, opt
 
@@ -244,10 +272,14 @@ def make_train_step(model_cfg: llava.LlavaConfig, train_cfg: TrainConfig,
     trainable = [p for _, p in opt.named_params]
 
     def loss_and_grads(params, batch):
-        loss = llava.loss_fn(params, model_cfg, batch,
-                             remat=train_cfg.remat,
-                             remat_policy=train_cfg.remat_policy,
-                             use_flash=train_cfg.use_flash)
+        kw = dict(remat=train_cfg.remat, remat_policy=train_cfg.remat_policy,
+                  use_flash=train_cfg.use_flash)
+        if train_cfg.switch_sigma:
+            loss = switch_loss_fn(params, model_cfg, batch,
+                                  train_cfg.switch_sigma, **kw)
+        else:
+            loss = llava.loss_fn(params, model_cfg, batch,
+                                 lora_scaling=train_cfg.lora_scaling, **kw)
         return loss.detach(), torch.autograd.grad(loss, trainable)
 
     def step(state, batch):

@@ -171,3 +171,115 @@ def test_plain_mha_and_causal_mask_match_jax():
     got = tatt.mha(*(torch.from_numpy(x) for x in (q, k, v)),
                    mask=torch.from_numpy(mask))
     _close(got, want)
+
+
+# ---- ALiBi (MPT): the bias the TPU kernels build from per-head slopes ----
+# Tolerance 3e-5 absolute: the JAX package's own tolerance for its in-kernel
+# bias against the biased `mha` (tests/test_flash_attention.py); the bias
+# reaches -slope * (S - 1), where fp32 resolves less than at the unbiased
+# logits' size.
+ALIBI_ATOL = 3e-5
+
+
+def _slopes(h):
+    from law_of_vision_representation_in_mllms_torch.models.mpt import (
+        alibi_slopes)
+    return alibi_slopes(h)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,h", [(130, 4), (77, 6)])
+def test_flash_attention_alibi_matches_flash_mha_and_biased_mha(causal, s,
+                                                                h):
+    """The plain version with the materialised bias against the TPU kernel's
+    in-kernel bias (`flash_mha(alibi_slopes=...)`, interpret mode) and
+    against both packages' biased `mha`; S not a block multiple, H = 6 with
+    interleaved slopes."""
+    from law_of_vision_representation_in_mllms_tpu.models import mpt as jmpt
+    from law_of_vision_representation_in_mllms_tpu.ops import attention as ja
+    from law_of_vision_representation_in_mllms_torch.models import mpt as tmpt
+    b, d = 2, 16
+    q, k, v = (_randn(80 + i, b, s, h, d) for i in range(3))
+    want = jflash.flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal, alibi_slopes=jmpt.alibi_slopes(h),
+                            block_q=128, block_k=128, interpret=True)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=causal,
+                          alibi_slopes=_slopes(h))
+    _close(got, want, ALIBI_ATOL)
+    jmask = ja.causal_mask(s, s)[None, None] if causal else None
+    want_mha = ja.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      bias=jmpt.alibi_bias(h, s)[None], mask=jmask)
+    _close(got, want_mha, ALIBI_ATOL)
+    tmask = tatt.causal_mask(s, s)[None, None] if causal else None
+    got_mha = tatt.mha(tq, tk, tv, bias=tmpt.alibi_bias(h, s)[None],
+                       mask=tmask)
+    _close(got_mha, want_mha, ALIBI_ATOL)
+    # the bias is really there
+    assert (got - flash_attention(tq, tk, tv, causal=causal)).abs().max() \
+        > 1e-2
+
+
+@pytest.mark.parametrize("causal,kv_len", [(True, 100), (False, 75),
+                                           (True, 128)])
+def test_flash_attention_alibi_lse_matches_fwd_lse_kernel(causal, kv_len):
+    """Output and LSE against `_flash_fwd_lse` with slopes and a kv_len
+    tail: the LSE is that of the biased logits, offset -slope * (kv_len - 1)
+    included (it is what the backward subtracts). [B, H] slopes that differ
+    by batch row, as `flash_attention_bhsd` takes them."""
+    b, s, h, d = 2, 128, 2, 16
+    q, k, v = (_randn(90 + i, b, s, h, d) for i in range(3))
+    slopes = np.array([[0.5, 0.0625], [0.25, 0.7]], np.float32)
+
+    def fold(x):
+        return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, s, d))
+    slopes8 = jnp.broadcast_to(jnp.asarray(slopes.reshape(b * h))[:, None],
+                               (b * h, 8))
+    out, lse = jflash._flash_fwd_lse(
+        fold(q), fold(k), fold(v), slopes8, scale=d ** -0.5, causal=causal,
+        kv_len=kv_len, block_q=64, block_k=64, interpret=True)
+    got, got_lse = flash_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+        kv_len=kv_len, return_lse=True,
+        alibi_slopes=torch.from_numpy(slopes))
+    _close(got.numpy().transpose(0, 2, 1, 3).reshape(b * h, s, d), out,
+           ALIBI_ATOL)
+    _close(got_lse.reshape(b * h, s), np.asarray(lse)[..., 0], ALIBI_ATOL)
+    # the offset is in the LSE: it differs from the unbiased one
+    _, plain_lse = flash_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+        kv_len=kv_len, return_lse=True)
+    assert (got_lse - plain_lse).abs().max() > 1.0
+
+
+def test_flash_attention_alibi_rows_without_keys_and_sq_ne_skv():
+    """Sq != Skv with a kv_len tail, non-causal and causal: the bias counts
+    from kv_len - 1, not from Skv - 1; under causality with kv_len = 0 no
+    row sees a key and output and LSE stay 0."""
+    b, sq, skv, h, d, kv_len = 1, 20, 50, 4, 8, 37
+    q = torch.from_numpy(_randn(100, b, sq, h, d))
+    k, v = (torch.from_numpy(_randn(101 + i, b, skv, h, d)) for i in (0, 1))
+    sl = _slopes(h)
+    got, lse = flash_attention(q, k, v, kv_len=kv_len, return_lse=True,
+                               alibi_slopes=sl)
+    dist = torch.arange(kv_len, dtype=torch.float32) - (kv_len - 1)
+    want = tatt.mha(q, k[:, :kv_len], v[:, :kv_len],
+                    bias=(sl[:, None, None] * dist)[None])
+    _close(got, want, ALIBI_ATOL)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k[:, :kv_len]) * d ** -0.5 \
+        + sl[None, :, None, None] * dist
+    _close(lse, torch.logsumexp(logits, dim=-1), ALIBI_ATOL)
+    out0, lse0 = flash_attention(q, k, v, causal=True, kv_len=0,
+                                 return_lse=True, alibi_slopes=sl)
+    assert (out0 == 0).all() and (lse0 == 0).all()
+
+
+def test_flash_attention_alibi_slopes_are_checked():
+    q = torch.zeros(2, 8, 4, 8)
+    sl = _slopes(4)
+    assert flash_attention(q, q, q, alibi_slopes=sl).shape == q.shape
+    assert flash_attention(q, q, q,
+                           alibi_slopes=sl[None].repeat(2, 1)).shape == q.shape
+    for bad in (sl[:3], sl.double(), sl[None].repeat(3, 1), [0.5] * 4):
+        with pytest.raises(ValueError, match="alibi_slopes"):
+            flash_attention(q, q, q, alibi_slopes=bad)

@@ -197,6 +197,86 @@ def test_flash_function_backward(cuda_device, causal, kv_len, s, h, kvh, d):
         assert _close(got, w)
 
 
+def _alibi_case(device, s, h, kvh, d, b=2):
+    from law_of_vision_representation_in_mllms_torch.models.mpt import (
+        alibi_slopes)
+    q = _randn((b, s, h, d), 0, device)
+    k = _randn((b, s, kvh, d), 1, device)
+    v = _randn((b, s, kvh, d), 2, device)
+    return q, k, v, alibi_slopes(h, device=device)
+
+
+# MPT-7B's shape, a ragged S, H = 6 (interleaved slopes) at D = 64, GQA
+# (the slope is the query head's), non-causal with a kv_len tail
+ALIBI_CASES = [(True, None, 2048, 32, 32, 128), (True, None, 333, 8, 8, 128),
+               (True, None, 190, 6, 6, 64), (True, 150, 190, 8, 2, 128),
+               (False, 100, 130, 4, 1, 64)]
+
+
+@pytest.mark.parametrize("causal,kv_len,s,h,kvh,d", ALIBI_CASES)
+def test_flash_kernel_alibi(cuda_device, causal, kv_len, s, h, kvh, d):
+    """Kernel 2 with the in-kernel ALiBi bias against the plain version with
+    the materialised bias; the LSE is that of the biased logits (at
+    S = 2,048 it reaches -1,700, where fp32 resolves 1.2e-4)."""
+    q, k, v, slopes = _alibi_case(cuda_device, s, h, kvh, d)
+    before = flash_attention.launches
+    got, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                               return_lse=True, alibi_slopes=slopes)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, want_lse = flash_attention_plain(
+        q, k, v, causal=causal, kv_len=kv_len, return_lse=True,
+        alibi_slopes=slopes)
+    assert _close(got, want)
+    assert (lse - want_lse).abs().max().item() < 1e-2
+    # the bias is really there: without it the output differs
+    plain_nobias = flash_attention_plain(q, k, v, causal=causal,
+                                         kv_len=kv_len)
+    assert not _close(got, plain_nobias)
+    # [B, H] slopes that differ by batch row
+    sl2 = torch.stack([slopes, slopes.flip(0)])
+    got2 = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                           alibi_slopes=sl2)
+    assert _close(got2, flash_attention_plain(
+        q, k, v, causal=causal, kv_len=kv_len, alibi_slopes=sl2))
+
+
+@pytest.mark.parametrize("causal,kv_len,s,h,kvh,d", ALIBI_CASES)
+def test_flash_function_backward_alibi(cuda_device, causal, kv_len, s, h,
+                                       kvh, d):
+    """Kernels 5 and 6 recompute P with the bias: autograd through
+    `flash_attention(alibi_slopes=...)` against the plain biased backward
+    on the same bf16 inputs, saved output and LSE."""
+    q, k, v, slopes = _alibi_case(cuda_device, s, h, kvh, d)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    do = _randn(q.shape, 3, cuda_device)
+    launches = (flash_attention_bwd_dq.launches,
+                flash_attention_bwd_dkv.launches)
+    out, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                               return_lse=True, alibi_slopes=slopes)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (launches[0] + 1,
+                                                  launches[1] + 1)
+    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                     out.detach(), lse, do, causal=causal,
+                                     kv_len=kv_len, alibi_slopes=slopes)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert got.dtype == torch.bfloat16
+        assert _close(got, w)
+
+
+def test_flash_alibi_rejects_bad_slopes(cuda_device):
+    q, k, v, slopes = _alibi_case(cuda_device, 64, 4, 4, 64)
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        flash_attention(q, k, v, alibi_slopes=slopes.cpu())
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        flash_attention(q, k, v, alibi_slopes=slopes[:3])
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        flash_attention(q, k, v, alibi_slopes=slopes.double())
+
+
 A_TOL = 1e-5      # fp32 in, fp32 sums over D; cosines lie in [-1, 1]
 
 

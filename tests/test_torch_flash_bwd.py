@@ -150,3 +150,132 @@ def test_forward_only_wrappers_refuse_grad():
         assert tdec.decode_attention(qd, kv, kv, mask).shape == qd.shape
     plain = torch.randn(2, 10, 2, 8)
     assert tenc.encoder_attention(plain, plain, plain).shape == plain.shape
+
+
+# ---- ALiBi: kernels 5 and 6 recompute P with the bias ----
+# Tolerance: the JAX package's own for its ALiBi backward against XLA
+# (tests/test_flash_attention.py): 5e-5 absolute plus 1e-3 relative.
+ALIBI_TOL = dict(atol=5e-5, rtol=1e-3)
+
+
+def _jax_alibi_grads(q, k, v, do, causal, slopes):
+    g = q.shape[2] // k.shape[2]
+
+    def f(q, k, v):
+        return jflash.flash_mha_trainable(
+            q, jnp.repeat(k, g, axis=2), jnp.repeat(v, g, axis=2),
+            causal=causal, alibi_slopes=jnp.asarray(slopes), block_q=128,
+            block_k=128, interpret=True)
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    return (np.asarray(out),) + tuple(np.asarray(x) for x in
+                                      vjp(jnp.asarray(do)))
+
+
+def _slopes(h):
+    from law_of_vision_representation_in_mllms_torch.models.mpt import (
+        alibi_slopes)
+    return alibi_slopes(h)
+
+
+@pytest.mark.parametrize("causal,s,h,kvh", [
+    (True, 96, 4, 4),
+    (True, 70, 6, 6),      # interleaved slopes, S not a block multiple
+    (False, 70, 4, 4),
+    (True, 130, 4, 2),     # GQA: the slope is the query head's
+    (False, 33, 8, 1),     # MQA
+])
+def test_bwd_plain_alibi_matches_jax_flash_vjp(causal, s, h, kvh):
+    """The plain biased backward against `jax.grad` through
+    `flash_mha_trainable(alibi_slopes=...)` (Pallas backward kernels in
+    interpret mode). Under GQA the JAX side repeats K/V to the query heads,
+    so each repeated head meets its own slope and dk/dv come back summed:
+    the repeated-heads formulation."""
+    b, d = 2, 16
+    q = _randn(30, b, s, h, d)
+    k, v = _randn(31, b, s, kvh, d), _randn(32, b, s, kvh, d)
+    do = _randn(33, b, s, h, d)
+    sl = _slopes(h)
+    want_out, *want = _jax_alibi_grads(q, k, v, do, causal, sl.numpy())
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = tflash.flash_attention_plain(tq, tk, tv, causal=causal,
+                                            return_lse=True, alibi_slopes=sl)
+    np.testing.assert_allclose(out.numpy(), want_out, **ALIBI_TOL)
+    got = tflash.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo,
+                                           causal=causal, alibi_slopes=sl)
+    for name, g_got, g_want in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g_got.numpy(), g_want, err_msg=name,
+                                   **ALIBI_TOL)
+    # the explicit formulas agree with autograd through the plain forward
+    # with the materialised bias (they share no backward code)
+    lq, lk, lv = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    tflash.flash_attention_plain(lq, lk, lv, causal=causal,
+                                 alibi_slopes=sl).backward(tdo)
+    for name, g_got, leaf in zip(("dq", "dk", "dv"), got, (lq, lk, lv)):
+        np.testing.assert_allclose(g_got.numpy(), leaf.grad.numpy(),
+                                   err_msg=name, atol=ATOL, rtol=RTOL)
+
+
+def test_function_alibi_grads_match_jax_flash_vjp():
+    """Autograd through `flash_attention(alibi_slopes=...)` on the CPU; the
+    slopes take no gradient."""
+    b, s, h, kvh, d = 2, 45, 4, 2, 8
+    q = _randn(40, b, s, h, d)
+    k, v = _randn(41, b, s, kvh, d), _randn(42, b, s, kvh, d)
+    do = _randn(43, b, s, h, d)
+    sl = _slopes(h)
+    _, *want = _jax_alibi_grads(q, k, v, do, True, sl.numpy())
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tflash.flash_attention(tq, tk, tv, causal=True, alibi_slopes=sl)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(do))
+    assert sl.grad is None
+    for name, t, g_want in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), g_want, err_msg=name,
+                                   **ALIBI_TOL)
+
+
+@pytest.mark.parametrize("causal,kv_len,h,kvh", [
+    (True, None, 4, 2), (False, 6, 2, 2), (True, 3, 6, 1)])
+def test_flash_attention_function_alibi_gradcheck(causal, kv_len, h, kvh):
+    """fp64 finite differences through `FlashAttention` with slopes (fp32,
+    as the wrapper demands; the plain versions lift them to fp64)."""
+    g = torch.Generator().manual_seed(1)
+    b, s, d = 2, 9, 4
+    q = torch.randn(b, s, h, d, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    k = torch.randn(b, s, kvh, d, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    v = torch.randn(b, s, kvh, d, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    sl = _slopes(h)
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: tflash.flash_attention(q, k, v, causal=causal,
+                                               kv_len=kv_len,
+                                               alibi_slopes=sl),
+        (q, k, v))
+
+
+def test_bwd_wrappers_alibi_take_plain_path_on_cpu():
+    b, s, h, kvh, d = 1, 12, 4, 2, 8
+    q = torch.from_numpy(_randn(50, b, s, h, d))
+    k = torch.from_numpy(_randn(51, b, s, kvh, d))
+    v = torch.from_numpy(_randn(52, b, s, kvh, d))
+    do = torch.from_numpy(_randn(53, b, s, h, d))
+    sl = _slopes(h)
+    out, lse = tflash.flash_attention(q, k, v, causal=True, kv_len=7,
+                                      return_lse=True, alibi_slopes=sl)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    want = tflash.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                            causal=True, kv_len=7,
+                                            alibi_slopes=sl)
+    nobias = tflash.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                              causal=True, kv_len=7)
+    assert not torch.allclose(want[0], nobias[0], atol=1e-3)
+    dq = tflash.flash_attention_bwd_dq(q, k, v, out, lse, do, delta,
+                                       causal=True, kv_len=7,
+                                       alibi_slopes=sl)
+    dk, dv = tflash.flash_attention_bwd_dkv(q, k, v, out, lse, do, delta,
+                                            causal=True, kv_len=7,
+                                            alibi_slopes=sl)
+    assert torch.equal(dq, want[0])
+    assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])

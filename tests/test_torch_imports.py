@@ -55,7 +55,8 @@ def test_every_port_module_imports_without_jax():
                 "eval.tasks.paper_tasks", "eval.runner", "policy",
                 "policy.fit", "policy.data", "policy.predict",
                 "policy.validate", "ops.quant", "ops.int4_matmul",
-                "models.layers"):
+                "models.layers", "models.mpt", "models.lora",
+                "models.switch"):
         assert f"{PKG}.{mod}" in out["names"]
 
 
@@ -96,7 +97,7 @@ def test_no_port_source_names_a_jax_import():
 
 
 @pytest.mark.parametrize("op", ["encoder", "flash", "decode", "a_score",
-                                "decode_int8", "int4"])
+                                "decode_int8", "int4", "flash_alibi"])
 def test_wrappers_take_plain_path_on_cpu(op):
     out = _run(f"""
         import json, sys
@@ -127,6 +128,15 @@ def test_wrappers_take_plain_path_on_cpu(op):
             same = torch.equal(
                 flash_attention(q, kv, kv, causal=True, kv_len=15),
                 flash_attention_plain(q, kv, kv, causal=True, kv_len=15))
+        elif "{op}" == "flash_alibi":
+            from {PKG}.models.mpt import alibi_slopes
+            wrapper = flash_attention
+            sl = alibi_slopes(4)
+            same = torch.equal(
+                flash_attention(q, kv, kv, causal=True, alibi_slopes=sl),
+                flash_attention_plain(q, kv, kv, causal=True,
+                                      alibi_slopes=sl))
+            same = same and flash_attention.alibi_launches == 0
         elif "{op}" == "decode":
             wrapper = decode_attention
             same = torch.equal(decode_attention(q[:, :1], kv, kv, mask),

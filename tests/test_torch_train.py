@@ -515,16 +515,24 @@ def test_train_cli_from_yaml(tmp_path):
 def test_unported_training_options_raise():
     base = {"model": {"decoder": "tiny", "vision_tower": "debug/tiny-vit"},
             "train": {"bf16": False}}
-    for section, key, value in (("train", "lora_enable", True),
-                                ("train", "switch_enable", True),
-                                ("parallel", "zero", 2),
-                                ("parallel", "n_model", 2)):
+    for section, key, value in (("parallel", "zero", 2),
+                                ("parallel", "offload_opt_state", True),
+                                ("parallel", "n_model", 2),
+                                ("parallel", "pipeline", 2)):
         raw = json.loads(json.dumps(base))
         raw.setdefault(section, {})[key] = value
         with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
             runner.run_training(RunConfig.from_dict(raw), device="cpu")
+    # the training variants build now (tests/test_torch_lora.py trains them):
+    # the runner no longer refuses their fields, and a TrainConfig that asks
+    # for adapters the params lack says so
+    for key in ("lora_enable", "switch_enable"):
+        raw = json.loads(json.dumps(base))
+        raw["train"][key] = True
+        assert runner._refuse(RunConfig.from_dict(raw),
+                              runner._UNPORTED_TRAIN) is None
     _, _, tcfg, params = _configs(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
+    with pytest.raises(ValueError, match="params.lora is None"):
         TS.init_train_state(params, TS.TrainConfig(lora_rank=8))
     with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
         TM.loss_fn(params, tcfg, _port_batch(_batch(0)), cp=object())
