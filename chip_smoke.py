@@ -21,9 +21,12 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      the time of the one PyTorch call that computes the same function
      (`scaled_dot_product_attention`), a yardstick the port never calls.
      Quantisation: kernel 10 (W4A16 matmul) at the 7B shapes 4096->4096,
-     4096->11008, 11008->4096, 4096->32000 at M=4 and M=2,812 (library:
-     `torch.matmul` on the bf16 weight), timed over rotating copies of the
-     weight so every launch reads it from HBM, not from L2; kernel 3's int8
+     4096->11008, 11008->4096, 4096->32000 at M=4 (its small body), 64,
+     2,812 and 11,248 (its wgmma body), and its transposed form
+     `int4_matmul_dx` at M=11,248 (library: `torch.matmul` on the bf16
+     weight), timed over rotating copies of the weight so every launch reads
+     it from HBM, not from L2, with `nvcc -Xptxas -v`'s registers and spills
+     of the two wgmma bodies; kernel 3's int8
      branch at B=4 T=704 H=32 Dh=128 with holes and a GQA case (library:
      SDPA on the dequantised cache); kernel 3 dense against int8 at B=1, 4,
      16, 32 over rotating caches (the kv8 crossover); and what the int8
@@ -92,7 +95,9 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      kernels 5 and 6 32 times each; tokens/s and peak memory;
   10. (after phase 9) LLaVA-1.5-7B through `run_training`, stage 2, 3 steps
      of 16: `train.lora_enable` (r=128, alpha=256), the same with
-     `train.quantize_base=int4` (QLoRA: kernel 10 under autograd) and
+     `train.quantize_base=int4` (QLoRA: kernel 10 forward, its transposed
+     form 7 x 32 + 1 times a step backward; the build's peak with the
+     decoder quantised block by block) and
      `train.switch_enable`. Finite losses, no skipped step, the frozen
      weights bitwise those of a fresh build, every B non-zero (only W moved
      under switch), the saved files load back, and `load_pretrained` (which
@@ -107,6 +112,7 @@ The last lines are the kernels JSON, the card line from nvidia-smi and
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import itertools
@@ -714,18 +720,33 @@ def rotating(make, nbytes: float) -> list:
     return [make() for _ in range(max(2, int(2.5 * L2_BYTES / nbytes) + 1))]
 
 
+def print_ptxas(tag: str, report: str) -> None:
+    """The registers and spills `nvcc -Xptxas -v` reported for kernel 10's
+    two wgmma bodies."""
+    name = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in ("int4_wgmma_dx_kernel",
+                                     "int4_wgmma_kernel") if k in line), None)
+        elif name and ("Used" in line or "spill" in line):
+            print(f"{tag} ptxas {name}: {line.strip()}")
+
+
 def check_int4_matmul(tag: str, dev) -> dict:
     """Phase 2, kernel 10 against its plain version at the four 7B weight
-    shapes, at a decode step's M (4), a prefill's (4 x 703) and a QLoRA
-    training step's (16 x 703, where also its plain backward `dx = dy @
-    dequant(W)` is timed). Library yardstick: `torch.matmul` on the same
-    weight dequantised to bf16."""
+    shapes, at a decode step's M (4, the small body), the large body's 64, a
+    prefill's (4 x 703) and a QLoRA training step's (16 x 703); at that M also
+    its transposed form `int4_matmul_dx` (QLoRA's input gradient) against
+    its plain version `dy @ dequant(W)`. Library yardsticks: `torch.matmul`
+    on the same weight dequantised to bf16 (`x @ W.T`, `dy @ W`). Every
+    product is timed over rotating weights, so each launch reads its weight
+    from HBM."""
     import torch
     from law_of_vision_representation_in_mllms_torch.ops import (
         int4_matmul as K, quant as Q)
 
     g = torch.Generator(device=dev).manual_seed(4)
-    cases, headline = [], None
+    cases, dx_cases, headline, dx_headline = [], [], None, None
     for di, do in ((4096, 4096), (4096, 11008), (11008, 4096),
                    (4096, 32000)):
         def make_leaf():
@@ -735,10 +756,10 @@ def check_int4_matmul(tag: str, dev) -> dict:
         leaves = rotating(make_leaf, wbytes)
         dense = [Q.dequantize_int4(leaf, torch.bfloat16) for leaf in leaves]
         leaf_turn, dense_turn = itertools.cycle(leaves), itertools.cycle(dense)
-        for m in (4, 2812, 11248):
+        leaf = leaves[0]
+        for m in (4, 64, 2812, 11248):
             x = torch.randn((m, di), generator=g, device=dev,
                             dtype=torch.bfloat16)
-            leaf = leaves[0]
 
             def plain():
                 # the plain version holds an fp32 partial for every group:
@@ -750,6 +771,10 @@ def check_int4_matmul(tag: str, dev) -> dict:
             ref = plain()
             tol = INT4_REL_TOL * max(1.0, ref.float().abs().max().item())
             lib_err = max_err(x @ dense[0].T, ref)
+            if not torch.equal(got, K.int4_matmul_kernel(x, leaf["q4"],
+                                                         leaf["scale"])):
+                fail(f"int4_matmul at M={m} {di}->{do} gave other bits on a "
+                     f"second run")
 
             def kernel():
                 lf = next(leaf_turn)
@@ -757,7 +782,8 @@ def check_int4_matmul(tag: str, dev) -> dict:
 
             def library():
                 return x @ next(dense_turn).T
-            timer = graph_ms if m <= 16 else cuda_ms
+            # a launch of tens of microseconds is timed under a CUDA graph
+            timer = graph_ms if m <= 64 else cuda_ms
             r = dict(
                 err=max_err(got, ref), tol=tol, ms=timer(kernel),
                 plain_ms=cuda_ms(plain, iters=3, warmup=1),
@@ -779,21 +805,52 @@ def check_int4_matmul(tag: str, dev) -> dict:
                 "bound_by")})
             if (di, do, m) == (4096, 4096, 4):
                 headline = r
-            if m == 11248:
-                # what autograd runs for kernel 10's input gradient
-                dy = torch.randn((m, do), generator=g, device=dev,
-                                 dtype=torch.bfloat16)
-                bwd_ms = cuda_ms(lambda: dy @ Q.dequantize_int4(
-                    next(leaf_turn), torch.bfloat16))
-                mm_ms = cuda_ms(lambda: dy @ next(dense_turn))
-                print(f"{tag} int4_matmul backward [M={m} {di}->{do}]: dx = "
-                      f"dy @ dequant(W) {bwd_ms:.4f} ms, of which the "
-                      f"product alone {mm_ms:.4f} ms")
-                del dy
             del x, got, ref
-        del leaves, dense
+        # the transposed form at QLoRA's M: dx = dy @ W, W = bf16(code *
+        # bf16(scale)); its plain version is autograd's former backward
+        m = 11248
+        dy = torch.randn((m, do), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+        got = K.int4_matmul_dx(dy, leaf["q4"], leaf["scale"])
+        ref = K.int4_matmul_dx_plain(dy, leaf["q4"], leaf["scale"])
+        if not torch.equal(got, K.int4_matmul_dx(dy, leaf["q4"],
+                                                 leaf["scale"])):
+            fail(f"int4_matmul_dx at M={m} {di}->{do} gave other bits on a "
+                 f"second run")
+
+        def dx_kernel():
+            lf = next(leaf_turn)
+            return K.int4_matmul_dx(dy, lf["q4"], lf["scale"])
+
+        def dx_plain():
+            lf = next(leaf_turn)
+            return K.int4_matmul_dx_plain(dy, lf["q4"], lf["scale"])
+        r = dict(
+            err=max_err(got, ref),
+            tol=INT4_REL_TOL * max(1.0, ref.float().abs().max().item()),
+            ms=cuda_ms(dx_kernel), plain_ms=cuda_ms(dx_plain),
+            library_ms=cuda_ms(lambda: dy @ next(dense_turn)),
+            library_err=max_err(dy @ dense[0], ref),
+            shape=f"M={m} dy [M, {do}] @ W [{do}, {di}] group 128, "
+                  f"{len(leaves)} weights in turn",
+            # words and scales once, dy in, dx written
+            **bound(wbytes + dy.numel() * 2 + m * di * 2, 2.0 * m * di * do,
+                    H100_BF16_TFLOPS))
+        report_kernel(tag, "int4_matmul_dx", r)
+        # the same bf16 weights on both sides: only the order of the sums
+        if not r["library_err"] <= r["tol"]:
+            fail(f"the library yardstick of int4_matmul_dx computes another "
+                 f"function: err {r['library_err']}")
+        dx_cases.append({k: r[k] for k in (
+            "shape", "err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")})
+        if (di, do) == (4096, 4096):
+            dx_headline = r
+        del dy, got, ref, leaves, dense, leaf
     return {"int4_matmul": dict(headline, cases=cases,
-                                err=max(c["err"] for c in cases))}
+                                err=max(c["err"] for c in cases)),
+            "int4_matmul_dx": dict(dx_headline, cases=dx_cases,
+                                   err=max(c["err"] for c in dx_cases))}
 
 
 def check_decode_int8(tag: str, dev) -> dict:
@@ -1091,8 +1148,8 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
     2, 5 and 6 under block remat) against CPU fp32 plain attention, from the
     same weights. Per step: the loss and the gradient of what trains (the
     projector). Phase 3d repeats it through an int4 frozen decoder
-    (`quantize_base`): kernel 10 forward under autograd, `dy @ dequant(W)`
-    backward. `variant="lora"` trains rank-8 adapters (with a small non-zero
+    (`quantize_base`): kernel 10 forward under autograd, its transposed form
+    `int4_matmul_dx` backward. `variant="lora"` trains rank-8 adapters (with a small non-zero
     B, so that A's gradient is not 0) and the projector over the frozen
     decoder, with `quantize_base` over the int4 one (QLoRA);
     `variant="switch"` trains the switch matrix alone."""
@@ -1144,7 +1201,7 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
     gpu.load_state_dict(cpu.state_dict())
     if quantize_base:
         quantise_pair(cpu, gpu, 4 if quantize_base == "int4" else 8)
-    k10_before = K.int4_matmul_kernel.launches
+    k10_before = (K.int4_matmul_kernel.launches, K.int4_matmul_dx.launches)
     what = " ".join(["narrow training"] + ([f"variant={variant}"] if variant
                                            else [])
                     + ([f"quantize_base={quantize_base}"] if quantize_base
@@ -1222,8 +1279,12 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
     if any(c.launches == n for c, n in zip(bwd, before)):
         fail(f"{what} on CUDA did not launch "
              f"{[c.__name__ for c in bwd]}")
-    if quantize_base == "int4" and K.int4_matmul_kernel.launches == k10_before:
-        fail("narrow training through the int4 base launched no kernel 10")
+    if quantize_base == "int4" and (
+            K.int4_matmul_kernel.launches == k10_before[0]
+            or K.int4_matmul_dx.launches == k10_before[1]):
+        fail(f"{what} launched kernel 10 "
+             f"{K.int4_matmul_kernel.launches - k10_before[0]} times and its "
+             f"transposed form {K.int4_matmul_dx.launches - k10_before[1]}")
     for side, ls in zip(("CPU", "CUDA"), losses):
         if not ls[-1] < ls[0]:
             fail(f"narrow training loss did not fall on the {side}: {ls}")
@@ -1519,7 +1580,9 @@ def profile_decode(tag: str, label: str, lmm, ids, mask, pixels,
         if e.device_type != DeviceType.CUDA:
             continue
         name, low = e.name, e.name.lower()
-        if "int4_small_kernel" in name or "int4_big_kernel" in name:
+        # "int4_" ahead of the cuBLAS names: a kernel of ours whose name held
+        # "gemm" would otherwise count as the library's
+        if "int4_" in name:
             fam = "kernel 10 (int4 matmul)"
         elif "decode_kernel" in name:
             fam = "kernel 3 (decode attention)"
@@ -1769,6 +1832,7 @@ def profile_step(tag: str, run, batch) -> None:
     families = {"matmul (cuBLAS)": 0.0, "kernel 1 (tower attention)": 0.0,
                 "kernel 2 (flash forward)": 0.0, "kernel 5 (dq)": 0.0,
                 "kernel 6 (dk/dv)": 0.0, "kernel 10 (int4 matmul)": 0.0,
+                "kernel 10 dx (int4 input gradient)": 0.0,
                 "copies and memsets": 0.0,
                 "elementwise, reductions, optimizer": 0.0}
     names, launched = {}, 0
@@ -1785,7 +1849,9 @@ def profile_step(tag: str, run, batch) -> None:
             fam = "kernel 1 (tower attention)"
         elif "flash_fwd_kernel" in name:
             fam = "kernel 2 (flash forward)"
-        elif "int4_big_kernel" in name or "int4_small_kernel" in name:
+        elif "int4_wgmma_dx" in name:
+            fam = "kernel 10 dx (int4 input gradient)"
+        elif "int4_" in name:
             fam = "kernel 10 (int4 matmul)"
         elif any(x in low for x in ("gemm", "gemv", "cutlass", "xmma",
                                     "nvjet", "cublas")):
@@ -1990,6 +2056,23 @@ def run_full_width_variant(tag: str, dev, counters, variant: str) -> dict:
                           **VARIANT_TRAIN[variant]),
             "data": {"data_path": _training_records(
                 tmp, VARIANT_STEPS * FULL_BATCH), "image_folder": tmp}})
+        if variant == "qlora":
+            # the build alone: the decoder is made quantised block by block,
+            # so its peak is the int4 model plus one fp32 block (or lm_head)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_mem = torch.cuda.memory_allocated(dev)
+            _, built = runner.build_model(cfg, device=dev,
+                                          precision=DEFAULT_PRECISION,
+                                          quantize_bits=4)
+            torch.cuda.synchronize(dev)
+            build_peak = (torch.cuda.max_memory_allocated(dev) - base_mem) / 1e9
+            build_held = (torch.cuda.memory_allocated(dev) - base_mem) / 1e9
+            print(f"{tag} {what}: the model built with its decoder quantised "
+                  f"block by block: peak {build_peak:.2f} GB during the build, "
+                  f"{build_held:.2f} GB held after it")
+            del built
+            gc.collect()
+            torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts(counters)
         t0 = time.perf_counter()
@@ -2041,19 +2124,28 @@ def run_full_width_variant(tag: str, dev, counters, variant: str) -> dict:
         if (launches["int4_matmul"] == 0) != (variant != "qlora"):
             fail(f"{what}: kernel 10 launched {launches['int4_matmul']} "
                  f"times")
+        # the input gradient of every quantised matmul, once a step: 7 a
+        # layer and the lm_head
+        dx_step = 7 * run.model_cfg.decoder.num_layers + 1 \
+            if variant == "qlora" else 0
+        if launches["int4_matmul_dx"] != dx_step * VARIANT_STEPS:
+            fail(f"{what}: int4_matmul_dx launched "
+                 f"{launches['int4_matmul_dx']} times in {VARIANT_STEPS} "
+                 f"steps, not {dx_step} per step")
         step_s = float(np.median([r["step_seconds"] for r in logs[1:]]))
         seq = max(int(r["tokens"]) // FULL_BATCH for r in logs)
         print(f"{tag} {what} step (B={FULL_BATCH}, S={seq} spliced): median "
               f"of steps 2-{VARIANT_STEPS} {step_s * 1e3:.1f} ms (steps "
               + " ".join(f"{r['step_seconds'] * 1e3:.1f}" for r in logs)
               + f" ms); {FULL_BATCH * seq / step_s:.0f} tokens/s; peak "
-              f"memory allocated {peak_gb:.2f} GB (the fp32 model's build "
-              f"included, which under QLoRA comes before the quantisation); "
+              f"memory allocated {peak_gb:.2f} GB (the model's build included); "
               f"weights, adapters and moments held after the run "
               f"{held_gb:.2f} GB")
 
-        # the same seed rebuilds the initial weights (and the same codes):
-        # what is frozen must be bitwise what it was
+        # the same seed rebuilds the initial weights, densely, and
+        # `quantize_decoder` gives the codes: what is frozen must be bitwise
+        # what it was (under QLoRA this also holds the block-by-block build
+        # to the dense build's codes)
         _, fresh = runner.build_model(cfg, device=dev,
                                       precision=DEFAULT_PRECISION)
         if variant == "qlora":
@@ -2487,11 +2579,16 @@ def main() -> int:
           f"TF32 off (matmul and cudnn)")
 
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
-    print(f"{tag} kernels built from {_build.CSRC_DIR.relative_to(REPO)} "
-          f"in {time.perf_counter() - t0:.2f} s -> "
-          f"{os.path.relpath(lib_path, REPO)}")
+    # the registers and spills of kernel 10's wgmma bodies, compiled beside
+    # the library's build
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        report = pool.submit(_build.ptxas_report, "int4_matmul.cu")
+        lib_path = _build.build()
+        _build.library()
+        print(f"{tag} kernels built from {_build.CSRC_DIR.relative_to(REPO)} "
+              f"in {time.perf_counter() - t0:.2f} s -> "
+              f"{os.path.relpath(lib_path, REPO)}")
+        print_ptxas(tag, report.result())
 
     kernels = check_kernels(tag, dev)
     kernels.update(check_flash_bwd(tag, dev))
@@ -2523,7 +2620,8 @@ def main() -> int:
         ("flash_attention_bwd_dkv", fl.flash_attention_bwd_dkv),
         ("a_score", asc.max_cos),
         ("decode_attention_int8", dec.decode_attention_int8),
-        ("int4_matmul", k10.int4_matmul_kernel))}
+        ("int4_matmul", k10.int4_matmul_kernel),
+        ("int4_matmul_dx", k10.int4_matmul_dx))}
     # the launches of kernels 2, 5 and 6 that ran their ALiBi instantiation
     # (a share of the counts above)
     counters.update({name + "_alibi": (wrapper, "alibi_launches")
@@ -2581,6 +2679,9 @@ def main() -> int:
         # `quantized=True`
         "decode_attention_int8": f"{TPU_PKG}/ops/decode_attention.py:341",
         "int4_matmul": f"{TPU_PKG}/ops/int4_kernel.py:157",
+        # XLA's product in the JAX custom VJP of kernel 10
+        "int4_matmul_dx": f"{TPU_PKG}/ops/quant.py:189 (_int4_kernel_mm_bwd, "
+                          f"XLA)",
         # the same `pallas_call`s as kernels 2, 5 and 6 with `alibi=True`
         # (`_fwd_lse_kernel`, `_bwd_dq_kernel`, `_bwd_dkv_kernel`)
         "flash_attention_alibi": f"{TPU_PKG}/ops/flash_attention.py:377",
@@ -2615,6 +2716,7 @@ def main() -> int:
     sources["flash_attention_bwd_dq"] = f"{PKG}/csrc/flash_attention_bwd.cu"
     sources["flash_attention_bwd_dkv"] = f"{PKG}/csrc/flash_attention_bwd.cu"
     sources["decode_attention_int8"] = f"{PKG}/csrc/decode_attention.cu"
+    sources["int4_matmul_dx"] = f"{PKG}/csrc/int4_matmul.cu"
     sources["flash_attention_alibi"] = f"{PKG}/csrc/flash_attention.cu"
     for name in ("flash_attention_bwd_dq_alibi",
                  "flash_attention_bwd_dkv_alibi"):

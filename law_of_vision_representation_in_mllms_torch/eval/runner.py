@@ -16,7 +16,6 @@ from typing import List, Optional
 from ..core.config import RunConfig
 from ..core.precision import BF16_PRECISION, FP32_PRECISION
 from ..data.conversation import get_template
-from ..ops.quant import quantize_decoder
 from .evaluator import simple_evaluate
 from .llava_adapter import LlavaLMM
 from .task import load_task
@@ -34,16 +33,16 @@ def _resolve_task(name_or_path: str):
 def build_lmm(cfg: RunConfig, *, device) -> LlavaLMM:
     """`train.bf16` (the default) keeps weights and activations in bf16, as
     the CUDA kernels require; otherwise everything is fp32 (CPU only).
-    `model.quantize=int8|int4` quantises the decoder's matmul weights after
-    the build, layer by layer on `device`; the dense weights are freed."""
+    `model.quantize=int8|int4` builds the decoder's matmul weights
+    quantised, block by block on `device`: the dense decoder is never whole
+    there."""
     from ..train.runner import build_model, build_tokenizer
     precision = BF16_PRECISION if cfg.train.bf16 else FP32_PRECISION
-    model_cfg, params = build_model(cfg, device=device, precision=precision)
-    if cfg.model.quantize in ("int8", "int4"):
-        quantize_decoder(params.decoder,
-                         bits=4 if cfg.model.quantize == "int4" else 8)
-    elif cfg.model.quantize:
+    bits = {"int8": 8, "int4": 4}.get(cfg.model.quantize)
+    if cfg.model.quantize and bits is None:
         raise ValueError(f"unknown model.quantize {cfg.model.quantize!r}")
+    model_cfg, params = build_model(cfg, device=device, precision=precision,
+                                    quantize_bits=bits)
     return LlavaLMM(params, model_cfg, build_tokenizer(cfg),
                     get_template(cfg.model.conv_template),
                     pad_square=cfg.data.image_aspect_ratio == "pad",

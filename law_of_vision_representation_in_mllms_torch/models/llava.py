@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..core.precision import DEFAULT_PRECISION, Precision
+from ..ops.quant import materialize_quantized
 from . import llama as L
 from .layers import init_weights
 from .projector import Projector
@@ -80,7 +81,8 @@ class LlavaParams(nn.Module):
     until a caller sets them."""
 
     def __init__(self, cfg: LlavaConfig,
-                 precision: Precision = DEFAULT_PRECISION, *, device=None):
+                 precision: Precision = DEFAULT_PRECISION, *, device=None,
+                 decoder_device=None):
         super().__init__()
         self.towers = nn.ModuleList(
             ViTTower(e.vit_config, cfg.select_layer, _select_feature(cfg, e),
@@ -91,18 +93,34 @@ class LlavaParams(nn.Module):
                                    cfg.tower_spec.mm_hidden_size,
                                    cfg.decoder.hidden_size, precision,
                                    device=device)
-        self.decoder = L.LlamaModel(cfg.decoder, precision, device=device)
+        self.decoder = L.LlamaModel(cfg.decoder, precision,
+                                    device=decoder_device or device)
         self.register_module("lora", None)
         self.register_module("switch", None)
 
 
 def init_params(generator: torch.Generator, cfg: LlavaConfig,
                 precision: Precision = DEFAULT_PRECISION,
-                device=None) -> LlavaParams:
+                device=None, *, quantize_bits: Optional[int] = None,
+                decoder_weights=None) -> LlavaParams:
     """Random weights, seeded by `generator` (which must live on `device`'s
-    type), allocated and sampled directly on `device` in the param dtype."""
-    params = LlavaParams(cfg, precision, device=device)
-    init_weights(params, generator)
+    type), allocated and sampled directly on `device` in the param dtype.
+
+    `quantize_bits` (4 or 8) builds the decoder's matmul weights quantised,
+    one block at a time (`ops.quant.materialize_quantized`): the same draws
+    in the same order, and the same codes and scales, as `init_params`
+    followed by `quantize_decoder`, without the dense decoder ever being
+    whole on `device`. `decoder_weights` (a decoder state dict) then gives
+    those matmuls their dense weights before they are quantised."""
+    if not quantize_bits:
+        params = LlavaParams(cfg, precision, device=device)
+        init_weights(params, generator)
+        return params.eval()
+    params = LlavaParams(cfg, precision, device=device, decoder_device="meta")
+    init_weights(params.towers, generator)
+    init_weights(params.projector, generator)
+    materialize_quantized(params.decoder, generator, device,
+                          bits=quantize_bits, dense_weights=decoder_weights)
     return params.eval()
 
 

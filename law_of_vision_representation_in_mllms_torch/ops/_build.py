@@ -27,6 +27,7 @@ function returns `cudaGetLastError()` after its launch):
   lvr_a_score(target, anchor, target_mask, anchor_mask, partial_sum,
               partial_count, out, N, St, Sa, D, dtype, vec, stream)
   lvr_int4_matmul(x, q4, scale, out, M, K, N, groups, stream)
+  lvr_int4_matmul_dx(dy, q4, scale, dx, M, K, N, groups, stream)
   lvr_error_string(err) -> const char*
 """
 
@@ -65,6 +66,7 @@ _SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "lvr_a_score": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lvr_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "lvr_int4_matmul_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -128,6 +130,19 @@ def build() -> Path:
                                f"{' '.join(cmd)}\n{res.stderr}")
         os.replace(lib, out)        # atomic: a reader never sees half a file
     return out
+
+
+def ptxas_report(source: str) -> str:
+    """What `nvcc -Xptxas -v` says of one source's kernels (registers,
+    shared memory, spills), compiled with the library's flags."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+               os.path.join(tmp, "report.o"), str(CSRC_DIR / source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): "
+                           f"{' '.join(cmd)}\n{res.stderr}")
+    return res.stderr
 
 
 @functools.cache

@@ -193,6 +193,25 @@ def quant_matmul(x, qw: Leaf):
     return int4_matmul(x, qw) if "q4" in qw else int8_matmul(x, qw)
 
 
+def _quantizer(bits: int, group_size: Optional[int]):
+    if bits == 8:
+        return quantize_int8
+    if bits == 4:
+        return functools.partial(quantize_int4, group_size=group_size)
+    raise ValueError(f"bits must be 4 or 8, got {bits}")
+
+
+def _quantize_children(owner, names, qfn) -> None:
+    """Replace each `Dense` child of `owner` in `names` by a `QuantDense` of
+    its weight; the dense weight goes with the old module."""
+    from ..models.layers import Dense, QuantDense
+    for name in names:
+        dense = getattr(owner, name, None)
+        if isinstance(dense, Dense):
+            setattr(owner, name, QuantDense(qfn(dense.weight),
+                                            dense.precision))
+
+
 @torch.no_grad()
 def quantize_decoder(decoder, targets=DECODER_TARGETS,
                      quantize_lm_head: bool = True, bits: int = 8,
@@ -201,22 +220,50 @@ def quantize_decoder(decoder, targets=DECODER_TARGETS,
     (embed and norms stay dense) and return it. One `Dense` at a time: its
     weight is quantised on its own device and dropped before the next, so
     the build never holds two copies of the decoder."""
-    from ..models.layers import Dense, QuantDense
-    if bits == 8:
-        qfn = quantize_int8
-    elif bits == 4:
-        qfn = functools.partial(quantize_int4, group_size=group_size)
-    else:
-        raise ValueError(f"bits must be 4 or 8, got {bits}")
-    owners = [(layer, t) for layer in decoder.layers for t in targets]
+    qfn = _quantizer(bits, group_size)
+    for layer in decoder.layers:
+        _quantize_children(layer, targets, qfn)
     if quantize_lm_head:
-        owners.append((decoder, "lm_head"))
-    for owner, name in owners:
-        dense = getattr(owner, name, None)
-        if isinstance(dense, Dense):
-            setattr(owner, name, QuantDense(qfn(dense.weight),
-                                            dense.precision))
+        _quantize_children(decoder, ("lm_head",), qfn)
     return decoder
+
+
+@torch.no_grad()
+def materialize_quantized(decoder, generator, device, *, bits: int,
+                          dense_weights=None):
+    """Build a `LlamaModel` constructed on the `meta` device on `device`,
+    quantised as it goes: its own weights (embed, final norm), then each
+    block, then `lm_head`, each allocated (`to_empty`), drawn from
+    `generator` in `models.layers.init_weights`' order, given its matmul
+    weights from `dense_weights` (a decoder state dict, optional) and
+    quantised before the next is allocated. So the codes and scales are
+    those of a dense build followed by `quantize_decoder`, and the dense
+    decoder is never whole on the device: at most one block's (or
+    `lm_head`'s) dense weights at a time."""
+    from ..models.layers import init_weights
+    qfn = _quantizer(bits, 128)
+
+    def build(owner, names, prefix, quantized):
+        for name in names:
+            module = getattr(owner, name)
+            module.to_empty(device=device)
+            init_weights(module, generator)
+            key = f"{prefix}{name}.weight"
+            if name in quantized and dense_weights is not None \
+                    and key in dense_weights:
+                module.weight.copy_(dense_weights[key])
+        _quantize_children(owner, [n for n in names if n in quantized], qfn)
+
+    decoder.to_empty(device=device, recurse=False)
+    decoder.reset_parameters(generator)
+    for i, layer in enumerate(decoder.layers):
+        # the block's own parameters (the norms) first, as in
+        # `init_weights`' pre-order walk, then its children in order
+        layer.to_empty(device=device, recurse=False)
+        layer.reset_parameters(generator)
+        build(layer, [n for n, _ in layer.named_children()], f"layers.{i}.",
+              DECODER_TARGETS)
+    build(decoder, ("lm_head",), "", ("lm_head",))
 
 
 def quantized_bytes(module) -> int:

@@ -9,7 +9,7 @@ the port's `save_train_state` writes, or a directory of `checkpoint-{step}`),
 and a stage-1 projector in `train.pretrain_mm_mlp_adapter`.
 `model.kv_quant=int8` gives generation the int8 KV cache;
 `train.quantize_base=int4|int8` trains through a weight-only quantised
-frozen decoder (`ops.quant.quantize_decoder`): stage 1, or with
+frozen decoder, built quantised block by block: stage 1, or with
 `train.lora_enable` (QLoRA: dense adapters on top of the integer base).
 `train.lora_enable` attaches LoRA adapters (`models/lora.py`, rank
 `train.lora_r`, `train.lora_alpha`; the decoder base freezes, adapters and
@@ -58,7 +58,6 @@ from ..models.lora import LoraConfig, init_lora
 from ..models.switch import init_switch
 from ..models.towers import parse_tower_spec
 from ..models.vit import attention_route
-from ..ops.quant import quantize_decoder
 from ..utils import MetricsLogger, map_prefetch, rank0_print
 from .train_step import TrainConfig, init_train_state, make_train_step
 
@@ -94,10 +93,15 @@ def build_tokenizer(cfg: RunConfig):
 
 
 def build_model(cfg: RunConfig, *, device, precision: Precision =
-                DEFAULT_PRECISION, generator: torch.Generator | None = None):
+                DEFAULT_PRECISION, generator: torch.Generator | None = None,
+                quantize_bits: Optional[int] = None):
     """(LlavaConfig, LlavaParams) on `device`. Random weights come from
     `generator`, by default a generator on `device` seeded with
-    `cfg.train.seed`."""
+    `cfg.train.seed`. `quantize_bits` (4 or 8) builds the decoder's matmul
+    weights quantised one block at a time (`llava.init_params`), each given
+    its `model.checkpoint` weights before it is quantised: the codes of a
+    dense build followed by `ops.quant.quantize_decoder`, without the dense
+    decoder ever being whole on `device`."""
     _refuse(cfg, _UNPORTED)
     spec = parse_tower_spec(cfg.model.vision_tower)
     if cfg.model.tower_attn_impl:
@@ -138,15 +142,7 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(cfg.train.seed)
-    params = llava.init_params(generator, model_cfg, precision, device)
-
-    paths = cfg.model.tower_weights or []
-    if paths and len(paths) != len(spec.entries):
-        raise ValueError(f"model.tower_weights has {len(paths)} paths for "
-                         f"{len(spec.entries)} tower entries")
-    for tower, path in zip(params.towers, paths):
-        if path:
-            tower.load_state_dict(from_jax.vit_state_dict(load_params(path)))
+    state = None
     if cfg.model.checkpoint:
         path = cfg.model.checkpoint
         latest = checkpoint.latest_checkpoint(path)
@@ -157,11 +153,44 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
                 "model.checkpoint must be a flat params .npz or a directory "
                 "of checkpoint-{step} saves in the PyTorch package (turn an "
                 "orbax checkpoint into one with the JAX CLI's `consolidate`)")
-        params.load_state_dict(from_jax.load_llava_npz(path))
+        state = from_jax.load_llava_npz(path)
+    params = llava.init_params(
+        generator, model_cfg, precision, device, quantize_bits=quantize_bits,
+        decoder_weights=None if state is None else {
+            k[len("decoder."):]: v for k, v in state.items()
+            if k.startswith("decoder.")})
+
+    paths = cfg.model.tower_weights or []
+    if paths and len(paths) != len(spec.entries):
+        raise ValueError(f"model.tower_weights has {len(paths)} paths for "
+                         f"{len(spec.entries)} tower entries")
+    for tower, path in zip(params.towers, paths):
+        if path:
+            tower.load_state_dict(from_jax.vit_state_dict(load_params(path)))
+    if state is not None:
+        _load_checkpoint(params, state)
     if cfg.train.pretrain_mm_mlp_adapter:
         params.projector.load_state_dict(
             checkpoint.load_projector(cfg.train.pretrain_mm_mlp_adapter))
     return model_cfg, params
+
+
+def _load_checkpoint(params: llava.LlavaParams, state: Dict) -> None:
+    """`params.load_state_dict(state)`, strict, where a quantised module
+    stands for the dense weight it was built from: that weight went in
+    before the quantisation, and its codes and scales are not in `state`."""
+    own = params.state_dict()
+    held = {k: v for k, v in state.items() if k in own}
+    quantised = {k[:-len("scale")] for k in own if k.endswith(".scale")}
+    extra = [k for k in state if k not in own
+             and not (k.endswith(".weight") and k[:-len("weight")] in quantised)]
+    missing = [k for k in own if k not in state
+               and k[:k.rindex(".") + 1] not in quantised]
+    if extra or missing:
+        raise RuntimeError(f"model.checkpoint does not fit the model: "
+                           f"unexpected keys {extra[:5]}, missing keys "
+                           f"{missing[:5]}")
+    params.load_state_dict(held, strict=False)
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
@@ -207,13 +236,14 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
     tokenizer = build_tokenizer(cfg)
     template = get_template("plain" if cfg.train.stage == 1
                             else cfg.model.conv_template)
-    model_cfg, params = build_model(cfg, device=device, precision=precision)
+    bits = None
     if cfg.train.quantize_base:
         # quantised frozen base (`train.py:908-932` load_in_{4,8}bit): the
         # integer weights take no updates, so the decoder must be frozen.
         # The activation gradient flows through kernel 10's autograd Function
-        # (int4) or the plain cast-and-matmul (int8). With `lora_enable`
-        # this is QLoRA: the adapters stay dense on top
+        # (int4: its transposed form) or the plain cast-and-matmul (int8).
+        # With `lora_enable` this is QLoRA: the adapters stay dense on top.
+        # The decoder is built quantised, block by block
         if not (cfg.train.lora_enable or cfg.train.stage == 1):
             raise ValueError("train.quantize_base requires a frozen decoder "
                              "(stage 1 or lora_enable)")
@@ -221,7 +251,8 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
         if bits is None:
             raise ValueError(f"train.quantize_base must be int4/int8: "
                              f"{cfg.train.quantize_base!r}")
-        quantize_decoder(params.decoder, bits=bits)
+    model_cfg, params = build_model(cfg, device=device, precision=precision,
+                                    quantize_bits=bits)
 
     def seeded(offset):
         g = torch.Generator(device=device)

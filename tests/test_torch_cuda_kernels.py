@@ -27,7 +27,8 @@ from law_of_vision_representation_in_mllms_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_bwd_plain, flash_attention_plain)
 from law_of_vision_representation_in_mllms_torch.ops.int4_matmul import (
-    int4_matmul_kernel, int4_matmul_plain)
+    int4_matmul_dx, int4_matmul_dx_plain, int4_matmul_kernel,
+    int4_matmul_plain)
 from law_of_vision_representation_in_mllms_torch.ops.quant import (
     dequantize_int4, quantize_int4, quantize_kv)
 
@@ -147,16 +148,85 @@ def test_int4_matmul_kernel(cuda_device, m, di, do, group):
     assert torch.equal(got, int4_matmul_kernel(x, leaf["q4"], leaf["scale"]))
 
 
+def _int4_leaf(seed, do, di, group, device):
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy(rng.randn(do, di).astype(np.float32) * 0.05)
+    return {k: v.to(device)
+            for k, v in quantize_int4(w, group_size=group).items()}
+
+
+@pytest.mark.parametrize("n", [128, 11008])
+@pytest.mark.parametrize("group", [128, 256])
+@pytest.mark.parametrize("m", [17, 64, 200, 2812])
+def test_int4_matmul_wgmma_body(cuda_device, m, group, n):
+    """Kernel 10's wgmma body (M > 16) against its plain version: M from
+    just past the small body to a prefill's 2,812 (ragged against the
+    128-row tile), groups of one and two stored tiles, one and 86 column
+    tiles; a second run gives the same bits."""
+    leaf = _int4_leaf(m + group + n, n, 1024, group, cuda_device)
+    x = _randn((m, 1024), m, cuda_device)
+    before = int4_matmul_kernel.launches
+    got = int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
+    torch.cuda.synchronize()
+    assert int4_matmul_kernel.launches == before + 1
+    want = int4_matmul_plain(x, leaf["q4"], leaf["scale"])
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2 ** -6 * max(1.0, want.float().abs().max().item())
+    assert torch.equal(got, int4_matmul_kernel(x, leaf["q4"], leaf["scale"]))
+
+
+@pytest.mark.parametrize("m,di,do,group", [
+    (17, 256, 72, 128), (300, 1024, 1000, 256), (2812, 4096, 4096, 128),
+    (129, 768, 11008, 128)])
+def test_int4_matmul_dx_kernel(cuda_device, m, di, do, group):
+    """The transposed form, dx = dy @ W with W = bf16(code * bf16(scale)),
+    against `dy @ dequantize_int4(..., bfloat16)`: the same weights, sums in
+    another order, bf16 out (2 ulps of the largest output); contraction
+    dims no 64-row stage divides; a second run gives the same bits."""
+    leaf = _int4_leaf(m + di, do, di, group, cuda_device)
+    dy = _randn((m, do), m + 1, cuda_device)
+    before = int4_matmul_dx.launches
+    got = int4_matmul_dx(dy, leaf["q4"], leaf["scale"])
+    torch.cuda.synchronize()
+    assert int4_matmul_dx.launches == before + 1
+    want = dy @ dequantize_int4(leaf, torch.bfloat16)
+    assert torch.equal(want, int4_matmul_dx_plain(dy, leaf["q4"],
+                                                  leaf["scale"]))
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2 ** -6 * max(1.0, want.float().abs().max().item())
+    assert torch.equal(got, int4_matmul_dx(dy, leaf["q4"], leaf["scale"]))
+
+
+def test_int4_matmul_dx_rejects_what_it_does_not_take(cuda_device):
+    leaf = _int4_leaf(0, 64, 256, 128, cuda_device)
+    dy = _randn((5, 64), 1, cuda_device)
+    small = _int4_leaf(1, 16, 64, 128, cuda_device)        # in = 64: no tile
+    with pytest.raises(ValueError, match="CUDA kernel needs"):
+        int4_matmul_dx(_randn((5, 16), 2, cuda_device), small["q4"],
+                       small["scale"])
+    odd = _int4_leaf(2, 12, 128, 128, cuda_device)         # out % 8 != 0
+    with pytest.raises(ValueError, match="CUDA kernel needs"):
+        int4_matmul_dx(_randn((5, 12), 3, cuda_device), odd["q4"],
+                       odd["scale"])
+    with pytest.raises(ValueError, match="bfloat16"):
+        int4_matmul_dx(dy.float(), leaf["q4"], leaf["scale"])
+    with pytest.raises(ValueError, match="bfloat16"):
+        int4_matmul_dx(dy[:, :32].contiguous(), leaf["q4"], leaf["scale"])
+
+
 def test_int4_matmul_kernel_gradient_and_errors(cuda_device):
-    """Autograd through kernel 10 gives dx = dy @ dequant(W); shapes the
-    kernel does not take raise on a CUDA tensor instead of falling back."""
+    """Autograd through kernel 10 gives dx = dy @ dequant(W), through its
+    transposed form; shapes the kernel does not take raise on a CUDA tensor
+    instead of falling back."""
     rng = np.random.RandomState(0)
     w = torch.from_numpy(rng.randn(64, 256).astype(np.float32) * 0.05)
     leaf = {k: v.to(cuda_device) for k, v in quantize_int4(w).items()}
     x = _randn((5, 256), 1, cuda_device).requires_grad_()
     dy = _randn((5, 64), 2, cuda_device)
     y = int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
+    before = int4_matmul_dx.launches
     (dx,) = torch.autograd.grad(y, x, dy)
+    assert int4_matmul_dx.launches == before + 1
     want = dy.float() @ dequantize_int4(leaf)
     assert _close(dx, want)
     small = {k: v.to(cuda_device)

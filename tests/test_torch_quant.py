@@ -219,20 +219,23 @@ def test_int4_kernel_gate_and_shape_errors():
                              torch.zeros(1, 8))
 
 
-def test_int4_matmul_gradient_matches_jax_vjp():
+@pytest.mark.parametrize("group", [128, 256])
+@pytest.mark.parametrize("m,di,do", [(6, 256, 128), (40, 512, 256)])
+def test_int4_matmul_gradient_matches_jax_vjp(m, di, do, group):
     """dL/dx through the frozen int4 weight: the port's CPU route under
-    autograd and the `Int4Matmul` backward formula against the JAX custom
-    VJP (kernel in interpret mode)."""
-    rng = np.random.RandomState(13)
-    w = rng.randn(256, 128).astype(np.float32) * 0.05
-    x = np.asarray(jnp.asarray(rng.randn(6, 256).astype(np.float32)
+    autograd, the `Int4Matmul` backward formula and `int4_matmul_dx_plain`
+    (the transposed kernel's plain version) against `jax.vjp` of the JAX
+    custom-VJP product (kernel in interpret mode), fp32."""
+    rng = np.random.RandomState(13 + m + group)
+    w = rng.randn(di, do).astype(np.float32) * 0.05
+    x = np.asarray(jnp.asarray(rng.randn(m, di).astype(np.float32)
                                ).astype(jnp.bfloat16)).astype(np.float32)
-    t = rng.randn(6, 128).astype(np.float32)
-    jleaf = JQ.quantize_int4(jnp.asarray(w), group_size=128)
-    want = jax.grad(lambda xv: jnp.sum(JQ._int4_kernel_mm(
-        xv, jleaf["q4"], jleaf["scale"], True) * jnp.asarray(t)))(
-            jnp.asarray(x))
-    leaf = TQ.quantize_int4(torch.from_numpy(w.T.copy()))
+    t = rng.randn(m, do).astype(np.float32)
+    jleaf = JQ.quantize_int4(jnp.asarray(w), group_size=group)
+    _, vjp = jax.vjp(lambda xv: JQ._int4_kernel_mm(
+        xv, jleaf["q4"], jleaf["scale"], True), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(t))
+    leaf = TQ.quantize_int4(torch.from_numpy(w.T.copy()), group_size=group)
     xt = torch.from_numpy(x).requires_grad_()
     (TQ.int4_matmul(xt, leaf) * torch.from_numpy(t)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), **CLOSE)
@@ -242,6 +245,9 @@ def test_int4_matmul_gradient_matches_jax_vjp():
     dx, dq, ds = TK.Int4Matmul.backward(Ctx, torch.from_numpy(t))
     assert dq is None and ds is None
     np.testing.assert_allclose(dx.numpy(), np.asarray(want), **CLOSE)
+    plain = TK.int4_matmul_dx(torch.from_numpy(t), leaf["q4"], leaf["scale"])
+    _rel_close(plain.numpy(), want, rel=1e-5)
+    assert TK.int4_matmul_dx.launches == 0
 
 
 # --- kernel 3's int8 branch ------------------------------------------------
@@ -554,6 +560,35 @@ def test_build_lmm_quantisation_knobs(tmp_path):
         j_build_lmm(JRunConfig.from_dict(
             {"model": dict(TINY["model"], quantize="int2"),
              "train": TINY["train"]}))
+
+
+@pytest.mark.parametrize("from_checkpoint", [False, True])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantised_build_matches_build_then_quantize(tmp_path, bits,
+                                                     from_checkpoint):
+    """`build_model(quantize_bits=...)` builds the decoder block by block on
+    the `meta` device and quantises each block as it is made: every tensor,
+    codes and scales included, is torch.equal to the dense build followed
+    by `quantize_decoder`, from the seeded init and from a JAX `.npz`."""
+    model = dict(TINY["model"])
+    if from_checkpoint:
+        path = str(tmp_path / "llava.npz")
+        jio.save_params(path, j_build_lmm(JRunConfig.from_dict(
+            dict(TINY, train={"bf16": False, "seed": 3}))).params)
+        model["checkpoint"] = path
+    cfg = RunConfig.from_dict({"model": model, "train": TINY["train"]})
+    _, dense = runner.build_model(cfg, device="cpu")
+    TQ.quantize_decoder(dense.decoder, bits=bits)
+    _, layered = runner.build_model(cfg, device="cpu", quantize_bits=bits)
+    want, got = dense.state_dict(), layered.state_dict()
+    assert list(got) == list(want)
+    assert any(k.endswith(".q4" if bits == 4 else ".q8") for k in got)
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+    assert not any(t.is_meta for t in got.values())
+    if from_checkpoint:
+        assert torch.equal(got["decoder.embed"], from_jax.load_llava_npz(
+            model["checkpoint"])["decoder.embed"])
 
 
 @pytest.mark.parametrize("base", ["int4", "int8"])
