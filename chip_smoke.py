@@ -3,6 +3,7 @@
 serving, MPT and training-variant paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py          # from the repository root, one card
+    python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
 
 Phases (any failure raises and exits non-zero; no phase swallows an error):
   1. build the CUDA kernels from law_of_vision_representation_in_mllms_torch/
@@ -20,6 +21,11 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      (`bound_ms`, from the bytes and operations of this run's inputs) and
      the time of the one PyTorch call that computes the same function
      (`scaled_dot_product_attention`), a yardstick the port never calls.
+     Kernel 2 also at a stage-1 step's B=16 S=639 and MPT-7B's B=2 S=2,048
+     (causal, no bias), kernel 1 also at the dumps' B=1 S=577 and S=257,
+     each with its plain version, SDPA and its bound; at every shape of
+     kernels 1 and 2 a repeat must give the same bits, and ptxas's
+     registers and spills of their wgmma forward are printed.
      Quantisation: kernel 10 (W4A16 matmul) at the 7B shapes 4096->4096,
      4096->11008, 11008->4096, 4096->32000 at M=4 (its small body), 64,
      2,812 and 11,248 (its wgmma body), and its transposed form
@@ -253,6 +259,19 @@ def kernel_tol(ref) -> float:
     return KERNEL_REL_TOL * max(1.0, ref.float().abs().max().item())
 
 
+def row_err(got, ref) -> float:
+    """The worst error of one attention output row (a query of one head,
+    over D) relative to that row's own max|plain|, to hold against
+    KERNEL_REL_TOL: late causal rows average hundreds of keys and are small
+    beside row 0 (its output is v_0), so a dropped or doubled key tile would
+    hide under a tolerance taken from the whole tensor's max."""
+    import torch
+    diff = (got.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1)
+    return (diff / scale.clamp_min(torch.finfo(torch.float32).tiny)).max(
+    ).item()
+
+
 def check_kernels(tag: str, dev) -> dict:
     """Phase 2: kernels vs plain versions at the main path's shapes. The
     kernels and their library yardsticks are timed under a CUDA graph."""
@@ -274,17 +293,26 @@ def check_kernels(tag: str, dev) -> dict:
     q, k, v = (randn(b, s, h, d) for _ in range(3))
     ref = enc.encoder_attention_plain(q, k, v)
     lib_err = max_err(sdpa(q, k, v), ref)
+    got = enc.encoder_attention(q, k, v)
     results["encoder_attention"] = dict(
-        err=max_err(enc.encoder_attention(q, k, v), ref),
-        tol=kernel_tol(ref),
+        err=max_err(got, ref), tol=kernel_tol(ref), row_err=row_err(got, ref),
         ms=graph_ms(lambda: enc.encoder_attention(q, k, v)),
         plain_ms=cuda_ms(lambda: enc.encoder_attention_plain(q, k, v)),
         library_ms=graph_ms(lambda: sdpa(q, k, v)), library_err=lib_err,
         shape=f"B={b} S={s} H={h} D={d}",
         **bound(4 * q.numel() * 2, 4 * b * h * s * s * d, H100_BF16_TFLOPS))
+    same_bits("encoder_attention", lambda: enc.encoder_attention(q, k, v))
+    # the one-image calls of the embedding dumps (64-row blocks)
+    results["encoder_attention"]["cases"] = [
+        attention_case(tag, enc.encoder_attention,
+                       enc.encoder_attention_plain,
+                       lambda q, k, v: sdpa(q, k, v),
+                       (randn(1, s, h, d) for _ in range(3)),
+                       s * s, f"kernel 1 B=1 S={s} H={h} D={d}")
+        for s in (577, 257)]
 
     # prefill: Vicuna-7B heads, S=640 with a kv_len tail; plus a GQA case
-    errs, tols = [], []
+    errs, tols, rows = [], [], []
     b, s, h, d = 4, 640, 32, 128
     for kvh, kv_len in ((32, 600), (8, 640)):
         q = randn(b, s, h, d)
@@ -299,6 +327,7 @@ def check_kernels(tag: str, dev) -> dict:
             fail(f"flash_attention LSE err {e_lse} > {LSE_TOL} (KV={kvh})")
         errs.append(max_err(out, ref))
         tols.append(kernel_tol(ref))
+        rows.append(row_err(out, ref))
         if kvh == 32:
             ms = graph_ms(lambda: fl.flash_attention(q, k, v, causal=True,
                                                      kv_len=kv_len))
@@ -312,10 +341,24 @@ def check_kernels(tag: str, dev) -> dict:
             pairs = kv_len * (kv_len + 1) // 2 + (s - kv_len) * kv_len
             bnd = bound(2 * q.numel() * 2 + 2 * kc.numel() * 2,
                         4 * d * pairs * b * h, H100_BF16_TFLOPS)
+            same_bits("flash_attention", lambda: fl.flash_attention(
+                q, k, v, causal=True, kv_len=kv_len, return_lse=True))
     results["flash_attention"] = dict(
-        err=max(errs), tol=min(tols), ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, library_err=lib_err,
+        err=max(errs), tol=min(tols), row_err=max(rows), ms=ms,
+        plain_ms=plain_ms, library_ms=library_ms, library_err=lib_err,
         shape="B=4 S=640 kv_len=600 H=KV=32 D=128 causal (+ GQA KV=8)", **bnd)
+    # a stage-1 step's launch and MPT-7B's without the bias
+    del q, k, v, got, out, lse, ref, ref_lse, kc, vc
+    results["flash_attention"]["cases"] = [
+        attention_case(
+            tag, lambda q, k, v: fl.flash_attention(q, k, v, causal=True,
+                                                    return_lse=True),
+            lambda q, k, v: fl.flash_attention_plain(q, k, v, causal=True,
+                                                     return_lse=True),
+            lambda q, k, v: sdpa(q, k, v, is_causal=True),
+            (randn(b, s, 32, 128) for _ in range(3)), s * (s + 1) // 2,
+            f"kernel 2 B={b} S={s} H=KV=32 D=128 causal")
+        for b, s in ((16, 639), (2, 2048))]
 
     # decode: Vicuna-7B cache, T=704, holes + one fully masked 128-slot tile
     b, t, h, d = 4, 704, 32, 128
@@ -349,6 +392,56 @@ def check_kernels(tag: str, dev) -> dict:
     return results
 
 
+def same_bits(name: str, fn) -> None:
+    """A kernel's second run on the same inputs gives the same bits."""
+    import torch
+    first, second = fn(), fn()
+    if isinstance(first, torch.Tensor):
+        first, second = (first,), (second,)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"{name}: a repeat on the same inputs gave other bits")
+
+
+def attention_case(tag: str, kernel, plain, library, qkv, pairs: int,
+                   shape: str) -> dict:
+    """One more shape of an attention kernel: held to its plain version row
+    by row (and by its LSE where `kernel` and `plain` return (O, LSE)) and
+    to a repeat of itself, then timed (under a CUDA graph) beside the plain
+    version, the library call and the bound (`pairs`: the visible
+    query-key pairs of one head)."""
+    q, k, v = qkv
+    ref, got = plain(q, k, v), kernel(q, k, v)
+    lse_bytes, lse_note = 0, ""
+    if isinstance(ref, tuple):
+        (ref, ref_lse), (got, lse) = ref, got
+        e_lse = max_err(lse, ref_lse)
+        if not e_lse <= LSE_TOL:
+            fail(f"attention at {shape}: LSE err {e_lse} > {LSE_TOL}")
+        lse_bytes = lse.numel() * 4
+        lse_note = f", LSE max_abs_err {e_lse:.3e} (tol {LSE_TOL})"
+    err, tol = max_err(got, ref), kernel_tol(ref)
+    rows, lib_rows = row_err(got, ref), row_err(library(q, k, v), ref)
+    if not (rows <= KERNEL_REL_TOL and lib_rows <= KERNEL_REL_TOL):
+        fail(f"attention at {shape}: worst row error over the row's "
+             f"max|plain|: kernel {rows}, library {lib_rows} > "
+             f"{KERNEL_REL_TOL}")
+    same_bits(shape, lambda: kernel(q, k, v))
+    b, _, h, d = q.shape
+    case = dict(shape=shape, err=err, tol=tol, row_err=rows,
+                ms=graph_ms(lambda: kernel(q, k, v)),
+                plain_ms=cuda_ms(lambda: plain(q, k, v), iters=5),
+                library_ms=graph_ms(lambda: library(q, k, v)),
+                **bound(4 * q.numel() * 2 + lse_bytes, 4 * d * pairs * b * h,
+                        H100_BF16_TFLOPS))
+    print(f"{tag} {shape}: max_abs_err {err:.3e} (tol {tol:.3e}), worst row "
+          f"{rows:.3e} of its max|plain| (tol {KERNEL_REL_TOL}){lse_note}, "
+          f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+          f"library {case['library_ms']:.4f} ms, bound "
+          f"{case['bound_ms']:.4f} ms by {case['bound_by']} "
+          f"({case['bound_ms'] / case['ms']:.1%} of it reached)")
+    return case
+
+
 def report_kernel(tag: str, name: str, r: dict) -> None:
     lib = ("no single PyTorch call" if r["library_ms"] is None
            else f"{r['library_ms']:.4f} ms")
@@ -359,6 +452,12 @@ def report_kernel(tag: str, name: str, r: dict) -> None:
           f"({r['bound_ms'] / r['ms']:.1%} of it reached)")
     if not r["err"] <= r["tol"]:
         fail(f"{name} disagrees with its plain version: {r['err']}")
+    if "row_err" in r:
+        print(f"{tag} kernel {name}: worst row error {r['row_err']:.3e} of "
+              f"the row's max|plain| (tol {KERNEL_REL_TOL})")
+        if not r["row_err"] <= KERNEL_REL_TOL:
+            fail(f"{name} disagrees with its plain version in a row: "
+                 f"{r['row_err']}")
 
 
 def check_flash_bwd(tag: str, dev) -> dict:
@@ -721,13 +820,21 @@ def rotating(make, nbytes: float) -> list:
 
 
 def print_ptxas(tag: str, report: str) -> None:
-    """The registers and spills `nvcc -Xptxas -v` reported for kernel 10's
-    two wgmma bodies."""
+    """The registers and spills `nvcc -Xptxas -v` reported for the wgmma
+    kernels: kernel 10's two bodies, and the attention forward of kernels 1
+    and 2 by its template arguments (head size, rows a block, causal,
+    ALiBi)."""
+    import re
     name = None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in ("int4_wgmma_dx_kernel",
-                                     "int4_wgmma_kernel") if k in line), None)
+            fwd = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d)ELb(\d)"
+                            r"ELb(\d)E", line)
+            name = (f"flash_fwd_wgmma_kernel<D={fwd[1]}, rows="
+                    f"{64 * int(fwd[2])}, causal={fwd[3]}, alibi={fwd[4]}>"
+                    if fwd else next((k for k in ("int4_wgmma_dx_kernel",
+                                                  "int4_wgmma_kernel")
+                                      if k in line), None))
         elif name and ("Used" in line or "spill" in line):
             print(f"{tag} ptxas {name}: {line.strip()}")
 
@@ -1010,6 +1117,8 @@ def check_routes(tag: str, dev) -> None:
         q, k, v = (torch.randn((b, s, 16, 64), generator=g, device=dev,
                                dtype=torch.bfloat16) for _ in range(3))
         ref = mha(q.float(), k.float(), v.float())
+        print(f"{tag} tower routes [B={b} S={s} H=16 D=64]: library (SDPA) "
+              f"{graph_ms(lambda: sdpa(q, k, v)):.4f} ms")
         for impl in impls:
             counter = counters[impl]
             route = vit.attention_route(impl)
@@ -1845,9 +1954,9 @@ def profile_step(tag: str, run, batch) -> None:
             fam = "kernel 5 (dq)"
         elif "flash_bwd_dkv_kernel" in name:
             fam = "kernel 6 (dk/dv)"
-        elif "flash_fwd_kernel<64" in name:
+        elif "flash_fwd_wgmma_kernel<64" in name:
             fam = "kernel 1 (tower attention)"
-        elif "flash_fwd_kernel" in name:
+        elif "flash_fwd_wgmma_kernel" in name:
             fam = "kernel 2 (flash forward)"
         elif "int4_wgmma_dx" in name:
             fam = "kernel 10 dx (int4 input gradient)"
@@ -2557,10 +2666,70 @@ def run_law_chain(tag: str, dev, counters) -> dict:
     return launches
 
 
+def time_tower(root: str) -> int:
+    """`python3 chip_smoke.py --tower-of ROOT`: the CLIP-L/14-336 tower (23
+    blocks, seeded random bf16 weights) of the port found in ROOT, a
+    checkout such as a parent commit unpacked by `git archive`, at B=4 and
+    B=1: images/s by the host clock around synchronised runs (as phase 4
+    times it), and the host time of one kernel-1 launch (launches back to
+    back at B=1 S=257, no graph); each the median of 7 trials, with their
+    range. Run it for two roots in turns to compare them on one card;
+    prints one JSON line."""
+    import statistics
+    import torch
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        BF16_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        init_weights)
+    from law_of_vision_representation_in_mllms_torch.models.vit import (
+        ViTTower, clip_l14)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        encoder_attention as enc)
+    if not os.path.abspath(enc.__file__).startswith(root + os.sep):
+        fail(f"the port was imported from {enc.__file__}, not from {root}")
+    dev = torch.device("cuda", 0)
+    tower = ViTTower(clip_l14(336), -2, "patch", BF16_PRECISION, device=dev)
+    with torch.no_grad():
+        init_weights(tower, torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def trials(fn, reps: int) -> list:
+        fn()
+        torch.cuda.synchronize(dev)
+        seconds = []
+        for _ in range(7):
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(dev)
+            seconds.append((time.perf_counter() - t) / reps)
+        return seconds
+
+    out = {"root": root, "card": card_line()}
+    with torch.inference_mode():
+        for b in (4, 1):
+            pixels = torch.randn(b, 336, 336, 3, generator=g, device=dev)
+            rates = [b / t for t in trials(lambda: tower(pixels), 10)]
+            out[f"images_s_b{b}"] = statistics.median(rates)
+            out[f"images_s_b{b}_range"] = [min(rates), max(rates)]
+        q, k, v = (torch.randn(1, 257, 16, 64, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        us = [t * 1e6 for t in trials(lambda: enc.encoder_attention(q, k, v),
+                                      500)]
+        out["launch_host_us"] = statistics.median(us)
+        out["launch_host_us_range"] = [min(us), max(us)]
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: needs an NVIDIA GPU")
+    if sys.argv[1:2] == ["--tower-of"] and len(sys.argv) == 3:
+        return time_tower(sys.argv[2])
     sys.path.insert(0, REPO)
     try:
         from law_of_vision_representation_in_mllms_torch.ops import (
@@ -2579,16 +2748,21 @@ def main() -> int:
           f"TF32 off (matmul and cudnn)")
 
     t0 = time.perf_counter()
-    # the registers and spills of kernel 10's wgmma bodies, compiled beside
-    # the library's build
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        report = pool.submit(_build.ptxas_report, "int4_matmul.cu")
+    # the registers and spills of the wgmma kernels (kernel 10, the
+    # attention forward of kernels 1 and 2), compiled beside the library's
+    # build
+    ptxas_sources = ("int4_matmul.cu", "flash_attention.cu",
+                     "encoder_attention.cu")
+    with concurrent.futures.ThreadPoolExecutor(len(ptxas_sources)) as pool:
+        reports = [pool.submit(_build.ptxas_report, src)
+                   for src in ptxas_sources]
         lib_path = _build.build()
         _build.library()
         print(f"{tag} kernels built from {_build.CSRC_DIR.relative_to(REPO)} "
               f"in {time.perf_counter() - t0:.2f} s -> "
               f"{os.path.relpath(lib_path, REPO)}")
-        print_ptxas(tag, report.result())
+        for report in reports:
+            print_ptxas(tag, report.result())
 
     kernels = check_kernels(tag, dev)
     kernels.update(check_flash_bwd(tag, dev))

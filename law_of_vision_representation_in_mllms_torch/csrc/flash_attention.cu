@@ -10,13 +10,13 @@
 // [B, H], MPT's ALiBi) logit (i, j) gains slope[b, h]·(j − (kv_len − 1)) inside
 // the kernel, as the TPU kernel's `alibi` flag does; no bias tensor exists.
 //
-// Bound on the H100: at the Vicuna-7B prefill (B = 4, S ~ 700, H = 32,
-// D = 128) one causal layer is ~16 GFLOP against ~92 MB of Q, K, V and O,
-// close to the card's bf16 ridge point; the tensor cores set the floor once K/V
-// tiles come from L2. Causal tiles past the block's last query row are skipped
-// and the logits stay on chip. The tile loop is plain mma.sync: no TMA, no
-// wgmma, no copy/compute overlap yet.
-#include "attention_common.cuh"
+// Bound on the H100: at the Vicuna-7B prefill (B = 4, S = 640, kv_len 600,
+// H = 32, D = 128, causal) a layer is 13.4 GFLOP against 81 MB of Q, K, V and
+// O (0.0243 ms, bytes); at MPT-7B's B = 2, S = 2,048, 68.7 GFLOP (0.0695 ms,
+// operations). The tile loop is flash_fwd_hopper.cuh: TMA-fed,
+// warp-specialised wgmma with P in registers, ping-pong of two consumer
+// warpgroups, and the mask only on the diagonal and tail tiles.
+#include "flash_fwd_hopper.cuh"
 
 extern "C" int lvr_flash_attention(const void* q, const void* k, const void* v,
                                    void* out, void* lse, const void* slopes,

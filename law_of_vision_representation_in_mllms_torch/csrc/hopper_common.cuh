@@ -2,6 +2,10 @@
 // addresses, mbarriers, TMA tile loads and the host-side tensor map, wgmma
 // matrix descriptors and the m64n128k16 bf16 product, register reallocation
 // between warpgroups.
+// The attention forward adds rank-4 tensor maps over [B, S, heads, D]
+// (a tile that runs past S reads zeros, never the next batch's rows), their
+// loads and stores, and the register-A products with an MN-major B (V as
+// stored) at N = 64 and 128.
 //
 // Shared-memory operand tiles follow the 128-byte swizzle that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes and that a wgmma descriptor of layout
@@ -117,6 +121,42 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// the box of a rank-4 `map` at element coordinates (c0 innermost .. c3)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the box of a rank-4 `map` at element coordinates (c0 innermost .. c3) from
+// shared memory at `src` (elements past the tensor's edges are not written);
+// then commit the group and wait until shared memory has been read
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit_and_wait_read() {
+  asm volatile(
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
@@ -149,6 +189,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// the same for an accumulator of another width
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x 128] (+)= A[64 x 16] * B[16 x 128], bf16 in, fp32 accumulate, both
@@ -188,27 +235,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(TransB));
 }
 
-// the same with A (64 x 16) from registers: warp w of the warpgroup holds
-// rows 16w..16w+15 in the A-fragment layout of mma.m16n8k16 (a[0] = row
-// l/4, columns 2(l%4)..+1; a[1] = row + 8; a[2] = columns + 8; a[3] both).
-// The registers are read while the product runs: keep them unchanged until
-// the wgmma_wait that covers it. B is K-major.
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t db,
-                                                    int accumulate) {
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128] with A (64 x 16) from
+// registers: warp w of the warpgroup holds rows 16w..16w+15 in the
+// A-fragment layout of mma.m16n8k16 (a[0] = row l/4, columns 2(l%4)..+1;
+// a[1] = row + 8; a[2] = columns + 8; a[3] both). The registers are read
+// while the product runs: keep them unchanged until the wgmma_wait that
+// covers it. TransB 0: B is K-major; 1: B is MN-major. Accumulator layout as
+// wgmma_m64n128k16.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs_t(float (&d)[64],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db,
+                                                      int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, "
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -223,7 +275,45 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+        "r"(accumulate), "n"(TransB));
+}
+
+// the same with B K-major
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int accumulate) {
+  wgmma_m64n128k16_rs_t<0>(d, a, db, accumulate);
+}
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64] with A from registers (the
+// layout of wgmma_m64n128k16_rs_t) and B in shared memory; TransB 0: B is
+// K-major, 1: B is MN-major. Accumulator layout as wgmma_m64n128k16, j in
+// 0..7.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_t(float (&d)[32],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TransB));
 }
 
 // ---- register reallocation (the whole warpgroup executes it) ----------------
@@ -238,21 +328,16 @@ __device__ __forceinline__ void reg_dealloc() {
 }
 
 // ---- host: tensor maps ----------------------------------------------------
-// A row-major matrix [rows, cols] of `elem_bytes`-byte elements read in boxes
-// of [box_rows, box_cols]; elements past either edge read as zero. The
-// encoder, cuTensorMapEncodeTiled, is looked up through the runtime, so the
-// library links no libcuda. Returns a cudaError_t value.
-inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
-                    uint32_t elem_bytes, const void* base, uint64_t rows,
-                    uint64_t cols, uint32_t box_rows, uint32_t box_cols,
-                    CUtensorMapSwizzle swizzle) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-      CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
+using TensorMapEncoder = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the runtime, so the library
+// links no libcuda; nullptr where libcuda lacks it
+inline TensorMapEncoder tensor_map_encoder() {
+  static const TensorMapEncoder encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -262,12 +347,22 @@ inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
     const cudaError_t err = cudaGetDriverEntryPoint(
         "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
 #endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess ||
-        fn == nullptr) {
-      return static_cast<int>(cudaErrorNotSupported);
-    }
-    encode = reinterpret_cast<Encode>(fn);
-  }
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncoder>(fn)
+               : nullptr;
+  }();
+  return encode;
+}
+
+// A row-major matrix [rows, cols] of `elem_bytes`-byte elements read in boxes
+// of [box_rows, box_cols]; elements past either edge read as zero. Returns a
+// cudaError_t value.
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
+                    uint32_t elem_bytes, const void* base, uint64_t rows,
+                    uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+                    CUtensorMapSwizzle swizzle) {
+  const TensorMapEncoder encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * elem_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
@@ -284,6 +379,28 @@ inline int make_bf16_map(CUtensorMap* map, const void* base, uint64_t rows,
                          uint64_t cols, uint32_t box_rows) {
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols,
                   box_rows, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A bf16 tensor [batch, seq, heads, 64 * k] read in 128-byte-swizzled boxes
+// of [box_rows, 64] of one (batch, head): dims (64 * k, heads, seq, batch),
+// box (64, 1, box_rows, 1). Rows past `seq` read as zero within their own
+// batch. Returns a cudaError_t value.
+inline int make_bhsd_map(CUtensorMap* map, const void* base, uint64_t batch,
+                         uint64_t seq, uint64_t heads, uint64_t head_dim,
+                         uint32_t box_rows) {
+  const TensorMapEncoder encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {head_dim, heads, seq, batch};
+  const cuuint64_t strides[3] = {head_dim * 2, heads * head_dim * 2,
+                                 seq * heads * head_dim * 2};
+  const cuuint32_t box[4] = {64, 1, box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace hopper

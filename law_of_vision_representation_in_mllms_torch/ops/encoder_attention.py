@@ -2,14 +2,18 @@
 
 Replaces the TPU kernel `ops/encoder_attention.py` `encoder_mha` (`_call` ->
 `pl.pallas_call`, body `_kernel`) of the JAX package. Source:
-`csrc/encoder_attention.cu` on the tile loop of `csrc/attention_common.cuh`.
+`csrc/encoder_attention.cu` on kernel 2's forward loop,
+`csrc/flash_fwd_hopper.cuh`, non-causal and without the LSE.
 
 What bounds it on the H100: at CLIP-L/14-336 (B = 4, S = 577, H = 16, D = 64)
-a layer is ~5.5 GFLOP of attention over ~19 MB of Q, K, V and O, so the
-tensor cores, not HBM, set the floor; the plain path instead writes and
-re-reads [B, H, S, S] fp32 logits (~85 MB a layer). The kernel keeps scores
-in registers (mma.sync, online softmax, fp32 statistics) and masks the ragged
-edge of S itself, so there is no host-side padding or transpose.
+a layer is 5.5 GFLOP of attention over 19 MB of Q, K, V and O: the tensor
+cores (0.0055 ms) and HBM (0.0056 ms) set the same floor, and a launch is a
+few microseconds, so the loop's fill and drain count. The plain path instead
+writes and re-reads [B, H, S, S] fp32 logits (~85 MB a layer). The kernel
+keeps scores in registers (wgmma, online softmax, fp32 statistics), brings
+Q, K and V by TMA, which reads rows past S as zeros, and masks only the tail
+tile, so there is no host-side padding or transpose. The one-image calls of
+the embedding dumps run in 64-row blocks where those fit in one wave.
 
 `encoder_attention` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.

@@ -5,7 +5,8 @@ Replaces the TPU kernels of `flash_attention_trainable` in the JAX package's
 `ops/flash_attention.py`, which the prefill and training reach through
 `flash_mha_trainable`:
 - kernel 2, `_flash_fwd_lse` (forward + LSE, body `_fwd_lse_kernel`):
-  `csrc/flash_attention.cu` on the tile loop of `csrc/attention_common.cuh`;
+  `csrc/flash_attention.cu` on the forward loop of
+  `csrc/flash_fwd_hopper.cuh`;
 - kernel 5, the dq `pl.pallas_call` of `_bwd` (`_bwd_dq_kernel`) and
   kernel 6, the dk/dv one (`_bwd_dkv_kernel`): `csrc/flash_attention_bwd.cu`.
 
@@ -15,13 +16,18 @@ Replaces the TPU kernels of `flash_attention_trainable` in the JAX package's
 outside any kernel) and launches kernels 5 and 6. `flash_attention` goes
 through it whenever grad mode is on and an input requires grad.
 
-What bounds them on the H100: at the Vicuna-7B prefill (B = 4, S ~ 700,
-H = 32, D = 128) a causal layer is ~16 GFLOP against ~92 MB of Q, K, V and
-O, near the bf16 ridge point; the backward does ~2.5 × the forward's FLOPs
-over ~2 × its bytes, so the tensor cores set its floor. No kernel writes
-logits or probabilities; causal tiles past the diagonal are skipped; query
-head h reads kv head h // (H / KV) itself, so K and V are read at their true
-size instead of repeated, and kernel 6 sums a group's dk/dv in registers.
+What bounds them on the H100: at the Vicuna-7B prefill (B = 4, S = 640,
+kv_len 600, H = 32, D = 128) a causal layer is 13.4 GFLOP against 81 MB of
+Q, K, V and O, so HBM sets the forward's floor (0.0243 ms); at MPT-7B's
+B = 2, S = 2,048 the tensor cores do (68.7 GFLOP, 0.0695 ms). The backward
+does ~2.5 × the forward's FLOPs over ~2 × its bytes, so the tensor cores set
+its floor. No kernel writes logits or probabilities; causal tiles past the
+diagonal are skipped; query head h reads kv head h // (H / KV) itself, so K
+and V are read at their true size instead of repeated, and kernel 6 sums a
+group's dk/dv in registers. Kernel 2 is a Hopper loop: Q, K and V by TMA,
+both products on `wgmma` with P kept in registers, two warpgroups taking
+turns on the tensor cores, the mask only on the diagonal and tail tiles;
+kernels 5 and 6 are still `mma.sync` loops.
 
 ALiBi (MPT, the TPU kernels' `alibi` flag): with `alibi_slopes` (fp32 [H]
 or [B, H], the slope of each QUERY head) logit (i, j) gains

@@ -35,10 +35,12 @@ def _close(got, want, atol=ATOL):
                                rtol=0)
 
 
-@pytest.mark.parametrize("s,d", [(77, 16), (130, 32)])
+@pytest.mark.parametrize("s,d", [(77, 16), (130, 32), (127, 16), (128, 16),
+                                 (129, 32)])
 def test_encoder_attention_matches_encoder_mha(s, d):
     """S not a multiple of 128: the JAX kernel pads and subtracts the pad
-    mass; the port masks the ragged edge."""
+    mass; the port masks the ragged edge (127, 128, 129: the edges of the
+    card's 128-key tiles)."""
     q, k, v = (_randn(i, 2, s, 4, d) for i in range(3))
     want = jenc.encoder_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                             interpret=True)
@@ -46,23 +48,37 @@ def test_encoder_attention_matches_encoder_mha(s, d):
     _close(got, want)
 
 
-@pytest.mark.parametrize("causal,kv_len", [(True, 100), (False, 75),
-                                           (True, 128)])
-def test_flash_attention_matches_fwd_lse_kernel(causal, kv_len):
-    """Output and LSE against `_flash_fwd_lse` with a kv_len tail."""
-    b, s, h, d = 2, 128, 2, 16
-    q, k, v = (_randn(10 + i, b, s, h, d) for i in range(3))
+def _fold_padded(x, s_pad):
+    """[B, S, H, D] -> [B * H, s_pad, D], zero rows past S: the JAX kernel's
+    callers pad to whole blocks (keys past kv_len are masked, padded query
+    rows are dropped)."""
+    b, s, h, d = x.shape
+    x = np.pad(x, ((0, 0), (0, s_pad - s), (0, 0), (0, 0)))
+    return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, s_pad, d))
 
-    def fold(x):
-        return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, s, d))
+
+@pytest.mark.parametrize("causal,kv_len,sq,skv", [
+    (True, 100, 128, 128), (False, 75, 128, 128), (True, 128, 128, 128),
+    # the edges of the card's 128-row and 128-key tiles, Sq != Skv
+    # (top-left causal), kv_len tails
+    (True, 100, 127, 129), (False, 120, 129, 127), (True, 129, 128, 129),
+    (False, 127, 129, 128), (True, 100, 129, 127)])
+def test_flash_attention_matches_fwd_lse_kernel(causal, kv_len, sq, skv):
+    """Output and LSE against `_flash_fwd_lse` with a kv_len tail."""
+    b, h, d = 2, 2, 16
+    q = _randn(10, b, sq, h, d)
+    k, v = (_randn(11 + i, b, skv, h, d) for i in range(2))
+    sq_pad, skv_pad = -(-sq // 64) * 64, -(-skv // 64) * 64
     out, lse = jflash._flash_fwd_lse(
-        fold(q), fold(k), fold(v), None, scale=d ** -0.5, causal=causal,
+        _fold_padded(q, sq_pad), _fold_padded(k, skv_pad),
+        _fold_padded(v, skv_pad), None, scale=d ** -0.5, causal=causal,
         kv_len=kv_len, block_q=64, block_k=64, interpret=True)
     got, got_lse = flash_attention(
         *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
         kv_len=kv_len, return_lse=True)
-    _close(got.numpy().transpose(0, 2, 1, 3).reshape(b * h, s, d), out)
-    _close(got_lse.reshape(b * h, s), np.asarray(lse)[..., 0])
+    _close(got.numpy().transpose(0, 2, 1, 3).reshape(b * h, sq, d),
+           np.asarray(out)[:, :sq])
+    _close(got_lse.reshape(b * h, sq), np.asarray(lse)[:, :sq, 0])
 
 
 def test_flash_attention_gqa_matches_repeated_kv():

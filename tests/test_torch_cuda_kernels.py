@@ -55,8 +55,16 @@ def _close(got, want):
     return err <= TOL * max(1.0, want.float().abs().max().item())
 
 
-@pytest.mark.parametrize("b,s,h,d", [(2, 77, 4, 64), (4, 577, 16, 64),
-                                     (1, 200, 2, 128)])
+# the forward loop's tile edges: 64-row blocks (one consumer warpgroup: B x
+# H x ceil(S / 128) under 132) and 128-row ones (two, ping-pong), keys in
+# tiles of 128
+TILE_EDGES = (1, 63, 64, 65, 127, 128, 129, 257, 577)
+
+
+@pytest.mark.parametrize("b,s,h,d", [
+    (2, 77, 4, 64), (4, 577, 16, 64), (1, 200, 2, 128),
+    *((1, s, 2, 64) for s in TILE_EDGES),
+    *((3, s, 48, 128) for s in TILE_EDGES)])
 def test_encoder_kernel(cuda_device, b, s, h, d):
     q, k, v = (_randn((b, s, h, d), i, cuda_device) for i in range(3))
     before = encoder_attention.launches
@@ -64,16 +72,31 @@ def test_encoder_kernel(cuda_device, b, s, h, d):
     torch.cuda.synchronize()
     assert encoder_attention.launches == before + 1
     assert _close(got, encoder_attention_plain(q, k, v))
+    assert torch.equal(got, encoder_attention(q, k, v))    # same bits
 
 
-@pytest.mark.parametrize("causal,kv_len,h,kvh,d", [
-    (True, None, 4, 4, 64), (True, 150, 8, 2, 128), (False, 100, 4, 1, 64),
-    (True, 600, 32, 32, 128)])
-def test_flash_kernel(cuda_device, causal, kv_len, h, kvh, d):
-    b, s = 2, 640 if h == 32 else 190
-    q = _randn((b, s, h, d), 0, cuda_device)
-    k = _randn((b, s, kvh, d), 1, cuda_device)
-    v = _randn((b, s, kvh, d), 2, cuda_device)
+@pytest.mark.parametrize("b,sq,skv,causal,kv_len,h,kvh,d", [
+    (2, 190, 190, True, None, 4, 4, 64), (2, 190, 190, True, 150, 8, 2, 128),
+    (2, 190, 190, False, 100, 4, 1, 64), (2, 640, 640, True, 600, 32, 32, 128),
+    # tile edges, 64-row blocks at D = 128 and 64, then 128-row blocks
+    *((2, s, s, True, None, 4, 4, 128) for s in TILE_EDGES),
+    *((2, s, s, False, None, 4, 2, 64) for s in (1, 64, 129, 577)),
+    *((5, s, s, True, None, 32, 8, 128) for s in (63, 65, 127, 129, 257,
+                                                  577)),
+    # Sq != Skv (top-left causal), both ways, with and without a tail
+    (2, 129, 300, True, 250, 8, 8, 128), (2, 300, 129, True, None, 8, 8, 128),
+    (2, 129, 300, False, None, 8, 8, 64), (5, 300, 129, False, 100, 32, 32,
+                                           128),
+    # kv_len 0 (every row fully masked), 1, a tail no tile divides
+    (2, 190, 190, True, 0, 4, 4, 128), (2, 190, 190, False, 0, 4, 4, 64),
+    (2, 190, 190, True, 1, 4, 4, 128), (5, 384, 384, False, 300, 32, 8, 128),
+    # GQA 32/8 and 32/1
+    (2, 333, 333, True, None, 32, 8, 128), (4, 333, 333, True, None, 32, 1,
+                                            128)])
+def test_flash_kernel(cuda_device, b, sq, skv, causal, kv_len, h, kvh, d):
+    q = _randn((b, sq, h, d), 0, cuda_device)
+    k = _randn((b, skv, kvh, d), 1, cuda_device)
+    v = _randn((b, skv, kvh, d), 2, cuda_device)
     got, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
                                return_lse=True)
     want, want_lse = flash_attention_plain(q, k, v, causal=causal,
@@ -81,6 +104,11 @@ def test_flash_kernel(cuda_device, causal, kv_len, h, kvh, d):
     torch.cuda.synchronize()
     assert _close(got, want)
     assert (lse - want_lse).abs().max().item() < 1e-2
+    if kv_len == 0:                      # rows that see no key: 0 and LSE 0
+        assert (got == 0).all() and (lse == 0).all()
+    got2, lse2 = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                                 return_lse=True)
+    assert torch.equal(got, got2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("h,kvh,d,t", [(4, 4, 64, 300), (32, 32, 128, 700),
@@ -277,10 +305,13 @@ def _alibi_case(device, s, h, kvh, d, b=2):
 
 
 # MPT-7B's shape, a ragged S, H = 6 (interleaved slopes) at D = 64, GQA
-# (the slope is the query head's), non-causal with a kv_len tail
+# (the slope is the query head's), non-causal with a kv_len tail; the
+# forward loop's tile edges in 64-row blocks (S = 129) and 128-row ones
+# (B = 2, H = 32: 128 and 129 rows past one tile)
 ALIBI_CASES = [(True, None, 2048, 32, 32, 128), (True, None, 333, 8, 8, 128),
                (True, None, 190, 6, 6, 64), (True, 150, 190, 8, 2, 128),
-               (False, 100, 130, 4, 1, 64)]
+               (False, 100, 130, 4, 1, 64), (True, None, 129, 4, 4, 64),
+               (True, None, 257, 32, 32, 128), (False, 200, 257, 32, 8, 128)]
 
 
 @pytest.mark.parametrize("causal,kv_len,s,h,kvh,d", ALIBI_CASES)
@@ -299,6 +330,8 @@ def test_flash_kernel_alibi(cuda_device, causal, kv_len, s, h, kvh, d):
         alibi_slopes=slopes)
     assert _close(got, want)
     assert (lse - want_lse).abs().max().item() < 1e-2
+    assert torch.equal(got, flash_attention(                 # same bits
+        q, k, v, causal=causal, kv_len=kv_len, alibi_slopes=slopes))
     # the bias is really there: without it the output differs
     plain_nobias = flash_attention_plain(q, k, v, causal=causal,
                                          kv_len=kv_len)
