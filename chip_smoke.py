@@ -21,6 +21,11 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      (`bound_ms`, from the bytes and operations of this run's inputs) and
      the time of the one PyTorch call that computes the same function
      (`scaled_dot_product_attention`), a yardstick the port never calls.
+     Kernels 5 and 6 are held row by row (each row of dq, dk, dv to 2 % of
+     its own max|plain|), kernel 5's δ to rowsum(dO·O), and a repeat of the
+     whole backward call to the same bits; that call (kernel 5 forming δ,
+     then kernel 6) is timed in turns with SDPA's backward at B=16 S=639
+     and B=2 S=2,048.
      Kernel 2 also at a stage-1 step's B=16 S=639 and MPT-7B's B=2 S=2,048
      (causal, no bias), kernel 1 also at the dumps' B=1 S=577 and S=257,
      each with its plain version, SDPA and its bound; at every shape of
@@ -140,6 +145,13 @@ TPU_PKG = "law_of_vision_representation_in_mllms_tpu"
 # (at least 2e-2 absolute)
 KERNEL_REL_TOL = 2e-2
 LSE_TOL = 1e-2
+# δ = rowsum(dO·O) as kernel 5 forms it against the same sum in fp32 by
+# PyTorch: fp32 sums of D products in another order
+DELTA_REL_TOL = 1e-4
+# a gradient row's own max|plain| is its scale, but never less than this
+# share of the tensor's: the dq of a query that sees one key is dP − δ = 0
+# up to rounding, a row with no scale of its own
+GRAD_ROW_FLOOR = 1e-3
 # narrow LLaVA, CUDA bf16 weights/activations vs CPU fp32: relative to the
 # largest reference logit (bf16 rounding of every activation, 3 layers)
 LOGITS_REL_TOL = 5e-2
@@ -270,6 +282,42 @@ def row_err(got, ref) -> float:
     scale = ref.float().abs().amax(-1)
     return (diff / scale.clamp_min(torch.finfo(torch.float32).tiny)).max(
     ).item()
+
+
+def grad_row_err(got, ref) -> float:
+    """`row_err` for a gradient: each row (a query's dq, a key's dk or dv of
+    one head, over D) relative to its own max|plain|, floored at
+    GRAD_ROW_FLOOR of the tensor's max|plain|."""
+    diff = (got.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1)
+    floor = GRAD_ROW_FLOOR * max(scale.max().item(), 1e-30)
+    return (diff / scale.clamp_min(floor)).max().item()
+
+
+def check_bwd_outputs(name: str, got: tuple, ref: tuple) -> dict:
+    """dq, dk, dv of kernels 5 and 6 against the plain backward: the whole
+    tensor (KERNEL_REL_TOL of max|plain|) and row by row (`grad_row_err`).
+    Returns {n: (err, tol, row_err)}."""
+    e = {}
+    for n, g, r in zip(("dq", "dk", "dv"), got, ref):
+        err, tol, rows = max_err(g, r), kernel_tol(r), grad_row_err(g, r)
+        e[n] = (err, tol, rows)
+        if not (err <= tol and rows <= KERNEL_REL_TOL):
+            fail(f"kernel {'5' if n == 'dq' else '6'} {n} disagrees with the "
+                 f"plain backward at {name}: {err} (tol {tol}), worst row "
+                 f"{rows} (tol {KERNEL_REL_TOL})")
+    return e
+
+
+def check_delta(name: str, delta, out, do) -> float:
+    """δ as kernel 5 wrote it against rowsum(dO·O) in fp32."""
+    ref = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    err = max_err(delta, ref)
+    tol = DELTA_REL_TOL * max(1.0, ref.abs().max().item())
+    if not err <= tol:
+        fail(f"kernel 5's δ disagrees with rowsum(dO·O) at {name}: {err} > "
+             f"{tol}")
+    return err
 
 
 def check_kernels(tag: str, dev) -> dict:
@@ -460,12 +508,76 @@ def report_kernel(tag: str, name: str, r: dict) -> None:
                  f"{r['row_err']}")
 
 
+# the fused backends of `scaled_dot_product_attention`, each of which the
+# library backward can be pinned to (`torch.nn.attention.SDPBackend`)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_backend(out) -> str:
+    """The backend that `scaled_dot_product_attention` ran for `out`: the
+    name of its autograd node (e.g. `ScaledDotProductFlashAttentionBackward0`;
+    the math backend has none)."""
+    seen, todo = set(), [out.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if type(fn).__name__.startswith("ScaledDotProduct"):
+            return type(fn).__name__
+        todo += [f for f, _ in fn.next_functions]
+    return "math (no fused node)"
+
+
+def library_bwd(q, k, v, do, backend: str | None = None, **kw):
+    """The library's backward of the same function: one autograd call of
+    `scaled_dot_product_attention` that gives dq, dk and dv together (its
+    own GQA where K and V have fewer heads), on the backend PyTorch picks or
+    on `backend` (one of `SDPA_BACKENDS`; raises RuntimeError where it
+    cannot run). Returns (run, grads, ran): `run()` repeats that one
+    backward call, `ran` names the backend that ran (`sdpa_backend`)."""
+    import contextlib
+    import torch
+    if q.shape[2] != k.shape[2]:
+        kw = dict(kw, enable_gqa=True)
+    pin = contextlib.nullcontext()
+    if backend is not None:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        pin = sdpa_kernel([getattr(SDPBackend, backend)])
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    with pin:
+        lib_out = sdpa(ql, kl, vl, **kw)
+    grads = torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+
+    def run():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                   retain_graph=True)
+    return run, grads, sdpa_backend(lib_out)
+
+
+# pairs of turns of the whole backward call and the library's at B=2 S=2048
+BWD_PAIRS = 4
+
+
+def whole_bwd_turns(whole, lib) -> tuple:
+    """The whole backward call (`flash_attention_bwd`: kernel 5 with δ, then
+    kernel 6) and the library's backward, in turns on one card: whole,
+    library, library, whole. Returns their mean times."""
+    w0, l0 = cuda_ms(whole), cuda_ms(lib)
+    l1, w1 = cuda_ms(lib), cuda_ms(whole)
+    return (w0 + w1) / 2, (l0 + l1) / 2
+
+
 def check_flash_bwd(tag: str, dev) -> dict:
-    """Phase 2, training kernels: 5 (dq) and 6 (dk/dv) against the plain
-    backward on the same bf16 inputs and saved output/LSE (kernel 2's), at
-    the stage-1 step's shape (S=639), the stage-2 steps' (S=703: LoRA,
-    QLoRA, switch), a GQA case and a ragged S. Kernel 2's causal forward
-    and LSE are held to their plain version at each of these shapes too."""
+    """Phase 2, training kernels: 5 (dq, forming δ) and 6 (dk/dv) against
+    the plain backward on the same bf16 inputs and saved output/LSE (kernel
+    2's), at the stage-1 step's shape (S=639), the stage-2 steps' (S=703:
+    LoRA, QLoRA, switch), a GQA case and a ragged S: every tensor and every
+    row of dq, dk and dv (`check_bwd_outputs`), δ against rowsum(dO·O), and
+    a repeat of the whole backward call that must give the same bits.
+    Kernel 2's causal forward and LSE are held to their plain version at
+    each of these shapes too. Timed: each kernel, and the whole backward
+    call in turns with the library's backward (MHA and GQA)."""
     import torch
     from law_of_vision_representation_in_mllms_torch.ops import (
         flash_attention as fl)
@@ -493,79 +605,80 @@ def check_flash_bwd(tag: str, dev) -> dict:
             fail(f"kernel 2 disagrees with its plain version at B={b} "
                  f"S={s} KV={kvh}: out {e_out}, LSE {e_lse}")
         del ro, rl
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
-        delta = delta.contiguous()
-        args = (q, k, v, out, lse, do, delta)
-        dq = fl.flash_attention_bwd_dq(*args, causal=True)
-        dk, dv = fl.flash_attention_bwd_dkv(*args, causal=True)
-        rq, rk, rv = fl.flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                                  causal=True)
         case = f"B={b} S={s} H=32 KV={kvh} D=128 causal"
-        e = {name: (max_err(got, ref), kernel_tol(ref))
-             for name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
-                                    ("dv", dv, rv))}
+        args = (q, k, v, out, lse, do)
+        dq, delta = fl.flash_attention_bwd_dq(*args, causal=True,
+                                              return_delta=True)
+        e_delta = check_delta(case, delta, out, do)
+        dk, dv = fl.flash_attention_bwd_dkv(*args, delta, causal=True)
+        refs = fl.flash_attention_bwd_plain(*args, causal=True)
+        e = check_bwd_outputs(case, (dq, dk, dv), refs)
+        whole = lambda: fl.flash_attention_bwd(*args, causal=True)
+        if not all(torch.equal(a, r) for a, r in zip(whole(), (dq, dk, dv))):
+            fail(f"kernels 5/6 at {case}: a repeat of the whole backward "
+                 f"gave other bits")
         print(f"{tag} kernels 5/6 [{case}]: " + ", ".join(
             f"{n} max_abs_err {err:.3e} (tol {tol:.3e}, max|plain| "
-            f"{tol / KERNEL_REL_TOL:.3e})" for n, (err, tol) in e.items()))
-        for n, (err, tol) in e.items():
-            if not err <= tol:
-                fail(f"kernel {'5' if n == 'dq' else '6'} {n} disagrees with "
-                     f"the plain backward at {case}: {err} > {tol}")
+            f"{tol / KERNEL_REL_TOL:.3e}), worst row {rows:.3e} of its "
+            f"max|plain| (tol {KERNEL_REL_TOL})"
+            for n, (err, tol, rows) in e.items())
+            + f"; δ max_abs_err {e_delta:.3e}; a repeat gave the same bits")
         errs["flash_attention_bwd_dq"].append(e["dq"])
         errs["flash_attention_bwd_dkv"] += [e["dk"], e["dv"]]
         if timed:
+            lib, lib_grads, backend = library_bwd(q, k, v, do,
+                                                  is_causal=True)
+            for n, got, ref in zip(("dq", "dk", "dv"), lib_grads, refs):
+                if not max_err(got, ref) <= kernel_tol(ref):
+                    fail(f"the library backward's {n} computes another "
+                         f"function")
+            del lib_grads
             t = dict(
                 dq=cuda_ms(lambda: fl.flash_attention_bwd_dq(*args,
                                                              causal=True)),
-                dkv=cuda_ms(lambda: fl.flash_attention_bwd_dkv(*args,
-                                                               causal=True)),
+                dkv=cuda_ms(lambda: fl.flash_attention_bwd_dkv(
+                    *args, delta, causal=True)),
                 plain=cuda_ms(lambda: fl.flash_attention_bwd_plain(
-                    q, k, v, out, lse, do, causal=True), iters=5),
+                    *args, causal=True), iters=5),
                 fwd=cuda_ms(lambda: fl.flash_attention(q, k, v,
                                                        causal=True)))
-            if "t" not in times:
-                # the library's backward of the same function (dq, dk, dv
-                # in one call), on the same inputs
-                ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-                lib_out = sdpa(ql, kl, vl, is_causal=True)
-                lib_grads = torch.autograd.grad(lib_out, (ql, kl, vl), do,
-                                                retain_graph=True)
-                for n, got, ref in zip(("dq", "dk", "dv"), lib_grads,
-                                       (rq, rk, rv)):
-                    if not max_err(got, ref) <= kernel_tol(ref):
-                        fail(f"the library backward's {n} computes another "
-                             f"function")
-                t["library"] = cuda_ms(lambda: torch.autograd.grad(
-                    lib_out, (ql, kl, vl), do, retain_graph=True))
-                del ql, kl, vl, lib_out, lib_grads
-            print(f"{tag} kernels 5/6 [{case}]: kernel 5 {t['dq']:.4f} ms, "
-                  f"kernel 6 {t['dkv']:.4f} ms, plain backward (dq, dk, dv "
-                  f"together) {t['plain']:.4f} ms; kernel 2 forward "
-                  f"{t['fwd']:.4f} ms"
-                  + (f"; library backward (dq, dk, dv together) "
-                     f"{t['library']:.4f} ms" if "library" in t else ""))
+            t["whole"], t["library"] = whole_bwd_turns(whole, lib)
+            t["library_backend"] = backend
+            del lib
+            print(f"{tag} kernels 5/6 [{case}]: kernel 5 (forming δ) "
+                  f"{t['dq']:.4f} ms, kernel 6 {t['dkv']:.4f} ms; the whole "
+                  f"backward call (kernels 5 and 6) {t['whole']:.4f} ms "
+                  f"against the library's backward (dq, dk, dv together; "
+                  f"{backend}) {t['library']:.4f} ms in the same turns (x"
+                  f"{t['whole'] / t['library']:.3f}); plain backward "
+                  f"{t['plain']:.4f} ms; kernel 2 forward {t['fwd']:.4f} ms")
             times.setdefault("t", t)          # the MHA case is reported
-        del q, k, v, do, out, lse, delta, dq, dk, dv, rq, rk, rv
+        del q, k, v, do, out, lse, delta, dq, dk, dv, refs, args, whole
     shape = ("B=16 S=639 H=KV=32 D=128 causal (+ GQA KV=8, S=703, ragged "
              "S=100)")
     t = times["t"]
     # causal pairs of one head; recomputed S and dP, then dQ (kernel 5) or
     # dV and dK (kernel 6): 3 and 4 products of 2*D flops a pair. Bytes:
-    # q, k, v, dO in and dq (or dk, dv) out in bf16, LSE and delta in fp32.
+    # kernel 5 reads q, k, v, O, dO and the LSE and writes dq and δ; kernel
+    # 6 reads q, k, v, dO, the LSE and δ and writes dk and dv (bf16 tensors,
+    # fp32 LSE and δ).
     b, s, h, d = 16, 639, 32, 128
     pairs, tensor, stats = s * (s + 1) // 2, b * s * h * d * 2, b * h * s * 4
     bounds = {
-        "flash_attention_bwd_dq": bound(5 * tensor + 2 * stats,
+        "flash_attention_bwd_dq": bound(6 * tensor + 2 * stats,
                                         6 * d * pairs * b * h,
                                         H100_BF16_TFLOPS),
         "flash_attention_bwd_dkv": bound(6 * tensor + 2 * stats,
                                          8 * d * pairs * b * h,
                                          H100_BF16_TFLOPS)}
-    results = {name: dict(err=max(e for e, _ in errs[name]),
-                          tol=min(tol for _, tol in errs[name]),
+    results = {name: dict(err=max(e[0] for e in errs[name]),
+                          tol=min(e[1] for e in errs[name]),
+                          row_err=max(e[2] for e in errs[name]),
                           ms=t["dq" if name.endswith("dq") else "dkv"],
-                          plain_ms=t["plain"], library_ms=t["library"],
-                          shape=shape, **bounds[name])
+                          whole_ms=t["whole"], plain_ms=t["plain"],
+                          library_ms=t["library"],
+                          library_backend=t["library_backend"], shape=shape,
+                          **bounds[name])
                for name in errs}
     for name, r in results.items():
         print(f"{tag} kernel {name}: bound {r['bound_ms']:.4f} ms by "
@@ -624,29 +737,34 @@ def check_flash_alibi(tag: str, dev) -> dict:
         ref, ref_lse = fl.flash_attention_plain(q, k, v, return_lse=True,
                                                 **kw)
         e_lse = max_err(lse, ref_lse)
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
-        delta = delta.contiguous()
-        args = (q, k, v, out, lse, do, delta)
-        dq = fl.flash_attention_bwd_dq(*args, **kw)
-        dk, dv = fl.flash_attention_bwd_dkv(*args, **kw)
-        rq, rk, rv = fl.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
         case = (f"B={b} S={s} H={h} KV={kvh} D={d} causal ALiBi"
                 + (f" kv_len={kv_len}" if kv_len else ""))
-        e = {n: (max_err(got, r), kernel_tol(r))
-             for n, got, r in (("out", out, ref), ("dq", dq, rq),
-                               ("dk", dk, rk), ("dv", dv, rv))}
+        args = (q, k, v, out, lse, do)
+        dq, delta = fl.flash_attention_bwd_dq(*args, return_delta=True, **kw)
+        e_delta = check_delta(case, delta, out, do)
+        dk, dv = fl.flash_attention_bwd_dkv(*args, delta, **kw)
+        rq, rk, rv = fl.flash_attention_bwd_plain(*args, **kw)
+        e = {"out": (max_err(out, ref), kernel_tol(ref),
+                     row_err(out, ref))}
+        e.update(check_bwd_outputs(case, (dq, dk, dv), (rq, rk, rv)))
+        if not all(torch.equal(x, y) for x, y in zip(
+                fl.flash_attention_bwd(*args, **kw), (dq, dk, dv))):
+            fail(f"kernels 5/6 at {case}: a repeat of the whole backward "
+                 f"gave other bits")
         print(f"{tag} kernels 2/5/6 [{case}]: " + ", ".join(
-            f"{n} max_abs_err {err:.3e} (tol {tol:.3e})"
-            for n, (err, tol) in e.items())
-            + f", LSE max_abs_err {e_lse:.3e} (tol {LSE_TOL}; LSE down to "
-              f"{ref_lse.min().item():.1f})")
+            f"{n} max_abs_err {err:.3e} (tol {tol:.3e}), worst row "
+            f"{rows:.3e}" for n, (err, tol, rows) in e.items())
+            + f" (row tol {KERNEL_REL_TOL}), LSE max_abs_err {e_lse:.3e} "
+              f"(tol {LSE_TOL}; LSE down to {ref_lse.min().item():.1f}), δ "
+              f"max_abs_err {e_delta:.3e}; a repeat of the backward gave "
+              f"the same bits")
         if e_lse > LSE_TOL:
             fail(f"flash_attention ALiBi LSE err {e_lse} > {LSE_TOL} at "
                  f"{case}")
-        for n, (err, tol) in e.items():
-            if not err <= tol:
-                fail(f"ALiBi {n} disagrees with the plain version at "
-                     f"{case}: {err} > {tol}")
+        err, tol, rows = e["out"]
+        if not (err <= tol and rows <= KERNEL_REL_TOL):
+            fail(f"ALiBi out disagrees with the plain version at {case}: "
+                 f"{err} > {tol} or worst row {rows}")
         # the bias is really in the kernels: without it they give another
         # result
         if max_err(fl.flash_attention(q, k, v, causal=True, kv_len=kv_len),
@@ -659,20 +777,56 @@ def check_flash_alibi(tag: str, dev) -> dict:
             continue
         nokw = dict(causal=True)
         out0, lse0 = fl.flash_attention(q, k, v, return_lse=True, **nokw)
-        delta0 = (do.float() * out0.float()).sum(-1).transpose(1, 2)
-        args0 = (q, k, v, out0, lse0, do, delta0.contiguous())
+        args0 = (q, k, v, out0, lse0, do)
+        _, delta0 = fl.flash_attention_bwd_dq(*args0, return_delta=True,
+                                              **nokw)
         runs = {
             "fwd": (lambda: fl.flash_attention(q, k, v, **kw),
                     lambda: fl.flash_attention(q, k, v, **nokw)),
             "dq": (lambda: fl.flash_attention_bwd_dq(*args, **kw),
                    lambda: fl.flash_attention_bwd_dq(*args0, **nokw)),
-            "dkv": (lambda: fl.flash_attention_bwd_dkv(*args, **kw),
-                    lambda: fl.flash_attention_bwd_dkv(*args0, **nokw))}
+            "dkv": (lambda: fl.flash_attention_bwd_dkv(*args, delta, **kw),
+                    lambda: fl.flash_attention_bwd_dkv(*args0, delta0,
+                                                       **nokw))}
         for name, (with_bias, without) in runs.items():
             # in turns on one card: without, with, with, without
             a0, b0 = graph_ms(without, 10, 5), graph_ms(with_bias, 10, 5)
             b1, a1 = graph_ms(with_bias, 10, 5), graph_ms(without, 10, 5)
             t[name], t[name + "_nobias"] = (b0 + b1) / 2, (a0 + a1) / 2
+        # the whole backward call against the library's backward in the
+        # same turns: without the bias (SDPA's causal backward), then with
+        # it (below, SDPA with the bias as `attn_mask`)
+        refs0 = fl.flash_attention_bwd_plain(*args0, **nokw)
+        whole0 = lambda: fl.flash_attention_bwd(*args0, **nokw)
+        lib0, lib0_grads, t["lib_backend"] = library_bwd(q, k, v, do,
+                                                         is_causal=True)
+        for n, got, r in zip(("dq", "dk", "dv"), lib0_grads, refs0):
+            if not max_err(got, r) <= kernel_tol(r):
+                fail(f"the library backward's {n} computes another function "
+                     f"at {case} without the bias")
+        # several pairs of turns: one pair cannot tell the library's spread
+        # from ours
+        t["pairs_nobias"] = [whole_bwd_turns(whole0, lib0)
+                             for _ in range(BWD_PAIRS)]
+        t["whole_nobias"] = sum(w for w, _ in t["pairs_nobias"]) / BWD_PAIRS
+        t["lib_bwd_nobias"] = sum(l for _, l in t["pairs_nobias"]) / BWD_PAIRS
+        del lib0, lib0_grads
+        # each backend of the library pinned, in turns with ours
+        t["pinned"] = {}
+        for backend in SDPA_BACKENDS:
+            try:
+                run, grads, ran = library_bwd(q, k, v, do, backend=backend,
+                                              is_causal=True)
+            except RuntimeError as exc:
+                t["pinned"][backend] = str(exc).splitlines()[0][:80]
+                continue
+            for n, got, r in zip(("dq", "dk", "dv"), grads, refs0):
+                if not max_err(got, r) <= kernel_tol(r):
+                    fail(f"the library backward's {n} on {backend} computes "
+                         f"another function at {case}")
+            t["pinned"][backend] = (ran,) + whole_bwd_turns(whole0, run)
+            del run, grads
+        del refs0, whole0
         t["plain_fwd"] = cuda_ms(lambda: fl.flash_attention_plain(
             q, k, v, **kw), iters=5)
         t["plain_bwd"] = cuda_ms(lambda: fl.flash_attention_bwd_plain(
@@ -705,15 +859,17 @@ def check_flash_alibi(tag: str, dev) -> dict:
         with torch.no_grad():
             t["lib_fwd"] = graph_ms(lambda: sdpa(q, k, v, attn_mask=lib_mask),
                                     10, 5)
-        t["lib_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), do, retain_graph=True), iters=10)
+        t["whole"], t["lib_bwd"] = whole_bwd_turns(
+            lambda: fl.flash_attention_bwd(*args, **kw),
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                        retain_graph=True))
         del ql, kl, vl, lib_out, lib_grads, lib_mask, bias, causal
         pairs = s * (s + 1) // 2
         tensor, stats = b * s * h * d * 2, b * h * s * 4
         bounds = {
             names[0]: bound(4 * tensor, 4 * d * pairs * b * h,
                             H100_BF16_TFLOPS),
-            names[1]: bound(5 * tensor + 2 * stats, 6 * d * pairs * b * h,
+            names[1]: bound(6 * tensor + 2 * stats, 6 * d * pairs * b * h,
                             H100_BF16_TFLOPS),
             names[2]: bound(6 * tensor + 2 * stats, 8 * d * pairs * b * h,
                             H100_BF16_TFLOPS)}
@@ -724,12 +880,15 @@ def check_flash_alibi(tag: str, dev) -> dict:
         names[0]: dict(ms=t["fwd"], noalibi_ms=t["fwd_nobias"],
                        plain_ms=t["plain_fwd"], library_ms=t["lib_fwd"]),
         names[1]: dict(ms=t["dq"], noalibi_ms=t["dq_nobias"],
-                       plain_ms=t["plain_bwd"], library_ms=t["lib_bwd"]),
+                       plain_ms=t["plain_bwd"], library_ms=t["lib_bwd"],
+                       whole_ms=t["whole"]),
         names[2]: dict(ms=t["dkv"], noalibi_ms=t["dkv_nobias"],
-                       plain_ms=t["plain_bwd"], library_ms=t["lib_bwd"])}
+                       plain_ms=t["plain_bwd"], library_ms=t["lib_bwd"],
+                       whole_ms=t["whole"])}
     for name, r in results.items():
-        r.update(err=max(e for e, _ in errs[name]),
-                 tol=min(tol for _, tol in errs[name]), shape=shape,
+        r.update(err=max(e[0] for e in errs[name]),
+                 tol=min(e[1] for e in errs[name]),
+                 row_err=max(e[2] for e in errs[name]), shape=shape,
                  **bounds[name])
         print(f"{tag} kernel {name} [{shape}]: {r['ms']:.4f} ms with the "
               f"bias, {r['noalibi_ms']:.4f} ms without it (x"
@@ -741,6 +900,24 @@ def check_flash_alibi(tag: str, dev) -> dict:
                  "together)" if "bwd" in name else "")
               + f"; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
               f"({r['bound_ms'] / r['ms']:.1%} of it reached)")
+    print(f"{tag} the whole backward call (kernels 5 and 6) at B=2 S=2048 "
+          f"H=32 D=128 causal: {t['whole_nobias']:.4f} ms without the bias "
+          f"against the library's causal backward ({t['lib_backend']}) "
+          f"{t['lib_bwd_nobias']:.4f} ms (x"
+          f"{t['whole_nobias'] / t['lib_bwd_nobias']:.3f}; mean of "
+          f"{BWD_PAIRS} pairs of turns: "
+          + ", ".join(f"{w:.4f} / {l:.4f}" for w, l in t["pairs_nobias"])
+          + f"); with ALiBi {t['whole']:.4f} ms against the library's with "
+          f"the bias as attn_mask {t['lib_bwd']:.4f} ms (x"
+          f"{t['whole'] / t['lib_bwd']:.3f}), each pair in the same turns")
+    for backend, r in t["pinned"].items():
+        if isinstance(r, str):
+            print(f"{tag} the library's causal backward pinned to {backend}: "
+                  f"does not run here ({r})")
+        else:
+            print(f"{tag} the library's causal backward pinned to {backend} "
+                  f"({r[0]}): {r[2]:.4f} ms against the whole backward call "
+                  f"{r[1]:.4f} ms in the same turns (x{r[1] / r[2]:.3f})")
     return results
 
 
@@ -821,20 +998,29 @@ def rotating(make, nbytes: float) -> list:
 
 def print_ptxas(tag: str, report: str) -> None:
     """The registers and spills `nvcc -Xptxas -v` reported for the wgmma
-    kernels: kernel 10's two bodies, and the attention forward of kernels 1
+    kernels: kernel 10's two bodies, the attention forward of kernels 1
     and 2 by its template arguments (head size, rows a block, causal,
-    ALiBi)."""
+    ALiBi) and the backward of kernels 5 and 6 by theirs (head size,
+    causal, ALiBi)."""
     import re
     name = None
     for line in report.splitlines():
         if "Compiling entry function" in line:
             fwd = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d)ELb(\d)"
                             r"ELb(\d)E", line)
-            name = (f"flash_fwd_wgmma_kernel<D={fwd[1]}, rows="
-                    f"{64 * int(fwd[2])}, causal={fwd[3]}, alibi={fwd[4]}>"
-                    if fwd else next((k for k in ("int4_wgmma_dx_kernel",
-                                                  "int4_wgmma_kernel")
-                                      if k in line), None))
+            bwd = re.search(r"(flash_bwd_dq_kernel|flash_bwd_dkv_kernel)"
+                            r"ILi(\d+)ELb(\d)ELb(\d)E", line)
+            if fwd:
+                name = (f"flash_fwd_wgmma_kernel<D={fwd[1]}, rows="
+                        f"{64 * int(fwd[2])}, causal={fwd[3]}, "
+                        f"alibi={fwd[4]}>")
+            elif bwd:
+                name = (f"{bwd[1]}<D={bwd[2]}, causal={bwd[3]}, "
+                        f"alibi={bwd[4]}>")
+            else:
+                name = next((k for k in ("int4_wgmma_dx_kernel",
+                                         "int4_wgmma_kernel") if k in line),
+                            None)
         elif name and ("Used" in line or "spill" in line):
             print(f"{tag} ptxas {name}: {line.strip()}")
 
@@ -2749,10 +2935,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # the registers and spills of the wgmma kernels (kernel 10, the
-    # attention forward of kernels 1 and 2), compiled beside the library's
-    # build
+    # attention forward of kernels 1 and 2, the backward of kernels 5 and
+    # 6), compiled beside the library's build
     ptxas_sources = ("int4_matmul.cu", "flash_attention.cu",
-                     "encoder_attention.cu")
+                     "encoder_attention.cu", "flash_attention_bwd.cu")
     with concurrent.futures.ThreadPoolExecutor(len(ptxas_sources)) as pool:
         reports = [pool.submit(_build.ptxas_report, src)
                    for src in ptxas_sources]
@@ -2909,7 +3095,8 @@ def main() -> int:
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],
-         **{k: r[k] for k in ("cases", "crossover", "noalibi_ms")
+         **{k: r[k] for k in ("cases", "crossover", "noalibi_ms",
+                              "whole_ms", "library_backend", "row_err")
             if k in r}}
         for name, r in kernels.items()]}))
     print(card)

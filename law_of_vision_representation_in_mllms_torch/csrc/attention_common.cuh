@@ -1,8 +1,9 @@
-// Pieces shared by the hand-written attention kernels: the bf16 `mma.sync`
-// product, fragment packing, quad reductions, the tile loader, the argument
-// block and the ALiBi arithmetic. The backward kernels (5, 6) run on
-// `mma.sync.m16n8k16`; the forward of kernels 1 and 2 is the wgmma loop of
-// flash_fwd_hopper.cuh, whose register fragments have the same layout.
+// Pieces shared by the hand-written attention kernels: fragment packing,
+// quad reductions, the argument block and the ALiBi arithmetic, and the bf16
+// `mma.sync` product that kernel 10's small-M body uses. The attention
+// kernels (the forward of kernels 1 and 2 in flash_fwd_hopper.cuh, the
+// backward of kernels 5 and 6 in flash_attention_bwd.cu) run on wgmma, whose
+// register fragments have the layout of mma.m16n8k16's.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"),
 // with g = lane / 4 and t = lane % 4:
@@ -11,8 +12,8 @@
 //   B (16x8,  "col")      reg0 = B[2t..2t+1][g]     reg1 = B[2t+8..2t+9][g]
 //   C (16x8,  fp32)       c0,c1 = C[g][2t..2t+1]    c2,c3 = C[g+8][2t..2t+1]
 // The C layout of two neighbouring 8-column S tiles is exactly the A layout of
-// one 16-column P tile, so P goes from the accumulator to the next mma without
-// touching shared memory.
+// one 16-column P tile, so P goes from the accumulator to the next product
+// without touching shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,11 +44,6 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
           << 16);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -60,28 +56,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Copy rows [row0, row0 + ROWS) of a strided [*, D] bf16 matrix into shared
-// memory with row pitch D + 8 (the pad keeps the fragment reads free of bank
-// conflicts). Rows at or past `n_valid` are written as zeros, so a ragged edge
-// never reads out of bounds and never feeds garbage (NaN * 0) into an mma.
-template <int D, int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* gbase,
-                                          long row_stride, int row0,
-                                          int n_valid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kLd = D + 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += NTHREADS) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    const int gr = row0 + r;
-    if (gr < n_valid) {
-      val = *reinterpret_cast<const uint4*>(gbase + gr * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(smem + r * kLd + c) = val;
-  }
 }
 
 struct AttnArgs {
@@ -124,7 +98,5 @@ __device__ __forceinline__ float alibi_logit2(float s, float scale_log2,
                                               float base) {
   return fmaf(s, scale_log2, fmaf(slope2, static_cast<float>(off), base));
 }
-
-constexpr int kThreads = 128;   // a block of the backward kernels
 
 }  // namespace lvr

@@ -6,6 +6,10 @@
 // (a tile that runs past S reads zeros, never the next batch's rows), their
 // loads and stores, and the register-A products with an MN-major B (V as
 // stored) at N = 64 and 128.
+// The attention backward adds the SS m64n64k16 product (K-major A and B),
+// rank-1 TMA loads and the rank-1 fp32 map over a flat array (LSE and δ of
+// [B, H, Sq], whose rows are no multiple of 16 bytes apart unless 4 divides
+// Sq, so no rank-2 map takes them).
 //
 // Shared-memory operand tiles follow the 128-byte swizzle that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes and that a wgmma descriptor of layout
@@ -121,6 +125,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// the box of a rank-1 `map` at element coordinate c0
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
 // the box of a rank-4 `map` at element coordinates (c0 innermost .. c3)
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
@@ -232,6 +247,30 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TransB));
+}
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], both operands in shared memory
+// (descriptors as wgmma_m64n128k16). Accumulator layout as wgmma_m64n128k16,
+// j in 0..7.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TransB));
 }
 
@@ -356,7 +395,9 @@ inline TensorMapEncoder tensor_map_encoder() {
 
 // A row-major matrix [rows, cols] of `elem_bytes`-byte elements read in boxes
 // of [box_rows, box_cols]; elements past either edge read as zero. Returns a
-// cudaError_t value.
+// cudaError_t value. Like every map maker here it needs a CUDA context
+// current on the calling thread: make a runtime call first (the launchers
+// set their shared-memory attribute).
 inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
                     uint32_t elem_bytes, const void* base, uint64_t rows,
                     uint64_t cols, uint32_t box_rows, uint32_t box_cols,
@@ -399,6 +440,26 @@ inline int make_bhsd_map(CUtensorMap* map, const void* base, uint64_t batch,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A flat fp32 array of `elems` elements read in boxes of `box` elements
+// (box * 4 a multiple of 16); a box starts on a 16-byte boundary (an element
+// index that 4 divides: other starts fault the copy), and elements past the
+// end read as zero. Returns a cudaError_t value.
+inline int make_flat_f32_map(CUtensorMap* map, const void* base,
+                             uint64_t elems, uint32_t box) {
+  const TensorMapEncoder encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[1] = {elems};
+  const cuuint64_t strides[1] = {elems * 4};   // unused at rank 1
+  const cuuint32_t boxes[1] = {box};
+  const cuuint32_t elem[1] = {1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims,
+      strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

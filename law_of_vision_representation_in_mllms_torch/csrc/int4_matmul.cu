@@ -574,14 +574,17 @@ bool shapes_ok(int M, int K, int N, int groups) {
          K % groups == 0 && (K / groups) % kTile == 0 && N % 8 == 0;
 }
 
-// dynamic shared memory above 48 KB is opt-in, once a kernel
+// Dynamic shared memory above 48 KB is opt-in, on the current device: set at
+// every launch (the attribute is per device, and the call is cheap). As a
+// launch's first CUDA runtime call it also makes the device's context
+// current on the calling thread, which the tensor-map encodes (a driver
+// call) need: on the autograd engine's thread, where the backward's launch
+// can be the first CUDA call, the encode of dy's map failed (invalid value)
+// while this was skipped after a first launch elsewhere.
 template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return static_cast<int>(err);
+int allow_smem(Kernel kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 }  // namespace
@@ -611,8 +614,7 @@ extern "C" int lvr_int4_matmul(const void* x, const void* q, const void* scale,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  static bool smem_set = false;
-  int err = allow_smem(int4_wgmma_kernel, kSmem, smem_set);
+  int err = allow_smem(int4_wgmma_kernel, kSmem);
   CUtensorMap x_map, q_map, s_map;
   if (err == 0) err = lvr::hopper::make_bf16_map(&x_map, x, M, K, kBM);
   if (err == 0) err = word_map(&q_map, q, N, K, kBN);
@@ -635,13 +637,11 @@ extern "C" int lvr_int4_matmul_dx(const void* dy, const void* q,
   if (!shapes_ok(M, K, N, groups)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static bool smem_set = false;
-  int err = allow_smem(int4_wgmma_dx_kernel, kDxSmem, smem_set);
+  int err = allow_smem(int4_wgmma_dx_kernel, kDxSmem);
   CUtensorMap dy_map, q_map, s_map;
   if (err == 0) err = lvr::hopper::make_bf16_map(&dy_map, dy, M, N, kBM);
   if (err == 0) err = word_map(&q_map, q, N, K, kDxRows);
   if (err == 0) err = scale_map(&s_map, scale, groups, N, kDxRows);
-  if (err != 0) return err;
   if (err != 0) return err;
   const dim3 grid(K / kBN, (M + kBM - 1) / kBM);
   int4_wgmma_dx_kernel<<<grid, kThreadsDx, kDxSmem,

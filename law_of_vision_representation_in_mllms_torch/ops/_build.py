@@ -18,8 +18,10 @@ function returns `cudaGetLastError()` after its launch):
   lvr_decode_attention(q, k, v, mask, out, B, T, H, KV, D, scale, stream)
   lvr_decode_attention_int8(q, k, v, k_scale, v_scale, mask, out, B, T, H,
                             KV, D, scale, stream)
-  lvr_flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq, slopes, B, Sq,
-                             Skv, H, KV, D, kv_len, causal, scale, stream)
+  lvr_flash_attention_bwd_dq(q, k, v, out, dout, lse, delta, dq, slopes, B,
+                             Sq, Skv, H, KV, D, kv_len, causal, scale,
+                             stream)
+(`out`: the forward's O; kernel 5 writes δ = rowsum(dO·O) into `delta`)
   lvr_flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, slopes, B,
                               Sq, Skv, H, KV, D, kv_len, causal, scale,
                               stream)
@@ -60,8 +62,8 @@ _SIGNATURES = {
     "lvr_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "lvr_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _F, _P),
-    "lvr_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _F, _P),
+    "lvr_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "lvr_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "lvr_a_score": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -11,23 +11,28 @@ Replaces the TPU kernels of `flash_attention_trainable` in the JAX package's
   kernel 6, the dk/dv one (`_bwd_dkv_kernel`): `csrc/flash_attention_bwd.cu`.
 
 `FlashAttention` is the `torch.autograd.Function` around them (the JAX
-`custom_vjp`): its forward is kernel 2 with the LSE, its backward takes
-δ = rowsum(dO·O) in fp32 (a torch reduction, as the JAX `_bwd` computes it
-outside any kernel) and launches kernels 5 and 6. `flash_attention` goes
-through it whenever grad mode is on and an input requires grad.
+`custom_vjp`): its forward is kernel 2 with the LSE, its backward launches
+kernel 5, which also forms δ = rowsum(dO·O) in fp32 from its own O and dO
+tiles (the JAX `_bwd` computes it outside any kernel) and writes it for
+kernel 6, then kernel 6. `flash_attention` goes through it whenever grad
+mode is on and an input requires grad.
 
 What bounds them on the H100: at the Vicuna-7B prefill (B = 4, S = 640,
 kv_len 600, H = 32, D = 128) a causal layer is 13.4 GFLOP against 81 MB of
 Q, K, V and O, so HBM sets the forward's floor (0.0243 ms); at MPT-7B's
 B = 2, S = 2,048 the tensor cores do (68.7 GFLOP, 0.0695 ms). The backward
-does ~2.5 × the forward's FLOPs over ~2 × its bytes, so the tensor cores set
-its floor. No kernel writes logits or probabilities; causal tiles past the
-diagonal are skipped; query head h reads kv head h // (H / KV) itself, so K
-and V are read at their true size instead of repeated, and kernel 6 sums a
-group's dk/dv in registers. Kernel 2 is a Hopper loop: Q, K and V by TMA,
-both products on `wgmma` with P kept in registers, two warpgroups taking
-turns on the tensor cores, the mask only on the diagonal and tail tiles;
-kernels 5 and 6 are still `mma.sync` loops.
+kernels each do 1.5 × (kernel 5) or 2 × (kernel 6) the forward's FLOPs over
+1.5 × its bytes: at a stage-1 step's B = 16, S = 639 HBM sets both floors
+(505 MB, 0.151 ms, against 80 and 107 GFLOP), at MPT-7B's shape the tensor
+cores (103 and 137.5 GFLOP, 0.104 and 0.139 ms). No kernel writes logits or
+probabilities; causal tiles past the diagonal are skipped; query head h
+reads kv head h // (H / KV) itself, so K and V are read at their true size
+instead of repeated, and kernel 6 sums a group's dk/dv in registers. All
+three are Hopper loops: every operand by TMA into an mbarrier ring, every
+product on `wgmma` with P (and dS) kept in registers as the next product's
+A operand, two warpgroups sharing each loaded tile, the mask only on the
+diagonal and tail tiles (`csrc/flash_fwd_hopper.cuh`,
+`csrc/flash_attention_bwd.cu`).
 
 ALiBi (MPT, the TPU kernels' `alibi` flag): with `alibi_slopes` (fp32 [H]
 or [B, H], the slope of each QUERY head) logit (i, j) gains
@@ -130,6 +135,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
     return out
 
 
+def _delta_plain(out, do, acc):
+    """δ = rowsum(dO·O) [B, H, Sq] in the dtype `acc`: the JAX `_bwd`'s
+    expression, which kernel 5 forms on the card."""
+    return (do.to(acc) * out.to(acc)).sum(dim=-1).transpose(1, 2)
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = False,
                               kv_len: int | None = None, alibi_slopes=None):
     """The explicit backward formulas of the JAX `_bwd` / `_recompute_p`, in
@@ -157,7 +168,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal: bool = False,
     # masked slots are never exponentiated: P = 0 there even where LSE = 0
     p = torch.exp((s - lse.to(acc)[..., None]).masked_fill(~visible,
                                                            float("-inf")))
-    delta = (dof * out.to(acc)).sum(dim=-1).transpose(1, 2)   # [B, H, Sq]
+    delta = _delta_plain(out, do, acc)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
@@ -214,56 +225,78 @@ def _flash_forward(q, k, v, causal: bool, kv_len: int, return_lse: bool,
     return out
 
 
-def _check_bwd_inputs(name: str, q, k, v, do, lse, delta):
+def _check_bwd_inputs(name: str, q, k, v, out, do, lse, delta):
+    """`out` is checked where the kernel reads it (kernel 5), `delta` where
+    it does (kernel 6)."""
     d = q.shape[3]
-    _build.check_inputs(name, {"q": q, "k": k, "v": v, "do": do}, d)
+    tensors = {"q": q, "k": k, "v": v, "do": do}
+    if out is not None:
+        tensors["out"] = out
+    _build.check_inputs(name, tensors, d)
     b, sq, h, _ = q.shape
-    if do.shape != q.shape:
-        raise ValueError(f"{name}: do {tuple(do.shape)} != q "
-                         f"{tuple(q.shape)}")
+    for arg, t in (("do", do), ("out", out)):
+        if t is not None and t.shape != q.shape:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} != q "
+                             f"{tuple(q.shape)}")
     for arg, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
         if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq)
-                or not t.is_contiguous() or t.device != q.device):
+                or not t.is_contiguous() or t.device != q.device
+                or t.data_ptr() % 16):
             raise ValueError(f"{name}: {arg} must be contiguous fp32 "
-                             f"[{b}, {h}, {sq}] on {q.device}")
+                             f"[{b}, {h}, {sq}] on {q.device}, 16-byte "
+                             f"aligned")
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, do, delta, *,
+def flash_attention_bwd_dq(q, k, v, out, lse, do, delta=None, *,
                            causal: bool = False, kv_len: int | None = None,
-                           alibi_slopes=None):
-    """Kernel 5: dq [B, Sq, H, D] from the forward's inputs, its LSE, dO and
-    δ = rowsum(dO·O) [B, H, Sq] fp32; `alibi_slopes` as in the forward."""
+                           alibi_slopes=None, return_delta: bool = False):
+    """Kernel 5: dq [B, Sq, H, D] from the forward's inputs, its output
+    `out` and LSE, and dO; `alibi_slopes` as in the forward.
+
+    The kernel forms δ = rowsum(dO·O) (fp32 [B, H, Sq]) from its own O and
+    dO tiles and writes it into a new buffer; `return_delta=True` returns
+    (dq, δ), the δ that kernel 6's wrapper takes. `delta` is accepted, so
+    that both wrappers take the same arguments, and never read: on either
+    device δ is formed from `out` and `do`."""
     kv_len = _check_shapes("flash_attention_bwd_dq", q, k, v, kv_len)
     slopes = _slopes_bh("flash_attention_bwd_dq", alibi_slopes, q.shape[0],
                         q.shape[2], q.device)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                         causal=causal, kv_len=kv_len,
-                                         alibi_slopes=slopes)[0]
+        dq = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                       kv_len=kv_len,
+                                       alibi_slopes=slopes)[0]
+        if not return_delta:
+            return dq
+        return dq, _delta_plain(out, do,
+                                torch.promote_types(do.dtype, torch.float32))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_dq: unsupported device "
                          f"{q.device}")
-    _check_bwd_inputs("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    _check_bwd_inputs("flash_attention_bwd_dq", q, k, v, out, do, lse, None)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq = q.new_empty(q.shape)
     err = _build.library().lvr_flash_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         slopes.data_ptr() if slopes is not None else None, b, sq, skv, h, kvh,
         d, kv_len, int(bool(causal)), d ** -0.5,
         _build.stream_handle(q.device))
     _build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.alibi_launches += slopes is not None
-    return dq
+    return (dq, delta) if return_delta else dq
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, do, delta, *,
                             causal: bool = False, kv_len: int | None = None,
                             alibi_slopes=None):
     """Kernel 6: (dk, dv) [B, Skv, KV, D], each summed over its group's query
-    heads; `alibi_slopes` (per query head) as in the forward."""
+    heads; `alibi_slopes` (per query head) as in the forward. On CUDA it
+    reads `delta` [B, H, Sq] fp32 (kernel 5's, `return_delta=True`)."""
     kv_len = _check_shapes("flash_attention_bwd_dkv", q, k, v, kv_len)
     slopes = _slopes_bh("flash_attention_bwd_dkv", alibi_slopes, q.shape[0],
                         q.shape[2], q.device)
@@ -274,7 +307,11 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, delta, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_dkv: unsupported device "
                          f"{q.device}")
-    _check_bwd_inputs("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    if delta is None:
+        raise ValueError("flash_attention_bwd_dkv: needs delta on CUDA (from "
+                         "flash_attention_bwd_dq(..., return_delta=True))")
+    _check_bwd_inputs("flash_attention_bwd_dkv", q, k, v, None, do, lse,
+                      delta)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     dk, dv = k.new_empty(k.shape), v.new_empty(v.shape)
@@ -292,16 +329,16 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, delta, *,
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
                         kv_len: int | None = None, alibi_slopes=None):
-    """(dq, dk, dv): the plain backward for CPU tensors, else δ in fp32 and
-    kernels 5 and 6."""
+    """(dq, dk, dv): the plain backward for CPU tensors, else kernel 5
+    (which forms δ) and kernel 6."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do,
                                          causal=causal, kv_len=kv_len,
                                          alibi_slopes=alibi_slopes)
-    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2)
-    delta = delta.contiguous()
-    dq = flash_attention_bwd_dq(q, k, v, out, lse, do, delta, causal=causal,
-                                kv_len=kv_len, alibi_slopes=alibi_slopes)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, do, causal=causal,
+                                       kv_len=kv_len,
+                                       alibi_slopes=alibi_slopes,
+                                       return_delta=True)
     dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, do, delta,
                                      causal=causal, kv_len=kv_len,
                                      alibi_slopes=alibi_slopes)

@@ -266,33 +266,63 @@ def test_int4_matmul_kernel_gradient_and_errors(cuda_device):
         int4_matmul_kernel(x.detach().float(), leaf["q4"], leaf["scale"])
 
 
-@pytest.mark.parametrize("causal,kv_len,s,h,kvh,d", [
-    (True, None, 190, 4, 4, 64), (True, 150, 190, 8, 2, 128),
-    (False, 75, 100, 4, 1, 64), (True, None, 639, 32, 8, 128)])
-def test_flash_function_backward(cuda_device, causal, kv_len, s, h, kvh, d):
-    """Autograd through `flash_attention` on the card: kernel 2 forward,
-    kernels 5 and 6 backward, against the plain backward on the same bf16
-    inputs, saved output and LSE."""
-    b = 2
-    q, k, v = (_randn((b, s, n, d), i, cuda_device).requires_grad_()
-               for i, n in enumerate((h, kvh, kvh)))
-    do = _randn((b, s, h, d), 3, cuda_device)
+def _check_backward(q, k, v, do, causal, kv_len, slopes=None):
+    """Autograd through `flash_attention` (kernel 2 forward, kernels 5 and 6
+    backward, one launch each) against the plain backward on the same bf16
+    inputs, saved output and LSE; δ as kernel 5 writes it against
+    rowsum(dO·O) in fp32; a repeat gives the same bits."""
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    kw = dict(causal=causal, kv_len=kv_len, alibi_slopes=slopes)
     launches = (flash_attention_bwd_dq.launches,
                 flash_attention_bwd_dkv.launches)
-    out, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
-                               return_lse=True)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
     assert out.grad_fn is not None
     out.backward(do)
     torch.cuda.synchronize()
     assert (flash_attention_bwd_dq.launches,
             flash_attention_bwd_dkv.launches) == (launches[0] + 1,
                                                   launches[1] + 1)
-    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
-                                     out.detach(), lse, do, causal=causal,
-                                     kv_len=kv_len)
-    for got, w in zip((q.grad, k.grad, v.grad), want):
+    grads = (q.grad, k.grad, v.grad)
+    q, k, v, out = q.detach(), k.detach(), v.detach(), out.detach()
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for got, w in zip(grads, want):
         assert got.dtype == torch.bfloat16
         assert _close(got, w)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, do,
+                                       return_delta=True, **kw)
+    want_delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    assert torch.allclose(delta, want_delta, rtol=1e-4, atol=1e-4)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, do, delta, **kw)
+    for again, got in zip((dq, dk, dv), grads):             # same bits
+        assert torch.equal(again, got)
+
+
+# kernels 5 and 6 walk tiles of 64 in blocks of 128: S around both, Sq !=
+# Skv both ways, kv_len 0 / 1 / a tail no tile divides, GQA 32/8 and 32/1,
+# D = 64 and 128, causal and not
+BWD_EDGES = (1, 63, 64, 65, 127, 128, 129, 257, 639)
+
+
+@pytest.mark.parametrize("b,sq,skv,causal,kv_len,h,kvh,d", [
+    (2, 190, 190, True, None, 4, 4, 64), (2, 190, 190, True, 150, 8, 2, 128),
+    (2, 100, 100, False, 75, 4, 1, 64), (2, 639, 639, True, None, 32, 8, 128),
+    *((2, s, s, True, None, 4, 4, 128) for s in BWD_EDGES),
+    *((2, s, s, False, None, 4, 2, 64) for s in (1, 64, 129, 257)),
+    (2, 129, 300, True, 250, 8, 8, 128), (2, 300, 129, True, None, 8, 8, 128),
+    (2, 129, 300, False, None, 8, 8, 64), (2, 300, 129, False, 100, 8, 8,
+                                           128),
+    (2, 190, 190, True, 0, 4, 4, 128), (2, 190, 190, False, 0, 4, 4, 64),
+    (2, 190, 190, True, 1, 4, 4, 128), (2, 384, 384, False, 300, 8, 8, 128),
+    (2, 333, 333, True, None, 32, 8, 128), (2, 333, 333, True, None, 32, 1,
+                                            128)])
+def test_flash_function_backward(cuda_device, b, sq, skv, causal, kv_len, h,
+                                 kvh, d):
+    """Kernels 5 and 6 at their tile edges (see `_check_backward`)."""
+    q = _randn((b, sq, h, d), 0, cuda_device)
+    k = _randn((b, skv, kvh, d), 1, cuda_device)
+    v = _randn((b, skv, kvh, d), 2, cuda_device)
+    _check_backward(q, k, v, _randn((b, sq, h, d), 3, cuda_device), causal,
+                    kv_len)
 
 
 def _alibi_case(device, s, h, kvh, d, b=2):
@@ -344,30 +374,23 @@ def test_flash_kernel_alibi(cuda_device, causal, kv_len, s, h, kvh, d):
         q, k, v, causal=causal, kv_len=kv_len, alibi_slopes=sl2))
 
 
-@pytest.mark.parametrize("causal,kv_len,s,h,kvh,d", ALIBI_CASES)
+# the backward's tile edges with the bias: S around 64 and 128, GQA 32/1,
+# kv_len 1, D = 64 non-causal
+ALIBI_BWD_CASES = ALIBI_CASES + [
+    (True, None, 1, 4, 4, 128), (True, None, 63, 4, 4, 128),
+    (True, None, 65, 4, 4, 128), (True, None, 639, 32, 1, 128),
+    (True, 1, 190, 4, 4, 128), (False, 70, 129, 4, 2, 64)]
+
+
+@pytest.mark.parametrize("causal,kv_len,s,h,kvh,d", ALIBI_BWD_CASES)
 def test_flash_function_backward_alibi(cuda_device, causal, kv_len, s, h,
                                        kvh, d):
     """Kernels 5 and 6 recompute P with the bias: autograd through
     `flash_attention(alibi_slopes=...)` against the plain biased backward
-    on the same bf16 inputs, saved output and LSE."""
+    on the same bf16 inputs, saved output and LSE (see `_check_backward`)."""
     q, k, v, slopes = _alibi_case(cuda_device, s, h, kvh, d)
-    q, k, v = (t.requires_grad_() for t in (q, k, v))
-    do = _randn(q.shape, 3, cuda_device)
-    launches = (flash_attention_bwd_dq.launches,
-                flash_attention_bwd_dkv.launches)
-    out, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
-                               return_lse=True, alibi_slopes=slopes)
-    out.backward(do)
-    torch.cuda.synchronize()
-    assert (flash_attention_bwd_dq.launches,
-            flash_attention_bwd_dkv.launches) == (launches[0] + 1,
-                                                  launches[1] + 1)
-    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
-                                     out.detach(), lse, do, causal=causal,
-                                     kv_len=kv_len, alibi_slopes=slopes)
-    for got, w in zip((q.grad, k.grad, v.grad), want):
-        assert got.dtype == torch.bfloat16
-        assert _close(got, w)
+    _check_backward(q, k, v, _randn(q.shape, 3, cuda_device), causal, kv_len,
+                    slopes)
 
 
 def test_flash_alibi_rejects_bad_slopes(cuda_device):

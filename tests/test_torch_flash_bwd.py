@@ -133,6 +133,36 @@ def test_bwd_wrappers_take_plain_path_on_cpu():
             tflash.flash_attention_bwd_dkv.launches) == before
 
 
+def test_bwd_dq_delta_forms_on_cpu():
+    """Kernel 5's wrapper (on the card the kernel forms δ and writes it for
+    kernel 6) returns, with `return_delta=True`, the plain dq and
+    δ = rowsum(dO·O) [B, H, Sq]; a given δ is not read; kernel 6's wrapper
+    takes the δ so returned."""
+    b, s, h, kvh, d = 2, 11, 4, 2, 8
+    q = torch.from_numpy(_randn(30, b, s, h, d))
+    k = torch.from_numpy(_randn(31, b, s, kvh, d))
+    v = torch.from_numpy(_randn(32, b, s, kvh, d))
+    do = torch.from_numpy(_randn(33, b, s, h, d))
+    out, lse = tflash.flash_attention(q, k, v, causal=True, return_lse=True)
+    want = tflash.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                            causal=True)
+    dq, delta = tflash.flash_attention_bwd_dq(q, k, v, out, lse, do,
+                                              causal=True, return_delta=True)
+    assert torch.equal(dq, want[0])
+    assert delta.shape == (b, h, s)
+    assert torch.allclose(delta, (do * out).sum(-1).transpose(1, 2),
+                          rtol=0, atol=1e-6)
+    assert torch.equal(tflash.flash_attention_bwd_dq(q, k, v, out, lse, do,
+                                                     causal=True), dq)
+    given = torch.zeros(b, h, s)
+    dq_given, delta_given = tflash.flash_attention_bwd_dq(
+        q, k, v, out, lse, do, given, causal=True, return_delta=True)
+    assert torch.equal(dq_given, dq) and torch.equal(delta_given, delta)
+    dk, dv = tflash.flash_attention_bwd_dkv(q, k, v, out, lse, do, delta,
+                                            causal=True)
+    assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+
+
 def test_forward_only_wrappers_refuse_grad():
     """Kernels 1 and 3 have no backward: under grad mode with an input that
     requires grad their wrappers raise instead of returning a result with
