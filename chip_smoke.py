@@ -4,6 +4,9 @@ serving, MPT and training-variant paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
+    python3 chip_smoke.py --a-score-of ROOT # kernel 9 of the port in ROOT
+    python3 chip_smoke.py --sass-of ROOT    # ROOT's kernels' SASS vs these
+    python3 chip_smoke.py --a-score-variants  # kernel 9's floors, in turns
 
 Phases (any failure raises and exits non-zero; no phase swallows an error):
   1. build the CUDA kernels from law_of_vision_representation_in_mllms_torch/
@@ -13,9 +16,13 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      tolerance, and both times: kernels 1-3 (serving) and the backward
      kernels 5 (dq) and 6 (dk/dv) at the training step's B=16, S=639,
      H=32, D=128, causal, plus a GQA and a ragged case; kernel 9 (masked
-     max-cosine, fp32) at the A-score protocol shape N=100, St=576, Sa=576
-     and 256, D=4096, a ragged masked case, a bf16 case and a self-anchor
-     check; the tower routes `flash` (kernel 2 non-causal) and `encoder2`
+     max-cosine) at the A-score protocol shape N=100, St=576, Sa=576 and
+     256, D=4096 in fp32 (its 3xTF32 wgmma body; bound: the three TF32
+     products at 495 TFLOP/s, the fp32-FMA bound printed beside it, and
+     `torch.bmm` of the same inputs at "highest" precision printed as the
+     product alone), towers' structured data (cosines near 1), a self-anchor
+     check, a ragged masked case, D=37 and bf16 (its SIMT body), each case's
+     body checked by the counters; the tower routes `flash` (kernel 2 non-causal) and `encoder2`
      (kernel 1), also at the one-image shapes of the embedding dumps
      (S=577, and S=257 for CLIP@224). Beside each kernel: the least time the card could take
      (`bound_ms`, from the bytes and operations of this run's inputs) and
@@ -87,7 +94,8 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      `run_embed_extraction` (100 images), for the target also
      `run_evaluation` over both tasks (`generate_until` and
      `loglikelihood` at 7B width); then `compute_a_scores` on the card
-     (kernel 9, two launches a rep) and one `fit_policy`;
+     (kernel 9, two launches a rep, all four through the wgmma body) and one
+     `fit_policy`;
   7. (run right after phase 4, before the first profiler session of the
      process) quantised serving at full width: LLaVA-1.5-7B through `build_lmm` with
      `model.quantize=int4` + `model.kv_quant=int8` (and the decode route
@@ -166,6 +174,7 @@ TRAIN_STEPS = 3
 FULL_RECORDS, FULL_BATCH = 64, 16
 H100_BF16_TFLOPS = 989.0
 H100_FP32_TFLOPS = 67.0         # plain fp32 FMAs, outside the tensor cores
+H100_TF32_TFLOPS = 495.0        # dense TF32 on the tensor cores
 H100_HBM_BYTES_S = 3.35e12
 # kernel 9: fp32 inputs, fp32 sums over D in another order than the plain
 # version's matmul; cosines lie in [-1, 1]. bf16 inputs are converted to
@@ -921,11 +930,32 @@ def check_flash_alibi(tag: str, dev) -> dict:
     return results
 
 
+def structured(n: int, st: int, sa: int, d: int, seed: int, dev):
+    """Embeddings as towers give them: a mean that every row shares, 8
+    outlier channels 60 times the rest, and anchors that are the targets
+    with 5 % noise, so that cosines lie near 1 (where one TF32 product alone
+    errs by ~1e-5)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    mean = rng.randn(d).astype(np.float32)
+    t = mean + rng.randn(n, st, d).astype(np.float32)
+    t[..., rng.choice(d, 8, replace=False)] *= 60
+    a = t[:, np.arange(sa) % st] * (1 + 0.05 * rng.randn(n, sa, d))
+    return (torch.from_numpy(t).to(dev),
+            torch.from_numpy(a.astype(np.float32)).to(dev))
+
+
 def check_a_score(tag: str, dev) -> dict:
     """Phase 2, kernel 9 against `a_score_plain` on the card: fp32 at the
-    A-score protocol shape against both anchors, a ragged case with both
-    masks and lengths no tile divides, a bf16-input case, and target =
-    anchor, which must give 1.0 for every image."""
+    A-score protocol shape against both anchors (the 3xTF32 wgmma body),
+    towers' structured data and target = anchor, which must give 1.0 for
+    every image, a ragged case with both masks and lengths no block divides,
+    D = 37 and bf16 inputs (the SIMT body). Each case's body is checked by
+    the wrapper's counters. Timed: fp32 at both anchors and bf16 at
+    Sa = 576, beside the plain version, their bounds and, for fp32,
+    `torch.bmm` of the same inputs at "highest" precision: the product
+    alone, not the function, printed for context and never `library_ms`."""
     import torch
     from law_of_vision_representation_in_mllms_torch.ops import a_score as A
 
@@ -940,52 +970,110 @@ def check_a_score(tag: str, dev) -> dict:
         am[:, 0] = True                 # never a row with no valid anchor
         return tm, am
 
-    n, st, d = LAW_IMAGES, 576, 4096
-    target = randn(n, st, d)
-    errs, reported = [], None
-    for sa in (576, 256):
-        anchor = randn(n, sa, d)
-        got = A.max_cos(target, anchor)
+    def body_of(fn):
+        """Run fn() and return the body it launched."""
+        wgmma = A.max_cos.wgmma_launches
+        out = fn()
+        return out, "wgmma" if A.max_cos.wgmma_launches > wgmma else "simt"
+
+    def timed(label, target, anchor, want_body):
+        n, st, d = target.shape
+        sa = anchor.shape[1]
+        got, body = body_of(lambda: A.max_cos(target, anchor))
+        if body != want_body:
+            fail(f"kernel 9 ran its {body} body for {label}, not "
+                 f"{want_body}")
         ref = A.a_score_plain(target, anchor)
-        again = A.max_cos(target, anchor)
-        if not torch.equal(got, again):
-            fail(f"kernel 9 is not repeatable at Sa={sa}")
-        r = dict(err=max_err(got, ref), tol=A_SCORE_TOL,
+        if not torch.equal(got, A.max_cos(target, anchor)):
+            fail(f"kernel 9 is not repeatable ({label})")
+        flops = 2 * n * st * sa * d
+        nbytes = (target.numel() + anchor.numel()) * target.element_size() \
+            + n * 4
+        fma = bound(nbytes, flops, H100_FP32_TFLOPS)
+        # fp32: the three TF32 products of an fp32-accurate product; 16-bit
+        # inputs: one product on the tensor cores (exact in fp32)
+        fast = (bound(nbytes, 3 * flops, H100_TF32_TFLOPS)
+                if target.dtype == torch.float32
+                else bound(nbytes, flops, H100_BF16_TFLOPS))
+        r = dict(err=max_err(got, ref), tol=A_SCORE_TOL, body=body,
                  ms=cuda_ms(lambda: A.max_cos(target, anchor), iters=10),
                  plain_ms=cuda_ms(lambda: A.a_score_plain(target, anchor),
                                   iters=10),
-                 library_ms=None,
-                 shape=f"N={n} St={st} Sa={sa} D={d} fp32",
-                 **bound((target.numel() + anchor.numel()) * 4 + n * 4,
-                         2 * n * st * sa * d, H100_FP32_TFLOPS))
+                 library_ms=None, fma_bound_ms=fma["bound_ms"],
+                 shape=f"N={n} St={st} Sa={sa} D={d} "
+                       f"{str(target.dtype).split('.')[-1]}", **fast)
+        print(f"{tag} kernel a_score [{r['shape']}, {body} body]: the "
+              f"fp32-FMA bound {fma['bound_ms']:.4f} ms (67 TFLOP/s); "
+              f"{r['ms']:.4f} ms is {fma['bound_ms'] / r['ms']:.1%} of it")
+        if target.dtype == torch.float32:
+            r["bmm_ms"] = cuda_ms(
+                lambda: torch.bmm(target, anchor.transpose(1, 2)), iters=10)
+            print(f"{tag} kernel a_score [{r['shape']}]: torch.bmm of the "
+                  f"same fp32 inputs at 'highest' precision, the product "
+                  f"alone (not the function, not library_ms): "
+                  f"{r['bmm_ms']:.4f} ms")
         report_kernel(tag, "a_score", r)
-        errs.append(r["err"])
-        reported = reported or r        # the CLIP@336 anchor is reported
+        return r
+
+    n, st, d = LAW_IMAGES, 576, 4096
+    target = randn(n, st, d)
+    errs, cases = [], []
+    for sa in (576, 256):
+        anchor = randn(n, sa, d)
+        cases.append(timed(f"fp32 Sa={sa}", target, anchor, "wgmma"))
+        errs.append(cases[-1]["err"])
         del anchor
-    self_score = A.max_cos(target, target.clone())
+    self_score, body = body_of(lambda: A.max_cos(target, target.clone()))
     self_err = (self_score - 1.0).abs().max().item()
-    print(f"{tag} kernel a_score self-anchor: max |score - 1| {self_err:.3e} "
-          f"(tol {A_SCORE_TOL})")
+    print(f"{tag} kernel a_score self-anchor ({body} body): max |score - 1| "
+          f"{self_err:.3e} (tol {A_SCORE_TOL})")
     if not self_err <= A_SCORE_TOL:
         fail(f"kernel 9: target = anchor gives {self_score[:4].tolist()}")
-    del target, self_score
+    bf16 = target.to(torch.bfloat16)
+    cases.append(timed("bf16 Sa=576", bf16, randn(n, st, d,
+                                                  dtype=torch.bfloat16),
+                       "simt"))
+    errs.append(cases[-1]["err"])
+    del target, self_score, bf16
 
-    cases = (("ragged, both masks", 7, 150, 77, 1000, torch.float32, True),
-             ("D no vector load divides", 3, 65, 130, 37, torch.float32,
-              True),
-             ("bf16 inputs, masks", 8, 576, 256, 4096, torch.bfloat16, True),
-             ("bf16 inputs", 8, 576, 576, 4096, torch.bfloat16, False))
-    for label, n, st, sa, d, dtype, masked in cases:
+    for sa in (576, 256):
+        t, a = structured(16, 576, sa, 4096, 3, dev)
+        (got, body), ref = body_of(lambda: A.max_cos(t, a)), \
+            A.a_score_plain(t, a)
+        err = max_err(got, ref)
+        self_err = (A.max_cos(t, t.clone()) - 1.0).abs().max().item()
+        print(f"{tag} kernel a_score [structured: N=16 St=576 Sa={sa} "
+              f"D=4096 float32, {body} body, scores {got.min().item():.5f}"
+              f"..{got.max().item():.5f}]: max_abs_err {err:.3e}, self "
+              f"max |score - 1| {self_err:.3e} (tol {A_SCORE_TOL})")
+        if not (body == "wgmma" and err <= A_SCORE_TOL
+                and self_err <= A_SCORE_TOL):
+            fail(f"kernel 9 on structured data ({body} body): {err}, self "
+                 f"{self_err}")
+        errs.append(err)
+        del t, a
+
+    cases_small = (
+        ("ragged, both masks", 7, 150, 77, 1000, torch.float32, True,
+         "wgmma"),
+        ("D no vector load divides", 3, 65, 130, 37, torch.float32, True,
+         "simt"),
+        ("bf16 inputs, masks", 8, 576, 256, 4096, torch.bfloat16, True,
+         "simt"),
+        ("bf16 inputs", 8, 576, 576, 4096, torch.bfloat16, False, "simt"))
+    for label, n, st, sa, d, dtype, masked, want in cases_small:
         t, a = randn(n, st, d, dtype=dtype), randn(n, sa, d, dtype=dtype)
         tm, am = masks(n, st, sa) if masked else (None, None)
-        err = max_err(A.max_cos(t, a, tm, am), A.a_score_plain(t, a, tm, am))
+        got, body = body_of(lambda: A.max_cos(t, a, tm, am))
+        err = max_err(got, A.a_score_plain(t, a, tm, am))
         print(f"{tag} kernel a_score [{label}: N={n} St={st} Sa={sa} D={d} "
-              f"{str(dtype).split('.')[-1]}]: max_abs_err {err:.3e} (tol "
-              f"{A_SCORE_TOL})")
-        if not err <= A_SCORE_TOL:
-            fail(f"kernel 9 disagrees with its plain version ({label})")
+              f"{str(dtype).split('.')[-1]}, {body} body]: max_abs_err "
+              f"{err:.3e} (tol {A_SCORE_TOL})")
+        if not (err <= A_SCORE_TOL and body == want):
+            fail(f"kernel 9 disagrees with its plain version or ran its "
+                 f"{body} body ({label})")
         errs.append(err)
-    return {"a_score": dict(reported, err=max(errs))}
+    return {"a_score": dict(cases[0], err=max(errs), cases=cases)}
 
 
 def rotating(make, nbytes: float) -> list:
@@ -1000,8 +1088,9 @@ def print_ptxas(tag: str, report: str) -> None:
     """The registers and spills `nvcc -Xptxas -v` reported for the wgmma
     kernels: kernel 10's two bodies, the attention forward of kernels 1
     and 2 by its template arguments (head size, rows a block, causal,
-    ALiBi) and the backward of kernels 5 and 6 by theirs (head size,
-    causal, ALiBi)."""
+    ALiBi), the backward of kernels 5 and 6 by theirs (head size, causal,
+    ALiBi) and kernel 9's two bodies (its SIMT body by input type). Fails
+    if kernel 9's wgmma body spills."""
     import re
     name = None
     for line in report.splitlines():
@@ -1019,10 +1108,37 @@ def print_ptxas(tag: str, report: str) -> None:
                         f"alibi={bwd[4]}>")
             else:
                 name = next((k for k in ("int4_wgmma_dx_kernel",
-                                         "int4_wgmma_kernel") if k in line),
+                                         "int4_wgmma_kernel",
+                                         "a_score_tf32_kernel") if k in line),
                             None)
+                simt = re.search(r"a_score_tile_kernelI(\w+?)EEv", line)
+                if simt:
+                    name = f"a_score_tile_kernel<{simt[1]}>"
         elif name and ("Used" in line or "spill" in line):
             print(f"{tag} ptxas {name}: {line.strip()}")
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if name == "a_score_tf32_kernel" and spill and int(spill[1]):
+                fail(f"kernel 9's wgmma body spills: {line.strip()}")
+
+
+def check_sass_tf32(tag: str, lib_path) -> None:
+    """Kernel 9's wgmma body as compiled: its TF32 `HGMMA` instructions
+    counted in the library's SASS (`cuobjdump`)."""
+    from law_of_vision_representation_in_mllms_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    inside, ops = False, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "a_score_tf32_kernel" in line
+        elif inside and "HGMMA" in line:
+            ops.append(line.split("*/", 1)[1].split(";")[0].split()[0])
+    print(f"{tag} SASS of kernel 9's wgmma body: {len(ops)} HGMMA "
+          f"instructions, {sorted(set(ops))}")
+    if not ops or not all("TF32" in op for op in ops):
+        fail(f"kernel 9's wgmma body has no TF32 HGMMA: {sorted(set(ops))}")
 
 
 def check_int4_matmul(tag: str, dev) -> dict:
@@ -2709,9 +2825,10 @@ def run_law_chain(tag: str, dev, counters) -> dict:
 
         print(f"{tag} law chain launches {launches} (after the three "
               f"embedding dumps {after_dump}; after the eval {after_eval})")
-        if launches["a_score"] != 4:
+        if launches["a_score"] != 4 or launches["a_score_wgmma"] != 4:
             fail(f"kernel 9 launched {launches['a_score']} times in "
-                 f"compute_a_scores, not 4 (two reps x two anchors)")
+                 f"compute_a_scores ({launches['a_score_wgmma']} through its "
+                 f"wgmma body), not 4 (two reps x two anchors, fp32)")
         # 23 blocks a tower call, one call an image; clip224 runs kernel 2
         if after_dump["encoder_attention"] != 2 * 23 * LAW_IMAGES:
             fail("kernel 1 did not run 23 times an image in the clip336 "
@@ -2910,12 +3027,215 @@ def time_tower(root: str) -> int:
     return 0
 
 
+def time_a_score(root: str) -> int:
+    """`python3 chip_smoke.py --a-score-of ROOT`: kernel 9 of the port found
+    in ROOT (a checkout such as a parent commit unpacked by `git archive`)
+    at N=100, St=576, D=4096: fp32 against Sa=576 and 256, bf16 and fp16
+    against Sa=576, each the median of 5 timings of 10 launches (CUDA
+    events), with their range. Run it for two roots in turns to compare them
+    on one card; prints one JSON line."""
+    import statistics
+    import torch
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from law_of_vision_representation_in_mllms_torch.ops import a_score as A
+    if not os.path.abspath(A.__file__).startswith(root + os.sep):
+        fail(f"the port was imported from {A.__file__}, not from {root}")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = {"root": root, "card": card_line()}
+    target = torch.randn(LAW_IMAGES, 576, 4096, generator=g, device=dev)
+    for dtype, sa in ((torch.float32, 576), (torch.float32, 256),
+                      (torch.bfloat16, 576), (torch.float16, 576)):
+        t = target.to(dtype)
+        a = torch.randn(LAW_IMAGES, sa, 4096, generator=g,
+                        device=dev).to(dtype)
+        A.max_cos(t, a)
+        ms = [cuda_ms(lambda: A.max_cos(t, a), iters=10, warmup=1)
+              for _ in range(5)]
+        key = f"{str(dtype).split('.')[-1]}_sa{sa}_ms"
+        out[key] = statistics.median(ms)
+        out[key + "_range"] = [min(ms), max(ms)]
+        del t, a
+    print(json.dumps(out))
+    return 0
+
+
+# text edits of csrc/a_score.cu that make kernel 9's wgmma body into what
+# bounds it: one TF32 product a k8 step (hi hi: the one-pass design and what
+# accuracy costs), one accumulator for all of D (what the per-stage partial
+# sums buy), no products (the split, loads and barriers alone), no anchor
+# split (products on unsplit data)
+A_PRODUCTS = ("        wgmma_tf32<N>(part, hi[ks], dl, ks > 0);\n",
+              "        wgmma_tf32<N>(part, lo[ks], dh, 1);\n",
+              "        wgmma_tf32<N>(part, hi[ks], dh, 1);\n")
+A_VARIANTS = {
+    "one_pass": [(A_PRODUCTS[0], ""), (A_PRODUCTS[1], ""),
+                 (A_PRODUCTS[2], A_PRODUCTS[2].replace(", 1);",
+                                                       ", ks > 0);"))],
+    "one_accumulator": [
+        (A_PRODUCTS[0], A_PRODUCTS[0].replace("ks > 0", "ks > 0 || it > 0")),
+        ("      for (int i = 0; i < N / 2; ++i) acc[i] += part[i];",
+         "      for (int i = 0; i < N / 2; ++i) acc[i] = part[i];")],
+    "no_products": [(p, "") for p in A_PRODUCTS],
+    "no_split": [("    if (r < rows) {\n      const int off",
+                  "    if (r < 0) {\n      const int off")],
+}
+
+
+def a_score_variants() -> int:
+    """`python3 chip_smoke.py --a-score-variants`: kernel 9's wgmma body
+    against text-edited copies of it (A_VARIANTS), each built into a library
+    of its own and called through the same C entry point, in turns (base,
+    the variants, the variants backwards, base) at N=100, St=576, D=4096
+    against Sa=576 and 256; each variant's max abs error against the plain
+    version on towers' structured data, and against 1 with target = anchor.
+    Prints one JSON line."""
+    import ctypes
+    import torch
+    sys.path.insert(0, REPO)
+    from law_of_vision_representation_in_mllms_torch.ops import _build
+    from law_of_vision_representation_in_mllms_torch.ops import a_score as A
+    source = (_build.CSRC_DIR / "a_score.cu").read_text()
+    dev = torch.device("cuda", 0)
+
+    def build(name: str, tmp: str) -> str:
+        text = source
+        for old, new in A_VARIANTS.get(name, []):
+            if old not in text:
+                fail(f"variant {name}: csrc/a_score.cu no longer holds "
+                     f"{old.strip()!r}")
+            text = text.replace(old, new)
+        src, lib = os.path.join(tmp, f"{name}.cu"), os.path.join(
+            tmp, f"lib{name}.so")
+        with open(src, "w") as f:
+            f.write(text)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                        str(_build.CSRC_DIR), "-shared", "-o", lib, src],
+                       check=True, capture_output=True, timeout=900)
+        return lib
+
+    out = {"card": card_line()}
+    with tempfile.TemporaryDirectory() as tmp:
+        names = ["base", *A_VARIANTS]
+        with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+            libs = dict(zip(names, pool.map(lambda n: build(n, tmp), names)))
+        fns = {}
+        for name, path in libs.items():
+            fn = ctypes.CDLL(path).lvr_a_score_tf32
+            fn.argtypes = list(_build._SIGNATURES["lvr_a_score_tf32"])
+            fns[name] = fn
+
+        def call(name, t, a):
+            n, st, d = t.shape
+            sa = a.shape[1]
+            row_max = torch.empty((n, -(-sa // A.TF32_TILE), st), device=dev)
+            res = torch.empty(n, device=dev)
+            err = fns[name](t.data_ptr(), a.data_ptr(), None, None,
+                            row_max.data_ptr(), res.data_ptr(), n, st, sa, d,
+                            _build.stream_handle(dev))
+            if err:
+                fail(f"variant {name}: CUDA error {err}")
+            return res
+
+        for sa in (576, 256):
+            t, a = structured(16, 576, sa, 4096, 3, dev)
+            ref = A.a_score_plain(t, a)
+            for name in names:
+                out[f"{name}_sa{sa}_err"] = max_err(call(name, t, a), ref)
+        for name in names:                   # target = anchor: 1.0
+            out[f"{name}_self_err"] = max_err(call(name, t, t.clone()),
+                                              torch.ones(16, device=dev))
+        g = torch.Generator(device=dev).manual_seed(2)
+        t = torch.randn(LAW_IMAGES, 576, 4096, generator=g, device=dev)
+        for sa in (576, 256):
+            a = torch.randn(LAW_IMAGES, sa, 4096, generator=g, device=dev)
+            for name in names + names[::-1]:
+                out.setdefault(f"{name}_sa{sa}_ms", []).append(
+                    cuda_ms(lambda: call(name, t, a), iters=10))
+    for key, v in out.items():
+        print(f"{key}: {v}")
+    print(json.dumps(out))
+    return 0
+
+
+def compare_sass(root: str) -> int:
+    """`python3 chip_smoke.py --sass-of ROOT`: every csrc/*.cu of the port in
+    ROOT and of this checkout compiled with the library's flags, and each
+    kernel's SASS (`cuobjdump -sass`) compared by function (names with the
+    file's anonymous-namespace hash taken out, blanks collapsed). Prints,
+    for each source, the kernels that are identical, differ, or are only on
+    one side; one JSON line."""
+    import re
+    sys.path.insert(0, REPO)
+    from law_of_vision_representation_in_mllms_torch.ops import _build
+    nvcc = _build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    roots = {"this": REPO, "other": os.path.abspath(root)}
+
+    def sass_of(src: str, tmp: str) -> dict:
+        obj = os.path.join(tmp, os.path.basename(src) + ".o")
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-c", "-o", obj, src],
+                       check=True, capture_output=True, timeout=900)
+        text = subprocess.run([cuobjdump, "-sass", obj], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        funcs, name = {}, None
+        for line in text.splitlines():
+            line = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "ANON", line)
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                funcs[name] = []
+            elif name and "/*" in line:
+                # cuobjdump pads columns to the file's widest instruction
+                funcs[name].append(" ".join(line.split()))
+        return funcs
+
+    out = {"this": REPO, "other": roots["other"], "sources": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {}
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            for side, base in roots.items():
+                for src in sorted(os.listdir(os.path.join(base, PKG,
+                                                          "csrc"))):
+                    if src.endswith(".cu"):
+                        os.makedirs(os.path.join(tmp, side), exist_ok=True)
+                        jobs[side, src] = pool.submit(
+                            sass_of, os.path.join(base, PKG, "csrc", src),
+                            os.path.join(tmp, side))
+        for src in sorted({s for _, s in jobs}):
+            a = jobs["this", src].result() if ("this", src) in jobs else {}
+            b = jobs["other", src].result() if ("other", src) in jobs else {}
+            same = sorted(k for k in a if k in b and a[k] == b[k])
+            diff = sorted(k for k in a if k in b and a[k] != b[k])
+            out["sources"][src] = {
+                "identical": len(same), "differ": diff,
+                "only_this": sorted(set(a) - set(b)),
+                "only_other": sorted(set(b) - set(a))}
+            print(f"{src}: {len(same)} kernels with identical SASS, differ "
+                  f"{diff}, only here {sorted(set(a) - set(b))}, only in "
+                  f"{root} {sorted(set(b) - set(a))}")
+            for k in diff:
+                first = next((x, y) for x, y in zip(a[k] + [""], b[k] + [""])
+                             if x != y)
+                print(f"  {k}: {len(a[k])} / {len(b[k])} lines; first "
+                      f"difference {first}")
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: needs an NVIDIA GPU")
     if sys.argv[1:2] == ["--tower-of"] and len(sys.argv) == 3:
         return time_tower(sys.argv[2])
+    if sys.argv[1:2] == ["--a-score-of"] and len(sys.argv) == 3:
+        return time_a_score(sys.argv[2])
+    if sys.argv[1:2] == ["--sass-of"] and len(sys.argv) == 3:
+        return compare_sass(sys.argv[2])
+    if sys.argv[1:] == ["--a-score-variants"]:
+        return a_score_variants()
     sys.path.insert(0, REPO)
     try:
         from law_of_vision_representation_in_mllms_torch.ops import (
@@ -2938,7 +3258,8 @@ def main() -> int:
     # attention forward of kernels 1 and 2, the backward of kernels 5 and
     # 6), compiled beside the library's build
     ptxas_sources = ("int4_matmul.cu", "flash_attention.cu",
-                     "encoder_attention.cu", "flash_attention_bwd.cu")
+                     "encoder_attention.cu", "flash_attention_bwd.cu",
+                     "a_score.cu")
     with concurrent.futures.ThreadPoolExecutor(len(ptxas_sources)) as pool:
         reports = [pool.submit(_build.ptxas_report, src)
                    for src in ptxas_sources]
@@ -2949,6 +3270,7 @@ def main() -> int:
               f"{os.path.relpath(lib_path, REPO)}")
         for report in reports:
             print_ptxas(tag, report.result())
+    check_sass_tf32(tag, lib_path)
 
     kernels = check_kernels(tag, dev)
     kernels.update(check_flash_bwd(tag, dev))
@@ -2987,6 +3309,8 @@ def main() -> int:
     counters.update({name + "_alibi": (wrapper, "alibi_launches")
                      for name, (wrapper, _) in counters.items()
                      if hasattr(wrapper, "alibi_launches")})
+    # the launches of kernel 9 that ran its 3xTF32 wgmma body
+    counters["a_score_wgmma"] = (asc.max_cos, "wgmma_launches")
     # the serving runs come before any torch.profiler session (phase 5 holds
     # the first): its tracing stays attached to the process afterwards and
     # makes every launch dearer for the host, which is what bounds a decode
@@ -3096,8 +3420,12 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],
          **{k: r[k] for k in ("cases", "crossover", "noalibi_ms",
-                              "whole_ms", "library_backend", "row_err")
-            if k in r}}
+                              "whole_ms", "library_backend", "row_err",
+                              "fma_bound_ms", "bmm_ms", "body")
+            if k in r},
+         **({"wgmma_launches": sum(p["a_score_wgmma"]
+                                   for p in paths.values())}
+            if name == "a_score" else {})}
         for name, r in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

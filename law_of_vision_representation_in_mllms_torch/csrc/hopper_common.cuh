@@ -10,6 +10,10 @@
 // rank-1 TMA loads and the rank-1 fp32 map over a flat array (LSE and δ of
 // [B, H, Sq], whose rows are no multiple of 16 bytes apart unless 4 divides
 // Sq, so no rank-2 map takes them).
+// The A score's fp32 body adds the TF32 products (m64nNk8, A from registers,
+// B K-major: a row of the swizzled tile holds 32 fp32, so a k8 step advances
+// the descriptor by 32 bytes, as a bf16 k16 step does), the round-to-nearest
+// TF32 conversion and the rank-3 fp32 map over [N, S, D].
 //
 // Shared-memory operand tiles follow the 128-byte swizzle that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes and that a wgmma descriptor of layout
@@ -112,6 +116,18 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
                : "memory");
 }
 
+// four 8 x 8 matrices of 16-bit elements from shared memory, lanes 8i..8i+7
+// giving the 16-byte row addresses of matrix i: lane l receives word l % 4 of
+// row l / 4 of matrix i in r[i]. Of a [rows, 4] fp32 block that is element
+// (l / 4, l % 4), the layout of a TF32 A fragment's registers.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // ---- TMA --------------------------------------------------------------------
 // the box of `map` at element coordinates (c0 innermost, c1) into `dst`,
 // completing its bytes on `bar`
@@ -133,6 +149,19 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst,
       "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_"
       "tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// the box of a rank-3 `map` at element coordinates (c0 innermost, c1, c2)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -355,6 +384,82 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_t(float (&d)[32],
         "r"(accumulate), "n"(TransB));
 }
 
+// ---- TF32 ------------------------------------------------------------------
+// x rounded to TF32 (10 mantissa bits, ties away from zero), as the fp32 bit
+// pattern with the low 13 bits clear: for a finite x what cvt.rna.tf32.f32
+// gives, in two integer operations (the conversion adds a test for Inf and
+// NaN to each)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// Register A of the TF32 products (wgmma_m64n*k8_tf32_rs): warp w of the
+// warpgroup holds rows 16w..16w+15 in the A-fragment layout of
+// mma.m16n8k8.tf32, one element a register: a[0] = (row l/4, column l%4),
+// a[1] = (row + 8, the same column), a[2] = (row l/4, column l%4 + 4),
+// a[3] = (row + 8, column + 4). The registers are read while the product
+// runs: keep them unchanged until the wgmma_wait that covers it.
+// Accumulator layout as wgmma_m64n128k16.
+
+// d[64 x 128] (+)= A[64 x 8] * B[8 x 128] in TF32 (fp32 accumulate), A from
+// registers (the layout above), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// the same at N = 64 (accumulator layout j in 0..7)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // ---- register reallocation (the whole warpgroup executes it) ----------------
 template <int R>
 __device__ __forceinline__ void reg_alloc() {
@@ -460,6 +565,28 @@ inline int make_flat_f32_map(CUtensorMap* map, const void* base,
       map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims,
       strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+
+// An fp32 tensor [n, s, d] (d contiguous; d % 4 == 0 and a 16-byte-aligned
+// base, as TMA requires) read in 128-byte-swizzled boxes of [box_rows, 32]
+// of one n: dims (d, s, n), box (32, box_rows, 1). Rows past `s` read as zero
+// within their own n, never the next one's, and so do columns past `d`.
+// Returns a cudaError_t value.
+inline int make_f32_nsd_map(CUtensorMap* map, const void* base, uint64_t n,
+                            uint64_t s, uint64_t d, uint32_t box_rows) {
+  const TensorMapEncoder encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {d, s, n};
+  const cuuint64_t strides[2] = {d * 4, s * d * 4};
+  const cuuint32_t box[3] = {32, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,6 +28,8 @@ function returns `cudaGetLastError()` after its launch):
 (`slopes`: fp32 [B, H] ALiBi slopes, or NULL for no bias)
   lvr_a_score(target, anchor, target_mask, anchor_mask, partial_sum,
               partial_count, out, N, St, Sa, D, dtype, vec, stream)
+  lvr_a_score_tf32(target, anchor, target_mask, anchor_mask, row_max, out, N,
+                   St, Sa, D, stream)
   lvr_int4_matmul(x, q4, scale, out, M, K, N, groups, stream)
   lvr_int4_matmul_dx(dy, q4, scale, dx, M, K, N, groups, stream)
   lvr_error_string(err) -> const char*
@@ -67,6 +69,7 @@ _SIGNATURES = {
     "lvr_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "lvr_a_score": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lvr_a_score_tf32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lvr_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lvr_int4_matmul_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -23,9 +23,11 @@ from law_of_vision_representation_in_mllms_tpu.pipeline.a_score_run import (
     compute_a_scores as j_compute_a_scores)
 from law_of_vision_representation_in_mllms_torch.metrics import a_score as TA
 from law_of_vision_representation_in_mllms_torch.ops.a_score import (
-    a_score_plain, max_cos)
+    a_score_body, a_score_plain, max_cos)
 from law_of_vision_representation_in_mllms_torch.pipeline.a_score_run import (
     compute_a_scores)
+# the tests directory is on sys.path under pytest
+from test_torch_cuda_kernels import _structured
 
 # the module, not the function of the same name that the package re-exports
 JA = importlib.import_module(
@@ -190,6 +192,66 @@ def test_wrapper_checks_inputs():
     before = max_cos.launches
     max_cos(_t(t), _t(a))
     assert max_cos.launches == before      # the CPU path launches no kernel
+
+
+def _tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits, ties away from zero) on its bit
+    pattern, as `csrc/hopper_common.cuh` `tf32_rna` does."""
+    bits = x.view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _max_cos_3xtf32(t, a, passes=3):
+    """Kernel 9's wgmma body in numpy: each operand split as hi = rna(x),
+    lo = rna(x - hi); the products hi lo + lo hi + hi hi (hi hi alone for
+    `passes=1`) of TF32 values, which are exact, summed in fp64; norms of
+    the fp32 rows."""
+    t_hi, a_hi = _tf32_rna(t), _tf32_rna(a)
+    t_lo, a_lo = _tf32_rna(t - t_hi), _tf32_rna(a - a_hi)
+
+    def mm(x, y):
+        return np.einsum("ntd,nad->nta", x.astype(np.float64),
+                         y.astype(np.float64))
+    dot = mm(t_hi, a_hi)
+    if passes == 3:
+        dot += mm(t_hi, a_lo) + mm(t_lo, a_hi)
+    tn = np.linalg.norm(t.astype(np.float64), axis=-1) + 1e-10
+    an = np.linalg.norm(a.astype(np.float64), axis=-1) + 1e-10
+    return (dot / tn[:, :, None] / an[:, None, :]).max(-1).mean(-1)
+
+
+@pytest.mark.parametrize("self_anchor", [False, True])
+def test_3xtf32_split_matches_fp32(self_anchor):
+    """The split of kernel 9's wgmma body keeps the score within 1e-6 of the
+    fp32 plain version and of the JAX function on near-duplicate anchors,
+    where one TF32 product alone misses that tolerance (1e-6: the three
+    products drop only lo lo and lo's rounding, ~2^-22 relative)."""
+    t, a = (x.numpy() for x in _structured(2, 192, 192, 512, 10, "cpu"))
+    if self_anchor:
+        a = t.copy()
+    plain = a_score_plain(_t(t), _t(a)).numpy()
+    jax_ = np.asarray(JA.max_cos_similarity(jnp.asarray(t), jnp.asarray(a)))
+    got = _max_cos_3xtf32(t, a)
+    np.testing.assert_allclose(got, plain, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got, jax_, atol=1e-6, rtol=0)
+    if self_anchor:
+        np.testing.assert_allclose(got, 1.0, atol=1e-6, rtol=0)
+    assert np.abs(_max_cos_3xtf32(t, a, passes=1) - plain).max() > 1e-6
+
+
+@pytest.mark.parametrize("dtype,d,t_off,a_off,body", [
+    (torch.float32, 4096, 0, 0, "wgmma"),
+    (torch.float32, 1000, 16, 4096, "wgmma"),
+    (torch.float32, 4100, 0, 0, "wgmma"),
+    (torch.float32, 37, 0, 0, "simt"),          # D % 4 != 0
+    (torch.float32, 4096, 4, 0, "simt"),        # a base TMA cannot take
+    (torch.float32, 4096, 0, 8, "simt"),
+    (torch.bfloat16, 4096, 0, 0, "simt"),
+    (torch.float16, 4096, 0, 0, "simt")])
+def test_body_dispatch(dtype, d, t_off, a_off, body):
+    """Which body kernel 9 launches depends on dtype, D and the bases'
+    16-byte alignment alone."""
+    assert a_score_body(dtype, d, 1 << 20 | t_off, 1 << 21 | a_off) == body
 
 
 def _dump(base, rep, arrays):

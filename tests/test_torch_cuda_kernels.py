@@ -429,11 +429,14 @@ def _a_inputs(n, st, sa, d, dtype, device, masks):
     (2, 100, 64, 256, torch.float16, False)])
 def test_a_score_kernel(cuda_device, n, st, sa, d, dtype, masks):
     t, a, tm, am = _a_inputs(n, st, sa, d, dtype, cuda_device, masks)
-    before = max_cos.launches
+    before, wgmma = max_cos.launches, max_cos.wgmma_launches
     got = max_cos(t, a, tm, am)
     again = max_cos(t, a, tm, am)
     torch.cuda.synchronize()
     assert max_cos.launches == before + 2
+    # the 3xTF32 body takes fp32 with D % 4 == 0, the SIMT body the rest
+    tf32 = dtype == torch.float32 and d % 4 == 0
+    assert max_cos.wgmma_launches == wgmma + (2 if tf32 else 0)
     assert got.shape == (n,) and got.dtype == torch.float32
     assert torch.equal(got, again)                 # fixed-order sums
     want = a_score_plain(t, a, tm, am)
@@ -446,6 +449,100 @@ def test_a_score_kernel_self_anchor(cuda_device):
     t, _, _, _ = _a_inputs(6, 200, 200, 512, torch.float32, cuda_device,
                            False)
     got = max_cos(t, t.clone())
+    assert (got - 1.0).abs().max().item() <= A_TOL
+
+
+# the 3xTF32 body's edges: 128-row target and anchor blocks, the 64-wide
+# products of a last anchor block, a warpgroup past St
+A_EDGES = (1, 63, 65, 127, 129, 191, 193, 577)
+
+
+def _a_check(t, a, tm=None, am=None):
+    """Kernel 9 against its plain version (A_TOL) and a repeat (same bits);
+    returns the kernel's scores."""
+    got = max_cos(t, a, tm, am)
+    again = max_cos(t, a, tm, am)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - a_score_plain(t, a, tm, am)).abs().max().item() <= A_TOL
+    return got
+
+
+@pytest.mark.parametrize("st", A_EDGES)
+@pytest.mark.parametrize("sa", A_EDGES)
+def test_a_score_wgmma_edges(cuda_device, st, sa):
+    t, a, _, _ = _a_inputs(2, st, sa, 96, torch.float32, cuda_device, False)
+    wgmma = max_cos.wgmma_launches
+    _a_check(t, a)
+    assert max_cos.wgmma_launches == wgmma + 2
+
+
+@pytest.mark.parametrize("n,st,sa,d", [
+    (1, 576, 576, 4096),      # one image
+    (3, 100, 100, 256),       # a 128-row box would cross into the next image
+    (2, 130, 70, 1000),       # D tails that leave a zero-filled chunk
+    (2, 70, 130, 4100)])
+def test_a_score_wgmma_shapes(cuda_device, n, st, sa, d):
+    t, a, tm, am = _a_inputs(n, st, sa, d, torch.float32, cuda_device, True)
+    # images far apart: a row read from the next image would show
+    t = t + torch.arange(n, device=cuda_device)[:, None, None] * 3.0
+    _a_check(t, a)
+    _a_check(t, a, tm, am)
+
+
+def test_a_score_wgmma_negative_cosines(cuda_device):
+    """Every valid anchor points away from every target (cosines ~ -0.9): a
+    zero-filled column past Sa (cosine 0) or a masked column (cosine
+    ~ +0.9) must not win the row max."""
+    rng = np.random.RandomState(13)
+    base = rng.randn(512).astype(np.float32)
+
+    def rows(sign, s):
+        x = sign * base + 0.3 * rng.randn(2, s, 512).astype(np.float32)
+        return torch.from_numpy(x).to(cuda_device)
+    t, a = rows(1.0, 150), rows(-1.0, 65)
+    assert _a_check(t, a).max().item() < -0.5
+    am = torch.ones(2, 65, dtype=torch.bool, device=cuda_device)
+    am[:, ::3] = False
+    a[:, ::3] = rows(1.0, 65)[:, ::3]
+    assert _a_check(t, a, None, am).max().item() < -0.5
+
+
+def _structured(n, st, sa, d, seed, device):
+    """Embeddings as towers give them: a mean that every row shares, 8
+    outlier channels 60 times the rest, and anchors that are the targets
+    with 5 % noise, so that cosines lie near 1."""
+    rng = np.random.RandomState(seed)
+    mean = rng.randn(d).astype(np.float32)
+    t = mean + rng.randn(n, st, d).astype(np.float32)
+    t[..., rng.choice(d, 8, replace=False)] *= 60
+    a = t[:, np.arange(sa) % st] * (1 + 0.05 * rng.randn(n, sa, d))
+    return (torch.from_numpy(t).to(device),
+            torch.from_numpy(a.astype(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("sa", [576, 256])
+def test_a_score_wgmma_structured(cuda_device, sa):
+    """Cosines near 1, where one TF32 product alone errs by ~1e-5: the three
+    products stay within A_TOL, and target = anchor within A_TOL of 1."""
+    t, a = _structured(8, 576, sa, 4096, 11, cuda_device)
+    # rows past Sa have no near-duplicate among the anchors (~0.9)
+    assert _a_check(t, a).min().item() > (0.99 if sa >= 576 else 0.9)
+    got = _a_check(t, t.clone())
+    assert (got - 1.0).abs().max().item() <= A_TOL
+
+
+def test_a_score_wgmma_low_bits(cuda_device):
+    """Every element with its 13 bits below TF32 set (the rounding of hi
+    goes up, lo is negative), target = anchor and against a second draw."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+
+    def draw():
+        x = torch.randn(4, 256, 512, generator=g, device=cuda_device)
+        return (x.view(torch.int32) | 0x1FFF).view(torch.float32)
+    t, a = draw(), draw()
+    _a_check(t, a)
+    got = _a_check(t, t.clone())
     assert (got - 1.0).abs().max().item() <= A_TOL
 
 
