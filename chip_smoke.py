@@ -5,6 +5,7 @@ serving, MPT and training-variant paths on one NVIDIA GPU (H100).
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
     python3 chip_smoke.py --a-score-of ROOT # kernel 9 of the port in ROOT
+    python3 chip_smoke.py --decode-of ROOT  # kernel 3 of the port in ROOT
     python3 chip_smoke.py --sass-of ROOT    # ROOT's kernels' SASS vs these
     python3 chip_smoke.py --a-score-variants  # kernel 9's floors, in turns
 
@@ -46,8 +47,12 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      it from HBM, not from L2, with `nvcc -Xptxas -v`'s registers and spills
      of the two wgmma bodies; kernel 3's int8
      branch at B=4 T=704 H=32 Dh=128 with holes and a GQA case (library:
-     SDPA on the dequantised cache); kernel 3 dense against int8 at B=1, 4,
-     16, 32 over rotating caches (the kv8 crossover); and what the int8
+     SDPA on the dequantised cache); kernel 3's three cases timed cold, over
+     rotating caches (`ms`), and warm, one cache in L2 (`warm_ms`), each with
+     a repeat that must give the same bits, and ptxas's registers and spills
+     of every form of it (a spill fails the run); kernel 3 dense against
+     int8 at B=1, 4, 16, 32 and at B=4 T=2,048 over rotating caches (the kv8
+     crossover); and what the int8
      weights' cast costs a call. ALiBi: kernels 2, 5 and 6 with the
      in-kernel bias at MPT-7B's shape (B=2, S=2,048, H=32, D=128, causal), a
      ragged S, H=6 at D=64, a GQA case with a kv_len tail, and each LSE;
@@ -134,6 +139,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -417,29 +423,26 @@ def check_kernels(tag: str, dev) -> dict:
             f"kernel 2 B={b} S={s} H=KV=32 D=128 causal")
         for b, s in ((16, 639), (2, 2048))]
 
-    # decode: Vicuna-7B cache, T=704, holes + one fully masked 128-slot tile
+    # decode: Vicuna-7B cache, T=704, holes + one fully masked 128-slot
+    # tile; cold over caches in turn, and warm
     b, t, h, d = 4, 704, 32, 128
     q = randn(b, 1, h, d)
-    k, v = randn(b, t, h, d), randn(b, t, h, d)
     mask = torch.rand(b, t, generator=g, device=dev) < 0.8
     mask[:, 256:384] = False
     mask[:, 0] = True
-    ref = dec.decode_attention_plain(q, k, v, mask)
-    lib_mask = mask[:, None, None, :]
-    lib_err = max_err(sdpa(q, k, v, attn_mask=lib_mask), ref)
+    caches = rotating(lambda: (randn(b, t, h, d), randn(b, t, h, d)),
+                      2 * b * t * h * d * 2)
     visible = int(mask.sum().item())
     results["decode_attention"] = dict(
-        err=max_err(dec.decode_attention(q, k, v, mask), ref),
-        tol=kernel_tol(ref),
-        ms=graph_ms(lambda: dec.decode_attention(q, k, v, mask)),
-        plain_ms=cuda_ms(lambda: dec.decode_attention_plain(q, k, v, mask)),
-        library_ms=graph_ms(lambda: sdpa(q, k, v, attn_mask=lib_mask)),
-        library_err=lib_err,
+        time_decode("decode_attention", q, caches, mask,
+                    lambda c: sdpa(q, c[0], c[1],
+                                   attn_mask=mask[:, None, None, :])),
         shape=f"B={b} T={t} H=KV={h} Dh={d}, holes + masked 128-slot tile "
               f"({visible} of {b * t} slots visible)",
         # only the visible slots' K and V rows have to be read
         **bound(2 * visible * h * d * 2 + mask.numel() + 2 * q.numel() * 2,
                 4 * visible * h * d, H100_BF16_TFLOPS))
+    del caches
 
     for name, r in results.items():
         report_kernel(tag, name, r)
@@ -447,6 +450,38 @@ def check_kernels(tag: str, dev) -> dict:
             fail(f"the library yardstick of {name} computes another "
                  f"function: err {r['library_err']}")
     return results
+
+
+def time_decode(name: str, q, caches: list, mask, library) -> dict:
+    """Kernel 3 on `caches` (tuples of its cache arguments: k, v and, for
+    the int8 branch, k_scale, v_scale), each held to the plain version and a
+    repeat to the same bits. `ms` is cold: the caches in turn (`rotating`),
+    so each launch reads HBM as a decode step that walks 32 layers does;
+    `warm_ms` the first cache alone, in L2 (the figure PRs 1-10 kept). The
+    SDPA yardstick `library(cache)` is timed both ways too."""
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        decode_attention as dec)
+
+    def kernel(c):
+        return dec.decode_attention(q, c[0], c[1], mask, *c[2:])
+
+    def plain(c):
+        return dec.decode_attention_plain(q, c[0], c[1], mask, *c[2:])
+    errs, tols, lib_errs = [], [], []
+    for c in (caches[0], caches[-1]):
+        ref = plain(c)
+        errs.append(max_err(kernel(c), ref))
+        tols.append(kernel_tol(ref))
+        lib_errs.append(max_err(library(c), ref))
+        same_bits(name, lambda: kernel(c))
+    turn, lib_turn = itertools.cycle(caches), itertools.cycle(caches)
+    return dict(err=max(errs), tol=min(tols), library_err=max(lib_errs),
+                ms=graph_ms(lambda: kernel(next(turn))),
+                warm_ms=graph_ms(lambda: kernel(caches[0])),
+                plain_ms=cuda_ms(lambda: plain(caches[0])),
+                library_ms=graph_ms(lambda: library(next(lib_turn))),
+                library_warm_ms=graph_ms(lambda: library(caches[0])),
+                caches=len(caches))
 
 
 def same_bits(name: str, fn) -> None:
@@ -507,6 +542,11 @@ def report_kernel(tag: str, name: str, r: dict) -> None:
           f"{r['plain_ms']:.4f} ms, library {lib}, bound "
           f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
           f"({r['bound_ms'] / r['ms']:.1%} of it reached)")
+    if "warm_ms" in r:
+        print(f"{tag} kernel {name}: those are cold, over {r['caches']} "
+              f"caches in turn; warm (one cache, in L2) kernel "
+              f"{r['warm_ms']:.4f} ms, library {r['library_warm_ms']:.4f} "
+              f"ms")
     if not r["err"] <= r["tol"]:
         fail(f"{name} disagrees with its plain version: {r['err']}")
     if "row_err" in r:
@@ -1089,8 +1129,9 @@ def print_ptxas(tag: str, report: str) -> None:
     kernels: kernel 10's two bodies, the attention forward of kernels 1
     and 2 by its template arguments (head size, rows a block, causal,
     ALiBi), the backward of kernels 5 and 6 by theirs (head size, causal,
-    ALiBi) and kernel 9's two bodies (its SIMT body by input type). Fails
-    if kernel 9's wgmma body spills."""
+    ALiBi), kernel 9's two bodies (its SIMT body by input type) and kernel
+    3 by head size, group size and cache type. Fails if kernel 9's wgmma
+    body or any form of kernel 3 spills."""
     import re
     name = None
     for line in report.splitlines():
@@ -1114,11 +1155,18 @@ def print_ptxas(tag: str, report: str) -> None:
                 simt = re.search(r"a_score_tile_kernelI(\w+?)EEv", line)
                 if simt:
                     name = f"a_score_tile_kernel<{simt[1]}>"
+                dec = re.search(r"decode_kernelILi(\d+)ELi(\d+)E(\w+?)EEv",
+                                line)
+                if dec:
+                    name = (f"decode_kernel<Dh={dec[1]}, G={dec[2]}, "
+                            f"{'int8' if dec[3] == 'a' else 'bf16'}>")
         elif name and ("Used" in line or "spill" in line):
             print(f"{tag} ptxas {name}: {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores", line)
             if name == "a_score_tf32_kernel" and spill and int(spill[1]):
                 fail(f"kernel 9's wgmma body spills: {line.strip()}")
+            if name.startswith("decode_kernel") and spill and int(spill[1]):
+                fail(f"kernel 3 spills in {name}: {line.strip()}")
 
 
 def check_sass_tf32(tag: str, lib_path) -> None:
@@ -1265,9 +1313,10 @@ def check_int4_matmul(tag: str, dev) -> dict:
 def check_decode_int8(tag: str, dev) -> dict:
     """Phase 2, kernel 3's int8 branch against its plain version on
     `quantize_kv` codes and scales (B=4 T=704 H=KV=32 Dh=128 with holes and
-    a masked tile; a GQA case), the SDPA yardstick on the dequantised cache,
-    and the dense and int8 branches side by side at B=1, 4, 16, 32 over
-    rotating caches (the kv8 crossover by batch)."""
+    a masked tile; a GQA case), cold over caches in turn and warm, the SDPA
+    yardstick on the dequantised cache, and the dense and int8 branches side
+    by side at B=1, 4, 16, 32 and at B=4 T=2,048 over rotating caches (the
+    kv8 crossover by batch and length)."""
     import torch
     from law_of_vision_representation_in_mllms_torch.ops import (
         decode_attention as dec, quant as Q)
@@ -1279,33 +1328,30 @@ def check_decode_int8(tag: str, dev) -> dict:
                            dtype=torch.bfloat16)
 
     t, h, d = 704, 32, 128
-    reported, errs = None, []
+    cases = []
     for b, kvh in ((4, 32), (4, 8)):
         q = randn(b, 1, h, d)
-        k, v = randn(b, t, kvh, d), randn(b, t, kvh, d)
-        (kc, ks), (vc, vs) = Q.quantize_kv(k), Q.quantize_kv(v)
         mask = torch.rand(b, t, generator=g, device=dev) < 0.8
         mask[:, 256:384] = False
         mask[:, 0] = True
-        ref = dec.decode_attention_plain(q, kc, vc, mask, ks, vs)
-        got = dec.decode_attention(q, kc, vc, mask, ks, vs)
-        kd = (kc.float() * ks[..., None]).to(torch.bfloat16)
-        vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
         rep = h // kvh
-        lib_mask = mask[:, None, None, :]
 
-        def library():
-            return sdpa(q, kd.repeat_interleave(rep, dim=2) if rep > 1 else kd,
-                        vd.repeat_interleave(rep, dim=2) if rep > 1 else vd,
-                        attn_mask=lib_mask)
+        def make():
+            (kc, ks), (vc, vs) = (Q.quantize_kv(randn(b, t, kvh, d))
+                                  for _ in range(2))
+            return kc, vc, ks, vs
+        caches = rotating(make, 2 * b * t * kvh * (d + 4))
+        # the yardstick's dequantised caches, heads repeated for GQA outside
+        # the timed call
+        dense = {id(c): tuple(
+            (x.float() * s[..., None]).to(torch.bfloat16).repeat_interleave(
+                rep, dim=2) for x, s in ((c[0], c[2]), (c[1], c[3])))
+            for c in caches}
+        lib_mask = mask[:, None, None, :]
         visible = int(mask.sum().item())
         r = dict(
-            err=max_err(got, ref), tol=kernel_tol(ref),
-            ms=graph_ms(lambda: dec.decode_attention(q, kc, vc, mask, ks,
-                                                     vs)),
-            plain_ms=cuda_ms(lambda: dec.decode_attention_plain(
-                q, kc, vc, mask, ks, vs)),
-            library_ms=graph_ms(library), library_err=max_err(library(), ref),
+            time_decode("decode_attention_int8", q, caches, mask,
+                        lambda c: sdpa(q, *dense[id(c)], attn_mask=lib_mask)),
             shape=f"B={b} T={t} H={h} KV={kvh} Dh={d} int8 cache, holes + "
                   f"masked 128-slot tile ({visible} of {b * t} slots "
                   f"visible)",
@@ -1317,13 +1363,13 @@ def check_decode_int8(tag: str, dev) -> dict:
         if not r["library_err"] <= r["tol"]:
             fail(f"the library yardstick of decode_attention_int8 computes "
                  f"another function: err {r['library_err']}")
-        errs.append(r["err"])
-        reported = reported or r
+        cases.append(r)
+        del caches, dense
 
     # the crossover: every slot visible, caches in turn so each launch reads
     # HBM (a decode step walks 32 layers' caches, ~23 MB each at B=4)
     cross = []
-    for b in (1, 4, 16, 32):
+    for b, t in ((1, 704), (4, 704), (16, 704), (32, 704), (4, 2048)):
         q = randn(b, 1, h, d)
         mask = torch.ones((b, t), dtype=torch.bool, device=dev)
         per = 2 * b * t * h * d
@@ -1339,20 +1385,26 @@ def check_decode_int8(tag: str, dev) -> dict:
         def int8():
             kc, ks, vc, vs = next(q_turn)
             return dec.decode_attention(q, kc, vc, mask, ks, vs)
-        row = dict(batch=b, dense_ms=graph_ms(dense), int8_ms=graph_ms(int8),
+        row = dict(batch=b, t=t, dense_ms=graph_ms(dense),
+                   int8_ms=graph_ms(int8),
                    dense_bound_ms=per * 2 / H100_HBM_BYTES_S * 1e3,
                    int8_bound_ms=(per + 2 * b * t * h * 4)
                    / H100_HBM_BYTES_S * 1e3)
         cross.append(row)
         print(f"{tag} kv8 crossover B={b} T={t} H=KV={h} Dh={d}, all slots "
               f"visible, {len(caches)} caches in turn: kernel 3 dense "
-              f"{row['dense_ms']:.4f} ms (bound {row['dense_bound_ms']:.4f}),"
-              f" int8 {row['int8_ms']:.4f} ms (bound "
-              f"{row['int8_bound_ms']:.4f}); int8 / dense "
+              f"{row['dense_ms']:.4f} ms (bound {row['dense_bound_ms']:.4f},"
+              f" {row['dense_bound_ms'] / row['dense_ms']:.1%} of it), int8 "
+              f"{row['int8_ms']:.4f} ms (bound {row['int8_bound_ms']:.4f}, "
+              f"{row['int8_bound_ms'] / row['int8_ms']:.1%}); int8 / dense "
               f"{row['int8_ms'] / row['dense_ms']:.2f}")
         del caches, qcaches
-    return {"decode_attention_int8": dict(reported, err=max(errs),
-                                          crossover=cross)}
+    return {"decode_attention_int8": dict(
+        cases[0], err=max(r["err"] for r in cases), crossover=cross,
+        cases=[{k: r[k] for k in ("shape", "err", "tol", "ms", "warm_ms",
+                                  "plain_ms", "library_ms", "library_warm_ms",
+                                  "bound_ms", "bound_by")}
+               for r in cases[1:]])}
 
 
 def check_int8_weight_cost(tag: str, dev) -> None:
@@ -3032,8 +3084,9 @@ def time_a_score(root: str) -> int:
     in ROOT (a checkout such as a parent commit unpacked by `git archive`)
     at N=100, St=576, D=4096: fp32 against Sa=576 and 256, bf16 and fp16
     against Sa=576, each the median of 5 timings of 10 launches (CUDA
-    events), with their range. Run it for two roots in turns to compare them
-    on one card; prints one JSON line."""
+    events), with their range, and a hash of the scores' bits (inputs from
+    one seed, so two roots see the same data). Run it for two roots in turns
+    to compare them on one card; prints one JSON line."""
     import statistics
     import torch
     root = os.path.abspath(root)
@@ -3050,13 +3103,96 @@ def time_a_score(root: str) -> int:
         t = target.to(dtype)
         a = torch.randn(LAW_IMAGES, sa, 4096, generator=g,
                         device=dev).to(dtype)
-        A.max_cos(t, a)
+        scores = A.max_cos(t, a)
         ms = [cuda_ms(lambda: A.max_cos(t, a), iters=10, warmup=1)
               for _ in range(5)]
         key = f"{str(dtype).split('.')[-1]}_sa{sa}_ms"
         out[key] = statistics.median(ms)
         out[key + "_range"] = [min(ms), max(ms)]
+        # the scores' bits, to compare with another root's
+        out[key[:-3] + "_sha256"] = hashlib.sha256(
+            scores.cpu().numpy().tobytes()).hexdigest()
         del t, a
+    print(json.dumps(out))
+    return 0
+
+
+def time_decode_of(root: str) -> int:
+    """`python3 chip_smoke.py --decode-of ROOT`: kernel 3 of the port found
+    in ROOT (a checkout such as a parent commit unpacked by `git archive`),
+    cold (caches in turn, as `time_decode` times phase 2), at phase 2's
+    shapes: dense and int8 at B=4 T=704 H=KV=32 Dh=128 with holes and a
+    masked 128-slot tile, int8 at GQA KV=8; every slot visible at B=1 and
+    B=4, T=704, and at B=4 T=2,048, both branches. Each the median of 5
+    timings under a CUDA graph, with their range, and the max abs error
+    against the plain version; and the host time of one launch (launches
+    back to back, no graph; median of 5 runs of 500). Inputs come from one
+    seed, so two roots see the same data. Run it for two roots in turns to
+    compare them on one card; prints one JSON line."""
+    import statistics
+    import torch
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        decode_attention as dec, quant as Q)
+    if not os.path.abspath(dec.__file__).startswith(root + os.sep):
+        fail(f"the port was imported from {dec.__file__}, not from {root}")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    out = {"root": root, "card": card_line()}
+    h, d = 32, 128
+    for label, b, t, kvh, holes, int8 in (
+            ("dense_holes", 4, 704, 32, True, False),
+            ("int8_holes", 4, 704, 32, True, True),
+            ("int8_gqa8_holes", 4, 704, 8, True, True),
+            ("dense_b4_t704", 4, 704, 32, False, False),
+            ("int8_b4_t704", 4, 704, 32, False, True),
+            ("dense_b1_t704", 1, 704, 32, False, False),
+            ("int8_b1_t704", 1, 704, 32, False, True),
+            ("dense_b4_t2048", 4, 2048, 32, False, False),
+            ("int8_b4_t2048", 4, 2048, 32, False, True)):
+        q = randn(b, 1, h, d)
+        mask = torch.ones((b, t), dtype=torch.bool, device=dev)
+        if holes:
+            mask = torch.rand(b, t, generator=g, device=dev) < 0.8
+            mask[:, 256:384] = False
+            mask[:, 0] = True
+
+        def make():
+            k, v = randn(b, t, kvh, d), randn(b, t, kvh, d)
+            if not int8:
+                return k, v
+            (kc, ks), (vc, vs) = Q.quantize_kv(k), Q.quantize_kv(v)
+            return kc, vc, ks, vs
+
+        def call(c, fn=dec.decode_attention):
+            return fn(q, c[0], c[1], mask, *c[2:])
+        caches = rotating(make, 2 * b * t * kvh * (d + 4 if int8 else 2 * d))
+        turn = itertools.cycle(caches)
+        out[label + "_err"] = max_err(
+            call(caches[0]), call(caches[0], dec.decode_attention_plain))
+        ms = [graph_ms(lambda: call(next(turn))) for _ in range(5)]
+        out[label + "_ms"] = statistics.median(ms)
+        out[label + "_ms_range"] = [min(ms), max(ms)]
+        del caches, turn
+        if label == "dense_b4_t704":
+            k = v = randn(b, t, kvh, d)
+            us = []
+            for _ in range(5):
+                dec.decode_attention(q, k, v, mask)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                for _ in range(500):
+                    dec.decode_attention(q, k, v, mask)
+                us.append((time.perf_counter() - t0) / 500 * 1e6)
+                torch.cuda.synchronize(dev)
+            out["launch_host_us"] = statistics.median(us)
+            out["launch_host_us_range"] = [min(us), max(us)]
     print(json.dumps(out))
     return 0
 
@@ -3232,6 +3368,8 @@ def main() -> int:
         return time_tower(sys.argv[2])
     if sys.argv[1:2] == ["--a-score-of"] and len(sys.argv) == 3:
         return time_a_score(sys.argv[2])
+    if sys.argv[1:2] == ["--decode-of"] and len(sys.argv) == 3:
+        return time_decode_of(sys.argv[2])
     if sys.argv[1:2] == ["--sass-of"] and len(sys.argv) == 3:
         return compare_sass(sys.argv[2])
     if sys.argv[1:] == ["--a-score-variants"]:
@@ -3259,7 +3397,7 @@ def main() -> int:
     # 6), compiled beside the library's build
     ptxas_sources = ("int4_matmul.cu", "flash_attention.cu",
                      "encoder_attention.cu", "flash_attention_bwd.cu",
-                     "a_score.cu")
+                     "a_score.cu", "decode_attention.cu")
     with concurrent.futures.ThreadPoolExecutor(len(ptxas_sources)) as pool:
         reports = [pool.submit(_build.ptxas_report, src)
                    for src in ptxas_sources]
@@ -3421,7 +3559,8 @@ def main() -> int:
          "library_ms": r["library_ms"], "shape": r["shape"],
          **{k: r[k] for k in ("cases", "crossover", "noalibi_ms",
                               "whole_ms", "library_backend", "row_err",
-                              "fma_bound_ms", "bmm_ms", "body")
+                              "fma_bound_ms", "bmm_ms", "body", "warm_ms",
+                              "library_warm_ms")
             if k in r},
          **({"wgmma_launches": sum(p["a_score_wgmma"]
                                    for p in paths.values())}

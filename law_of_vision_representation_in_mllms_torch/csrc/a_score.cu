@@ -60,16 +60,20 @@
 // - acc += part, one named barrier, and thread 0 refills the stage.
 // A warpgroup whose 64 rows lie past St (St = 576's last block) splits and
 // waits but issues no product. At the end the block folds acc / (|a| + eps)
-// into a row max (a column with 1 / (|a| + eps) = 0, past Sa or masked out,
-// never wins, so a zero-filled column cannot beat negative cosines), divides
-// it by |t| + eps (> 0, so the max commutes), and writes [N, ceil(Sa / 128),
-// St] row maxima; the finish kernel takes the max over anchor blocks and the
-// masked mean. The [St, Sa] matrix, the norms and the split copies never
-// reach global memory. What bounds it (PERF.md, section 6): shared memory.
-// A stage moves 192 KB through it (the products read B 96 KB, TMA writes
-// 32, the split reads 16 and writes 32, ldmatrix reads 16) against 1,536
-// cycles of products at the TF32 peak, 125 bytes a cycle of the 128 a
-// shared memory gives.
+// into a row max (a column past Sa or masked out never counts, so a
+// zero-filled column cannot beat negative cosines), divides it by |t| + eps
+// (> 0, so the max commutes), and writes [N, ceil(Sa / 128), St] row maxima;
+// the finish kernel takes the max over anchor blocks and the masked mean.
+// Every max keeps NaN, as the reference's does: a NaN or Inf in a valid row
+// makes its products NaN (Inf splits into hi = Inf, lo = NaN), and a NaN or
+// Inf anchor norm (1 / (|a| + eps) NaN or 0) still counts, so the affected
+// rows' max, and the image's score, come out NaN. A masked-out row's values
+// reach no max and no sum. The [St, Sa] matrix, the norms and the split
+// copies never reach global memory. What bounds it (PERF.md, section 6):
+// shared memory. A stage moves 192 KB through it (the products read B 96
+// KB, TMA writes 32, the split reads 16 and writes 32, ldmatrix reads 16)
+// against 1,536 cycles of products at the TF32 peak, 125 bytes a cycle of
+// the 128 a shared memory gives.
 //
 // Other inputs (bf16, fp16, or fp32 that TMA cannot take): SIMT FMAs
 // (`a_score_tile_kernel`). A block owns one image and 64 target rows. It
@@ -146,6 +150,14 @@ __device__ __forceinline__ void stash(float (*tile)[kPitch], int k, int row,
   tile[k + 2][row] = v.z;
   tile[k + 3][row] = v.w;
   sumsq += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+}
+
+// max(a, b), NaN if either is NaN (`fmaxf` returns the other operand): the
+// reference's `jnp.max` / `torch.amax` carry a NaN cosine into the score
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 template <typename T>
@@ -241,7 +253,7 @@ a_score_tile_kernel(const T* __restrict__ target, const T* __restrict__ anchor,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float cosv = acc[i][j] / (tnorm[ty * 4 + i] * an);
-          row_max[i] = fmaxf(row_max[i], cosv);
+          row_max[i] = max_nan(row_max[i], cosv);
         }
       }
     }
@@ -254,7 +266,7 @@ a_score_tile_kernel(const T* __restrict__ target, const T* __restrict__ anchor,
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
       row_max[i] =
-          fmaxf(row_max[i], __shfl_xor_sync(0xffffffffu, row_max[i], off));
+          max_nan(row_max[i], __shfl_xor_sync(0xffffffffu, row_max[i], off));
   }
   if (tx == 0) {
 #pragma unroll
@@ -524,8 +536,9 @@ __global__ void __launch_bounds__(kThreadsTf32, 1)
                    rows, m0, a0, n);
   }
 
-  // the anchor rows' 1 / (|a| + eps), 0 for a row past Sa or masked out; a
-  // row's 8 threads are lanes 8k..8k+7
+  // the anchor rows' 1 / (|a| + eps) (0 or NaN for a non-finite row, which
+  // still counts), -1 for a row past Sa or masked out; a row's 8 threads are
+  // lanes 8k..8k+7
   float* rinv = reinterpret_cast<float*>(ring + kOffRinv);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -536,13 +549,13 @@ __global__ void __launch_bounds__(kThreadsTf32, 1)
     const int r = (c >> 3) + 32 * i, col = a0 + r;
     const bool ok = col < sa && (amask == nullptr ||
                                  amask[static_cast<size_t>(n) * sa + col] != 0);
-    if ((c & 7) == 0) rinv[r] = ok ? 1.f / (sqrtf(v) + kEps) : 0.f;
+    if ((c & 7) == 0) rinv[r] = ok ? 1.f / (sqrtf(v) + kEps) : -1.f;
   }
   hp::bar_sync(1, kThreadsTf32);
   if (!live) return;
 
   // acc[4j + 2h + e] is row r0 + 8h, column 8j + 2 t4 + e of the block; a
-  // column with rinv 0 (past Sa, masked out) never wins, so a zero-filled
+  // column with rinv -1 (past Sa, masked out) never counts, so a zero-filled
   // column cannot beat negative cosines
   float rmax0 = -INFINITY, rmax1 = -INFINITY;
 #pragma unroll
@@ -550,17 +563,17 @@ __global__ void __launch_bounds__(kThreadsTf32, 1)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const float ra = rinv[8 * j + 2 * t4 + e];
-      if (ra > 0.f) {
-        rmax0 = fmaxf(rmax0, acc[4 * j + e] * ra);
-        rmax1 = fmaxf(rmax1, acc[4 * j + 2 + e] * ra);
+      if (!(ra < 0.f)) {
+        rmax0 = max_nan(rmax0, acc[4 * j + e] * ra);
+        rmax1 = max_nan(rmax1, acc[4 * j + 2 + e] * ra);
       }
     }
   }
   // a row's max and squares sit in the 4 lanes of its quad
-  rmax0 = fmaxf(rmax0, __shfl_xor_sync(0xffffffffu, rmax0, 1));
-  rmax0 = fmaxf(rmax0, __shfl_xor_sync(0xffffffffu, rmax0, 2));
-  rmax1 = fmaxf(rmax1, __shfl_xor_sync(0xffffffffu, rmax1, 1));
-  rmax1 = fmaxf(rmax1, __shfl_xor_sync(0xffffffffu, rmax1, 2));
+  rmax0 = max_nan(rmax0, __shfl_xor_sync(0xffffffffu, rmax0, 1));
+  rmax0 = max_nan(rmax0, __shfl_xor_sync(0xffffffffu, rmax0, 2));
+  rmax1 = max_nan(rmax1, __shfl_xor_sync(0xffffffffu, rmax1, 1));
+  rmax1 = max_nan(rmax1, __shfl_xor_sync(0xffffffffu, rmax1, 2));
   tsq0 += __shfl_xor_sync(0xffffffffu, tsq0, 1);
   tsq0 += __shfl_xor_sync(0xffffffffu, tsq0, 2);
   tsq1 += __shfl_xor_sync(0xffffffffu, tsq1, 1);
@@ -590,7 +603,8 @@ __global__ void a_score_tf32_finish_kernel(const float* __restrict__ rowmax,
       continue;
     float v = -INFINITY;
     for (int at = 0; at < tiles_a; ++at) {
-      v = fmaxf(v, rowmax[(static_cast<size_t>(n) * tiles_a + at) * st + row]);
+      v = max_nan(v,
+                  rowmax[(static_cast<size_t>(n) * tiles_a + at) * st + row]);
     }
     sum += v;
     count += 1.f;

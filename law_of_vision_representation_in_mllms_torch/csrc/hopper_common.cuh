@@ -14,6 +14,8 @@
 // B K-major: a row of the swizzled tile holds 32 fp32, so a k8 step advances
 // the descriptor by 32 bytes, as a bf16 k16 step does), the round-to-nearest
 // TF32 conversion and the rank-3 fp32 map over [N, S, D].
+// Decode attention adds copies that need no tensor map: the 4- and 16-byte
+// `cp.async`, whose arrival on an mbarrier comes when they have landed.
 //
 // Shared-memory operand tiles follow the 128-byte swizzle that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes and that a wgmma descriptor of layout
@@ -199,6 +201,28 @@ __device__ __forceinline__ void tma_store_commit_and_wait_read() {
 
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// ---- copies without a tensor map --------------------------------------------
+// 4 and 16 bytes from global to shared memory, asynchronously
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued so far has
+// landed; counts as one of the arrivals `bar` was initialised with
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------------

@@ -6,11 +6,19 @@ of the JAX package. Source: `csrc/decode_attention.cu`.
 
 What bounds it on the H100: a decode step is a matvec per head, ~0.1 FLOP
 per cache byte, so the floor is one HBM read of the visible cache (Vicuna-7B,
-B = 4, T ~ 700: ~46 MB a layer, ~14 us at 3.35 TB/s). The kernel reads the
-cache in its stored [B, T, KV, Dh] layout (no transpose copy), one block per
-(kv head, batch row) with several coalesced row loads in flight per warp;
-masked slots are never loaded, and query heads of one kv head share each K/V
-row read (GQA).
+B = 4, T = 704: 46 MB a layer, 0.0138 ms at 3.35 TB/s). The kernel reads the
+cache in its stored [B, T, KV, Dh] layout (no transpose copy). The slots of
+one (kv head, batch row) are split over a thread-block cluster of up to 8
+blocks, the split chosen from B, KV, the group size and T alone (never from
+the mask or anything read back from the card, so a launch can be captured in
+a CUDA graph): a grid of ~256 blocks, all resident at once. In each block
+two warps copy the visible rows of a 32-slot tile into a shared-memory ring
+by 16-byte `cp.async` (no tensor map, nothing encoded on the host); a tile
+with no visible slot is never copied. Four warps read the rows 16 bytes a
+lane and keep an online softmax; the blocks' partials merge through
+distributed shared memory in a fixed order, so a repeat gives the same bits.
+Query heads of one kv head share each K/V row read (GQA). A launch the card
+refuses (the cluster, the shared memory) raises.
 
 The int8 cache (`model.kv_quant=int8`, `ops.quant.quantize_kv`) holds codes
 [B, T, KV, Dh] and one fp32 scale per (slot, kv head), `k_scale`/`v_scale`

@@ -93,6 +93,30 @@ def test_max_cos_matches_jax(n, st, sa, d, masks):
     assert torch.equal(got, got2)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("where", ["target", "anchor"])
+def test_max_cos_non_finite_matches_jax(where, value, masked):
+    """A NaN or Inf in a valid row makes the image's score NaN, as the JAX
+    `jnp.max` does; in a masked-out row it changes nothing. The same holds
+    for kernel 9 on the card (tests/test_torch_cuda_kernels.py)."""
+    t, a, tm, am = _inputs(3, 12, 10, 16, seed=4, masks=True)
+    x, mask, row = (t, tm, 5) if where == "target" else (a, am, 7)
+    mask[1, row] = not masked
+    finite_score = max_cos(_t(t), _t(a), _t(tm), _t(am)).numpy()
+    x[1, row, 3] = value
+    want = np.asarray(JA.max_cos_similarity(
+        jnp.asarray(t), jnp.asarray(a), target_mask=jnp.asarray(tm),
+        anchor_mask=jnp.asarray(am)))
+    got = max_cos(_t(t), _t(a), _t(tm), _t(am)).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[1]) != masked and not np.isnan(got[[0, 2]]).any()
+    finite = ~np.isnan(want)
+    np.testing.assert_allclose(got[finite], want[finite], atol=TOL, rtol=0)
+    if masked:                   # the masked row's values reach nothing
+        assert np.array_equal(got, finite_score)
+
+
 @pytest.mark.parametrize("d", [64, 96, 100])
 def test_plain_matches_pallas_interpret(d):
     """`a_score_plain` against the TPU kernel it replaces, run as the JAX

@@ -137,6 +137,42 @@ def test_decode_attention_matches_stacked_pallas_decode(h, kvh):
         _close(got, want)
 
 
+def _ragged_mask(b, t, seed):
+    """A masked stretch that does not line up with the 128-slot tiles (nor
+    with kernel 3's 32-slot ones), and a row whose only visible slot is the
+    last."""
+    mask = np.random.RandomState(seed).rand(b, t) < 0.6
+    mask[:, 70:250] = False
+    mask[:, 0] = True
+    mask[-1] = False
+    mask[-1, -1] = True
+    return mask
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("h,kvh", [(4, 4), (4, 2), (8, 1)])
+def test_decode_attention_ragged_mask_matches_pallas_decode(h, kvh, stacked):
+    b, t, d = 3, 300, 16
+    q = _randn(70, b, 1, h, d)
+    k, v = _randn(71, b, t, kvh, d), _randn(72, b, t, kvh, d)
+    mask = _ragged_mask(b, t, 73)
+    if stacked:     # layer 1 of a [L, B, T, KV, Dh] cache
+        want = jdec.decode_attention_stacked(
+            jnp.asarray(q), jnp.stack([jnp.zeros_like(k), k]),
+            jnp.stack([jnp.zeros_like(v), v]), 1, jnp.asarray(mask),
+            interpret=True)
+    else:
+        want = jdec.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(mask),
+                                     interpret=True)
+    got = decode_attention(*(torch.from_numpy(x) for x in (q, k, v, mask)))
+    _close(got, want)
+    # the last row attends to its last slot alone: its value rows
+    rep = h // kvh
+    np.testing.assert_allclose(
+        got[-1, 0].numpy(), np.repeat(v[-1, -1], rep, axis=0), atol=1e-6)
+
+
 @pytest.mark.parametrize("kw", [{}, {"pretransposed": False},
                                 {"pad_d": 128}, {"head_block": 2}])
 def test_encoder_attention_matches_encoder_mha_v2(kw):

@@ -152,6 +152,62 @@ def test_decode_kernel_int8_cache(cuda_device, h, kvh, d, t):
         decode_attention(q, kc.float(), vc, mask, ks, vs)
 
 
+def _decode_mask(b, t, kind, device):
+    """"holes": random holes and a masked stretch [T/8, T/2) that covers
+    whole splits of the cluster; "edges": row 0 sees only its last slot,
+    row 1 nothing (its output must be exactly 0), later rows only their
+    second half."""
+    rng = np.random.RandomState(b * 7919 + t)
+    if kind == "holes":
+        mask = rng.rand(b, t) < 0.7
+        mask[:, t // 8:t // 2] = False
+        mask[:, 0] = True
+    else:
+        mask = np.zeros((b, t), bool)
+        mask[2:, t // 2:] = True
+        mask[0, -1] = True
+    return torch.from_numpy(mask).to(device)
+
+
+# kernel 3 at its edges: T below one 32-slot tile, not a multiple of it,
+# and across the cluster's splits (from 8 at B x KV = 8 down to 1 at
+# B x KV = 1,024); G = H / KV from 1 to 8, head size 64 and 128
+DECODE_EDGES = [(b, t, 8 // g, g, d) for b in (1, 4, 16)
+                for t in (2, 100, 129, 704, 2048) for g in (1, 2, 4, 8)
+                for d in (64, 128)] + [
+    (4, 704, 32, 1, 128), (16, 704, 32, 1, 128), (32, 704, 32, 1, 128),
+    (4, 2048, 8, 4, 128)]
+
+
+@pytest.mark.parametrize("kind", ["holes", "edges"])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("b,t,kvh,g,d", DECODE_EDGES)
+def test_decode_kernel_edges(cuda_device, b, t, kvh, g, d, int8, kind):
+    """Both branches against the plain version, a repeat's bits, and exact
+    zeros for a row with no visible slot."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t * 31 + b)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16)
+               for shape in ((b, 1, kvh * g, d), (b, t, kvh, d),
+                             (b, t, kvh, d)))
+    mask = _decode_mask(b, t, kind, cuda_device)
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        args = (q, k, v, mask, ks, vs)
+    else:
+        args = (q, k, v, mask)
+    counter = decode_attention_int8 if int8 else decode_attention
+    before = counter.launches
+    got = decode_attention(*args)
+    again = decode_attention(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(got, again)
+    assert _close(got, decode_attention_plain(*args))
+    blind = ~mask.any(dim=1)
+    assert bool((got[blind] == 0).all())
+
+
 @pytest.mark.parametrize("m,di,do,group", [
     (1, 128, 8, 128), (4, 4096, 4096, 128), (7, 512, 1000, 128),
     (13, 1024, 264, 256), (16, 11008, 512, 128), (17, 256, 72, 128),
@@ -544,6 +600,38 @@ def test_a_score_wgmma_low_bits(cuda_device):
     _a_check(t, a)
     got = _a_check(t, t.clone())
     assert (got - 1.0).abs().max().item() <= A_TOL
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
+@pytest.mark.parametrize("where", ["target", "anchor"])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 256),     # wgmma
+                                     (torch.bfloat16, 256),    # SIMT
+                                     (torch.float32, 37)])     # SIMT
+def test_a_score_kernel_non_finite(cuda_device, dtype, d, where, value,
+                                   masked):
+    """A NaN or Inf in a valid target or anchor row gives NaN, as the plain
+    version (`torch.amax`) does; in a masked-out row it changes nothing, not
+    a bit."""
+    t, a, tm, am = _a_inputs(3, 130, 70, d, dtype, cuda_device, True)
+    tm[-1] = True
+    x, mask, row = (t, tm, 5) if where == "target" else (a, am, 7)
+    mask[1, row] = not masked
+    wgmma = max_cos.wgmma_launches
+    before = max_cos(t, a, tm, am)
+    x[1, row, 3] = value
+    got = max_cos(t, a, tm, am)
+    torch.cuda.synchronize()
+    assert max_cos.wgmma_launches == wgmma + (2 if d == 256 and
+                                              dtype == torch.float32 else 0)
+    want = a_score_plain(t, a, tm, am)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[1])) != masked
+    assert not bool(torch.isnan(got[[0, 2]]).any())
+    finite = ~torch.isnan(want)
+    assert (got[finite] - want[finite]).abs().max().item() <= A_TOL
+    if masked:
+        assert torch.equal(got, before)
 
 
 def test_a_score_kernel_rejects_bad_inputs(cuda_device):

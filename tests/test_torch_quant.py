@@ -296,6 +296,35 @@ def test_decode_attention_int8_plain_matches_jax_kernels(h, kvh):
     np.testing.assert_allclose(got.numpy(), dense.numpy(), **CLOSE)
 
 
+@pytest.mark.parametrize("h,kvh", [(4, 4), (4, 2), (8, 1)])
+def test_decode_attention_int8_ragged_mask_matches_jax_kernels(h, kvh):
+    """The int8 branch with a masked stretch that lines up with neither the
+    TPU kernel's 128-slot tiles nor kernel 3's 32-slot ones, and a row whose
+    only visible slot is the last, against both TPU kernels in interpret
+    mode."""
+    q, k, v, mask = _decode_case(40 + h + kvh, 3, 300, h, kvh, 16)
+    mask[:, 70:250] = False
+    mask[-1] = False
+    mask[-1, -1] = True
+    kc, ks = TQ.quantize_kv(torch.from_numpy(k))
+    vc, vs = TQ.quantize_kv(torch.from_numpy(v))
+    got = TD.decode_attention(torch.from_numpy(q), kc, vc,
+                              torch.from_numpy(mask), ks, vs)
+    jkc, jks = JQ.quantize_kv(jnp.asarray(k))
+    jvc, jvs = JQ.quantize_kv(jnp.asarray(v))
+    want = JD.decode_attention(jnp.asarray(q), jkc, jvc, jnp.asarray(mask),
+                               jks, jvs, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **CLOSE)
+    stacked = JD.decode_attention_stacked(
+        jnp.asarray(q), jkc[None], jvc[None], 0, jnp.asarray(mask),
+        jks[None], jvs[None], interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(stacked), **CLOSE)
+    # the last row is its last slot's dequantised value row
+    last = (vc[-1, -1].float() * vs[-1, -1, :, None]).repeat_interleave(
+        h // kvh, dim=0)
+    np.testing.assert_allclose(got[-1, 0].numpy(), last.numpy(), **CLOSE)
+
+
 def test_decode_attention_int8_argument_errors():
     q, k, v, mask = (torch.from_numpy(x) for x in _decode_case(1, 1, 8, 2, 2,
                                                                16))
