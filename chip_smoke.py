@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training, law-chain, quantised
-serving, MPT and training-variant paths on one NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port's serving, training, law-chain (A and C
+scores), quantised serving, MPT and training-variant paths on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
@@ -99,8 +100,19 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      `run_embed_extraction` (100 images), for the target also
      `run_evaluation` over both tasks (`generate_until` and
      `loglikelihood` at 7B width); then `compute_a_scores` on the card
-     (kernel 9, two launches a rep, all four through the wgmma body) and one
-     `fit_policy`;
+     (kernel 9, two launches a rep, all four through the wgmma body); then
+     the C score: a synthetic SPair-71k test split (18 categories, 20 JPEGs
+     of 300-500 px and 50 seeded pairs each, keypoints ~80 % visible and
+     meeting the geo-aware groups), `extract-features` for each rep (batch
+     16, bf16: kernel 1 on `encoder2` and `tpu_flash`, kernel 2 on
+     `flash`, counted as the path `c_score`), `run_c_score` on the card and
+     again on the CPU in fp32 over the same files (card and CPU agree
+     keypoint for keypoint but for near-ties of a row's argmax, whose count
+     is printed), a second extraction of the first batch bit-equal, the
+     similarity's fp32 held under a process-wide TF32 switch; the leg's
+     extraction images/s, `run_c_score` seconds split into host reads and
+     the device part, and its peak memory; and one `fit_policy` whose C
+     column holds the three reps' C scores;
   7. (run right after phase 4, before the first profiler session of the
      process) quantised serving at full width: LLaVA-1.5-7B through `build_lmm` with
      `model.quantize=int4` + `model.kv_quant=int8` (and the decode route
@@ -139,6 +151,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import gc
+import glob
 import hashlib
 import itertools
 import json
@@ -206,6 +219,20 @@ SERVING_FORMATS = ({}, {"quantize": "int4", "kv_quant": "int8",
 LAW_IMAGES = 100                # the A-score protocol's image count
 LAW_HIDDEN = 4096               # the LLM width the embeddings live in
 LAW_EVAL_LIMIT = 8
+# phase 6's C-score leg: a synthetic SPair-71k test split of 18 categories,
+# C_IMAGES images and C_PAIRS pairs a category (900 pairs, ~7 % of SPair's
+# 12,234), features extracted at batch C_BATCH
+C_IMAGES = 20
+C_PAIRS = 50
+C_BATCH = 16
+C_ANNO = 840                    # the SPair canvas `run_c_score` defaults to
+# a keypoint whose correctness differs between the card and the CPU must sit
+# on a near-tie of its source row's argmax (the centre of its window): the
+# top two similarities of that row closer than this on the CPU
+C_NEAR_TIE = 1e-5
+# PCK aggregates of the same correctness, card against CPU: fp32 sums of at
+# most a few hundred terms in another order
+C_AGG_TOL = 1e-6
 WORDS = ("image shows a small red house near the river with two trees and a "
          "dog sitting on the grass while clouds move over the hills in the "
          "late afternoon light describe every object its color and where it "
@@ -1452,9 +1479,11 @@ def check_routes(tag: str, dev) -> None:
     """Phase 2, the tower routes of `model.tower_attn_impl`, each against
     the plain `mha`: `flash` runs kernel 2 non-causal, `encoder2` and
     `tpu_flash` run kernel 1. The shapes are those the paths launch: the
-    CLIP-L/14-336 batch (B=4, S=577, H=16, D=64) and the one-image calls of
+    CLIP-L/14-336 batch (B=4, S=577, H=16, D=64), the one-image calls of
     the law chain's embedding dumps, `encoder2` and `tpu_flash` at S=577
-    (CLIP@336, DINOv2-L@336) and `flash` at S=257 (CLIP@224)."""
+    (CLIP@336, DINOv2-L@336) and `flash` at S=257 (CLIP@224), and the
+    C-score leg's extraction batches of C_BATCH images at S=577 and
+    S=257 (the tail batch padded to the same shape)."""
     import torch
     from law_of_vision_representation_in_mllms_torch.models import vit
     from law_of_vision_representation_in_mllms_torch.ops import (
@@ -1467,7 +1496,9 @@ def check_routes(tag: str, dev) -> None:
                 "tpu_flash": enc.encoder_attention}
     for b, s, impls in ((4, 577, ("flash", "encoder2", "tpu_flash")),
                         (1, 577, ("encoder2", "tpu_flash")),
-                        (1, 257, ("flash",))):
+                        (1, 257, ("flash",)),
+                        (C_BATCH, 577, ("flash", "encoder2", "tpu_flash")),
+                        (C_BATCH, 257, ("flash",))):
         q, k, v = (torch.randn((b, s, 16, 64), generator=g, device=dev,
                                dtype=torch.bfloat16) for _ in range(3))
         ref = mha(q.float(), k.float(), v.float())
@@ -2760,10 +2791,368 @@ def _law_chain_tasks(folder: str) -> dict:
                            doc_to_visual="common.doc_to_visual"), f)
     return paths
 
+def _spair_tree(root: str, n_images: int, n_pairs: int) -> int:
+    """A synthetic SPair-71k test split under `root`: per category `n_images`
+    smooth random JPEGs of 300-500 px a side (SPair's images are JPEGs, and
+    its loader finds an image's annotation by turning `.jpg` into `.json`),
+    keypoints ~80 % visible inside a bounding box that lies inside the
+    image, numbered up to the category's highest geo-aware keypoint, and
+    `n_pairs` seeded (source, target) pairs. Returns the image count."""
+    import numpy as np
+    from PIL import Image
+    from law_of_vision_representation_in_mllms_torch.metrics import spair
+    groups = spair.load_geoware_tables()["SPAIR_GEO_AWARE"]
+    rng = np.random.RandomState(12)
+    os.makedirs(os.path.join(root, "PairAnnotation", "test"))
+    for cat in spair.SPAIR_CATEGORIES:
+        num_kps = 1 + max(i for g in groups[cat]
+                          for i in ([g] if isinstance(g, int) else g))
+        for sub in ("JPEGImages", "ImageAnnotation"):
+            os.makedirs(os.path.join(root, sub, cat))
+        boxes = []
+        for i in range(n_images):
+            w, h = (int(v) for v in rng.randint(300, 501, 2))
+            coarse = rng.randint(0, 256, (h // 24 + 2, w // 24 + 2, 3),
+                                 dtype=np.uint8)
+            name = f"{cat}_{i:03d}"
+            Image.fromarray(coarse).resize(
+                (w, h), Image.Resampling.BILINEAR).save(
+                os.path.join(root, "JPEGImages", cat, f"{name}.jpg"),
+                quality=90)
+            box = [int(rng.randint(0, w // 4)), int(rng.randint(0, h // 4)),
+                   int(rng.randint(3 * w // 4, w)),
+                   int(rng.randint(3 * h // 4, h))]
+            kps = {str(k): ([float(rng.randint(box[0], box[2])),
+                             float(rng.randint(box[1], box[3]))]
+                            if rng.rand() < 0.8 else None)
+                   for k in range(num_kps)}
+            with open(os.path.join(root, "ImageAnnotation", cat,
+                                   f"{name}.json"), "w") as f:
+                json.dump({"kps": kps, "image_width": w,
+                           "image_height": h}, f)
+            boxes.append(([w, h, 3], box))
+        for p in range(n_pairs):
+            s, t = (int(v) for v in rng.choice(n_images, 2, replace=False))
+            pair = {"category": cat,
+                    "src_imname": f"{cat}_{s:03d}.jpg",
+                    "trg_imname": f"{cat}_{t:03d}.jpg",
+                    "src_imsize": boxes[s][0], "trg_imsize": boxes[t][0],
+                    "src_bndbox": boxes[s][1], "trg_bndbox": boxes[t][1]}
+            with open(os.path.join(
+                    root, "PairAnnotation", "test",
+                    f"{p:06d}-{cat}_{s:03d}-{cat}_{t:03d}:{cat}.json"),
+                    "w") as f:
+                json.dump(pair, f)
+    return n_images * len(spair.SPAIR_CATEGORIES)
 
-def run_law_chain(tag: str, dev, counters) -> dict:
-    """Phase 6: benchmark eval -> embedding dump -> A score -> AC policy at
-    full LLaVA-1.5-7B width through the port's entry points."""
+
+class _Spy:
+    """Wraps `module.name` while the block runs: each call's seconds (after
+    a device sync when `dev` is given) and what `keep(args, out)` returns."""
+
+    def __init__(self, module, name: str, dev=None, keep=None):
+        self.module, self.name, self.dev = module, name, dev
+        self.keep = keep or (lambda args, out: None)
+        self.seconds, self.kept = [], []
+
+    def __enter__(self):
+        import torch
+        orig = self.orig = getattr(self.module, self.name)
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            if self.dev is not None:
+                torch.cuda.synchronize(self.dev)
+            self.seconds.append(time.perf_counter() - t0)
+            self.kept.append(self.keep(args, out))
+            return out
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _c_score_run(spair_dir: str, feature_dir: str, num_patches: int, dev,
+                 keep):
+    """`run_c_score` on `dev` with its parts timed: the annotations and the
+    feature files read on the host, `compute_pck_batch` (device), and what
+    `keep(args, (result, pred))` keeps of each category's step."""
+    from law_of_vision_representation_in_mllms_torch.metrics import spair
+    from law_of_vision_representation_in_mllms_torch.pipeline import (
+        c_score_run)
+    sync = dev if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    with _Spy(spair, "load_spair_data") as annos, \
+            _Spy(c_score_run, "_load_features") as loads, \
+            _Spy(c_score_run, "compute_pck_batch", sync, keep) as steps:
+        res = c_score_run.run_c_score(spair_dir, feature_dir, device=dev,
+                                      num_patches=num_patches,
+                                      anno_size=C_ANNO, compute_geo=True)
+    parts = {"total": time.perf_counter() - t0, "annotations":
+             sum(annos.seconds), "features": sum(loads.seconds),
+             "device": sum(steps.seconds)}
+    n_cats = len(spair.SPAIR_CATEGORIES)
+    seen = [len(res["categories"]), len(annos.seconds), len(loads.seconds),
+            len(steps.seconds)]
+    if seen != [n_cats] * 4:
+        fail(f"run_c_score on {dev}: categories, annotation loads, feature "
+             f"loads and compute_pck_batch calls {seen}, not {n_cats} each")
+    return res, parts, steps.kept
+
+
+def _near_tie_gap(c_mod, args, pair: int, kpt: int, n: int) -> float:
+    """The top-two similarity gap of the source row a keypoint reads."""
+    desc1, desc2, kps1 = args[0][pair], args[1][pair], args[2][pair]
+    idx = int(c_mod.kpts_to_patch_idx(kps1[kpt], n, C_ANNO))
+    row = c_mod.similarity(c_mod.normalize_feats(desc1[idx:idx + 1]),
+                           c_mod.normalize_feats(desc2))[0]
+    top = row.topk(2).values
+    return float(top[0] - top[1])
+
+
+def run_c_score_leg(tag: str, dev, counters, tmp: str, reps: dict):
+    """Phase 6's C-score leg at full width: a synthetic SPair tree, then for
+    each rep `extract-features` (the tower's kernel 1 or 2, batch 16, bf16)
+    and `run_c_score` on the card, held to the same function on the CPU in
+    fp32 over the same feature files. Returns ({rep: result}, launches)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch import cli
+    from law_of_vision_representation_in_mllms_torch.metrics import (
+        c_score as C)
+    from law_of_vision_representation_in_mllms_torch.models.towers import (
+        parse_tower_spec)
+    from law_of_vision_representation_in_mllms_torch.models.vit import (
+        ViTTower)
+    from law_of_vision_representation_in_mllms_torch.pipeline import (
+        features as pfeat, runner as prunner)
+
+    root = os.path.join(tmp, "SPair-71k")
+    t0 = time.perf_counter()
+    n_images = _spair_tree(root, C_IMAGES, C_PAIRS)
+    images = sorted(glob.glob(os.path.join(root, "JPEGImages", "*",
+                                           "*.jpg")))
+    if len(images) != n_images:
+        fail(f"the SPair tree holds {len(images)} images, not {n_images}")
+    towers = {rep: parse_tower_spec(raw["model"]["vision_tower"])
+              for rep, raw in reps.items()}
+    # one rep's fp32 features on disk at a time
+    need = max(n_images * t.num_patches * t.mm_hidden_size * 4 * 1.1
+               for t in towers.values())
+    free = shutil.disk_usage(tmp).free
+    if free < need:
+        fail(f"{free / 1e9:.2f} GB free under the temporary directory, "
+             f"{need / 1e9:.2f} GB needed for one rep's SPair features")
+    print(f"{tag} C score: a synthetic SPair tree of {n_images} JPEGs and "
+          f"{C_PAIRS * 18} pairs written in {time.perf_counter() - t0:.2f} "
+          f"s; one rep's features {need / 1.1e9:.2f} GB")
+
+    def on_cpu(args, out):
+        # the CPU run keeps its inputs, for the gap of a differing keypoint
+        return args, out[0].correct
+
+    def on_card(args, out):
+        return out[0].correct.cpu()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    results, cpu_results, stash, figures = {}, {}, {}, {}
+    n_tied = 0
+    worst_gap = 0.0
+    reset_counts(counters)
+    # the main path, counted: extract-features and run_c_score on the
+    # card, three reps (the CPU runs in between launch nothing) -----------
+    for rep, raw in reps.items():
+        out_dir = os.path.join(tmp, f"spair_{rep}")
+        sets = [f"{section}.{k}={v}" for section, d in raw.items()
+                for k, v in d.items()]
+        argv = ["extract-features", "--images",
+                os.path.join(root, "JPEGImages"), "--out-dir", out_dir,
+                "--batch-size", str(C_BATCH), "--device", str(dev)]
+        for item in sets:
+            argv += ["--set", item]
+        t0 = time.perf_counter()
+        with _Spy(prunner, "extract_tower_features", dev) as ext, \
+                _Spy(pfeat, "preprocess_image") as prep, \
+                _Spy(ViTTower, "forward", dev) as fwd, \
+                _Spy(pfeat.np, "save") as saves, \
+                contextlib.redirect_stdout(io.StringIO()) as said:
+            cli.main(argv)
+        seen = [len(ext.seconds), len(fwd.seconds), len(prep.seconds),
+                len(saves.seconds)]
+        if seen != [1, -(-n_images // C_BATCH), n_images, n_images]:
+            fail(f"{rep}: extraction, tower, preprocess and np.save calls "
+                 f"{seen}, not [1, {-(-n_images // C_BATCH)}, {n_images}, "
+                 f"{n_images}]")
+        build_s = time.perf_counter() - t0 - ext.seconds[0]
+        split = {"preprocess": sum(prep.seconds), "tower": sum(fwd.seconds),
+                 "save": sum(saves.seconds)}
+        if said.getvalue().strip() != (f"extracted {n_images} feature files "
+                                       f"to {out_dir}"):
+            fail(f"{rep}: extract-features said {said.getvalue()!r}")
+        grid = towers[rep].entries[0].vit_config.grid
+        files = sorted(f for f in os.listdir(out_dir) if f.endswith(".npy"))
+        if len(files) != n_images:
+            fail(f"{rep}: {len(files)} feature files, not {n_images}")
+        shape = (grid * grid, towers[rep].mm_hidden_size)
+        for f in files:
+            x = np.load(os.path.join(out_dir, f))
+            if (x.shape != shape or x.dtype != np.float32
+                    or not np.isfinite(x).all()):
+                fail(f"{rep}: {f} is not a finite fp32 {shape}")
+        if not stash:
+            stash.update({f: np.load(os.path.join(out_dir, f))
+                          for f in files[:C_BATCH]})
+
+        res, parts, card_correct = _c_score_run(root, out_dir, grid, dev,
+                                                on_card)
+        # the same function on the CPU in fp32 over the same files
+        cpu_res, cpu_parts, cpu_steps = _c_score_run(
+            root, out_dir, grid, torch.device("cpu"), on_cpu)
+        tied = 0
+        if list(res["categories"]) != list(cpu_res["categories"]):
+            fail(f"{rep}: the card scored categories "
+                 f"{list(res['categories'])}, the CPU "
+                 f"{list(cpu_res['categories'])}")
+        for cat, got_c, (args, want_c) in zip(res["categories"],
+                                              card_correct, cpu_steps,
+                                              strict=True):
+            differ = (got_c != want_c).any(0)
+            for pair, kpt in differ.nonzero().tolist():
+                gap = _near_tie_gap(C, args, pair, kpt, grid)
+                worst_gap = max(worst_gap, gap)
+                tied += 1
+            mine, ref = res["categories"][cat], cpu_res["categories"][cat]
+            for key in ("n_kpts", "n_pairs", "n_geo_kpts"):
+                if mine[key] != ref[key]:
+                    fail(f"{rep} {cat}: {key} {mine[key]} on the card, "
+                         f"{ref[key]} on the CPU")
+            if not differ.any():
+                for key in ("per_kpt", "per_img", "geo_per_kpt"):
+                    if not np.allclose(mine[key], ref[key], rtol=0,
+                                       atol=C_AGG_TOL):
+                        fail(f"{rep} {cat}: {key} {mine[key]} on the card, "
+                             f"{ref[key]} on the CPU, the same keypoints "
+                             f"correct")
+        del cpu_steps
+        n_tied += tied
+        if worst_gap >= C_NEAR_TIE:
+            fail(f"{rep}: a keypoint's correctness differs between the card "
+                 f"and the CPU where its source row's top two similarities "
+                 f"are {worst_gap:.3g} apart (near-tie bound {C_NEAR_TIE})")
+        for key in ("per_img", "per_kpt", "geo"):
+            if not all(0.0 <= v <= 1.0 for v in res[key]):
+                fail(f"{rep}: {key} {res[key]} is not in [0, 1]")
+        if rep == next(iter(reps)):
+            _check_pinned_fp32(tag, C, out_dir, root, dev)
+        results[rep], cpu_results[rep] = res, cpu_res
+        figures[rep] = (ext.seconds[0], build_s, split, parts, cpu_parts,
+                        tied)
+        shutil.rmtree(out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = read_counts(counters)
+    # ---------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    calls = -(-n_images // C_BATCH)
+    want = {"encoder_attention": 23 * calls * sum(
+        1 for raw in reps.values()
+        if raw["model"]["tower_attn_impl"] != "flash"),
+        "flash_attention": 23 * calls}
+    if any(launches[k] != v for k, v in want.items()) or any(
+            v for k, v in launches.items() if k not in want):
+        fail(f"the C-score leg's launches {launches}, not {want} (23 "
+             f"blocks a tower call, {calls} calls a rep)")
+
+    # a second extraction of the first batch of the first rep: same bits
+    first = next(iter(reps))
+    listing = os.path.join(tmp, "first_batch.json")
+    with open(listing, "w") as f:
+        json.dump(images[:C_BATCH], f)
+    again_dir = os.path.join(tmp, "spair_again")
+    cfg_raw = reps[first]
+    from law_of_vision_representation_in_mllms_torch.core.config import (
+        RunConfig)
+    prunner.run_feature_extraction(RunConfig.from_dict(cfg_raw), listing,
+                                   again_dir, device=dev,
+                                   batch_size=C_BATCH)
+    for f, x in stash.items():
+        if not np.array_equal(np.load(os.path.join(again_dir, f)), x):
+            fail(f"{first}: a second extraction of {f} gave other bits")
+    shutil.rmtree(again_dir)
+
+    for rep, (ext_s, build_s, split, parts, cpu_parts,
+              tied) in figures.items():
+        res, ref = results[rep], cpu_results[rep]
+        print(f"{tag} C score {rep} (route "
+              f"{reps[rep]['model']['tower_attn_impl']}, {n_images} images, "
+              f"{C_PAIRS * 18} pairs): per_img PCK@.10/.05/.01 "
+              f"{', '.join(f'{v:.4f}' for v in res['per_img'])} (CPU "
+              f"{', '.join(f'{v:.4f}' for v in ref['per_img'])}), per_kpt "
+              f"{res['per_kpt'][0]:.4f}, geo {res['geo'][0]:.4f}; "
+              f"extraction {n_images / ext_s:.1f} images/s ({ext_s:.2f} s: "
+              f"preprocess_image {split['preprocess']:.2f} (host: decode, "
+              f"resize), tower calls {split['tower']:.2f} (card, synced), "
+              f"np.save {split['save']:.2f}, the rest "
+              f"{ext_s - sum(split.values()):.2f}; the 7B build "
+              f"{build_s:.2f} s apart); run_c_score "
+              f"{parts['total']:.2f} s: annotations {parts['annotations']:.2f}"
+              f", feature files {parts['features']:.2f} (host), "
+              f"compute_pck_batch {parts['device']:.3f} (device), the rest "
+              f"{parts['total'] - parts['annotations'] - parts['features'] - parts['device']:.2f}"
+              f"; the CPU's run {cpu_parts['total']:.2f} s "
+              f"(compute_pck_batch {cpu_parts['device']:.2f}); keypoints "
+              f"whose correctness differs from the CPU's: {tied}")
+    print(f"{tag} C score: {n_tied} keypoints differ between card and CPU in "
+          f"all, each on a near-tie (largest top-two gap {worst_gap:.3g}, "
+          f"bound {C_NEAR_TIE}); second extraction of {len(stash)} images "
+          f"bit-equal; leg launches {launches}; leg peak memory allocated "
+          f"{peak_gb:.2f} GB")
+    return results, launches
+
+
+def _check_pinned_fp32(tag: str, C, feature_dir: str, spair_dir: str,
+                       dev) -> None:
+    """`similarity` computes in true fp32 with TF32 switched on for the
+    process, and leaves the switch as it found it."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.metrics import spair
+    from law_of_vision_representation_in_mllms_torch.pipeline import (
+        c_score_run)
+    pairs = spair.load_spair_data(spair_dir, spair.SPAIR_CATEGORIES[0])
+    feats = torch.from_numpy(c_score_run._load_features(
+        pairs.files, feature_dir, "")).to(dev)
+    d1 = C.normalize_feats(feats[0::2])
+    d2 = C.normalize_feats(feats[1::2])
+    prev = torch.backends.cuda.matmul.allow_tf32
+    ieee = torch.matmul(d1, d2.transpose(-1, -2))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        pinned = C.similarity(d1, d2)
+        kept = torch.backends.cuda.matmul.allow_tf32
+        tf32 = torch.matmul(d1, d2.transpose(-1, -2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    if prev or not kept or not torch.equal(pinned, ieee):
+        fail("similarity is not true fp32 under a process-wide TF32 switch, "
+             "or did not restore the switch")
+    moved = (tf32.argmax(-1) != ieee.argmax(-1)).sum().item()
+    print(f"{tag} C score: similarity under allow_tf32=True gives the fp32 "
+          f"bits; a TF32 product of the same {tuple(d1.shape)} descriptors "
+          f"errs by {(tf32 - ieee).abs().max().item():.2e} and moves "
+          f"{moved} of {ieee.shape[0] * ieee.shape[1]} window centres")
+
+
+def run_law_chain(tag: str, dev, counters) -> tuple:
+    """Phase 6: benchmark eval -> embedding dump -> A score -> C score ->
+    AC policy at full LLaVA-1.5-7B width through the port's entry points.
+    Returns the launches of the law chain up to the A score and those of
+    the C-score leg, each counted from 0."""
     import shutil
 
     import numpy as np
@@ -2856,14 +3245,28 @@ def run_law_chain(tag: str, dev, counters) -> dict:
             device=dev)
         torch.cuda.synchronize(dev)
         a_score_s = time.perf_counter() - t0
+        launches = read_counts(counters)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        # ---------------------------------------------------------------
 
-        # made-up benchmark scores plus these A scores -> one policy fit
+        # the C score: its own main path, counted from 0 inside
+        c_results, c_launches = run_c_score_leg(tag, dev, counters, tmp,
+                                                reps)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        # made-up benchmark scores plus these A and C scores -> one policy
+        # fit; the C column holds the three reps' C scores (PCK@0.10 per
+        # image, the paper's 'corres')
         prng = np.random.default_rng(0)
         n_models = len(policy.ALL_MODELS)
         a_col = prng.random(n_models)
         a_col[policy.ALL_MODELS.index("CLIP336")] = scores["clip336"]
         a_col[policy.ALL_MODELS.index("DINOv2")] = scores[target]
         c_col = prng.random(n_models)
+        for model, rep in (("CLIP336", "clip336"), ("CLIP224", "clip224"),
+                           ("DINOv2", target)):
+            c_col[policy.ALL_MODELS.index(model)] = \
+                c_results[rep]["per_img"][0]
         table = policy.ACTable(
             models=list(policy.ALL_MODELS),
             perf={b: 2 * a_col ** 2 + a_col * c_col + 0.5 * c_col
@@ -2871,9 +3274,6 @@ def run_law_chain(tag: str, dev, counters) -> dict:
                   for b in policy.BENCHMARKS},
             a={b: a_col for b in policy.BENCHMARKS}, c=c_col)
         fit = policy.fit_policy(table, "mme")
-        launches = read_counts(counters)
-        # ---------------------------------------------------------------
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
         print(f"{tag} law chain launches {launches} (after the three "
               f"embedding dumps {after_dump}; after the eval {after_eval})")
@@ -2985,7 +3385,10 @@ def run_law_chain(tag: str, dev, counters) -> dict:
               f"sample prediction "
               f"{results['smoke_mme']['samples'][0]['prediction'][:40]!r}")
         print(f"{tag} policy fit on a made-up 13-model table holding these "
-              f"A scores: r2 {fit.r2:.4f}, mse {fit.mse:.5f}")
+              f"A scores and the C scores of CLIP336, CLIP224 and DINOv2 ("
+              + ", ".join(f"{c_results[r]['per_img'][0]:.4f}"
+                          for r in ("clip336", "clip224", target))
+              + f"): r2 {fit.r2:.4f}, mse {fit.mse:.5f}")
         if not (np.isfinite(fit.r2) and np.isfinite(fit.coef).all()):
             fail("fit_policy gave a non-finite fit")
 
@@ -3018,7 +3421,7 @@ def run_law_chain(tag: str, dev, counters) -> dict:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches
+    return launches, c_launches
 
 
 def time_tower(root: str) -> int:
@@ -3476,7 +3879,7 @@ def main() -> int:
     paths["train"] = run_full_width_training(tag, dev, counters)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["law_chain"] = run_law_chain(tag, dev, counters)
+    paths["law_chain"], paths["c_score"] = run_law_chain(tag, dev, counters)
     gc.collect()
     torch.cuda.empty_cache()
     profile_formats(tag, dev)
@@ -3546,7 +3949,8 @@ def main() -> int:
     print(f"{tag} chip_smoke phases took "
           f"{time.perf_counter() - t_start:.1f} s")
     # launches: the serving run (phase 4), the training run (phase 5), the
-    # law chain (phase 6), the two quantised serving runs (phase 7), MPT-7B
+    # law chain and its C-score leg (phase 6), the two quantised serving
+    # runs (phase 7), MPT-7B
     # (phase 9) and the three training variants (phase 10), each counted
     # from 0; the split is in "launches_by_path"
     print(json.dumps({"kernels": [

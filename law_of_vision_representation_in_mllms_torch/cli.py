@@ -10,6 +10,10 @@ Commands:
   tasks             list the bundled eval tasks
   extract-embeds    dump post-projector embeddings for the A score
   a-score           A score over dumped embeddings (kernel 9 on the card)
+  extract-features  per-image tower features for the C score (the tower's
+                    kernel 1 or 2 on the card), one fp32 .npy an image
+  c-score           SPair / AP-10k / PF-Pascal PCK over extracted features
+                    (the zero-shot C score and its geo-aware subset)
   policy            fit / predict / validate the AC policy over a results CSV
 
 The other commands of the JAX CLI are not ported yet (ROADMAP, queue 1).
@@ -91,10 +95,34 @@ def main(argv=None):
     p.add_argument("--limit", type=int, default=100)
     _add_device(p)
 
+    p = sub.add_parser("extract-features", help="offline feature dump")
+    _add_common(p)
+    p.add_argument("--images", required=True,
+                   help="directory or json list of image paths")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--suffix", default="")
+    _add_device(p)
+
     p = sub.add_parser("a-score")
     p.add_argument("--base-folder", required=True)
     p.add_argument("--reps", nargs="+", required=True)
     p.add_argument("--n-images", type=int, default=100)
+    _add_device(p)
+
+    p = sub.add_parser("c-score")
+    p.add_argument("--spair-dir", required=True,
+                   help="dataset root (SPair-71k / AP-10k / PF-Pascal)")
+    p.add_argument("--feature-dir", required=True)
+    p.add_argument("--num-patches", type=int, required=True)
+    p.add_argument("--suffix", default="")
+    p.add_argument("--suffix2", help="two-feature concat variant")
+    p.add_argument("--anno-size", type=int, default=840)
+    p.add_argument("--window", type=int, default=5)
+    p.add_argument("--categories", nargs="*")
+    p.add_argument("--subsample", type=int)
+    p.add_argument("--dataset", default="spair",
+                   choices=["spair", "ap10k", "pascal"])
     _add_device(p)
 
     p = sub.add_parser("policy")
@@ -212,6 +240,31 @@ def _cmd_a_score(args):
     return 0
 
 
+def _cmd_extract_features(args):
+    from .pipeline.runner import run_feature_extraction
+    device = _device(args)
+    n = run_feature_extraction(_run_config(args), args.images, args.out_dir,
+                               device=device, batch_size=args.batch_size,
+                               suffix=args.suffix)
+    print(f"extracted {n} feature files to {args.out_dir}")
+    return 0
+
+
+def _cmd_c_score(args):
+    from .pipeline.c_score_run import run_c_score
+    res = run_c_score(args.spair_dir, args.feature_dir, device=_device(args),
+                      suffix=args.suffix, suffix2=args.suffix2,
+                      num_patches=args.num_patches,
+                      anno_size=args.anno_size, window=args.window,
+                      categories=args.categories or None,
+                      subsample=args.subsample, dataset=args.dataset)
+    out = {"per_img_pck": res["per_img"], "per_kpt_pck": res["per_kpt"]}
+    if "geo" in res:
+        out["geo_pck"] = res["geo"]
+    print(json.dumps(out, indent=1))
+    return 0
+
+
 def _cmd_policy(args):
     from .policy import (ALL_MODELS, BENCHMARKS, fit_policy, load_ac_csv,
                          prediction_accuracy, validate_run)
@@ -242,7 +295,9 @@ DISPATCH = {
     "eval": _cmd_eval,
     "tasks": _cmd_tasks,
     "extract-embeds": _cmd_extract_embeds,
+    "extract-features": _cmd_extract_features,
     "a-score": _cmd_a_score,
+    "c-score": _cmd_c_score,
     "policy": _cmd_policy,
 }
 

@@ -21,6 +21,13 @@ Layout mapping:
 - the optional `lora` subtree (`{t}_a` [L, din, r], `{t}_b` [L, r, dout])
   becomes `lora.layers.i.{t}_a` [din, r], `{t}_b` [r, dout], not transposed,
   and `switch.w` [D, D] stays as it is;
+- the C score's `AggregationNetwork` tree (`metrics/aggregation.py`): a
+  conv `bottleneck_{i}/{name}_conv/kernel (kh, kw, in, out)` becomes
+  `bottlenecks.{i}.{name}.conv.weight (out, in, kh, kw)`, GroupNorm
+  `{name}_gn/{scale, bias}` becomes `bottlenecks.{i}.{name}.gn.{weight,
+  bias}`; `mixing_weights`, `logit_scale` and `self_logit_scale` stay as
+  they are (one `BottleneckBlock`'s tree maps the same way without the
+  `bottlenecks.{i}.` prefix);
 - a weight-only quantised decoder leaf of the JAX `ops/quant.py` becomes the
   buffers of a `QuantDense`: `{"q8" [in, out], "scale" [1, out]}` ->
   `q8` [out, in], `scale` [out]; `{"q4" [in / 2, out] bytes, "scale"
@@ -209,6 +216,37 @@ def llava_state_dict(params: Dict[str, Any]) -> StateDict:
     return out
 
 
+_BOTTLENECK_CONVS = ("shortcut", "conv1", "conv2", "conv3")
+_AGGREGATION_SCALARS = ("mixing_weights", "logit_scale", "self_logit_scale")
+
+
+def _bottleneck_state_dict(tree, prefix: str, out: StateDict) -> None:
+    for name in _BOTTLENECK_CONVS:
+        if f"{name}_conv" not in tree:       # no shortcut when in == out
+            continue
+        kernel = np.asarray(tree[f"{name}_conv"]["kernel"])
+        out[f"{prefix}{name}.conv.weight"] = _t(kernel.transpose(3, 2, 0, 1))
+        out[f"{prefix}{name}.gn.weight"] = _t(tree[f"{name}_gn"]["scale"])
+        out[f"{prefix}{name}.gn.bias"] = _t(tree[f"{name}_gn"]["bias"])
+
+
+def aggregation_state_dict(tree: Dict[str, Any],
+                           prefix: str = "") -> StateDict:
+    """The Flax `AggregationNetwork` params (or one `BottleneckBlock`'s) ->
+    the `metrics.aggregation` module's state dict."""
+    out: StateDict = {}
+    if "mixing_weights" not in tree:
+        _bottleneck_state_dict(tree, prefix, out)
+        return out
+    for name in _AGGREGATION_SCALARS:
+        out[f"{prefix}{name}"] = _t(tree[name])
+    n = sum(1 for k in tree if k.startswith("bottleneck_"))
+    for i in range(n):
+        _bottleneck_state_dict(tree[f"bottleneck_{i}"],
+                               f"{prefix}bottlenecks.{i}.", out)
+    return out
+
+
 def load_llava_npz(path: str) -> StateDict:
     """A `param_io.save_params` .npz of full JAX LLaVA params -> state dict."""
     return llava_state_dict(load_params(path))
@@ -346,4 +384,28 @@ def llava_tree(params) -> Dict[str, Any]:
         tree["lora"] = lora_tree(_sub(sd, "lora."))
     if params.switch is not None:
         tree["switch"] = switch_tree(_sub(sd, "switch."))
+    return tree
+
+
+def _bottleneck_tree(sd: StateDict, prefix: str) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for name in _BOTTLENECK_CONVS:
+        if f"{prefix}{name}.conv.weight" not in sd:
+            continue
+        tree[f"{name}_conv"] = {"kernel": _np(
+            sd[f"{prefix}{name}.conv.weight"]).transpose(2, 3, 1, 0).copy()}
+        tree[f"{name}_gn"] = {"scale": _np(sd[f"{prefix}{name}.gn.weight"]),
+                              "bias": _np(sd[f"{prefix}{name}.gn.bias"])}
+    return tree
+
+
+def aggregation_tree(sd: StateDict) -> Dict[str, Any]:
+    """Inverse of `aggregation_state_dict`."""
+    if "mixing_weights" not in sd:
+        return _bottleneck_tree(sd, "")
+    tree: Dict[str, Any] = {name: _np(sd[name])
+                            for name in _AGGREGATION_SCALARS}
+    n = len({k.split(".")[1] for k in sd if k.startswith("bottlenecks.")})
+    for i in range(n):
+        tree[f"bottleneck_{i}"] = _bottleneck_tree(sd, f"bottlenecks.{i}.")
     return tree

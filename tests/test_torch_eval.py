@@ -452,7 +452,10 @@ def test_law_chain_cli_and_cross_package_scores(lmms, task_files, tmp_path,
     ["extract-embeds", "--task", "mme", "--out-dir", "x"],
     ["a-score", "--base-folder", "x", "--reps", "y"],
     ["policy", "fit", "--csv", "x.csv"],
-    ["tasks"]])
+    ["tasks"],
+    ["extract-features", "--images", "x", "--out-dir", "y"],
+    ["c-score", "--spair-dir", "x", "--feature-dir", "y", "--num-patches",
+     "24"]])
 def test_new_commands_default_to_cuda_and_raise_without_a_card(cmd):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
