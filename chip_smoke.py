@@ -82,10 +82,33 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      (rank 8), QLoRA (the same over the int4 base) and the switch matrix;
   4. the serving slice at full width: LLaVA-1.5-7B (CLIP-L/14-336 +
      mlp2x_gelu + Vicuna-7B) with seeded random bf16 weights answers 4
-     requests through `LlavaLMM.generate_until`; every serving kernel's
-     launch counter must have gone up in that run; a second run must give
-     identical tokens; tower images/s, prefill ms, decode tokens/s and peak
+     requests through `LlavaLMM.generate_until`, whose greedy decode on the
+     card is the chunked decoder (each 16-step chunk one CUDA graph,
+     captured in this first call and replayed; the launches derived from
+     captures and replays); every serving kernel's launch counter must have
+     gone up in that run; the eager `generate_greedy` twice gives identical
+     tokens; tower images/s, prefill ms, eager decode tokens/s and peak
      memory are printed; the model is freed afterwards;
+  4b. (inside phases 4 and 7, on the model they built) the serving
+     backends, 32 new tokens: the graph path (bf16, int4 + kv8, int8):
+     tokens and text against the eager greedy decode's, a second run's
+     tokens, tokens/s of both paths (the replays timed by CUDA events), the
+     capture's time, the replays, the launches of kernels 3 and 10 recorded
+     in a chunk times its replays, and kernel 3 against its plain version
+     at the path's shape; in bf16 also `gen_backend=speculative` (the
+     adapter's decoder keeps its captured verify round: tokens, rounds,
+     warm tokens/s, capture time), beam search with 2 beams (finite
+     scores, a repeat's tokens, kernel 3 at B*k = 8 against its plain
+     version, the best beams' scores against eager steps on the plain
+     attention fed the same tokens (a search on it printed beside), tokens/s,
+     the beams' cache), sampling at temperature 0.7 / top-p 0.9 from a
+     seeded generator on the card (the seed repeats its tokens;
+     temperature 0 is greedy), and `LMMServer` on 127.0.0.1 answering two
+     concurrent chat completions with a PNG each in one wave, as
+     `generate_until` answers them, the wave's B = 2 decode held to the
+     eager one and kernel 3 at its shape to its plain version. A token
+     that differs from greedy must follow a near-tie of the eager logits
+     (top-2 gap within `LOGITS_REL_TOL` of max|logit|);
   5. the training slice at full width: `run_training(RunConfig)` trains
      LLaVA-1.5-7B stage 1 (fp32 weights, bf16 compute, block remat) for 4
      steps of 16 random 336 px PNGs with 20-40-word captions. Losses finite,
@@ -122,8 +145,9 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      tokens/s and peak memory beside phase 4's bf16 figures, the peak below
      the bf16 run's. Then the same with `model.quantize=int8`;
   8. a torch.profiler split of the decode step's device time for the three
-     weight formats (last: the profiler's tracing stays attached to the
-     process and slows every later launch);
+     weight formats, the eager step and the captured chunk's step (last: the
+     profiler's tracing stays attached to the process and slows every later
+     launch);
   9. (after phase 7, before phase 5) MPT-7B at full width (vocab 50,432,
      d 4,096, 32 layers, 32 heads; seeded random bf16): a forward at B=2,
      S=2,048 and a forward + backward of the next-token loss; finite logits
@@ -149,6 +173,7 @@ The last lines are the kernels JSON, the card line from nvidia-smi and
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import glob
@@ -216,6 +241,14 @@ L2_BYTES = 50e6                 # rotate over more than twice this
 SERVING_FORMATS = ({}, {"quantize": "int4", "kv_quant": "int8",
                         "decode_attn": "pallas_stacked"},
                    {"quantize": "int8"})
+# phase 4b: the serving backends on phase 4's and 7's LLaVA. 32 new tokens
+# (phase 4's) are two chunks of 16, so the graph path's cache (l_out +
+# gen_cap slots) has the eager path's T, on which kernel 3's split depends
+DECODE_CHUNK = 16
+DRAFT_LEN = 8
+BEAMS = 2
+SAMPLING = {"temperature": 0.7, "top_p": 0.9}
+SAMPLE_SEED = 1234
 LAW_IMAGES = 100                # the A-score protocol's image count
 LAW_HIDDEN = 4096               # the LLM width the embeddings live in
 LAW_EVAL_LIMIT = 8
@@ -2053,7 +2086,6 @@ def profile_decode(tag: str, label: str, lmm, ids, mask, pixels,
     time a step by kernel family, the step's wall time and the device's idle
     share of it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from law_of_vision_representation_in_mllms_torch.models import llava as M
 
@@ -2069,6 +2101,23 @@ def profile_decode(tag: str, label: str, lmm, ids, mask, pixels,
             tok = M.decode_step(lmm.params, pre, tok, t).argmax(-1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    families, launched = device_split(prof)
+    busy = sum(families.values()) / steps
+    if busy == 0.0:
+        print(f"{tag} [{label}] profiler: no device time recorded; decode "
+              f"split not measured")
+        return
+    print(f"{tag} [{label}] profiled decode step (mean of {steps}, profiler "
+          f"on): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.3f}, {launched // steps} device "
+          f"activities a step: " + ", ".join(
+              f"{fam} {ms / steps:.2f} ms"
+              for fam, ms in sorted(families.items(), key=lambda kv: -kv[1])))
+
+
+def device_split(prof) -> tuple:
+    """(device ms by kernel family, device activities) of a profile."""
+    from torch.autograd import DeviceType
     families, launched = {}, 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -2089,22 +2138,61 @@ def profile_decode(tag: str, label: str, lmm, ids, mask, pixels,
             fam = "elementwise, reductions, casts"
         families[fam] = families.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
         launched += 1
+    return families, launched
+
+
+def profile_chunk(tag: str, label: str, lmm, ids, mask, pixels,
+                  replays: int = 3) -> None:
+    """torch.profiler over `replays` replays of the captured 16-step chunk
+    (`models.decode.ChunkedGreedyDecoder`, eos never emitted): device time a
+    step by kernel family, the step's wall time and the device's idle
+    share, beside `profile_decode`'s eager step. Each replay restarts the
+    chunk at step 0 (`t0`), so it writes the same cache slots."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from law_of_vision_representation_in_mllms_torch.models.decode import (
+        ChunkedGreedyDecoder)
+
+    dec = ChunkedGreedyDecoder(lmm.params, lmm.cfg, eos_id=-1,
+                               chunk=DECODE_CHUNK)
+    dec.generate(ids, mask, pixels, max_new_tokens=2 * DECODE_CHUNK)
+    (st,) = dec._keys.values()
+
+    def replay():
+        # the static tensors are inference tensors (made under the
+        # decoder's inference mode)
+        with torch.inference_mode():
+            st.t0.zero_()
+            st.step()
+    replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(replays):
+            replay()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (replays * DECODE_CHUNK)
+    families, launched = device_split(prof)
+    steps = replays * DECODE_CHUNK
     busy = sum(families.values()) / steps
     if busy == 0.0:
-        print(f"{tag} [{label}] profiler: no device time recorded; decode "
-              f"split not measured")
+        print(f"{tag} [{label}] profiler: no device time recorded in the "
+              f"graph replays; the captured chunk's split not measured")
         return
-    print(f"{tag} [{label}] profiled decode step (mean of {steps}, profiler "
-          f"on): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
-          f"{max(0.0, 1 - busy / wall_ms):.3f}, {launched // steps} device "
-          f"activities a step: " + ", ".join(
+    print(f"{tag} [{label}] profiled captured chunk (CUDA graph of "
+          f"{DECODE_CHUNK} decode steps, {replays} replays, profiler on), a "
+          f"step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle "
+          f"share {max(0.0, 1 - busy / wall_ms):.3f}, {launched / steps:.0f} "
+          f"device activities a step: " + ", ".join(
               f"{fam} {ms / steps:.2f} ms"
               for fam, ms in sorted(families.items(), key=lambda kv: -kv[1])))
 
 
 def profile_formats(tag: str, dev) -> None:
     """Phase 8: the decode step's device-time split for the three weight
-    formats, each model built again (half a second). It runs last: a
+    formats, eager and replayed from the captured chunk, each model built
+    again (half a second). It runs last: a
     torch.profiler session leaves its tracing attached to the process, and
     every later launch costs the host more."""
     import torch
@@ -2117,6 +2205,7 @@ def profile_formats(tag: str, dev) -> None:
         ids, mask, pixels = lmm._encode_batch(
             _requests(4, lmm.processors[0].crop))
         profile_decode(tag, format_label(model), lmm, ids, mask, pixels)
+        profile_chunk(tag, format_label(model), lmm, ids, mask, pixels)
         del lmm, ids, mask, pixels
         gc.collect()
         torch.cuda.empty_cache()
@@ -2163,14 +2252,21 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
     dec = lmm.cfg.decoder
     dec_name = "decode_attention_int8" if kv_quant else "decode_attention"
 
-    # the main path, counted
-    reset_counts(counters)
-    texts = lmm.generate_until(reqs)
-    torch.cuda.synchronize(dev)
-    launches = read_counts(counters)
+    # the main path, counted: greedy decoding on the card runs the
+    # adapter's chunked decoder, each 16-step chunk a CUDA graph, which
+    # this first call captures (after a warm-up chunk run eagerly)
+    graph_dec = lmm.chunked_decoder()
+    if graph_dec.chunk != DECODE_CHUNK:
+        fail(f"the adapter's decode chunk is {graph_dec.chunk}, not "
+             f"{DECODE_CHUNK}")
+    t0 = time.perf_counter()
+    texts, launches = counted_run(counters, lambda: lmm.generate_until(reqs),
+                                  graph_dec)
+    first_s = time.perf_counter() - t0
     steps = launches[dec_name] // dec.num_layers
     print(f"{tag} [{label}] main path launches {launches} ({steps} decode "
-          f"steps)")
+          f"steps: {DECODE_CHUNK} of the warm-up chunk before the capture, "
+          f"{graph_dec.replays * DECODE_CHUNK} replayed)")
     if launches["encoder_attention"] < 23:
         fail("encoder_attention ran fewer than 23 times in one tower call")
     if launches["flash_attention"] < dec.num_layers:
@@ -2188,7 +2284,8 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
     if launches["int4_matmul"] != k10:
         fail(f"kernel 10 ran {launches['int4_matmul']} times, not {k10}")
 
-    # token ids: in range, deterministic, consistent with the adapter's text
+    # the eager greedy decode's token ids: in range, deterministic (the
+    # reference the graph path's tokens and text are held to in phase 4b)
     ids, mask, pixels = lmm._encode_batch(reqs)
 
     def generate():
@@ -2202,11 +2299,6 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
         fail("generated token id out of range")
     if not torch.equal(toks, again):
         fail("a second run gave different tokens")
-    eos = lmm.tok.eos_token_id
-    for row, text in zip(toks.tolist(), texts):
-        row = row[:row.index(eos)] if eos in row else row
-        if lmm.tok.decode(row).strip() != text:
-            fail("generate_until text differs from the decoded tokens")
     pre = M.prefill(lmm.params, lmm.cfg, ids, mask, pixels, max_new_tokens=2)
     step_logits = M.decode_step(lmm.params, pre, pre.logits.argmax(-1), 0)
     if not (torch.isfinite(pre.logits).all()
@@ -2251,6 +2343,10 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
     print(f"{tag} [{label}] peak memory allocated while serving: "
           f"{fig['peak_gb']:.2f} GB")
     print(f"{tag} [{label}] sample answer: {texts[0][:80]!r}")
+    # phase 4b: the serving backends on this model
+    backend_paths = check_backends(tag, dev, counters, lmm, label, reqs,
+                                   texts, toks, fig, quantize, first_s,
+                                   every=bf16 is None)
     if bf16 is not None:
         print(f"{tag} [{label}] beside the bf16 run: prefill "
               f"{fig['prefill_ms']:.2f} vs {bf16['prefill_ms']:.2f} ms, "
@@ -2264,7 +2360,478 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
             fail(f"[{label}] the serving peak {fig['peak_gb']:.2f} GB is not "
                  f"below the bf16 run's {bf16['peak_gb']:.2f} GB: a dense "
                  f"weight survived the quantisation")
-    return launches, fig
+    return launches, fig, backend_paths
+
+
+def timed_s(fn, dev, reps: int = 3) -> float:
+    """Host seconds of one synchronised `fn()`, the mean of `reps` after a
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t) / reps
+
+
+def counted_run(counters, fn, decoder=None):
+    """`fn()` with every launch count set to 0 just before and read just
+    after. Through a `ChunkedGreedyDecoder`, a wrapper counts where a capture
+    records its kernel, which launches nothing, and not at the replays: the
+    launches are the counts less what the run's captures recorded, plus the
+    recorded launches times the run's replays. Returns (fn's result,
+    launches)."""
+    import torch
+    if decoder is not None:
+        recorded0 = dict(decoder.recorded)
+        graph0 = decoder.graph_launches()
+    reset_counts(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    if decoder is not None:
+        graph = decoder.graph_launches()
+        for name, n in decoder.recorded.items():
+            launches[name] += (graph[name] - graph0[name]
+                               - (n - recorded0[name]))
+    return out, launches
+
+
+def near_tie_gaps(lmm, inputs, want, got) -> list:
+    """For each row where `got` differs from the eager greedy tokens
+    `want`: (row, first differing step, the eager path's top-2 logit gap
+    there relative to the row's max |logit|), the eager steps fed `want`."""
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    diff = got.cpu() != want.cpu()
+    first = {r: int(diff[r].nonzero()[0]) for r in range(diff.shape[0])
+             if diff[r].any()}
+    if not first:
+        return []
+    pre = M.prefill(lmm.params, lmm.cfg, *inputs,
+                    max_new_tokens=want.shape[1])
+    logits, gaps = pre.logits, []
+    for t in range(max(first.values()) + 1):
+        if t:
+            logits = M.decode_step(lmm.params, pre, want[:, t - 1], t - 1)
+        for r, step in first.items():
+            if step == t:
+                row = logits[r].float()
+                top2 = row.topk(2).values
+                gaps.append((r, step, ((top2[0] - top2[1])
+                                       / row.abs().max()).item()))
+    return gaps
+
+
+def check_tokens(tag: str, label: str, what: str, lmm, inputs, want,
+                 got) -> None:
+    """`got` must be the eager greedy tokens `want`, or differ from them
+    only after a near-tie of the eager logits: a top-2 gap within phase 3's
+    bf16 logits tolerance (`LOGITS_REL_TOL` of the row's max |logit|)."""
+    gaps = near_tie_gaps(lmm, inputs, want, got)
+    if not gaps:
+        print(f"{tag} [{label}] {what}: tokens equal to the eager greedy "
+              f"decode's")
+        return
+    for r, step, gap in gaps:
+        print(f"{tag} [{label}] {what}: row {r} first differs at step "
+              f"{step}; the eager top-2 logit gap there is {gap:.3e} of "
+              f"max|logit| (near-tie bound {LOGITS_REL_TOL})")
+        if gap > LOGITS_REL_TOL:
+            fail(f"[{label}] {what}: row {r} differs from greedy at step "
+                 f"{step} where the eager path's choice is decisive "
+                 f"(gap {gap:.3e})")
+
+
+def decode_splits(b: int, kvh: int, group: int, t: int) -> int:
+    """Kernel 3's split of one (kv head, batch row)'s cache over a cluster,
+    as its launcher takes it (`choose_splits`, csrc/decode_attention.cu:
+    ~256 blocks, at most 8, 32-slot tiles)."""
+    per = b * kvh * max(1, group // 2)
+    tiles = -(-t // 32)
+    splits = max(1, min((256 + per // 2) // per, (tiles + 1) // 2, 8))
+    chunk = -(-tiles // splits) * 32
+    return -(-t // chunk)
+
+
+def check_decode_at(tag: str, dev, what: str, b: int, t: int,
+                    int8: bool) -> dict:
+    """Kernel 3 (its int8 branch with `int8`) against its plain version at a
+    shape a serving path launches it at (Vicuna-7B: H = KV = 32, Dh = 128),
+    on seeded random inputs with holes: 80 % of the slots visible, a masked
+    stretch of 100, slot 0 always, and a last row whose only visible slot is
+    the last; a repeat must give the same bits. Returns the case."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        decode_attention as dec, quant as Q)
+    g = torch.Generator(device=dev).manual_seed(7919 * b + t)
+    h, d = 32, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+    q, k, v = randn(b, 1, h, d), randn(b, t, h, d), randn(b, t, h, d)
+    mask = torch.rand(b, t, generator=g, device=dev) < 0.8
+    mask[:, t // 3:t // 3 + 100] = False
+    mask[:, 0] = True
+    if b > 1:
+        mask[-1] = False
+        mask[-1, -1] = True
+    cache = (k, v)
+    if int8:
+        (kc, ks), (vc, vs) = Q.quantize_kv(k), Q.quantize_kv(v)
+        cache = (kc, vc, ks, vs)
+    ref = dec.decode_attention_plain(q, cache[0], cache[1], mask, *cache[2:])
+    got = dec.decode_attention(q, cache[0], cache[1], mask, *cache[2:])
+    err, tol, rows = max_err(got, ref), kernel_tol(ref), row_err(got, ref)
+    same_bits(f"kernel 3 at {what}", lambda: dec.decode_attention(
+        q, cache[0], cache[1], mask, *cache[2:]))
+    name = "decode_attention_int8" if int8 else "decode_attention"
+    case = dict(kernel=name, path=what, shape=f"B={b} T={t} H=KV={h} Dh={d}"
+                f"{' int8 cache' if int8 else ''}, holes", err=err, tol=tol,
+                row_err=rows, splits=decode_splits(b, h, 1, t))
+    print(f"{tag} kernel {name} at {what}'s shape [{case['shape']}, "
+          f"{case['splits']} split(s) a cluster]: max_abs_err {err:.3e} (tol "
+          f"{tol:.3e}), worst row {rows:.3e} of its max|plain| (tol "
+          f"{KERNEL_REL_TOL}); a repeat gives the same bits")
+    if not (err <= tol and rows <= KERNEL_REL_TOL):
+        fail(f"{name} disagrees with its plain version at {what}'s shape "
+             f"B={b} T={t}: err {err}, row {rows}")
+    return case
+
+
+def replay_ms(start, decode, reps: int = 3) -> float:
+    """Device ms of a graph decoder's decode part alone: CUDA events around
+    its replays (the host's read between two of them included), after its
+    eager prefill into the key's static cache (`start()`); the mean of
+    `reps`."""
+    import torch
+    total = 0.0
+    with torch.inference_mode():
+        for _ in range(reps):
+            st = start()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            decode(st)
+            e1.record()
+            e1.synchronize()
+            total += e0.elapsed_time(e1)
+    return total / reps
+
+
+@contextlib.contextmanager
+def plain_kernel3():
+    """The decoder's q_len = 1 attention runs kernel 3's plain version (fp32)
+    inside: a reference run on the card that launches no kernel 3."""
+    from law_of_vision_representation_in_mllms_torch.models import llama
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        decode_attention as dec)
+    kernel = llama.decode_attention
+    llama.decode_attention = dec.decode_attention_plain
+    try:
+        yield
+    finally:
+        llama.decode_attention = kernel
+
+
+def forced_scores(lmm, inputs, seqs, eos: int):
+    """Beam search's score (length penalty 1) of each row's sequence `seqs`
+    [B, n]: its log-probs summed up to its first eos (or over all n), over
+    that length, from eager steps fed the sequence. fp64 [B]."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    b, n = seqs.shape
+    hit = seqs == eos
+    lens = torch.where(hit.any(dim=1), hit.float().argmax(dim=1) + 1,
+                       torch.full((b,), n, device=seqs.device))
+    pre = M.prefill(lmm.params, lmm.cfg, *inputs, max_new_tokens=n)
+    logits = pre.logits
+    total = torch.zeros(b, dtype=torch.float64, device=seqs.device)
+    for t in range(n):
+        lp = torch.log_softmax(logits.float(), dim=-1).gather(
+            1, seqs[:, t:t + 1])[:, 0]
+        total += torch.where(t < lens, lp.double(), 0.0)
+        if t + 1 < n:
+            logits = M.decode_step(lmm.params, pre, seqs[:, t], t)
+    return total / lens.double()
+
+
+def check_backends(tag: str, dev, counters, lmm, label: str, reqs, texts,
+                   toks, fig: dict, quantize, first_s: float,
+                   every: bool) -> dict:
+    """Phase 4b on the LLaVA of phase 4 (`every`: all backends) or of phase
+    7 (the chunked decode only). Phase 4's main path ran `generate_until`
+    through the adapter's chunked decoder (`first_s`: that first call, the
+    capture in it); here its tokens and text are held to the eager greedy
+    decode's (`toks`, `texts` the main path's), kernel 3 to its plain version
+    at the path's shape, and the replays timed alone. Then, in bf16,
+    `gen_backend=speculative`, beam search (against a run on kernel 3's
+    plain version and against eager steps), sampling and the HTTP server.
+    Puts kernel 3's cases at the paths' shapes in `fig["decode_cases"]`;
+    returns the launches of each backend's path."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    ids, mask, pixels = inputs = lmm._encode_batch(reqs)
+    b, n_new = toks.shape
+    layers = lmm.cfg.decoder.num_layers
+    eos = lmm.tok.eos_token_id
+    int8 = bool(lmm.cfg.kv_quant)
+    dec_name = "decode_attention_int8" if int8 else "decode_attention"
+    t_cache = ids.shape[1] + lmm.cfg.num_patches - 1 + n_new
+    paths = {}
+
+    # the chunked greedy decode of phase 4's main path: one graph, its
+    # recorded launches, its tokens against the eager decode's
+    dec = lmm.chunked_decoder()
+    if dec.captures != 1:
+        fail(f"[{label}] the chunked decode captured {dec.captures} graphs")
+    (st,) = dec._keys.values()
+    if st.cache[0][0].shape[1] != t_cache:
+        fail(f"[{label}] the graph path's cache has "
+             f"{st.cache[0][0].shape[1]} slots, not the eager path's "
+             f"{t_cache}")
+    per_chunk = st.step.launches
+    want10 = DECODE_CHUNK * (7 * layers + 1) if quantize == "int4" else 0
+    if per_chunk[dec_name] != DECODE_CHUNK * layers or \
+            per_chunk["int4_matmul"] != want10:
+        fail(f"[{label}] the captured chunk recorded {per_chunk}, not "
+             f"{DECODE_CHUNK * layers} of {dec_name} and {want10} of "
+             f"kernel 10")
+    print(f"{tag} [{label}] chunked decode (B={b}, {n_new} new tokens, "
+          f"chunk {DECODE_CHUNK}, T={t_cache}): one graph captured; a chunk "
+          f"records {per_chunk[dec_name]} launches of kernel 3 ({dec_name}) "
+          f"and {per_chunk['int4_matmul']} of kernel 10; {dec.replays} "
+          f"replays so far -> {dec.graph_launches()[dec_name]} and "
+          f"{dec.graph_launches()['int4_matmul']} launches by replay")
+    got = dec.generate(*inputs, max_new_tokens=n_new)
+    again = dec.generate(*inputs, max_new_tokens=n_new)
+    if not torch.equal(got, again):
+        fail(f"[{label}] a second chunked run gave different tokens")
+    for row, text in zip(got.tolist(), texts):
+        row = row[:row.index(eos)] if eos in row else row
+        if lmm.tok.decode(row).strip() != text:
+            fail(f"[{label}] generate_until's text differs from the chunked "
+                 f"decoder's tokens")
+    check_tokens(tag, label, "chunked (CUDA graphs)", lmm, inputs, toks, got)
+    cases = [check_decode_at(tag, dev, f"[{label}] greedy decode", b,
+                             t_cache, int8)]
+    warm_s = timed_s(lambda: lmm.generate_until(reqs), dev, reps=1)
+    n_chunks = -(-n_new // DECODE_CHUNK)
+    replays0 = dec.replays
+    ms = replay_ms(lambda: dec._start(*inputs, n_chunks * DECODE_CHUNK),
+                   lambda st: dec._decode(st, n_chunks))
+    steps = (dec.replays - replays0) // 3 * DECODE_CHUNK
+    fig_graph = dict(decode_tok_s=b * steps / ms * 1e3, step_ms=ms / steps,
+                     capture_s=first_s - warm_s)
+    print(f"{tag} [{label}] chunked decode: {fig_graph['decode_tok_s']:.1f} "
+          f"tokens/s ({fig_graph['step_ms']:.2f} ms/step, {steps} steps; "
+          f"CUDA events around the replays) against the eager path's "
+          f"{fig['decode_tok_s']:.1f} tokens/s ({fig['step_ms']:.2f} "
+          f"ms/step, (generate - prefill) host time), "
+          f"{fig_graph['decode_tok_s'] / fig['decode_tok_s']:.2f}x; the "
+          f"first generate_until {first_s:.2f} s, a warm one {warm_s:.2f} "
+          f"s: warm-up chunk + capture {fig_graph['capture_s']:.2f} s")
+    fig["graph"] = fig_graph
+    fig["decode_cases"] = cases
+    if not every:
+        return paths
+
+    # speculation through the adapter's decoder: its first call captures
+    # the verify round, a warm one replays it
+    lmm.gen_backend, lmm.draft_len = "speculative", DRAFT_LEN
+    spec_dec = lmm.speculative_decoder()
+    t0 = time.perf_counter()
+    spec_texts, paths["speculative"] = counted_run(
+        counters, lambda: lmm.generate_until(reqs), spec_dec)
+    spec_first_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        spec, rounds = spec_dec.generate(*inputs, max_new_tokens=n_new)
+    if spec_dec.captures != 1:
+        fail(f"speculation captured {spec_dec.captures} graphs, not 1")
+    check_tokens(tag, label, "speculative", lmm, inputs, toks, spec)
+    if torch.equal(spec, toks) and spec_texts != texts:
+        fail("generate_until's speculative texts differ from the eager run's")
+    spec_warm_s = timed_s(lambda: lmm.generate_until(reqs), dev, reps=1)
+    spec_ms = replay_ms(lambda: spec_dec._start(*inputs, n_new),
+                        lambda st: spec_dec._decode(st, n_new))
+    print(f"{tag} [{label}] speculative decode (prompt lookup, draft "
+          f"{DRAFT_LEN}, the verify round one captured graph replayed): "
+          f"{rounds} rounds for {n_new} tokens, warm "
+          f"{b * n_new / spec_ms * 1e3:.1f} tokens/s ({spec_ms:.2f} ms of "
+          f"rounds, CUDA events around the replays); the first "
+          f"generate_until {spec_first_s:.2f} s, a warm one "
+          f"{spec_warm_s:.2f} s: warm-up round + capture "
+          f"{spec_first_s - spec_warm_s:.2f} s")
+    fig["speculative"] = dict(rounds=rounds,
+                              decode_tok_s=b * n_new / spec_ms * 1e3,
+                              capture_s=spec_first_s - spec_warm_s)
+
+    # beam search, k = BEAMS: B*k rows through kernel 3 at the prompt's T
+    def beam():
+        return M.generate_beam(lmm.params, lmm.cfg, *inputs,
+                               max_new_tokens=n_new, eos_id=eos,
+                               num_beams=BEAMS, return_scores=True)
+    (beam_toks, scores), paths["beam"] = counted_run(counters, beam)
+    if not (torch.isfinite(scores).all() and (scores[:, 0] > -1e8).all()):
+        fail(f"beam search's scores are not finite: {scores.tolist()}")
+    if not torch.equal(beam()[0], beam_toks):
+        fail("a second beam search gave different tokens")
+    if paths["beam"][dec_name] != layers * (n_new - 1):
+        fail(f"beam search launched kernel 3 {paths['beam'][dec_name]} "
+             f"times, not {layers * (n_new - 1)}")
+    cases.append(check_decode_at(tag, dev, "beam search", b * BEAMS,
+                                 t_cache, int8))
+    # against kernel 3's plain version: the best beams' scores recomputed
+    # from eager steps fed their tokens must be the search's own. A search
+    # on the plain attention is run beside it and its rows printed, not
+    # held: on random weights the k-th and (k+1)-th of 2k candidates are
+    # near-ties at many steps, and once one resolves the other way the two
+    # searches follow other paths, whose final scores differ by more than
+    # that step's gap
+    with plain_kernel3():
+        plain_toks, plain_scores = beam()
+        forced = forced_scores(lmm, inputs, beam_toks, eos)
+    rel = ((scores[:, 0].double() - forced).abs() / forced.abs()).max()
+    print(f"{tag} [{label}] beam search: best scores against the plain "
+          f"attention's eager steps fed the same tokens: worst rel err "
+          f"{rel.item():.3e} (tol {LOGITS_REL_TOL}); "
+          f"{(plain_toks != beam_toks).any(dim=1).sum().item()} of {b} best "
+          f"beams differ from a search on the plain attention, which scores"
+          f" them {[round(x, 4) for x in forced.tolist()]} against its own "
+          f"best {[round(x, 4) for x in plain_scores[:, 0].tolist()]}")
+    if not rel <= LOGITS_REL_TOL:
+        fail(f"beam search's scores {scores[:, 0].tolist()} are not the "
+             f"plain attention's {forced.tolist()} for the same tokens")
+    beam_s = timed_s(lambda: beam(), dev, reps=1)
+    prefill_s = fig["prefill_ms"] / 1e3
+    dec_cfg = lmm.cfg.decoder
+    cache_gb = (2 * layers * b * BEAMS * t_cache * dec_cfg.num_kv_heads
+                * dec_cfg.head_dim * 2 / 1e9)
+    print(f"{tag} [{label}] beam search (k={BEAMS}, B*k={b * BEAMS} rows): "
+          f"best scores {[round(x, 3) for x in scores[:, 0].tolist()]}, "
+          f"{b * n_new / (beam_s - prefill_s):.1f} tokens/s of best beams "
+          f"((generate - prefill) time, {(beam_s - prefill_s) / (n_new - 1) * 1e3:.2f}"
+          f" ms a step); the beams' cache {cache_gb:.2f} GB (T={t_cache}), "
+          f"gathered over its batch axis every step; "
+          f"{(beam_toks != toks).any(dim=1).sum().item()} of {b} rows differ"
+          f" from greedy")
+    fig["beam"] = dict(decode_tok_s=b * n_new / (beam_s - prefill_s),
+                       cache_gb=cache_gb)
+
+    # sampling from a seeded generator on the card
+    def sample(seed, **kw):
+        return M.generate_sample(
+            lmm.params, lmm.cfg, *inputs, max_new_tokens=n_new, eos_id=eos,
+            generator=torch.Generator(dev).manual_seed(seed), **kw)
+    drawn, paths["sample"] = counted_run(
+        counters, lambda: sample(SAMPLE_SEED, **SAMPLING))
+    if not torch.equal(sample(SAMPLE_SEED, **SAMPLING), drawn):
+        fail("the same seed drew different tokens")
+    cold = sample(SAMPLE_SEED, temperature=0.0)
+    check_tokens(tag, label, "temperature-0 sample", lmm, inputs, toks, cold)
+    print(f"{tag} [{label}] sampling (temperature {SAMPLING['temperature']},"
+          f" top-p {SAMPLING['top_p']}, seed {SAMPLE_SEED}): the seed "
+          f"repeats its {drawn.numel()} tokens, "
+          f"{(drawn != toks).sum().item()} of them differ from greedy")
+
+    paths["http"] = serve_smoke(tag, label, lmm, counters, dev, cases)
+    return paths
+
+
+def serve_smoke(tag: str, label: str, lmm, counters, dev,
+                cases: list) -> dict:
+    """`LMMServer` on 127.0.0.1 (port 0) over the chunked backend: two
+    concurrent chat completions, each with a base64 PNG, ride one wave; the
+    answers must be `generate_until`'s on the same prompts and images, and
+    `/health` must count one dispatch. The wave's batch (B = 2) is then held
+    to the eager greedy decode, and kernel 3 to its plain version at its
+    shape (appended to `cases`). Returns the launches of the server's
+    run."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    import numpy as np
+    from PIL import Image
+    from law_of_vision_representation_in_mllms_torch.eval.api import Instance
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.serve import (
+        LMMServer, _parse_messages)
+
+    rng = np.random.RandomState(3)
+    payloads = []
+    for i in range(2):
+        buf = io.BytesIO()
+        Image.fromarray(rng.randint(0, 255, (336, 336, 3), np.uint8)).save(
+            buf, format="PNG")
+        url = "data:image/png;base64," + base64.b64encode(
+            buf.getvalue()).decode()
+        payloads.append({"max_tokens": 32, "messages": [{
+            "role": "user", "content": [
+                {"type": "image_url", "image_url": {"url": url}},
+                {"type": "text",
+                 "text": " ".join(WORDS[8 * i:8 * i + 14])}]}]})
+    lmm.gen_backend = "chunked"
+    answers, health = [None, None], {}
+
+    def serve_two():
+        srv = LMMServer(lmm, model_name="llava-1.5-7b", host="127.0.0.1",
+                        port=0, max_batch=4, batch_window_ms=1000)
+        srv.start_background()
+        try:
+            def post(i):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{srv.port}/v1/chat/completions",
+                    data=json.dumps(payloads[i]).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    answers[i] = json.loads(r.read())[
+                        "choices"][0]["message"]["content"]
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/health", timeout=60) as r:
+                health.update(json.loads(r.read()))
+        finally:
+            srv.shutdown()
+    t0 = time.perf_counter()
+    _, launches = counted_run(counters, serve_two, lmm.chunked_decoder())
+    wall = time.perf_counter() - t0
+    reqs = []
+    for p in payloads:
+        prompt, images = _parse_messages(p["messages"])
+        reqs.append(Instance("generate_until", {}, len(reqs), "serve",
+                             (prompt, {"max_new_tokens": 32}),
+                             visual=images))
+    want = lmm.generate_until(reqs)
+    print(f"{tag} [{label}] serve: 2 concurrent chat completions with a "
+          f"336 px PNG each answered in {wall:.2f} s (server start and stop "
+          f"included); /health {health}; launches {launches}")
+    if answers != want:
+        fail(f"the served answers {answers} are not generate_until's {want}")
+    if health.get("dispatches") != 1 or health.get("requests") != 2:
+        fail(f"the two requests did not ride one wave: /health {health}")
+    # the wave's decode: the chunked decoder's key for B = 2 against the
+    # eager greedy decode, and kernel 3 at its T
+    ids, mask, pixels = inputs = lmm._encode_batch(reqs)
+    t_cache = ids.shape[1] + lmm.cfg.num_patches - 1 + 32
+    st = lmm.chunked_decoder()._keys.get((2, ids.shape[1], 32))
+    if st is None or st.cache[0][0].shape[1] != t_cache:
+        fail(f"the served wave did not decode B=2 at T={t_cache}")
+    eager = M.generate_greedy(lmm.params, lmm.cfg, *inputs,
+                              max_new_tokens=32, eos_id=lmm.tok.eos_token_id)
+    got = lmm.chunked_decoder().generate(*inputs, max_new_tokens=32)
+    check_tokens(tag, label, "served wave (B=2, chunked)", lmm, inputs,
+                 eager, got)
+    cases.append(check_decode_at(tag, dev, "the served wave", 2, t_cache,
+                                 bool(lmm.cfg.kv_quant)))
+    return launches
 
 
 def _training_records(folder: str, n: int = FULL_RECORDS) -> str:
@@ -3857,14 +4424,19 @@ def main() -> int:
     # makes every launch dearer for the host, which is what bounds a decode
     # step
     paths = {}
-    paths["serve"], bf16_fig = run_full_width(tag, dev, counters)
+    paths["serve"], bf16_fig, backends = run_full_width(tag, dev, counters)
+    paths.update({f"serve_{k}": v for k, v in backends.items()})
     gc.collect()
     torch.cuda.empty_cache()
     print(f"{tag} after the serving phase: "
           f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB still allocated")
+    figs = [bf16_fig]
     for name, model in zip(("serve_int4_kv8", "serve_int8"),
                            SERVING_FORMATS[1:]):
-        paths[name], _ = run_full_width(tag, dev, counters, model, bf16_fig)
+        paths[name], fig, backends = run_full_width(tag, dev, counters,
+                                                    model, bf16_fig)
+        figs.append(fig)
+        paths.update({f"{name}_{k}": v for k, v in backends.items()})
         gc.collect()
         torch.cuda.empty_cache()
     # MPT-7B and the switch variant, also before torch.profiler first runs;
@@ -3946,11 +4518,21 @@ def main() -> int:
     for name in ("flash_attention_bwd_dq_alibi",
                  "flash_attention_bwd_dkv_alibi"):
         sources[name] = f"{PKG}/csrc/flash_attention_bwd.cu"
+    # kernel 3 held to its plain version at the serving paths' shapes
+    for fig in figs:
+        for case in fig.get("decode_cases", []):
+            kernels[case.pop("kernel")].setdefault("path_cases",
+                                                   []).append(case)
+    # the paths whose decode steps are replayed CUDA graphs: the serving
+    # runs' greedy decode (phases 4 and 7), the served wave and speculation
+    graph_paths = ("serve", "serve_int4_kv8", "serve_int8", "serve_http",
+                   "serve_speculative")
     print(f"{tag} chip_smoke phases took "
           f"{time.perf_counter() - t_start:.1f} s")
-    # launches: the serving run (phase 4), the training run (phase 5), the
-    # law chain and its C-score leg (phase 6), the two quantised serving
-    # runs (phase 7), MPT-7B
+    # launches: the serving run (phase 4, its decode replayed CUDA graphs:
+    # the launches derived from captures and replays) and its backends
+    # (phase 4b), the training run (phase 5), the law chain and its C-score
+    # leg (phase 6), the two quantised serving runs (phase 7), MPT-7B
     # (phase 9) and the three training variants (phase 10), each counted
     # from 0; the split is in "launches_by_path"
     print(json.dumps({"kernels": [
@@ -3958,13 +4540,15 @@ def main() -> int:
          "replaces": replaces[name], "routes": routes.get(name, []),
          "launches": sum(p[name] for p in paths.values()),
          "launches_by_path": {path: p[name] for path, p in paths.items()},
+         "graph_launches": sum(p[name] for path, p in paths.items()
+                               if path in graph_paths),
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "shape": r["shape"],
          **{k: r[k] for k in ("cases", "crossover", "noalibi_ms",
                               "whole_ms", "library_backend", "row_err",
                               "fma_bound_ms", "bmm_ms", "body", "warm_ms",
-                              "library_warm_ms")
+                              "library_warm_ms", "path_cases")
             if k in r},
          **({"wgmma_launches": sum(p["a_score_wgmma"]
                                    for p in paths.values())}

@@ -6,6 +6,8 @@ Commands:
                     train.lora_enable=true`, `train.quantize_base=int4`,
                     `train.switch_enable=true`)
   generate          one-shot inference (image + prompt -> answer)
+  serve             OpenAI-compatible chat-completions server (wave
+                    batching; --inflight is not ported yet)
   eval              benchmark evaluation through the eval harness
   tasks             list the bundled eval tasks
   extract-embeds    dump post-projector embeddings for the A score
@@ -68,9 +70,33 @@ def main(argv=None):
     p.add_argument("--gen-backend",
                    choices=["greedy", "chunked", "speculative"])
     p.add_argument("--temperature", type=float, default=0.0,
-                   help="0 = greedy (sampling is not ported yet)")
+                   help="0 = greedy; > 0 samples")
     p.add_argument("--top-p", type=float, default=1.0,
                    help="nucleus sampling mass (with --temperature > 0)")
+    _add_device(p)
+
+    p = sub.add_parser("serve", help="OpenAI-compatible model server")
+    _add_common(p)
+    p.add_argument("--model", default="llava",
+                   help="adapter name (only llava is ported)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max-batch", type=int, default=8,
+                   help="dynamic-batching max requests per dispatch")
+    p.add_argument("--batch-window-ms", type=float, default=5.0,
+                   help="coalescing window after the first request")
+    p.add_argument("--gen-backend",
+                   choices=["greedy", "chunked", "speculative"],
+                   help="decode backend (shorthand for --set "
+                        "model.gen_backend=...; all three give greedy's "
+                        "tokens; on the card greedy runs as chunked)")
+    # the continuous-batching flags of the JAX CLI: accepted, and refused
+    # (models/inflight.py is not ported yet)
+    p.add_argument("--inflight", action="store_true")
+    for flag in ("--slots", "--prompt-cap", "--gen-cap",
+                 "--decode-chunk-serve", "--prefix-cache", "--prefix-block",
+                 "--prefix-cache-mb"):
+        p.add_argument(flag, type=int)
     _add_device(p)
 
     p = sub.add_parser("eval", help="benchmark evaluation")
@@ -162,10 +188,6 @@ def _cmd_generate(args):
     prints to stdout."""
     from .eval.api import Instance
     from .eval.runner import build_lmm
-    if args.temperature > 0:
-        raise NotImplementedError(
-            "--temperature > 0 (sampling) is not ported to the PyTorch "
-            "package yet (ROADMAP, queue 1: 6, serving backends)")
     device = _device(args)
     cfg = _run_config(args)
     if args.gen_backend:
@@ -181,6 +203,34 @@ def _cmd_generate(args):
                       "temperature": args.temperature,
                       "top_p": args.top_p}), visual)
     print(lmm.generate_until([inst])[0])
+    return 0
+
+
+def _cmd_serve(args):
+    """Serve the LLaVA of the RunConfig until interrupted."""
+    from .serve import INFLIGHT_NOT_PORTED, run_server
+    inflight = {k: v for k, v in vars(args).items()
+                if k in ("slots", "prompt_cap", "gen_cap",
+                         "decode_chunk_serve", "prefix_cache",
+                         "prefix_block", "prefix_cache_mb")
+                and v is not None}
+    if args.inflight or inflight:
+        raise NotImplementedError(INFLIGHT_NOT_PORTED)
+    device = _device(args)
+    cfg = _run_config(args)
+    if args.gen_backend:
+        cfg.model.gen_backend = args.gen_backend
+    srv = run_server(cfg, device=device, model=args.model, host=args.host,
+                     port=args.port, max_batch=args.max_batch,
+                     batch_window_ms=args.batch_window_ms)
+    print(f"serving {args.model} on http://{args.host}:{srv.port}/v1",
+          file=sys.stderr)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        print("shutting down", file=sys.stderr)
+    finally:
+        srv.shutdown()
     return 0
 
 
@@ -292,6 +342,7 @@ def _cmd_policy(args):
 DISPATCH = {
     "train": _cmd_train,
     "generate": _cmd_generate,
+    "serve": _cmd_serve,
     "eval": _cmd_eval,
     "tasks": _cmd_tasks,
     "extract-embeds": _cmd_extract_embeds,

@@ -31,11 +31,15 @@ class ModelSection:
     # opt-in visual-token pruning (top-K image tokens by `prune_score`)
     visual_keep: Optional[int] = None
     prune_score: str = "auto"
-    # decode backend: greedy | chunked | speculative (greedy-equivalent)
+    # decode backend: greedy | chunked | speculative (greedy-equivalent;
+    # greedy decoding on the card always runs chunked, as CUDA graphs)
     gen_backend: str = "greedy"
     decode_chunk: int = 16
     negotiate_layouts: bool = False        # JAX-only (XLA layouts)
     draft_len: int = 8
+    # seed of the eval adapter's sampling generator (the JAX adapter's
+    # `sample_seed` argument, default 0)
+    sample_seed: int = 0
     # weight-only decoder quantization ("int8" | "int4" | None)
     quantize: Optional[str] = None
     # KV-cache quantization ("int8" | None)

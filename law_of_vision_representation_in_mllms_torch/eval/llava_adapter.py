@@ -2,15 +2,22 @@
 `eval/llava_adapter.py`; `lmms_eval/models/llava.py:54-447`).
 
 `generate_until`: template-rendered prompts with '<image>' splicing,
-per-tower image preprocessing, greedy decode (`models.llava.generate_greedy`)
-with prompts right-padded to a power-of-two bucket, as the JAX adapter pads
-them. A request's visual is a PIL image (preprocessed here; PIL is imported
-only then) or an HWC float array already preprocessed to the tower's crop
-size. `loglikelihood` batches requests sorted by total length into
-power-of-two buckets and gathers the continuation's hidden rows before the
-`lm_head`; `dump_image_embeds_for_docs` is the A-score embedding dump.
-Sampling, beam search and the chunked/speculative backends are not ported
-yet and raise NotImplementedError.
+per-tower image preprocessing, prompts right-padded to a power-of-two bucket,
+as the JAX adapter pads them, and the JAX adapter's routing: `num_beams > 1`
+-> `generate_beam`; `temperature > 0` (and `do_sample` not False) ->
+`generate_sample` with the adapter's own `torch.Generator`, seeded by
+`sample_seed`; otherwise the `gen_backend`: `speculative` (one
+`models.decode.SpeculativeDecoder` a run), else greedy. Greedy decoding on
+the card always takes the adapter's `models.decode.ChunkedGreedyDecoder`
+(chunks replayed from CUDA graphs), whether the backend says `greedy` or
+`chunked`: the same tokens, without the host in every step. On the CPU
+`greedy` is the eager `generate_greedy` and `chunked` the decoder's eager
+chunks. The two decoders share one graph pool. A
+request's visual is a PIL image (preprocessed here; PIL is imported only
+then) or an HWC float array already preprocessed to the tower's crop size.
+`loglikelihood` batches requests sorted by total length into power-of-two
+buckets and gathers the continuation's hidden rows before the `lm_head`;
+`dump_image_embeds_for_docs` is the A-score embedding dump.
 """
 
 from __future__ import annotations
@@ -29,9 +36,7 @@ from ..models import llava as M
 from ..models.splice import IGNORE_INDEX, splice_embeds, splice_plan
 from .api import Instance, LMM
 
-_NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
-               "(ROADMAP, queue 1: {item})")
-_BACKENDS = "6, serving backends"
+GEN_BACKENDS = ("greedy", "chunked", "speculative")
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -45,10 +50,19 @@ class LlavaLMM(LMM):
     def __init__(self, params: M.LlavaParams, cfg: M.LlavaConfig, tokenizer,
                  template: Conversation, *,
                  batch_size: int = 8, pad_square: bool = False,
-                 gen_backend: str = "greedy"):
-        if gen_backend != "greedy":
-            raise NotImplementedError(_NOT_PORTED.format(
-                what=f"gen_backend {gen_backend!r}", item=_BACKENDS))
+                 gen_backend: str = "greedy", decode_chunk: int = 16,
+                 draft_len: int = 8, sample_seed: int = 0):
+        # every backend gives greedy's tokens (the parity tests hold them
+        # to each other and to the JAX ones)
+        if gen_backend not in GEN_BACKENDS:
+            raise ValueError(f"unknown gen_backend {gen_backend!r}; one of "
+                             f"{GEN_BACKENDS}")
+        self.gen_backend = gen_backend
+        self.decode_chunk = decode_chunk
+        self.draft_len = draft_len
+        self._chunked_dec = None
+        self._spec_dec = None
+        self._pool = None
         self.params = params
         self.cfg = cfg
         self.tok = tokenizer
@@ -64,6 +78,10 @@ class LlavaLMM(LMM):
                     f"instead of {e.name}")
         self.processors = [processor_for_tower(e.name, e.img_size)
                            for e in cfg.tower_spec.entries]
+        # the sampling stream of gen_kwargs' temperature / top_p (the
+        # reference's do_sample routing, lmms_eval/models/llava.py:415-417)
+        self._generator = torch.Generator(self.device).manual_seed(
+            sample_seed)
 
     def _prompt(self, context: str) -> str:
         """Prepend the image marker only when the context has none."""
@@ -109,25 +127,70 @@ class LlavaLMM(LMM):
                 torch.from_numpy(mask).to(self.device),
                 self._pixels(requests))
 
+    def _graph_pool(self):
+        if self.device.type == "cuda" and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def chunked_decoder(self):
+        """The run's `ChunkedGreedyDecoder` (made on first use): its static
+        tensors and captured graphs, of its most recent keys, live as long
+        as the adapter."""
+        if self._chunked_dec is None:
+            from ..models.decode import ChunkedGreedyDecoder
+            self._chunked_dec = ChunkedGreedyDecoder(
+                self.params, self.cfg, eos_id=self.tok.eos_token_id,
+                chunk=self.decode_chunk, pool=self._graph_pool())
+        return self._chunked_dec
+
+    def speculative_decoder(self):
+        """The run's `SpeculativeDecoder` (made on first use)."""
+        if self._spec_dec is None:
+            from ..models.decode import SpeculativeDecoder
+            self._spec_dec = SpeculativeDecoder(
+                self.params, self.cfg, eos_id=self.tok.eos_token_id,
+                draft_len=self.draft_len, pool=self._graph_pool())
+        return self._spec_dec
+
+    def _generate(self, ids, mask, pixels, kwargs) -> torch.Tensor:
+        """One batch's tokens, routed as the JAX adapter routes them."""
+        max_new = kwargs.get("max_new_tokens", 16)
+        eos = self.tok.eos_token_id
+        # reference contract: do_sample iff temperature > 0
+        # (lmms_eval/models/llava.py:391-417)
+        temperature = float(kwargs.get("temperature", 0) or 0)
+        if not kwargs.get("do_sample", True):
+            temperature = 0.0
+        # top_p None -> 1.0, but an explicit 0.0 is honoured (the top token
+        # only)
+        top_p = (1.0 if kwargs.get("top_p") is None
+                 else float(kwargs["top_p"]))
+        num_beams = int(kwargs.get("num_beams", 1) or 1)
+        common = dict(max_new_tokens=max_new, eos_id=eos)
+        if num_beams > 1:        # deterministic: beams win over temperature
+            return M.generate_beam(self.params, self.cfg, ids, mask, pixels,
+                                   num_beams=num_beams, **common)
+        if temperature > 0:      # sampling whatever the backend
+            return M.generate_sample(self.params, self.cfg, ids, mask,
+                                     pixels, generator=self._generator,
+                                     temperature=temperature, top_p=top_p,
+                                     **common)
+        if self.gen_backend == "speculative":
+            return self.speculative_decoder().generate(
+                ids, mask, pixels, max_new_tokens=max_new)[0]
+        if self.gen_backend == "chunked" or self.device.type == "cuda":
+            return self.chunked_decoder().generate(ids, mask, pixels,
+                                                   max_new_tokens=max_new)
+        return M.generate_greedy(self.params, self.cfg, ids, mask, pixels,
+                                 **common)
+
     def generate_until(self, requests: List[Instance]) -> List[str]:
         out: List[str] = []
         for s in range(0, len(requests), self.batch_size):
             chunk = requests[s:s + self.batch_size]
             kwargs = chunk[0].args[1]
-            temperature = float(kwargs.get("temperature", 0) or 0)
-            if not kwargs.get("do_sample", True):
-                temperature = 0.0
-            if temperature > 0:
-                raise NotImplementedError(_NOT_PORTED.format(
-                    what="sampling (temperature > 0)", item=_BACKENDS))
-            if int(kwargs.get("num_beams", 1) or 1) > 1:
-                raise NotImplementedError(_NOT_PORTED.format(
-                    what="beam search", item=_BACKENDS))
             ids, mask, pixels = self._encode_batch(chunk)
-            toks = M.generate_greedy(
-                self.params, self.cfg, ids, mask, pixels,
-                max_new_tokens=kwargs.get("max_new_tokens", 16),
-                eos_id=self.tok.eos_token_id).cpu().numpy()
+            toks = self._generate(ids, mask, pixels, kwargs).cpu().numpy()
             until = kwargs.get("until", [])
             for row in toks:
                 row = row.tolist()

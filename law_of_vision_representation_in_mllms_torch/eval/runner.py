@@ -46,7 +46,10 @@ def build_lmm(cfg: RunConfig, *, device) -> LlavaLMM:
     return LlavaLMM(params, model_cfg, build_tokenizer(cfg),
                     get_template(cfg.model.conv_template),
                     pad_square=cfg.data.image_aspect_ratio == "pad",
-                    gen_backend=cfg.model.gen_backend)
+                    gen_backend=cfg.model.gen_backend,
+                    decode_chunk=cfg.model.decode_chunk,
+                    draft_len=cfg.model.draft_len,
+                    sample_seed=cfg.model.sample_seed)
 
 
 def run_evaluation(cfg: RunConfig, tasks: List[str], *, device,

@@ -143,9 +143,9 @@ def _attention(q, k, v, mask, accum_dtype=torch.float32, k_scale=None,
     if k_scale is not None:
         logits = logits * k_scale.transpose(1, 2)[:, :, None, None, :].to(
             logits.dtype)
-    logits = torch.where(mask[:, None, None], logits,
-                         torch.tensor(-1e30, dtype=accum_dtype,
-                                      device=q.device))
+    # masked_fill of a Python scalar: no host tensor is copied to the card,
+    # so the verify round of the speculative decode can be captured
+    logits = logits.masked_fill(~mask[:, None, None], -1e30)
     probs = torch.softmax(logits.float(), dim=-1)
     if v_scale is not None:
         probs = probs * v_scale.transpose(1, 2)[:, :, None, None, :]
@@ -203,15 +203,21 @@ class LlamaBlock(nn.Module):
         k_sc = v_sc = None
         if kv_cache is not None:
             ck, cv = kv_cache[:2]
-            new = slice(cache_index, cache_index + s)
+            if torch.is_tensor(cache_index):
+                # [B, s] slots held on the device: an index_put_, no host
+                # value, so the write can sit in a captured CUDA graph
+                rows = torch.arange(b, device=h.device)[:, None]
+                new = (rows, cache_index)
+            else:
+                new = (slice(None), slice(cache_index, cache_index + s))
             if len(kv_cache) == 4:
                 # int8 cache: the fresh block is quantised on write
                 k_sc, v_sc = kv_cache[2:]
-                (ck[:, new], k_sc[:, new]) = quantize_kv(k)
-                (cv[:, new], v_sc[:, new]) = quantize_kv(v)
+                (ck[new], k_sc[new]) = quantize_kv(k)
+                (cv[new], v_sc[new]) = quantize_kv(v)
             else:
-                ck[:, new] = k
-                cv[:, new] = v
+                ck[new] = k
+                cv[new] = v
             k_all, v_all = ck, cv
         else:
             k_all, v_all = k, v
@@ -288,7 +294,11 @@ class LlamaModel(nn.Module):
         validity of key slots (T = S without a cache, else the cache
         length), combined with causality over positions (no cache) or over
         cache slots (with a cache: the query at slot cache_index + i sees
-        slots <= its own). `remat` checkpoints every block of a no-cache
+        slots <= its own). `cache_index` is a Python int (the prefill's 0,
+        and every slot of the pass in a row), or a device tensor: [B] first
+        slots, or [B, S] slots, one row at a time, so that nothing of the
+        step is read back to the host and the step can be captured in a CUDA
+        graph. `remat` checkpoints every block of a no-cache
         pass with `remat_policy`. `lora`: optional `models.lora.LoraAdapters`,
         applied per block with `lora_scaling` (alpha / r). Returns (hidden
         [B, S, D], cache)."""
@@ -296,7 +306,15 @@ class LlamaModel(nn.Module):
         b, s, _ = embeds.shape
         h = embeds.to(self.precision.compute_dtype)
         cos, sin = rope_tables(cfg, positions)
-        flash_ok = use_flash and s > 1 and (cache is None or cache_index == 0)
+        on_device = torch.is_tensor(cache_index)
+        if on_device:
+            # [B] first slots (row b writes slots index[b] .. + s - 1) or
+            # [B, s] slots: the blocks take [B, s]
+            cache_index = cache_index.reshape(b, -1) + (
+                torch.arange(s, device=h.device)
+                if cache_index.dim() == 1 else 0)
+        flash_ok = use_flash and s > 1 and (
+            cache is None or (not on_device and cache_index == 0))
         mask = None
         if not flash_ok:
             if cache is None:
@@ -304,9 +322,10 @@ class LlamaModel(nn.Module):
             else:
                 t = cache[0][0].shape[1]
                 k_slot = torch.arange(t, device=h.device)
-                q_slot = cache_index + torch.arange(s, device=h.device)
-                causal = (k_slot[None, :] <= q_slot[:, None])[None].expand(
-                    b, s, t)
+                q_slot = (cache_index if on_device else
+                          (cache_index + torch.arange(s, device=h.device))
+                          [None].expand(b, s))
+                causal = k_slot[None, None, :] <= q_slot[:, :, None]
             mask = causal if attn_mask is None else (
                 causal & attn_mask[:, None, :])
         if remat and cache is not None:

@@ -13,12 +13,18 @@
   (`models/lora.py`), and `models/switch.py` holds the switch variant's loss;
 - `generate_greedy` is `prefill` (kernel 2) + a Python loop of
   `decode_step`s (kernel 3) over a per-layer KV cache, int8 under
-  `LlavaConfig.kv_quant`. A decoder whose weights `ops.quant.
-  quantize_decoder` has quantised runs through the same functions.
+  `LlavaConfig.kv_quant`; with a generator (or given noise) and a
+  temperature it samples (`generate_sample`, `models/sampling.py`). A
+  decoder whose weights `ops.quant.quantize_decoder` has quantised runs
+  through the same functions. `models/decode.py` runs the same step as
+  chunks replayed from CUDA graphs;
+- `generate_beam` is HF's beam search over a [B*k] batch, the cache
+  reordered by a gather over its batch axis each step;
+- `generate_speculative` verifies prompt-lookup drafts (`models/
+  speculative.py`), one verify round a captured CUDA graph on the card.
 
 Not ported yet: `visual_keep` pruning, MoF and perceiver projectors,
-context and pipeline parallelism, beam search, sampling and speculative
-decoding.
+context and pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from ..ops.quant import materialize_quantized
 from . import llama as L
 from .layers import init_weights
 from .projector import Projector
+from .sampling import sample_token
 from .splice import IGNORE_INDEX, splice_embeds, splice_plan
 from .towers import TowerEntry, TowerSpec, parse_tower_spec
 from .vit import ViTTower
@@ -184,10 +191,13 @@ class Prefill:
 
 @torch.inference_mode()
 def prefill(params: LlavaParams, cfg: LlavaConfig, input_ids, text_mask,
-            pixel_values, *, max_new_tokens: int) -> Prefill:
-    """Tower + projector + splice + decoder prefill into a fresh cache of
-    l_out + max_new_tokens slots. The spliced batch is right-padded, which
-    is the flash prefill's contract (kernel 2 takes no padding mask)."""
+            pixel_values, *, max_new_tokens: int,
+            cache: Optional[L.Cache] = None) -> Prefill:
+    """Tower + projector + splice + decoder prefill into a cache of l_out +
+    max_new_tokens slots: a fresh one, or `cache`, zeroed first (so that a
+    cache used again gives the bits of a fresh one). The spliced batch is
+    right-padded, which is the flash prefill's contract (kernel 2 takes no
+    padding mask)."""
     dec = params.decoder
     b = input_ids.shape[0]
     plan = splice_plan(input_ids, torch.full_like(input_ids, IGNORE_INDEX),
@@ -196,9 +206,18 @@ def prefill(params: LlavaParams, cfg: LlavaConfig, input_ids, text_mask,
     txt = L.embed_tokens(dec, input_ids)
     embeds = splice_embeds(plan, txt, img)
     l_out = embeds.shape[1]
-    cache = L.init_cache(cfg.decoder, b, l_out + max_new_tokens,
-                         dec.precision.compute_dtype, embeds.device,
-                         quant=cfg.kv_quant)
+    if cache is None:
+        cache = L.init_cache(cfg.decoder, b, l_out + max_new_tokens,
+                             dec.precision.compute_dtype, embeds.device,
+                             quant=cfg.kv_quant)
+    else:
+        if cache[0][0].shape[:2] != (b, l_out + max_new_tokens):
+            raise ValueError(f"prefill: a cache of {tuple(cache[0][0].shape[:2])}"
+                             f" [B, T] slots for B={b}, T={l_out} + "
+                             f"{max_new_tokens}")
+        for layer in cache:
+            for x in layer:
+                x.zero_()
     slot_valid = torch.cat(
         [plan.attn_mask,
          torch.zeros((b, max_new_tokens), dtype=torch.bool,
@@ -231,17 +250,34 @@ def decode_step(params: LlavaParams, pre: Prefill, tok, t: int):
 @torch.inference_mode()
 def generate_greedy(params: LlavaParams, cfg: LlavaConfig, input_ids,
                     text_mask, pixel_values, *, max_new_tokens: int,
-                    eos_id: int) -> torch.Tensor:
+                    eos_id: int, generator: Optional[torch.Generator] = None,
+                    temperature: float = 0.0, top_p: float = 1.0,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy decode. Returns [B, max_new_tokens] token ids, eos-padded.
 
     Same tokens as the JAX `generate_greedy`: the first token comes from the
     prefill; once a row has emitted `eos_id` every later token of that row
     is `eos_id`. The loop stops as soon as every row is done, or before the
-    forward whose result would not be returned."""
+    forward whose result would not be returned.
+
+    With `temperature > 0` and a `generator` (or `noise`) it samples
+    instead (`models.sampling.sample_token`, see `generate_sample`).
+    `noise` [max_new_tokens, B, V] holds the Gumbel draws: row 0 for the
+    prefill's token, row t + 1 for step t's (the JAX function's `first_key`
+    and `keys[t]`)."""
+    sampling = (generator is not None or noise is not None) \
+        and temperature > 0
+
+    def next_tok(logits, i):
+        if not sampling:
+            return logits.argmax(dim=-1)
+        return sample_token(logits, generator, temperature, top_p,
+                            noise=None if noise is None else noise[i])
+
     pre = prefill(params, cfg, input_ids, text_mask, pixel_values,
                   max_new_tokens=max_new_tokens)
     b = input_ids.shape[0]
-    tok = pre.logits.argmax(dim=-1)
+    tok = next_tok(pre.logits, 0)
     out = torch.full((b, max_new_tokens), eos_id, dtype=torch.long,
                      device=tok.device)
     done = torch.zeros(b, dtype=torch.bool, device=tok.device)
@@ -250,6 +286,163 @@ def generate_greedy(params: LlavaParams, cfg: LlavaConfig, input_ids,
         done |= tok == eos_id
         if t == max_new_tokens - 1 or bool(done.all()):
             break
-        nxt = decode_step(params, pre, tok, t).argmax(dim=-1)
+        nxt = next_tok(decode_step(params, pre, tok, t), t + 1)
         tok = torch.where(done, torch.full_like(nxt, eos_id), nxt)
     return out
+
+
+def generate_sample(params: LlavaParams, cfg: LlavaConfig, input_ids,
+                    text_mask, pixel_values, *, max_new_tokens: int,
+                    eos_id: int, generator: Optional[torch.Generator] = None,
+                    temperature: float = 1.0, top_p: float = 1.0,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Temperature / top-p sampling decode: the reference's
+    `generate(do_sample=True, temperature=..., top_p=...)`. The draws come
+    from `generator` (a `torch.Generator` on the model's device) or from
+    `noise` (see `generate_greedy`); `temperature <= 0` is greedy."""
+    if generator is None and noise is None and temperature > 0:
+        raise ValueError("generate_sample needs a generator or noise")
+    return generate_greedy(params, cfg, input_ids, text_mask, pixel_values,
+                           max_new_tokens=max_new_tokens, eos_id=eos_id,
+                           generator=generator, temperature=temperature,
+                           top_p=top_p, noise=noise)
+
+
+def _top_k(x, k: int):
+    """`lax.top_k` over the last axis: the k largest, descending, equal
+    values in index order (a stable sort)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+@torch.inference_mode()
+def generate_beam(params: LlavaParams, cfg: LlavaConfig, input_ids,
+                  text_mask, pixel_values, *, max_new_tokens: int,
+                  eos_id: int, num_beams: int,
+                  length_penalty: float = 1.0, return_scores: bool = False):
+    """Beam-search decode (HF `generate(num_beams=k)`, `early_stopping=
+    False`). Returns [B, max_new_tokens] token ids of each row's best beam,
+    eos-padded; with `return_scores` also the finished pool's scores [B, k]
+    (fp32, best first).
+
+    The bookkeeping is HF's vectorised `_beam_search`, as the JAX function
+    has it: each step keeps the top 2k of the k*V continuations; candidates
+    that hit a stopping criterion (EOS, or the last step) and rank in the
+    top k merge into a [B, k] finished pool by `sum_logprobs /
+    gen_len**length_penalty`; the best k unfinished continue; HF's
+    early-stop heuristic latches a row's pool. The masks are additive -1e9
+    in fp32, as HF's. All k beams of all rows decode as one [B*k] batch
+    through the cached step; the prompt's cache is repeated k times after
+    the (flash) prefill, and each step reorders it by a gather over its
+    batch axis (HF `reorder_cache`)."""
+    b = input_ids.shape[0]
+    k = num_beams
+    steps = max_new_tokens
+    pen = float(length_penalty)
+    pre = prefill(params, cfg, input_ids, text_mask, pixel_values,
+                  max_new_tokens=steps)
+    dev = pre.logits.device
+    f32 = torch.float32
+    logprobs = torch.log_softmax(pre.logits.float(), dim=-1)
+    vocab = logprobs.shape[-1]
+    kk = 2 * k            # beams_to_keep = max(2, 1 + n_eos) * k, one EOS
+    neg = torch.tensor(-1e9, dtype=f32, device=dev)
+    top_mask = torch.arange(kk, device=dev) < k   # only top k may finish
+    batch_base = torch.arange(b, device=dev)[:, None] * k
+
+    def beam_update(lp_bkv, state, t: int):
+        """One bookkeeping step at generated position t (0-based)."""
+        run_scores, run_seqs, pool_seqs, pool_scores, pool_fin, unsat = state
+        acc = lp_bkv + run_scores[:, :, None]                  # [B, k, V]
+        topk_lp, flat = _top_k(acc.reshape(b, k * vocab), kk)
+        parent = flat // vocab                                 # [B, 2k]
+        tok2k = flat % vocab
+        cand_seqs = torch.gather(
+            run_seqs, 1, parent[:, :, None].expand(-1, -1, steps)).clone()
+        cand_seqs[:, :, t] = tok2k
+        hits = (tok2k == eos_id) | (t + 1 >= steps)
+        run_lp = topk_lp + hits.to(f32) * neg
+        new_run_scores, idx = _top_k(run_lp, k)
+        new_run_seqs = torch.gather(
+            cand_seqs, 1, idx[:, :, None].expand(-1, -1, steps))
+        sel_parent = torch.gather(parent, 1, idx)
+        sel_tok = torch.gather(tok2k, 1, idx)
+        gen_len = torch.tensor(t + 1, dtype=f32, device=dev)
+        norm = topk_lp / (gen_len ** pen)
+        did_fin = hits & top_mask[None, :]
+        norm = norm + (~unsat).to(f32) * neg
+        norm = norm + (~did_fin).to(f32) * neg
+        merged_scores = torch.cat([pool_scores, norm], dim=1)
+        merged_seqs = torch.cat([pool_seqs, cand_seqs], dim=1)
+        merged_fin = torch.cat([pool_fin, did_fin], dim=1)
+        new_pool_scores, midx = _top_k(merged_scores, k)
+        new_pool_seqs = torch.gather(
+            merged_seqs, 1, midx[:, :, None].expand(-1, -1, steps))
+        new_pool_fin = torch.gather(merged_fin, 1, midx)
+        best_possible = new_run_scores[:, :1] / (gen_len ** pen)
+        worst_fin = torch.where(
+            new_pool_fin, new_pool_scores.amin(dim=1, keepdim=True), neg)
+        new_unsat = unsat & (best_possible > worst_fin).any(dim=-1,
+                                                            keepdim=True)
+        return ((new_run_scores, new_run_seqs, new_pool_seqs,
+                 new_pool_scores, new_pool_fin, new_unsat),
+                sel_parent, sel_tok)
+
+    # HF's running-score init: beam 0 at 0, the rest at -1e9, so step 1's
+    # top 2k are distinct first tokens of one beam
+    run_scores = torch.where(torch.arange(k, device=dev) == 0,
+                             torch.zeros((), dtype=f32, device=dev),
+                             neg)[None].expand(b, k).contiguous()
+    state = (run_scores,
+             torch.full((b, k, steps), eos_id, dtype=torch.long, device=dev),
+             torch.full((b, k, steps), eos_id, dtype=torch.long, device=dev),
+             torch.full((b, k), -1e9, dtype=f32, device=dev),
+             torch.zeros((b, k), dtype=torch.bool, device=dev),
+             torch.ones((b, 1), dtype=torch.bool, device=dev))
+    state, _, tok = beam_update(logprobs[:, None, :].expand(b, k, vocab),
+                                state, 0)
+    # the k beams of a row share its prompt's cache: B -> B*k (identical
+    # copies, so step 1 needs no reorder)
+    cache = [tuple(x.repeat_interleave(k, dim=0) for x in layer)
+             for layer in pre.cache]
+    dec = params.decoder
+    prompt_valid = pre.slot_valid[:, :pre.l_out].repeat_interleave(k, dim=0)
+    pos = pre.n_valid.repeat_interleave(k)
+    gen_slots = torch.arange(steps, device=dev)
+    for t in range(steps - 1):
+        # forward the token chosen for position t, then the bookkeeping for
+        # position t + 1
+        valid = torch.cat([prompt_valid, (gen_slots <= t)[None].expand(
+            b * k, steps)], dim=1)
+        h, _ = dec(L.embed_tokens(dec, tok.reshape(b * k, 1)), pos[:, None],
+                   attn_mask=valid, cache=cache, cache_index=pre.l_out + t)
+        lp = torch.log_softmax(L.logits_fn(dec, h)[:, -1].float(),
+                               dim=-1).reshape(b, k, vocab)
+        state, parent, tok = beam_update(lp, state, t + 1)
+        rows = (batch_base + parent).reshape(b * k)
+        cache = [tuple(x.index_select(0, rows) for x in layer)
+                 for layer in cache]
+        pos = pos + 1
+    # HF finalize: the pool is sorted by score; num_return_sequences=1
+    if return_scores:
+        return state[2][:, 0], state[3]
+    return state[2][:, 0]
+
+
+def generate_speculative(params: LlavaParams, cfg: LlavaConfig, input_ids,
+                         text_mask, pixel_values, *, max_new_tokens: int,
+                         eos_id: int, draft_len: int = 8):
+    """Greedy-equivalent decode with prompt-lookup speculation (`models/
+    speculative.py`) on the full LLaVA path: right-padded ragged batches
+    (positions per row, cache slots shared, acceptance the minimum over
+    rows). Returns ([B, max_new_tokens] tokens, the number of verification
+    rounds).
+
+    A one-off `models.decode.SpeculativeDecoder`: on the card its verify
+    round is captured as a CUDA graph and replayed, so a caller that
+    decodes more than once keeps a decoder (the eval adapter does) and pays
+    the capture once a shape."""
+    from .decode import SpeculativeDecoder   # models/decode.py imports this
+    return SpeculativeDecoder(params, cfg, eos_id=eos_id,
+                              draft_len=draft_len).generate(
+        input_ids, text_mask, pixel_values, max_new_tokens=max_new_tokens)

@@ -684,3 +684,143 @@ def test_kernels_reject_bad_inputs(cuda_device):
         encoder_attention(q, q, q)
     with pytest.raises(ValueError):
         encoder_attention(q.float(), q.float(), q.float())
+
+
+def _narrow_llava(device, quantize, kv_quant):
+    """A narrow LLaVA in bf16 on the card: a 2-layer 112 px tower
+    (head_dim 64), 2 decoder layers of head_dim 128 with GQA (group 2) and
+    an intermediate size kernel 10 takes whole (768)."""
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        BF16_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models import llama as L
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models.towers import (
+        TowerEntry, TowerSpec)
+    from law_of_vision_representation_in_mllms_torch.models.vit import (
+        ViTConfig)
+    from law_of_vision_representation_in_mllms_torch.ops.quant import (
+        quantize_decoder)
+    vit = ViTConfig(image_size=112, patch_size=14, hidden_size=128,
+                    num_layers=2, num_heads=2, intermediate_size=256)
+    entry = TowerEntry(name="narrow-clip-112", kind="vit", vit_config=vit,
+                       vit_family="clip", hidden_size=128,
+                       num_patches=vit.num_patches, img_size=112)
+    cfg = M.LlavaConfig(
+        tower_spec=TowerSpec(entries=[entry], join="single"),
+        decoder=L.LlamaConfig(vocab_size=1000, hidden_size=256,
+                              intermediate_size=768, num_layers=2,
+                              num_heads=2, num_kv_heads=1),
+        kv_quant=kv_quant)
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           BF16_PRECISION, device)
+    if quantize:
+        quantize_decoder(params.decoder, bits=4)
+    rng = np.random.RandomState(1)
+    ids = rng.randint(3, 1000, size=(3, 20))
+    ids[:, 1] = -200
+    mask = np.ones((3, 20), bool)
+    mask[1, 14:] = False
+    mask[2, 9:] = False
+    px = rng.randn(3, 112, 112, 3).astype(np.float32)
+    inputs = (torch.from_numpy(ids).to(device),
+              torch.from_numpy(mask).to(device),
+              [torch.from_numpy(px).to(device)])
+    return cfg, params, inputs
+
+
+@pytest.mark.parametrize("quantize,kv_quant", [(None, None),
+                                               ("int4", "int8")])
+def test_captured_chunk_equals_eager_steps(cuda_device, quantize, kv_quant):
+    """`ChunkedGreedyDecoder` on the card: each chunk of 4 steps is one
+    replayed CUDA graph with kernel 3 (its int8 branch over the int8 cache)
+    and kernel 10 recorded in it. At equal T (8 new tokens, 2 chunks) its
+    tokens and the cache it wrote are the eager steps' bit for bit, and a
+    second `generate` replays the same graphs to the same bits."""
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models.decode import (
+        ChunkedGreedyDecoder)
+    cfg, params, inputs = _narrow_llava(cuda_device, quantize, kv_quant)
+    n_new, layers = 8, cfg.decoder.num_layers
+    # the eager steps: the prefill, then the greedy token of each step fed
+    # to the next (7 forwards; the chunk also forwards the 8th token)
+    pre = M.prefill(params, cfg, *inputs, max_new_tokens=n_new)
+    tok = pre.logits.argmax(-1)
+    want = [tok]
+    for t in range(n_new - 1):
+        tok = M.decode_step(params, pre, tok, t).argmax(-1)
+        want.append(tok)
+    want = torch.stack(want, dim=1)
+    assert torch.equal(want, M.generate_greedy(
+        params, cfg, *inputs, max_new_tokens=n_new, eos_id=-1))
+
+    dec = ChunkedGreedyDecoder(params, cfg, eos_id=-1, chunk=4)
+    got = dec.generate(*inputs, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    assert dec.captures == 1 and dec.replays == 2
+    assert torch.equal(got, want)
+    (st,) = dec._keys.values()
+    written = slice(0, pre.l_out + n_new - 1)
+    for layer_want, layer_got in zip(pre.cache, st.cache):
+        for x_want, x_got in zip(layer_want, layer_got):
+            assert torch.equal(x_got[:, written], x_want[:, written])
+    name = "decode_attention_int8" if kv_quant else "decode_attention"
+    recorded = st.step.launches
+    assert recorded[name] == 4 * layers
+    assert recorded["int4_matmul"] == (4 * (7 * layers + 1)
+                                       if quantize else 0)
+    assert dec.graph_launches()[name] == 2 * 4 * layers
+
+    before = {k: v for k, v in recorded.items()}
+    again = dec.generate(*inputs, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    assert dec.captures == 1 and dec.replays == 4
+    assert torch.equal(again, want)
+    assert st.step.launches == before
+
+
+def test_chunked_decoder_drops_old_keys_on_the_card(cuda_device):
+    """With `max_keys=1` each new key drops the last one's graph and static
+    tensors: three rounds over two keys capture a graph each time, give the
+    first round's tokens bit for bit, and leave the allocated memory where
+    the second round left it."""
+    from law_of_vision_representation_in_mllms_torch.models.decode import (
+        ChunkedGreedyDecoder)
+    cfg, params, inputs = _narrow_llava(cuda_device, None, None)
+    pair = (inputs[0][:2], inputs[1][:2], [inputs[2][0][:2]])
+    dec = ChunkedGreedyDecoder(params, cfg, eos_id=-1, chunk=4)
+    dec.max_keys = 1
+    seen, allocated = [], []
+    for _ in range(3):
+        seen.append((dec.generate(*inputs, max_new_tokens=8).cpu(),
+                     dec.generate(*pair, max_new_tokens=8).cpu()))
+        torch.cuda.synchronize()
+        assert list(dec._keys) == [(2, 20, 8)]
+        allocated.append(torch.cuda.memory_allocated(cuda_device))
+    assert dec.captures == 6
+    for three, two in seen[1:]:
+        assert torch.equal(three, seen[0][0]) and torch.equal(two, seen[0][1])
+    assert allocated[2] == allocated[1]
+
+
+def test_captured_verify_round_equals_eager_rounds(cuda_device, monkeypatch):
+    """`SpeculativeDecoder` on the card: the verify round, captured once and
+    replayed, gives the tokens and the round count of the same rounds run
+    eagerly on the card, bit for bit; a second `generate` on the key replays
+    the same graph to the same result."""
+    from law_of_vision_representation_in_mllms_torch.models import decode as D
+    cfg, params, inputs = _narrow_llava(cuda_device, None, None)
+    dec = D.SpeculativeDecoder(params, cfg, eos_id=-1, draft_len=4)
+    got, rounds = dec.generate(*inputs, max_new_tokens=12)
+    assert dec.captures == 1 and dec.replays == rounds
+    again, again_rounds = dec.generate(*inputs, max_new_tokens=12)
+    assert dec.captures == 1 and dec.replays == 2 * rounds
+    assert torch.equal(again, got) and again_rounds == rounds
+    eager = D.SpeculativeDecoder(params, cfg, eos_id=-1, draft_len=4)
+
+    def run_eagerly(st, fn, device):
+        st.step = D.Replayable(fn, torch.device("cpu"))   # no graph
+        return False
+    monkeypatch.setattr(eager, "_capture", run_eagerly)
+    want, want_rounds = eager.generate(*inputs, max_new_tokens=12)
+    assert eager.captures == 0
+    assert torch.equal(got, want) and rounds == want_rounds

@@ -248,8 +248,17 @@ def test_cli_generate_on_cpu(capsys):
                       "top_p": 1.0}), [])
     assert printed == lmm.generate_until([inst])[0]
     assert printed.startswith("t")
-    with pytest.raises(NotImplementedError):
-        cli.main(argv + ["--temperature", "0.5"])
+    # sampling is ported: `--temperature` draws from the adapter's
+    # generator, seeded by model.sample_seed (0), so a fresh adapter with
+    # the same seed gives the same answer
+    assert cli.main(argv + ["--temperature", "0.5", "--top-p", "0.9"]) == 0
+    sampled = capsys.readouterr().out.strip()
+    inst = Instance("generate_until", {}, 0, "cli",
+                    ("what is in the picture",
+                     {"max_new_tokens": 4, "temperature": 0.5,
+                      "top_p": 0.9}), [])
+    assert sampled == build_lmm(RunConfig.from_dict(TINY),
+                                device="cpu").generate_until([inst])[0]
 
 
 def test_cli_refuses_missing_cuda(monkeypatch):
@@ -288,10 +297,19 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lmm(RunConfig.from_dict(
             {"model": dict(TINY["model"], visual_keep=0.5)}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1: 6"):
+        cli.main(["serve", "--inflight", "--device", "cpu"])
+    # the serving backends are ported: every gen_backend builds, an
+    # unknown one is a ValueError
+    for backend in ("chunked", "speculative"):
+        lmm = build_lmm(RunConfig.from_dict(
+            {"model": dict(TINY["model"], gen_backend=backend),
+             "train": TINY["train"]}), device="cpu")
+        assert lmm.gen_backend == backend
+    with pytest.raises(ValueError, match="gen_backend"):
         build_lmm(RunConfig.from_dict(
-            {"model": dict(TINY["model"], gen_backend="chunked")}),
-            device="cpu")
+            {"model": dict(TINY["model"], gen_backend="no_such_backend"),
+             "train": TINY["train"]}), device="cpu")
     # what no longer raises: the JAX route names build, an unknown one is a
     # ValueError (not a not-ported error)
     for key, value in (("tower_attn_impl", "encoder2_nt"),
