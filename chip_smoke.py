@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, law-chain (A and C
-scores), quantised serving, MPT and training-variant paths on one NVIDIA GPU
-(H100).
+scores), quantised serving, MPT, training-variant and diffusion-tower (SD1.5)
+paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
@@ -9,6 +9,7 @@ scores), quantised serving, MPT and training-variant paths on one NVIDIA GPU
     python3 chip_smoke.py --decode-of ROOT  # kernel 3 of the port in ROOT
     python3 chip_smoke.py --sass-of ROOT    # ROOT's kernels' SASS vs these
     python3 chip_smoke.py --a-score-variants  # kernel 9's floors, in turns
+    python3 chip_smoke.py --sd15-split      # an SD1.5 featurization's split
 
 Phases (any failure raises and exits non-zero; no phase swallows an error):
   1. build the CUDA kernels from law_of_vision_representation_in_mllms_torch/
@@ -35,7 +36,11 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      whole backward call to the same bits; that call (kernel 5 forming δ,
      then kernel 6) is timed in turns with SDPA's backward at B=16 S=639
      and B=2 S=2,048.
-     Kernel 2 also at a stage-1 step's B=16 S=639 and MPT-7B's B=2 S=2,048
+     Kernel 2 also at every attention shape of an SD1.5 forward at 768 px
+     (B=4, 8 heads: D=40 at S=9,216, D=80 at 2,304, D=160 at 576 and 144,
+     each self and cross against 77 text tokens) and SD2.1's 5-head D=64
+     S=9,216 one, each with its launches an SD1.5 forward;
+     kernel 2 also at a stage-1 step's B=16 S=639 and MPT-7B's B=2 S=2,048
      (causal, no bias), kernel 1 also at the dumps' B=1 S=577 and S=257,
      each with its plain version, SDPA and its bound; at every shape of
      kernels 1 and 2 a repeat must give the same bits, and ptxas's
@@ -153,6 +158,17 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      S=2,048 and a forward + backward of the next-token loss; finite logits
      and gradients; the ALiBi form of kernel 2 launched 32 times a pass, of
      kernels 5 and 6 32 times each; tokens/s and peak memory;
+  11. (after phase 7, before phase 9) the SD1.5 representation at full
+     width on seeded random weights, written as a featurizer bundle in a
+     temporary directory and passed as `model.tower_weights`: (a)
+     `extract_features` on one 768 px image, card bf16 against CPU fp32
+     (`SD_FEATURE_REL_TOL`), 14 kernel-2 launches a forward, a repeat's
+     bits, and the featurizer's time at B = 1, 4, 16; (b) `extract-features`
+     over phase 6's synthetic SPair tree at batch 16 and `run_c_score`:
+     images/s, peak memory; (c) LLaVA-1.5-7B over the tower through
+     `build_lmm` -> `generate_until` on phase 4's requests with 768 px
+     images, 32 new tokens: finite logits, kernels 2 (tower and prefill)
+     and 3 launched, TTFT and tokens/s;
   10. (after phase 9) LLaVA-1.5-7B through `run_training`, stage 2, 3 steps
      of 16: `train.lora_enable` (r=128, alpha=256), the same with
      `train.quantize_base=int4` (QLoRA: kernel 10 forward, its transposed
@@ -560,7 +576,7 @@ def attention_case(tag: str, kernel, plain, library, qkv, pairs: int,
     by row (and by its LSE where `kernel` and `plain` return (O, LSE)) and
     to a repeat of itself, then timed (under a CUDA graph) beside the plain
     version, the library call and the bound (`pairs`: the visible
-    query-key pairs of one head)."""
+    query-key pairs of one head; bytes: Q and O, K and V once each)."""
     q, k, v = qkv
     ref, got = plain(q, k, v), kernel(q, k, v)
     lse_bytes, lse_note = 0, ""
@@ -583,8 +599,8 @@ def attention_case(tag: str, kernel, plain, library, qkv, pairs: int,
                 ms=graph_ms(lambda: kernel(q, k, v)),
                 plain_ms=cuda_ms(lambda: plain(q, k, v), iters=5),
                 library_ms=graph_ms(lambda: library(q, k, v)),
-                **bound(4 * q.numel() * 2 + lse_bytes, 4 * d * pairs * b * h,
-                        H100_BF16_TFLOPS))
+                **bound((2 * q.numel() + 2 * k.numel()) * 2 + lse_bytes,
+                        4 * d * pairs * b * h, H100_BF16_TFLOPS))
     print(f"{tag} {shape}: max_abs_err {err:.3e} (tol {tol:.3e}), worst row "
           f"{rows:.3e} of its max|plain| (tol {KERNEL_REL_TOL}){lse_note}, "
           f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
@@ -1508,6 +1524,75 @@ def check_int8_weight_cost(tag: str, dev) -> None:
         del sets
 
 
+# kernel 2 at the UNet's attentions (phase 2): SD1.5 at 768 px (8 heads over
+# 320 / 640 / 1280 channels; the cross attentions read the 77 text tokens)
+# at each batch that phase 11 runs it at: one image (a), the four served
+# requests (c) and the extraction batch of C_BATCH images (b; its tail batch
+# is padded to it); and SD2.1's 5-head D = 64 block-0 attention at B = 4. At
+# D = 40 the launcher takes 64-row blocks at B = 1 and 4 and 128-row ones at
+# B = 16 on 132 SMs, so both instantiations are held here
+SD15_ATTENTION = (
+    # (Sq, Skv, D, what it is)
+    (9216, 9216, 40, "block 0 self"),
+    (9216, 77, 40, "block 0 cross"),
+    (2304, 2304, 80, "block 1 self"),
+    (2304, 77, 80, "block 1 cross"),
+    (576, 576, 160, "block 2 self"),
+    (576, 77, 160, "block 2 cross"),
+    (144, 144, 160, "mid self"),
+    (144, 77, 160, "mid cross"),
+)
+UNET_ATTENTION = tuple(
+    (b, sq, skv, 8, d, "SD1.5 " + what) for b in (1, 4, C_BATCH)
+    for sq, skv, d, what in SD15_ATTENTION) + (
+    (4, 9216, 9216, 5, 64, "SD2.1 block 0 self"),)
+SD15_KERNEL2_LAUNCHES = 14      # kernel-2 launches of one SD1.5 forward
+
+
+def attn_key(sq: int, skv: int, h: int, d: int) -> str:
+    return f"Sq={sq} Skv={skv} H={h} D={d}"
+
+
+def check_unet_attention(tag: str, dev) -> list:
+    """Phase 2, kernel 2 non-causal at every attention shape of an SD1.5
+    forward at 768 px (head sizes 40, 80, 160; Sq != Skv in the cross
+    attentions) at each batch phase 11 launches it at, and at SD2.1's
+    5-head D = 64 one, each held to its plain version row by row and to a
+    repeat, timed beside the plain version and SDPA. The plain version runs
+    one image at a time (its [H, Sq, Skv] fp32 scores are 2.7 GB at
+    S = 9,216). Returns the cases; phase 11 adds to the SD1.5 ones the
+    launches it counts of each shape in one forward."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        flash_attention as fl)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def plain(q, k, v):
+        return torch.cat([fl.flash_attention_plain(q[i:i + 1], k[i:i + 1],
+                                                   v[i:i + 1])
+                          for i in range(q.shape[0])])
+
+    cases = []
+    for b, sq, skv, h, d, what in UNET_ATTENTION:
+        q = torch.randn((b, sq, h, d), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((b, skv, h, d), generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        case = attention_case(
+            tag, lambda q, k, v: fl.flash_attention(q, k, v), plain,
+            lambda q, k, v: sdpa(q, k, v), (q, k, v), sq * skv,
+            f"kernel 2 {what} B={b} {attn_key(sq, skv, h, d)} non-causal")
+        if not case["err"] <= case["tol"]:
+            fail(f"kernel 2 at {case['shape']}: {case['err']} > "
+                 f"{case['tol']}")
+        case.update(what=what, batch=b, attn=attn_key(sq, skv, h, d))
+        cases.append(case)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return cases
+
+
 def check_routes(tag: str, dev) -> None:
     """Phase 2, the tower routes of `model.tower_attn_impl`, each against
     the plain `mha`: `flash` runs kernel 2 non-causal, `encoder2` and
@@ -2063,7 +2148,9 @@ def run_full_width_mpt(tag: str, dev, counters) -> dict:
     return launches
 
 
-def _requests(n: int, crop: int):
+def _requests(n: int, crop: int, diffusion: bool = False):
+    """Phase 4's requests: 30-42 words and one image each, preprocessed
+    for CLIP (or, `diffusion`, to [-1, 1] as a diffusion tower takes it)."""
     import numpy as np
     from law_of_vision_representation_in_mllms_torch.data.image_processing \
         import CLIP_MEAN, CLIP_STD
@@ -2072,8 +2159,11 @@ def _requests(n: int, crop: int):
     reqs = []
     for i in range(n):
         img = rng.rand(crop, crop, 3).astype(np.float32)
-        img = (img - np.asarray(CLIP_MEAN, np.float32)) / np.asarray(
-            CLIP_STD, np.float32)
+        if diffusion:
+            img = img * 2.0 - 1.0
+        else:
+            img = (img - np.asarray(CLIP_MEAN, np.float32)) / np.asarray(
+                CLIP_STD, np.float32)
         prompt = " ".join(rng.choice(WORDS, size=30 + 4 * i))
         reqs.append(Instance("generate_until", {}, i, "smoke",
                              (prompt, {"max_new_tokens": 32}), [img]))
@@ -3715,6 +3805,383 @@ def _check_pinned_fp32(tag: str, C, feature_dir: str, spair_dir: str,
           f"{moved} of {ieee.shape[0] * ieee.shape[1]} window centres")
 
 
+SD15 = "runwayml/stable-diffusion-v1-5"
+SD_SEED = 21
+# phase 11 (a): SD1.5's up-block-0 tokens from the card in bf16 against the
+# CPU in fp32, on the same weights and image, as ||card - CPU|| / ||CPU||.
+# Every activation is rounded to bf16 (2^-9 relative on average) some 250
+# times on the way through the VAE encoder (27 convolutions and norms at up
+# to 768 x 768) and the UNet (26 residual blocks, 7 transformer blocks);
+# independent roundings add in quadrature, sqrt(250) x 2^-9 = 3 %, and the
+# random weights' residual sums keep most of them
+SD_FEATURE_REL_TOL = 5e-2
+
+
+def _sd_image(rng, size: int):
+    """A smooth random image in [-1, 1] (a 32 x 32 colour grid, bilinear)."""
+    import numpy as np
+    from PIL import Image
+    coarse = rng.randint(0, 256, (32, 32, 3), dtype=np.uint8)
+    img = Image.fromarray(coarse).resize((size, size),
+                                         Image.Resampling.BILINEAR)
+    return np.asarray(img, np.float32) / 127.5 - 1.0
+
+
+def run_diffusion_tower(tag: str, dev, counters, unet_cases: list) -> dict:
+    """Phase 11: the SD1.5 representation at full width (VAE encoder
+    (128, 256, 512, 512), UNet (320, 640, 1280, 1280) with 8 heads, up block
+    0 harvested: 576 tokens of 1280 at 768 px) on seeded random weights,
+    written as a featurizer bundle in a temporary directory and read back
+    through `model.tower_weights`, as a user's ported bundle is:
+    (a) `extract_features` on one image, card bf16 against CPU fp32, 14
+        kernel-2 launches a forward, a repeat's bits;
+    (b) `extract-features` over a synthetic SPair tree (phase 6's
+        generator) at batch 16, then `run_c_score` on the card;
+    (c) LLaVA-1.5-7B (`mlp2x_gelu` 1280 -> 4096, Vicuna-7B) through
+        `build_lmm` -> `generate_until` on phase 4's four requests with
+        768 px images, 32 new tokens: finite logits, kernel 2 (tower and
+        prefill) and kernel 3 launched, TTFT and tokens/s.
+    Every tower attention of (a)-(c) is recorded by its shape, which must be
+    one that phase 2 held to its plain version (`unet_cases`); each SD1.5
+    case gets the launches of its shape counted in (a)'s forward. Returns
+    the launches of each path, counted from 0."""
+    import collections
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch import cli
+    from law_of_vision_representation_in_mllms_torch.core.config import (
+        RunConfig)
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        BF16_PRECISION, FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.eval.runner import (
+        build_lmm)
+    from law_of_vision_representation_in_mllms_torch.io import (
+        featurizer_bundle as FB, from_jax)
+    from law_of_vision_representation_in_mllms_torch.models import (
+        diffusion_blocks as DB, featurizer as F, llava as M,
+        tower_runtime as TR)
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        init_weights)
+    from law_of_vision_representation_in_mllms_torch.pipeline import (
+        features as pfeat, runner as prunner)
+
+    def attn_shape(args, out):      # the card's launches; None on the CPU
+        (b, sq, h, d), skv = args[0].shape, args[1].shape[1]
+        return (b, sq, skv, h, d) if args[0].is_cuda else None
+
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="lvr_sd15_")
+    seen = _Spy(DB, "flash_attention", keep=attn_shape).__enter__()
+    try:
+        # the bundle: seeded random fp32 weights, built on the card ------
+        cfg = F.FEATURIZER_PRESETS[SD15]()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SD_SEED)
+        own = F.FeaturizerParams(cfg, FP32_PRECISION, device=dev)
+        init_weights(own, gen)
+        own.prompt_embeds.normal_(generator=gen)
+        n_params = sum(p.numel() for p in own.parameters())
+        bundle = FB.save_featurizer_bundle(os.path.join(tmp, "sd15"), own,
+                                           cfg)
+        del own
+        torch.cuda.empty_cache()
+        print(f"{tag} SD1.5 featurizer ({n_params / 1e6:.1f} M params: VAE "
+              f"encoder + UNet through up block 0, seeded random) written "
+              f"as a bundle of {os.path.getsize(bundle) / 1e9:.2f} GB in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # (a) one image, card bf16 against CPU fp32 ----------------------
+        tree, bcfg = FB.load_featurizer_bundle(bundle)
+        sd = from_jax.featurizer_state_dict(tree)
+        del tree
+        card = F.FeaturizerParams.for_state_dict(sd, bcfg, BF16_PRECISION,
+                                                 device=dev)
+        cpu = F.FeaturizerParams.for_state_dict(sd, bcfg, FP32_PRECISION)
+        del sd
+        px = torch.from_numpy(_sd_image(np.random.RandomState(SD_SEED),
+                                        cfg.img_size))[None]
+        F.extract_features(card, bcfg, px.to(dev), deterministic=True)
+        torch.cuda.synchronize(dev)
+        with _Spy(DB, "flash_attention", keep=attn_shape) as one:
+            got, launches = counted_run(counters, lambda: F.extract_features(
+                card, bcfg, px.to(dev), deterministic=True))
+        paths["sd15_features"] = launches
+        want_launches = {"flash_attention": SD15_KERNEL2_LAUNCHES}
+        if any(launches[k] != want_launches.get(k, 0) for k in launches):
+            fail(f"SD1.5 forward launches {launches}, not {want_launches}")
+        by_shape = collections.Counter(attn_key(*k[1:]) for k in one.kept)
+        sd15 = {c["attn"] for c in unet_cases if c["what"][:5] == "SD1.5"}
+        if sum(by_shape.values()) != SD15_KERNEL2_LAUNCHES or \
+                not set(by_shape) <= sd15:
+            fail(f"SD1.5 forward: tower attentions {dict(by_shape)}, not "
+                 f"{SD15_KERNEL2_LAUNCHES} at phase 2's shapes")
+        for c in unet_cases:
+            if c["what"][:5] == "SD1.5":
+                c["launches_per_sd15_forward"] = by_shape[c["attn"]]
+        print(f"{tag} phase 11 (a) kernel-2 launches of one SD1.5 forward "
+              f"by shape (counted): {dict(by_shape)}")
+        again = F.extract_features(card, bcfg, px.to(dev), deterministic=True)
+        if not torch.equal(got, again):
+            fail("SD1.5 features: a repeat on the card gave other bits")
+        t0 = time.perf_counter()
+        ref = F.extract_features(cpu, bcfg, px, deterministic=True)
+        cpu_s = time.perf_counter() - t0
+        del cpu
+        grid, dim = F.feature_grid(bcfg), F.feature_dim(bcfg)
+        if got.shape != (1, grid * grid, dim) or ref.shape != got.shape:
+            fail(f"SD1.5 features {tuple(got.shape)}, CPU "
+                 f"{tuple(ref.shape)}, not (1, {grid * grid}, {dim})")
+        if not torch.isfinite(got).all():
+            fail("SD1.5 features on the card are not finite")
+        diff = got.float().cpu() - ref
+        rel = (diff.norm() / ref.norm()).item()
+        rel_max = (diff.abs().max() / ref.abs().max()).item()
+        cos = torch.nn.functional.cosine_similarity(
+            got.float().cpu()[0], ref[0], dim=-1)
+        card_ms = cuda_ms(lambda: F.extract_features(
+            card, bcfg, px.to(dev), deterministic=True), iters=3, warmup=1)
+        print(f"{tag} phase 11 (a) SD1.5 extract_features, one 768 px image: "
+              f"{tuple(got.shape)} tokens; card bf16 vs CPU fp32 "
+              f"||diff|| / ||CPU|| {rel:.3e} (tol {SD_FEATURE_REL_TOL}), "
+              f"max|diff| / max|CPU| {rel_max:.3e}, token cosine min "
+              f"{cos.min().item():.5f} mean {cos.mean().item():.5f}; "
+              f"max|CPU| {ref.abs().max().item():.3e}; a repeat's bits "
+              f"equal; launches {launches}; card {card_ms:.2f} ms, CPU "
+              f"{cpu_s:.2f} s")
+        if not rel <= SD_FEATURE_REL_TOL:
+            fail(f"SD1.5 features: card bf16 against CPU fp32 {rel} > "
+                 f"{SD_FEATURE_REL_TOL}")
+        for b in (1, 4, C_BATCH):
+            xb = px.to(dev).expand(b, -1, -1, -1).contiguous()
+            ms = cuda_ms(lambda: F.extract_features(card, bcfg, xb,
+                                                    deterministic=True),
+                         iters=3, warmup=1)
+            print(f"{tag} phase 11 SD1.5 featurizer at B={b}: {ms:.2f} ms a "
+                  f"call, {b / ms * 1e3:.2f} images/s (synced, the card "
+                  f"alone)")
+        del card, got, again, ref, diff
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) extract-features over a synthetic SPair tree, run_c_score --
+        root = os.path.join(tmp, "SPair-71k")
+        n_images = _spair_tree(root, C_IMAGES, C_PAIRS)
+        out_dir = os.path.join(tmp, "spair_sd15")
+        argv = ["extract-features", "--images",
+                os.path.join(root, "JPEGImages"), "--out-dir", out_dir,
+                "--batch-size", str(C_BATCH), "--device", str(dev),
+                "--set", "model.vision_tower=" + SD15,
+                "--set", f"model.tower_weights={bundle}",
+                "--set", "model.decoder_layers=2"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        with _Spy(prunner, "extract_tower_features", dev) as ext, \
+                _Spy(pfeat, "preprocess_image") as prep, \
+                _Spy(TR, "extract_features", dev) as fwd, \
+                contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = cli.main(argv)
+        total_s = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        calls = -(-n_images // C_BATCH)
+        if rc != 0 or said.getvalue().strip() != (
+                f"extracted {n_images} feature files to {out_dir}"):
+            fail(f"SD1.5 extract-features: rc {rc}, said "
+                 f"{said.getvalue()!r}")
+        if [len(ext.seconds), len(fwd.seconds)] != [1, calls]:
+            fail(f"SD1.5 extract-features: {len(fwd.seconds)} tower calls, "
+                 f"not {calls}")
+        files = sorted(f for f in os.listdir(out_dir) if f.endswith(".npy"))
+        shape = (grid * grid, dim)
+        if len(files) != n_images:
+            fail(f"SD1.5: {len(files)} feature files, not {n_images}")
+        for f in files[:C_BATCH]:
+            x = np.load(os.path.join(out_dir, f))
+            if x.shape != shape or not np.isfinite(x).all():
+                fail(f"SD1.5: {f} is not a finite fp32 {shape}")
+        extract_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        res, parts, _ = _c_score_run(root, out_dir, grid, dev,
+                                     lambda args, out: None)
+        launches = read_counts(counters)
+        paths["sd15_c_score"] = launches
+        want = {"flash_attention": SD15_KERNEL2_LAUNCHES * calls}
+        if any(launches[k] != want.get(k, 0) for k in launches):
+            fail(f"SD1.5 C-score launches {launches}, not {want}")
+        for key in ("per_img", "per_kpt", "geo"):
+            if not all(0.0 <= v <= 1.0 for v in res[key]):
+                fail(f"SD1.5: {key} {res[key]} is not in [0, 1]")
+        ext_s = ext.seconds[0]
+        print(f"{tag} phase 11 (b) SD1.5 C score ({n_images} images, "
+              f"{C_PAIRS * 18} pairs, batch {C_BATCH}): per_img "
+              f"PCK@.10/.05/.01 {', '.join(f'{v:.4f}' for v in res['per_img'])}"
+              f", per_kpt {res['per_kpt'][0]:.4f}, geo {res['geo'][0]:.4f}; "
+              f"extraction {n_images / ext_s:.2f} images/s ({ext_s:.2f} s: "
+              f"preprocess_image {sum(prep.seconds):.2f} (host), tower calls "
+              f"{sum(fwd.seconds):.2f} (card, synced); the build with a "
+              f"2-layer decoder {total_s - ext_s:.2f} s apart); extraction "
+              f"peak memory allocated {extract_peak:.2f} GB; run_c_score "
+              f"{parts['total']:.2f} s (feature files {parts['features']:.2f}"
+              f", compute_pck_batch {parts['device']:.3f}); launches "
+              f"{launches}")
+        shutil.rmtree(out_dir)
+        shutil.rmtree(root)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) LLaVA-1.5-7B over the SD1.5 tower, served -----------------
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        lmm = build_lmm(RunConfig.from_dict({"model": {
+            "vision_tower": SD15, "tower_weights": [bundle]}}), device=dev)
+        torch.cuda.synchronize(dev)
+        print(f"{tag} phase 11 (c) LLaVA-1.5-7B over SD1.5 (576 tokens of "
+              f"1280 -> mlp2x_gelu -> 4096) built in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+        reqs = _requests(4, lmm.processors[0].crop, diffusion=True)
+        graph_dec = lmm.chunked_decoder()
+        texts, launches = counted_run(
+            counters, lambda: lmm.generate_until(reqs), graph_dec)
+        paths["sd15_serve"] = launches
+        dec = lmm.cfg.decoder
+        if launches["flash_attention"] != SD15_KERNEL2_LAUNCHES + \
+                dec.num_layers:
+            fail(f"SD1.5 serving: kernel 2 ran {launches['flash_attention']}"
+                 f" times, not {SD15_KERNEL2_LAUNCHES} (tower) + "
+                 f"{dec.num_layers} (prefill)")
+        if launches["decode_attention"] < dec.num_layers or \
+                launches["encoder_attention"]:
+            fail(f"SD1.5 serving launches {launches}")
+        ids, mask, pixels = lmm._encode_batch(reqs)
+        pre = M.prefill(lmm.params, lmm.cfg, ids, mask, pixels,
+                        max_new_tokens=2)
+        if not (torch.isfinite(pre.logits).all()
+                and pre.logits.shape == (4, dec.vocab_size)):
+            fail("SD1.5 serving: the prefill's logits are not finite [B, V]")
+        del pre
+        ttft_s = timed_s(lambda: M.prefill(
+            lmm.params, lmm.cfg, ids, mask, pixels, max_new_tokens=32), dev)
+        gen_s = timed_s(lambda: lmm.generate_until(reqs), dev, reps=2)
+        n_tok = 4 * 32
+        print(f"{tag} phase 11 (c) SD1.5 serving (B=4, 768 px, S="
+              f"{ids.shape[1] + lmm.cfg.num_patches - 1}, 32 new tokens, "
+              f"the graph path): TTFT (tower + projector + prefill) "
+              f"{ttft_s * 1e3:.2f} ms; generate_until {gen_s * 1e3:.2f} ms, "
+              f"{n_tok / (gen_s - ttft_s):.1f} tokens/s after the first "
+              f"token ({n_tok / gen_s:.1f} with it); launches {launches}; "
+              f"peak memory allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; sample "
+              f"answer {texts[0][:60]!r}")
+        print(f"{tag} phase 11 (d) SD1.5 as a fourth representation of "
+              f"phase 6's law chain: not run (optional); (a)-(c) drive the "
+              f"SD1.5 tower through the entry points the law chain calls")
+        del lmm, graph_dec
+        checked = {(c["batch"], c["attn"]) for c in unet_cases}
+        ran = collections.Counter((k[0], attn_key(*k[1:])) for k in seen.kept
+                                  if k is not None)
+        if not set(ran) <= checked:
+            fail(f"phase 11 ran tower attentions that phase 2 did not hold "
+                 f"to the plain version: {sorted(set(ran) - checked)}")
+        print(f"{tag} phase 11 tower attentions by (B, shape), each held to "
+              f"its plain version in phase 2: {dict(sorted(ran.items()))}")
+    finally:
+        seen.__exit__()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def sd15_split() -> int:
+    """`--sd15-split`: where an SD1.5 featurization's device time goes at
+    768 px (seeded random bf16 weights): the VAE encoder and the UNet pass
+    timed apart by CUDA events at B = 1, 4 and 16, then one B = 16 call
+    under torch.profiler, its device time by kernel family."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, REPO)
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        BF16_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models import (
+        featurizer as F)
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        init_weights)
+    from law_of_vision_representation_in_mllms_torch.ops import _build
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tag = f"[{card_line()}]"
+    _build.library()
+    cfg = F.FEATURIZER_PRESETS[SD15]()
+    params = F.FeaturizerParams(cfg, BF16_PRECISION, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SD_SEED)
+    init_weights(params, gen)
+    params.prompt_embeds.normal_(generator=gen)
+    px1 = torch.from_numpy(_sd_image(np.random.RandomState(SD_SEED),
+                                     cfg.img_size))[None].to(dev)
+    for b in (1, 4, C_BATCH):
+        px = px1.expand(b, -1, -1, -1).contiguous()
+        with torch.no_grad():
+            noisy = F._noisy_latents(params, cfg, px, None,
+                                     deterministic=True)
+            ctx = params.prompt_embeds.expand(b, -1, -1)
+            vae_ms = cuda_ms(lambda: params.vae(px), iters=3, warmup=1)
+            unet_ms = cuda_ms(lambda: params.backbone(noisy, cfg.t, ctx),
+                              iters=3, warmup=1)
+        all_ms = cuda_ms(lambda: F.extract_features(params, cfg, px,
+                                                    deterministic=True),
+                         iters=3, warmup=1)
+        print(f"{tag} SD1.5 featurizer B={b}: whole {all_ms:.2f} ms "
+              f"({b / all_ms * 1e3:.2f} images/s), VAE encoder "
+              f"{vae_ms:.2f} ms, UNet through up block 0 {unet_ms:.2f} ms")
+    families = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        F.extract_features(params, cfg, px, deterministic=True)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        low = e.name.lower()
+        if "flash_fwd" in low:
+            fam = "kernel 2 (UNet attention)"
+        elif "group_norm" in low or "groupnorm" in low:
+            fam = "GroupNorm"
+        elif any(x in low for x in ("conv", "fprop", "implicit", "cudnn",
+                                    "winograd")):
+            fam = "convolution (cuDNN)"
+        elif any(x in low for x in ("gemm", "gemv", "cutlass", "xmma",
+                                    "nvjet", "cublas")):
+            fam = "matmul (cuBLAS)"
+        elif "softmax" in low:
+            fam = "softmax (VAE attention)"
+        elif "memcpy" in low or "memset" in low:
+            fam = "copies and memsets"
+        else:
+            fam = "elementwise, reductions, casts"
+        families[fam] = families.get(fam, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    busy = sum(families.values())
+    if busy == 0.0:
+        print(f"{tag} SD1.5 featurizer profile: no device time recorded")
+        return 0
+    print(f"{tag} SD1.5 featurizer B={C_BATCH}, one call under "
+          f"torch.profiler: wall {wall_ms:.2f} ms, device busy {busy:.2f} "
+          f"ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}: " + ", ".join(
+              f"{fam} {ms:.2f} ms ({ms / busy:.1%})"
+              for fam, ms in sorted(families.items(), key=lambda kv: -kv[1])))
+    return 0
+
+
 def run_law_chain(tag: str, dev, counters) -> tuple:
     """Phase 6: benchmark eval -> embedding dump -> A score -> C score ->
     AC policy at full LLaVA-1.5-7B width through the port's entry points.
@@ -4344,6 +4811,8 @@ def main() -> int:
         return compare_sass(sys.argv[2])
     if sys.argv[1:] == ["--a-score-variants"]:
         return a_score_variants()
+    if sys.argv[1:] == ["--sd15-split"]:
+        return sd15_split()
     sys.path.insert(0, REPO)
     try:
         from law_of_vision_representation_in_mllms_torch.ops import (
@@ -4381,6 +4850,10 @@ def main() -> int:
     check_sass_tf32(tag, lib_path)
 
     kernels = check_kernels(tag, dev)
+    unet_cases = check_unet_attention(tag, dev)
+    kernels["flash_attention"]["cases"] += unet_cases
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels.update(check_flash_bwd(tag, dev))
     kernels.update(check_flash_alibi(tag, dev))
     gc.collect()
@@ -4439,6 +4912,9 @@ def main() -> int:
         paths.update({f"{name}_{k}": v for k, v in backends.items()})
         gc.collect()
         torch.cuda.empty_cache()
+    # the SD1.5 representation at full width (phase 11), also before
+    # torch.profiler first runs: it serves through the chunked decoder
+    paths.update(run_diffusion_tower(tag, dev, counters, unet_cases))
     # MPT-7B and the switch variant, also before torch.profiler first runs;
     # the LoRA and QLoRA variants each end with a profiled step, after their
     # own steps are timed. Every training step here keeps the device busy
@@ -4497,7 +4973,9 @@ def main() -> int:
             f"{TPU_PKG}/models/vit.py:226 (tower_attn_impl=tpu_flash)"],
         "flash_attention": [
             f"{TPU_PKG}/ops/flash_attention.py:130 (flash_attention_bhsd "
-            f"without ALiBi, tower_attn_impl=flash)"],
+            f"without ALiBi, tower_attn_impl=flash, and every UNet "
+            f"attention of the diffusion towers through flash_mha: head "
+            f"sizes 40, 80, 160 and 64)"],
         "flash_attention_alibi": [
             f"{TPU_PKG}/ops/flash_attention.py:130 (flash_attention_bhsd "
             f"with alibi_slopes: the same function without the LSE)"],

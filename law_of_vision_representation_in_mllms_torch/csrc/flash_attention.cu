@@ -9,6 +9,9 @@
 // an optional fp32 natural-log LSE output [B, H, Sq]. With `slopes` (fp32
 // [B, H], MPT's ALiBi) logit (i, j) gains slope[b, h]·(j − (kv_len − 1)) inside
 // the kernel, as the TPU kernel's `alibi` flag does; no bias tensor exists.
+// Head sizes 64 and 128 take every form; 40, 80 and 160 (the diffusion
+// UNets' attention, `flash_mha` through `flash_attention_bhsd` in the JAX
+// package) are non-causal without ALiBi, on a tile of D rounded up to 64.
 //
 // Bound on the H100: at the Vicuna-7B prefill (B = 4, S = 640, kv_len 600,
 // H = 32, D = 128, causal) a layer is 13.4 GFLOP against 81 MB of Q, K, V and
@@ -53,6 +56,20 @@ extern "C" int lvr_flash_attention(const void* q, const void* k, const void* v,
     }
     return causal ? lvr::launch_flash_fwd<128, true>(args, batch, s)
                   : lvr::launch_flash_fwd<128, false>(args, batch, s);
+  }
+  // the UNet's head sizes (SD1.5's 320 / 640 / 1280 channels over 8 heads):
+  // non-causal, no bias, on a tile of D rounded up to 64
+  if (!causal && !alibi) {
+    switch (head_dim) {
+      case 40:
+        return lvr::launch_flash_fwd<40, false>(args, batch, s);
+      case 80:
+        return lvr::launch_flash_fwd<80, false>(args, batch, s);
+      case 160:
+        return lvr::launch_flash_fwd<160, false>(args, batch, s);
+      default:
+        break;
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

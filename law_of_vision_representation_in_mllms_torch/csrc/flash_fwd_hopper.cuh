@@ -9,7 +9,10 @@
 //   B2 S2048 H32 D128 causal (MPT-7B): 68.7 GFLOP (0.0695 ms) against
 //     134 MB (0.040 ms): operations;
 //   B4 S577 H16 D64 (the tower, kernel 1): 19 MB (0.0056 ms) against 5.5
-//     GFLOP (0.0055 ms): both.
+//     GFLOP (0.0055 ms): both;
+//   B4 S9216 H8 D40 (SD1.5's 96 x 96 self-attention, non-causal): 435
+//     GFLOP (0.44 ms) against 47 MB: operations; its 77-key
+//     cross-attention, 47 MB (0.014 ms): bytes.
 // A block's work is a few tiles (2.5 on average at S = 640, causal), so
 // what bounds the kernel is how much of its time the tensor cores are fed,
 // its fill and drain included: loads overlap the math, both products run
@@ -50,6 +53,15 @@
 // persistent form that prefetched the next item's tiles (1.0-1.3x slower
 // but at the prefill shape) and a third stage (no gain).
 //
+// Head sizes that are not a multiple of 64 (the UNet's 40, 80 and 160): the
+// tile is Dp = D rounded up to 64 wide, and the tensor maps keep the true D,
+// so TMA reads the columns past D of Q, K and V as zeros (which add nothing
+// to Q Kᵀ or P V) and clips the O store at D. Q Kᵀ walks only ceil(D / 16)
+// k16 steps; P V at Dp = 192 is an n128 and an n64 chain, in the accumulator
+// layout of one n192. TMA needs the row strides 2·D and 2·H·D bytes to be
+// multiples of 16: D = 40, 80, 160 (and 72) qualify. A Dp = 192 block holds
+// one warpgroup (a second would need 433 KB of shared memory).
+//
 // Semantics (the plain versions in ops/flash_attention.py and
 // ops/encoder_attention.py): key j is visible to query i iff j < kv_len and
 // (not CAUSAL or j <= i), top-left aligned, Sq and Skv free; ALiBi adds
@@ -71,12 +83,19 @@ namespace hp = hopper;
 constexpr int kFwdTileK = 128;         // keys a tile
 constexpr int kFwdStages = 2;          // K and V tiles in flight
 
+// the tile width of head size D: D rounded up to a multiple of 64
+template <int D>
+constexpr int padded_head_dim() {
+  return (D + 63) / 64 * 64;
+}
+
 template <int D, int NCONS>
 struct FwdShape {
+  static constexpr int kDp = padded_head_dim<D>();
   static constexpr int kRows = 64 * NCONS;               // query rows a block
   static constexpr int kThreads = 128 * NCONS;
-  static constexpr int kQBytes = kRows * D * 2;          // D / 64 boxes
-  static constexpr int kTileBytes = kFwdTileK * D * 2;   // a K or V stage
+  static constexpr int kQBytes = kRows * kDp * 2;        // Dp / 64 boxes
+  static constexpr int kTileBytes = kFwdTileK * kDp * 2; // a K or V stage
   static constexpr int kOffK = kQBytes;
   static constexpr int kOffV = kOffK + kFwdStages * kTileBytes;
   static constexpr int kOffBar = kOffV + kFwdStages * kTileBytes;
@@ -91,13 +110,15 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 // S[64 x 128] = Q Kᵀ. Q (this warpgroup's 64 rows of a box of ROWS rows) and
-// the K tile are K-major, D / 64 boxes of 128-byte rows: a k16 step moves
-// 32 bytes along a row, and every fourth starts the next box.
+// the K tile are K-major, Dp / 64 boxes of 128-byte rows: a k16 step moves
+// 32 bytes along a row, and every fourth starts the next box. Only the
+// ceil(D / 16) steps that hold columns below D are taken (past D both
+// operands are zeros).
 template <int D, int ROWS>
 __device__ __forceinline__ void qk_gemm(float (&s)[64], uint32_t q,
                                         uint32_t k) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < (D + 15) / 16; ++kk) {
     const uint32_t col = (kk & 3) * 32;
     hp::wgmma_m64n128k16<0>(
         s, hp::sw128_desc(q + (kk >> 2) * (ROWS * 128) + col, 16, 1024),
@@ -106,21 +127,29 @@ __device__ __forceinline__ void qk_gemm(float (&s)[64], uint32_t q,
   }
 }
 
-// O[64 x D] += P V. P from registers (pf[kk]: keys 16kk..16kk+15), V
-// MN-major: keys are its rows, D / 64 boxes of 64 columns; a k16 step is 16
-// rows (2 KB), LBO the next box.
-template <int D>
-__device__ __forceinline__ void pv_gemm(float (&o)[D / 2],
+// O[64 x Dp] += P V. P from registers (pf[kk]: keys 16kk..16kk+15), V
+// MN-major: keys are its rows, Dp / 64 boxes of 64 columns; a k16 step is 16
+// rows (2 KB), LBO the next box. At Dp = 192 an n128 chain covers boxes 0-1
+// and an n64 chain box 2, into o[64..95]: the registers one n192 would use.
+template <int Dp>
+__device__ __forceinline__ void pv_gemm(float (&o)[Dp / 2],
                                         const uint32_t (&pf)[8][4],
                                         uint32_t v) {
 #pragma unroll
   for (int kk = 0; kk < kFwdTileK / 16; ++kk) {
     const uint64_t db =
         hp::sw128_desc(v + kk * 16 * 128, kFwdTileK * 128, 1024);
-    if constexpr (D == 128) {
-      hp::wgmma_m64n128k16_rs_t<1>(o, pf[kk], db, 1);
-    } else {
+    if constexpr (Dp == 64) {
       hp::wgmma_m64n64k16_rs_t<1>(o, pf[kk], db, 1);
+    } else {
+      hp::wgmma_m64n128k16_rs_t<1>(
+          *reinterpret_cast<float(*)[64]>(&o[0]), pf[kk], db, 1);
+    }
+    if constexpr (Dp == 192) {
+      const uint64_t db2 = hp::sw128_desc(
+          v + 2 * (kFwdTileK * 128) + kk * 16 * 128, kFwdTileK * 128, 1024);
+      hp::wgmma_m64n64k16_rs_t<1>(*reinterpret_cast<float(*)[32]>(&o[64]),
+                                  pf[kk], db2, 1);
     }
   }
 }
@@ -212,7 +241,8 @@ __global__ void __launch_bounds__(FwdShape<D, NCONS>::kThreads, 1)
                            const __grid_constant__ CUtensorMap o_map,
                            const AttnArgs p) {
   using L = FwdShape<D, NCONS>;
-  constexpr int kBoxes = D / 64;
+  constexpr int kDp = L::kDp;
+  constexpr int kBoxes = kDp / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::kOffBar;
@@ -322,9 +352,9 @@ __global__ void __launch_bounds__(FwdShape<D, NCONS>::kThreads, 1)
     }
   };
 
-  float o[D / 2];
+  float o[kDp / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDp / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float alpha[2] = {1.f, 1.f};
   if (n_tiles > 0) {
@@ -356,7 +386,7 @@ __global__ void __launch_bounds__(FwdShape<D, NCONS>::kThreads, 1)
       scale_rows(o, alpha);
       hp::mbar_wait(v_full + 8 * sp, ((i - 1) / kFwdStages) & 1);
       hp::wgmma_fence();
-      pv_gemm<D>(o, pf, base + L::kOffV + sp * L::kTileBytes);
+      pv_gemm<kDp>(o, pf, base + L::kOffV + sp * L::kTileBytes);
       hp::wgmma_commit();
       turn_pass(i);
       hp::fence_regs(s);
@@ -379,7 +409,7 @@ __global__ void __launch_bounds__(FwdShape<D, NCONS>::kThreads, 1)
     scale_rows(o, alpha);
     hp::mbar_wait(v_full + 8 * sl, ((n_tiles - 1) / kFwdStages) & 1);
     hp::wgmma_fence();
-    pv_gemm<D>(o, pf, base + L::kOffV + sl * L::kTileBytes);
+    pv_gemm<kDp>(o, pf, base + L::kOffV + sl * L::kTileBytes);
     hp::wgmma_commit();
     hp::fence_regs(o);
     hp::wgmma_wait<0>();
@@ -390,8 +420,8 @@ __global__ void __launch_bounds__(FwdShape<D, NCONS>::kThreads, 1)
 
   // ---- epilogue: O / l as bf16 into this warpgroup's rows of the Q tile
   // (every product that read them has completed), in Q's swizzled layout,
-  // then one TMA store a 64-column box (rows past Sq are not written); the
-  // natural-log LSE ----
+  // then one TMA store a 64-column box (rows past Sq and columns past D are
+  // not written); the natural-log LSE ----
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -403,7 +433,7 @@ __global__ void __launch_bounds__(FwdShape<D, NCONS>::kThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + (lane >> 2) + 8 * r;   // of the warpgroup
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kDp / 8; ++j) {
       hp::st_shared_b32(
           o_smem + (j >> 3) * (L::kRows * 128) + row * 128 +
               (((j & 7) ^ (row & 7)) << 4) + 4 * t,
@@ -483,27 +513,34 @@ int launch_fwd_blocks(const AttnArgs& args, int batch, cudaStream_t stream) {
 
 // Launch the forward for head size D on `stream`; returns a cudaError_t
 // value. 128-row blocks (two warpgroups in ping-pong), or 64-row ones where
-// those give the SMs less to do: a 64-row block at D = 64 leaves room for
+// those give the SMs less to do: a 64-row block at Dp = 64 leaves room for
 // two more on its SM, so there the rows an SM gets, ceil(blocks / SMs) x
-// rows, decide; at D = 128 a 64-row block holds its SM alone, without
-// ping-pong, so only where they all fit in one wave. (Kernel and launchers
-// have internal linkage: every .cu file that includes this header owns its
+// rows, decide; at Dp = 128 a 64-row block holds its SM alone, without
+// ping-pong, so only where they all fit in one wave; at Dp = 192 only
+// 64-row blocks fit in shared memory. (Kernel and launchers have internal
+// linkage: every .cu file that includes this header owns its
 // instantiations.)
 template <int D, bool CAUSAL, bool ALIBI = false>
 int launch_flash_fwd(const AttnArgs& args, int batch, cudaStream_t stream) {
-  int sms = 0;
-  const int err = sm_count(&sms);
-  if (err != 0) return err;
-  const long heads = static_cast<long>(args.heads) * batch;
-  const long blocks64 = (args.sq + 63) / 64 * heads;
-  const long blocks128 = (args.sq + 127) / 128 * heads;
-  const bool rows64 = D == 64 ? (blocks64 + sms - 1) / sms * 64 <
-                                    (blocks128 + sms - 1) / sms * 128
-                              : blocks64 <= sms;
-  if (rows64) {
+  constexpr int kDp = padded_head_dim<D>();
+  static_assert(kDp <= 192, "head size above 192");
+  if constexpr (kDp == 192) {
     return launch_fwd_blocks<D, 1, CAUSAL, ALIBI>(args, batch, stream);
+  } else {
+    int sms = 0;
+    const int err = sm_count(&sms);
+    if (err != 0) return err;
+    const long heads = static_cast<long>(args.heads) * batch;
+    const long blocks64 = (args.sq + 63) / 64 * heads;
+    const long blocks128 = (args.sq + 127) / 128 * heads;
+    const bool rows64 = kDp == 64 ? (blocks64 + sms - 1) / sms * 64 <
+                                        (blocks128 + sms - 1) / sms * 128
+                                  : blocks64 <= sms;
+    if (rows64) {
+      return launch_fwd_blocks<D, 1, CAUSAL, ALIBI>(args, batch, stream);
+    }
+    return launch_fwd_blocks<D, 2, CAUSAL, ALIBI>(args, batch, stream);
   }
-  return launch_fwd_blocks<D, 2, CAUSAL, ALIBI>(args, batch, stream);
 }
 
 }  // namespace

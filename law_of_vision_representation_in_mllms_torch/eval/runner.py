@@ -35,7 +35,9 @@ def build_lmm(cfg: RunConfig, *, device) -> LlavaLMM:
     the CUDA kernels require; otherwise everything is fp32 (CPU only).
     `model.quantize=int8|int4` builds the decoder's matmul weights
     quantised, block by block on `device`: the dense decoder is never whole
-    there."""
+    there. A diffusion tower featurizes deterministically (posterior mean,
+    no noise), as the JAX `build_lmm`'s default `make_diffusion_apply`
+    does (`llava.encode_images`)."""
     from ..train.runner import build_model, build_tokenizer
     precision = BF16_PRECISION if cfg.train.bf16 else FP32_PRECISION
     bits = {"int8": 8, "int4": 4}.get(cfg.model.quantize)

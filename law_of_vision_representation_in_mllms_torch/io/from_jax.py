@@ -28,6 +28,14 @@ Layout mapping:
   bias}`; `mixing_weights`, `logit_scale` and `self_logit_scale` stay as
   they are (one `BottleneckBlock`'s tree maps the same way without the
   `bottlenecks.{i}.` prefix);
+- a diffusion featurizer bundle tree (`vae`, `backbone`, `image_encoder`,
+  `prompt_embeds`; `models/featurizer.py`) becomes a `FeaturizerParams`
+  state dict: the port's modules carry the Flax names, so a path maps
+  name by name, `kernel` to `weight` (a Dense [in, out] transposed, a conv
+  [kh, kw, I, O] to [O, I, kh, kw]), a norm's `scale` to `weight`; the
+  imsd `image_encoder` (CLIPVisionPooled) maps its `encoder` as a ViT tower
+  does, its `post_ln` as a LayerNorm, and keeps `visual_projection`
+  [hidden, projection] and the `prompt_embeds` buffer as they are;
 - a weight-only quantised decoder leaf of the JAX `ops/quant.py` becomes the
   buffers of a `QuantDense`: `{"q8" [in, out], "scale" [1, out]}` ->
   `q8` [out, in], `scale` [out]; `{"q4" [in / 2, out] bytes, "scale"
@@ -199,13 +207,58 @@ def switch_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
     return {f"{prefix}w": _t(tree["w"])}
 
 
+def flax_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
+    """A Flax subtree whose modules the port names the same way (the
+    diffusion blocks) -> their state dict."""
+    out: StateDict = {}
+    _flax_into(tree, prefix, out)
+    return out
+
+
+def _flax_into(tree: Dict[str, Any], prefix: str, out: StateDict) -> None:
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _flax_into(leaf, f"{prefix}{name}.", out)
+            continue
+        a = np.asarray(leaf)
+        if name == "kernel":
+            a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+            name = "weight"
+        elif name == "scale":
+            name = "weight"
+        out[f"{prefix}{name}"] = _t(a)
+
+
+def featurizer_state_dict(tree: Dict[str, Any],
+                          prefix: str = "") -> StateDict:
+    """A JAX featurizer bundle tree -> `models.featurizer.FeaturizerParams`
+    state dict."""
+    out: StateDict = {}
+    for name in ("vae", "backbone"):
+        _flax_into(tree[name], f"{prefix}{name}.", out)
+    if "image_encoder" in tree:
+        enc, p = tree["image_encoder"], f"{prefix}image_encoder."
+        out.update(vit_state_dict(enc, p))
+        _ln(enc["post_ln"], f"{p}post_ln", out)
+        out[f"{p}visual_projection"] = _t(enc["visual_projection"])
+    if "prompt_embeds" in tree:
+        out[f"{prefix}prompt_embeds"] = _t(tree["prompt_embeds"])
+    if "pooled" in tree:
+        raise NotImplementedError(
+            "the SD3 featurizer is not ported to the PyTorch package yet "
+            "(ROADMAP, queue 1: 5, diffusion towers)")
+    return out
+
+
 def llava_state_dict(params: Dict[str, Any]) -> StateDict:
     """Full JAX LLaVA params -> LlavaParams state dict (with the `lora` and
     `switch` subtrees where the tree has them)."""
     out: StateDict = {}
     # a tree of feature pseudo-towers only saves no "towers" key at all
     for i, tower in enumerate(params.get("towers", [])):
-        if tower:                       # {} for a feature pseudo-tower
+        if tower and "vae" in tower:    # a diffusion featurizer
+            out.update(featurizer_state_dict(tower, f"towers.{i}."))
+        elif tower:                     # {} for a feature pseudo-tower
             out.update(vit_state_dict(tower, f"towers.{i}."))
     out.update(projector_state_dict(params["projector"], "projector."))
     out.update(llama_state_dict(params["decoder"], "decoder."))
@@ -375,8 +428,13 @@ def llava_tree(params) -> Dict[str, Any]:
     towers = []
     for i, tower in enumerate(params.towers):
         tsd = _sub(sd, f"towers.{i}.")
-        towers.append(vit_tree(tsd, tower.cfg.patch_size,
-                               tower.cfg.num_channels) if tsd else {})
+        if not tsd:
+            towers.append({})
+        elif "prompt_embeds" in tsd or "vae.conv_in.conv.weight" in tsd:
+            towers.append(featurizer_tree(tsd))
+        else:
+            towers.append(vit_tree(tsd, tower.cfg.patch_size,
+                                   tower.cfg.num_channels))
     tree = {"towers": towers,
             "projector": projector_tree(_sub(sd, "projector.")),
             "decoder": llama_tree(_sub(sd, "decoder."))}
@@ -384,6 +442,46 @@ def llava_tree(params) -> Dict[str, Any]:
         tree["lora"] = lora_tree(_sub(sd, "lora."))
     if params.switch is not None:
         tree["switch"] = switch_tree(_sub(sd, "switch."))
+    return tree
+
+
+def flax_tree(sd: StateDict) -> Dict[str, Any]:
+    """Inverse of `flax_state_dict`: a weight of rank 1 is a norm's
+    `scale`, of rank 2 a Dense kernel, of rank 4 a conv kernel."""
+    tree: Dict[str, Any] = {}
+    for key, t in sd.items():
+        *path, name = key.split(".")
+        a = _np(t)
+        if name == "weight":
+            if a.ndim == 1:
+                name = "scale"
+            else:
+                a = (a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0)).copy()
+                name = "kernel"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = a
+    return tree
+
+
+def featurizer_tree(sd: StateDict) -> Dict[str, Any]:
+    """Inverse of `featurizer_state_dict`: a `FeaturizerParams` state dict
+    -> the JAX bundle tree (numpy fp32) that `save_featurizer_bundle` of
+    either package writes."""
+    tree: Dict[str, Any] = {name: flax_tree(_sub(sd, f"{name}."))
+                            for name in ("vae", "backbone")}
+    enc = _sub(sd, "image_encoder.")
+    if enc:
+        w = enc["encoder.patch_embed.weight"]
+        patch = int(round((w.shape[1] / 3) ** 0.5))
+        sub = vit_tree({k: v for k, v in enc.items()
+                        if k.startswith("encoder.")}, patch)
+        sub["post_ln"] = _ln_tree(enc, "post_ln")
+        sub["visual_projection"] = _np(enc["visual_projection"])
+        tree["image_encoder"] = sub
+    if "prompt_embeds" in sd:
+        tree["prompt_embeds"] = _np(sd["prompt_embeds"])
     return tree
 
 

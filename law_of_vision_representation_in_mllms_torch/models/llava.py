@@ -3,10 +3,15 @@
 
 - `init_params` builds the model's weights directly on the target device in
   the param dtype and fills them from one `torch.Generator`;
-- `encode_images` runs the ViT tower(s) (kernel 1) under `torch.no_grad()`
-  (the JAX `stop_gradient`: towers never train), passes precomputed features
-  of a feature pseudo-tower through, concatenates channels and applies the
-  projector; `dump_image_embeds` is the A-score hook;
+- `encode_images` runs the ViT tower(s) (kernel 1) and the diffusion
+  towers (`models/tower_runtime.py`: the VAE encoder and one UNet pass,
+  kernel 2, deterministic, configured by `LlavaConfig.featurizer_overrides`)
+  under `torch.no_grad()` (the JAX `stop_gradient`: towers never train),
+  passes precomputed features of a feature pseudo-tower through,
+  concatenates channels and applies the projector; `dump_image_embeds` is
+  the A-score hook. The JAX functions take the diffusion apply as an
+  argument; every caller builds the same one from the config, so here
+  `encode_images` builds it;
 - `loss_fn` is the training loss: splice, decoder (kernel 2 forward and
   kernels 5/6 backward on the flash route, optional remat), causal LM loss;
   with `LlavaParams.lora` set the decoder runs with the rank-r adapters
@@ -23,8 +28,8 @@
 - `generate_speculative` verifies prompt-lookup drafts (`models/
   speculative.py`), one verify round a captured CUDA graph on the card.
 
-Not ported yet: `visual_keep` pruning, MoF and perceiver projectors,
-context and pipeline parallelism.
+Not ported yet: `visual_keep` pruning, MoF and perceiver projectors, the
+DiT and SD3 towers, context and pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from .layers import init_weights
 from .projector import Projector
 from .sampling import sample_token
 from .splice import IGNORE_INDEX, splice_embeds, splice_plan
+from .tower_runtime import make_diffusion_apply
 from .towers import TowerEntry, TowerSpec, parse_tower_spec
 from .vit import ViTTower
 
@@ -58,6 +64,9 @@ class LlavaConfig:
     # bytes, resident and read by every decode step (kernel 3's int8
     # branch). The weights are untouched; None is the exact bf16 cache.
     kv_quant: Optional[str] = None
+    # tower name -> the FeaturizerConfig of its bundle (the sidecar), which
+    # `encode_images` takes over the tower's preset
+    featurizer_overrides: Optional[Dict] = None
 
     @classmethod
     def build(cls, tower: str, decoder: Optional[L.LlamaConfig] = None,
@@ -80,9 +89,11 @@ def _select_feature(cfg: LlavaConfig, entry: TowerEntry) -> str:
 
 
 class LlavaParams(nn.Module):
-    """The weights of one LLaVA: `towers` (one ViTTower per spec entry; an
+    """The weights of one LLaVA: `towers` (one ViTTower per ViT entry; an
     `nn.Identity` holds the place of a feature pseudo-tower, which has no
-    weights), `projector` and `decoder` — the JAX params tree's three
+    weights, and of a diffusion tower until `train.runner.build_model` puts
+    its bundle's `FeaturizerParams` there), `projector` and `decoder` — the
+    JAX params tree's three
     subtrees — and the two optional ones of the training variants: `lora`
     (`models.lora.LoraAdapters`) and `switch` (`models.switch.Switch`), None
     until a caller sets them."""
@@ -135,12 +146,20 @@ def encode_images(params: LlavaParams, cfg: LlavaConfig,
                   pixel_values: List[torch.Tensor]) -> torch.Tensor:
     """pixel_values: one NHWC tensor per tower entry (precomputed features
     [B, P, C] for a feature pseudo-tower). Returns projected features
-    [B, P, D_llm] in the compute dtype. The towers run without autograd:
-    they are frozen in every stage."""
+    [B, P, D_llm] in the compute dtype. A diffusion entry runs
+    `tower_runtime.make_diffusion_apply(cfg.featurizer_overrides)`. The
+    towers run without autograd: they are frozen in every stage."""
     cd = params.decoder.precision.compute_dtype
+    feats = []
     with torch.no_grad():
-        feats = [tower(px).to(cd) for tower, px in zip(params.towers,
-                                                       pixel_values)]
+        for tower, e, px in zip(params.towers, cfg.tower_spec.entries,
+                                pixel_values):
+            if e.kind == "diffusion":
+                f = make_diffusion_apply(cfg.featurizer_overrides)(
+                    tower, e, px)
+            else:
+                f = tower(px)
+            feats.append(f.to(cd))
     cat = torch.cat(feats, dim=-1) if len(feats) > 1 else feats[0]
     return params.projector(cat)
 

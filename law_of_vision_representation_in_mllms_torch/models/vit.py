@@ -283,3 +283,29 @@ class ViTTower(nn.Module):
         if self.select_feature == "patch" and self.cfg.use_class_token:
             feats = feats[:, 1:]
         return feats
+
+
+class CLIPVisionPooled(nn.Module):
+    """CLIPVisionModelWithProjection: the whole trunk, post-LN on the CLS
+    token, then `visual_projection` [hidden, projection_dim] (a raw matrix,
+    as in the JAX tree). The SD image-variations featurizer's conditioner
+    (`dift_imsd.py:215-221`); at 224 px its attention is kernel 1 (S = 257,
+    D = 64)."""
+
+    def __init__(self, cfg: ViTConfig, projection_dim: int,
+                 precision: Precision = DEFAULT_PRECISION, *, device=None):
+        super().__init__()
+        self.cfg, self.precision = cfg, precision
+        self.encoder = ViTEncoder(cfg, precision, device=device)
+        self.post_ln = LayerNorm32(cfg.hidden_size, cfg.layer_norm_eps,
+                                   precision, device=device)
+        self.visual_projection = nn.Parameter(
+            torch.empty(cfg.hidden_size, projection_dim, device=device,
+                        dtype=precision.param_dtype), requires_grad=False)
+
+    def reset_parameters(self, generator):
+        self.visual_projection.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, pixel_values):
+        cls = self.post_ln(self.encoder(pixel_values)[:, 0])
+        return cls @ self.visual_projection.to(cls.dtype)

@@ -170,9 +170,10 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def check_inputs(name: str, tensors: dict, head_dim: int) -> None:
+def check_inputs(name: str, tensors: dict, head_dim: int,
+                 head_dims: tuple = (64, 128)) -> None:
     """What every attention kernel requires of its bf16 operands: one CUDA
-    device, contiguous, 16-byte aligned, head size 64 or 128."""
+    device, contiguous, 16-byte aligned, a head size in `head_dims`."""
     device = next(iter(tensors.values())).device
     for arg, t in tensors.items():
         if t.device != device:
@@ -184,8 +185,8 @@ def check_inputs(name: str, tensors: dict, head_dim: int) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-    if head_dim not in (64, 128):
-        raise ValueError(f"{name}: head_dim {head_dim} not in (64, 128)")
+    if head_dim not in head_dims:
+        raise ValueError(f"{name}: head_dim {head_dim} not in {head_dims}")
 
 
 def forbid_grad(name: str, *tensors) -> None:

@@ -55,6 +55,12 @@ never sees a pad key. The splice guarantees it (text is right-padded, the
 image is spliced before the pad); a pad row's labels are ignored, so its dO
 is zero.
 
+Head sizes: 64 and 128 in every form; the forward's non-causal form without
+ALiBi also takes 40, 80 and 160 (`UNET_HEAD_DIMS`), the diffusion UNets'
+attention (the JAX `flash_mha` -> `flash_attention_bhsd`), on a tile of D
+rounded up to 64 whose columns past D TMA reads as zeros. Any other head size
+raises on CUDA; the backward kernels take 64 and 128 only.
+
 Every wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises.
 """
@@ -194,6 +200,12 @@ def _check_shapes(name: str, q, k, v, kv_len):
     return int(kv_len)
 
 
+# head sizes of kernel 2's non-causal, unbiased form: the decoder's 64 and
+# 128, and the diffusion UNets' 40, 80 and 160 (SD1.5's 8 heads over 320,
+# 640 and 1280 channels), which run on a tile of D rounded up to 64
+UNET_HEAD_DIMS = (40, 64, 80, 128, 160)
+
+
 def _flash_forward(q, k, v, causal: bool, kv_len: int, return_lse: bool,
                    slopes=None):
     """Kernel 2 (or its plain version for CPU tensors), no autograd.
@@ -206,7 +218,9 @@ def _flash_forward(q, k, v, causal: bool, kv_len: int, return_lse: bool,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v}, d)
+    plain_form = not causal and slopes is None
+    _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v}, d,
+                        UNET_HEAD_DIMS if plain_form else (64, 128))
     out = q.new_empty(q.shape)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)

@@ -59,6 +59,21 @@ def make_vit_extractor(cfg: ViTConfig, state_or_tower, *,
     return fn
 
 
+def make_diffusion_extractor(tower_params, entry, config_overrides=None, *,
+                             device):
+    """A callable from pixels [B, H, W, 3] in [-1, 1] to the diffusion
+    tower's tokens [B, P, C] on `device`: `tower_params` (the entry's
+    `FeaturizerParams`) through `make_diffusion_apply`, deterministic."""
+    from ..models.tower_runtime import make_diffusion_apply
+    apply = make_diffusion_apply(config_overrides)
+
+    def fn(pixels):
+        with torch.inference_mode():
+            return apply(tower_params, entry, torch.as_tensor(pixels).to(
+                device))
+    return fn
+
+
 def _fits(tower, cfg: ViTConfig, select_layer: int, select_feature: str,
           precision: Precision, device: torch.device) -> bool:
     """Whether `tower` is a `ViTTower` that computes what a tower built

@@ -3,7 +3,9 @@
 
 `build_model` supports ViT towers and the precomputed-feature pseudo-tower
 with seeded random weights, per-tower weights from `model.tower_weights`
-(JAX `param_io` .npz files), a full LLaVA parameter file in
+(JAX `param_io` .npz files; for a UNet-family diffusion tower its featurizer
+bundle, whose `.json` sidecar configuration replaces the tower's preset and
+sets the entry's token grid and width), a full LLaVA parameter file in
 `model.checkpoint` (a `param_io` .npz such as the JAX CLI's `consolidate` or
 the port's `save_train_state` writes, or a directory of `checkpoint-{step}`),
 and a stage-1 projector in `train.pretrain_mm_mlp_adapter`.
@@ -52,9 +54,11 @@ from ..data import (FeatureDataset, SupervisedDataset, collate_batch,
                     get_template, length_grouped_indices)
 from ..data.preprocess import SimpleTokenizer
 from ..io import checkpoint, from_jax
+from ..io.featurizer_bundle import load_featurizer_bundle
 from ..io.param_io import load_params
-from ..models import llama, llava
+from ..models import featurizer, llama, llava
 from ..models.lora import LoraConfig, init_lora
+from ..models.diffusion_blocks import check_attn_impl
 from ..models.switch import init_switch
 from ..models.towers import parse_tower_spec
 from ..models.vit import attention_route
@@ -67,7 +71,6 @@ _NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
 # ROADMAP queue-1 item that brings them
 _UNPORTED = {
     ("model", "visual_keep"): "5, diffusion towers",
-    ("model", "diffusion_attn_impl"): "5, diffusion towers",
 }
 _UNPORTED_TRAIN = {
     ("parallel", "zero"): "10, parallelism",
@@ -103,7 +106,12 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
     dense build followed by `ops.quant.quantize_decoder`, without the dense
     decoder ever being whole on `device`."""
     _refuse(cfg, _UNPORTED)
-    spec = parse_tower_spec(cfg.model.vision_tower)
+    tower_kw = dict(up_ft_index=cfg.model.up_ft_index, t=cfg.model.t,
+                    ensemble_size=cfg.model.ensemble_size)
+    if cfg.model.img_size:
+        tower_kw["img_size"] = cfg.model.img_size
+    spec = parse_tower_spec(cfg.model.vision_tower, **tower_kw)
+    check_attn_impl(cfg.model.diffusion_attn_impl)
     if cfg.model.tower_attn_impl:
         # a JAX route name; each maps onto kernel 1 or kernel 2
         # (models/vit.attention_route), an unknown name raises
@@ -119,6 +127,31 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
                 e.vit_config, hidden_act="gelu_tanh"))
             if e.kind == "vit" and e.vit_config.hidden_act == "gelu" else e
             for e in spec.entries])
+    paths = cfg.model.tower_weights or []
+    if paths and len(paths) != len(spec.entries):
+        raise ValueError(f"model.tower_weights has {len(paths)} paths for "
+                         f"{len(spec.entries)} tower entries")
+    # diffusion bundles: the sidecar's configuration replaces the preset, and
+    # the entry's grid and width are recomputed from it
+    bundles, overrides = {}, {}
+    entries = list(spec.entries)
+    for i, path in enumerate(paths):
+        if path and entries[i].kind == "diffusion":
+            tree, fcfg = load_featurizer_bundle(path)
+            if fcfg is not None:
+                fcfg = dataclasses.replace(
+                    fcfg, t=entries[i].t,
+                    ensemble_size=entries[i].ensemble_size)
+                overrides[entries[i].name] = fcfg
+                grid = featurizer.feature_grid(fcfg)
+                entries[i] = dataclasses.replace(
+                    entries[i], hidden_size=featurizer.feature_dim(fcfg),
+                    num_patches=grid * grid, img_size=fcfg.img_size,
+                    up_ft_index=fcfg.up_ft_index)
+            bundles[i] = (tree, fcfg or featurizer.FEATURIZER_PRESETS[
+                entries[i].name]())
+    spec = dataclasses.replace(spec, entries=entries)
+
     if cfg.model.decoder == "vicuna-7b":
         dec = llama.vicuna_7b()
     elif cfg.model.decoder == "tiny":
@@ -134,7 +167,8 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
         projector_type=cfg.model.projector_type,
         select_layer=cfg.model.select_layer,
         select_feature=cfg.model.select_feature,
-        kv_quant=cfg.model.kv_quant)
+        kv_quant=cfg.model.kv_quant,
+        featurizer_overrides=overrides or None)
     if cfg.model.kv_quant not in (None, "int8"):
         raise ValueError(f"unknown model.kv_quant {cfg.model.kv_quant!r}")
 
@@ -160,13 +194,15 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
             k[len("decoder."):]: v for k, v in state.items()
             if k.startswith("decoder.")})
 
-    paths = cfg.model.tower_weights or []
-    if paths and len(paths) != len(spec.entries):
-        raise ValueError(f"model.tower_weights has {len(paths)} paths for "
-                         f"{len(spec.entries)} tower entries")
-    for tower, path in zip(params.towers, paths):
-        if path:
-            tower.load_state_dict(from_jax.vit_state_dict(load_params(path)))
+    for i, path in enumerate(paths):
+        if i in bundles:
+            tree, fcfg = bundles[i]
+            params.towers[i] = featurizer.FeaturizerParams.for_state_dict(
+                from_jax.featurizer_state_dict(tree), fcfg, precision,
+                device=device)
+        elif path:
+            params.towers[i].load_state_dict(
+                from_jax.vit_state_dict(load_params(path)))
     if state is not None:
         _load_checkpoint(params, state)
     if cfg.train.pretrain_mm_mlp_adapter:

@@ -111,6 +111,59 @@ def test_flash_kernel(cuda_device, b, sq, skv, causal, kv_len, h, kvh, d):
     assert torch.equal(got, got2) and torch.equal(lse, lse2)
 
 
+# the UNets' head sizes 40, 80 and 160 (a tile of D rounded up to 64; TMA
+# reads the columns past D as zeros and clips the store): self attention at
+# the tile edges and cross attention (Skv = 77, the text context) with
+# Sq != Skv; SD1.5's own shapes at B = 1; the LSE of the same call
+UNET_CASES = [(2, s, s, 8, d) for d in (40, 80, 160)
+              for s in (1, 63, 65, 128, 129, 300)] + [
+    (2, s, 77, 8, d) for d in (40, 80, 160) for s in (1, 64, 200, 577)] + [
+    (1, 9216, 9216, 8, 40), (1, 9216, 77, 8, 40), (1, 2304, 2304, 8, 80),
+    (1, 2304, 77, 8, 80), (1, 576, 576, 8, 160), (1, 144, 77, 8, 160)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", UNET_CASES)
+def test_flash_kernel_unet_head_dims(cuda_device, b, sq, skv, h, d):
+    q = _randn((b, sq, h, d), 0, cuda_device)
+    k = _randn((b, skv, h, d), 1, cuda_device)
+    v = _randn((b, skv, h, d), 2, cuda_device)
+    before = flash_attention.launches
+    got, lse = flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, want_lse = flash_attention_plain(q, k, v, return_lse=True)
+    assert _close(got, want)
+    assert (lse - want_lse).abs().max().item() < 1e-2
+    assert torch.equal(got, flash_attention(q, k, v))       # same bits
+
+
+# SD1.5's block-0 attentions (D = 40) at the feature extraction's batch of
+# 16 images, where the launcher takes 128-row blocks on 132 SMs (64-row ones
+# at B <= 4, above); the plain version one image at a time
+@pytest.mark.parametrize("skv", [9216, 77])
+def test_flash_kernel_unet_extraction_batch(cuda_device, skv):
+    b, sq, h, d = 16, 9216, 8, 40
+    q = _randn((b, sq, h, d), 0, cuda_device)
+    k = _randn((b, skv, h, d), 1, cuda_device)
+    v = _randn((b, skv, h, d), 2, cuda_device)
+    got = flash_attention(q, k, v)
+    for i in range(b):
+        assert _close(got[i:i + 1], flash_attention_plain(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1]))
+    assert torch.equal(got, flash_attention(q, k, v))       # same bits
+
+
+@pytest.mark.parametrize("d", [32, 48, 72, 96, 192])
+def test_flash_kernel_other_head_dims_raise(cuda_device, d):
+    q = _randn((1, 16, 2, d), 0, cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):   # causal: 64, 128
+        flash_attention(_randn((1, 16, 2, 40), 0, cuda_device),
+                        _randn((1, 16, 2, 40), 1, cuda_device),
+                        _randn((1, 16, 2, 40), 2, cuda_device), causal=True)
+
+
 @pytest.mark.parametrize("h,kvh,d,t", [(4, 4, 64, 300), (32, 32, 128, 700),
                                        (32, 8, 128, 513)])
 def test_decode_kernel(cuda_device, h, kvh, d, t):

@@ -218,11 +218,15 @@ def test_run_feature_extraction_matches_jax(tmp_path, jax_checkpoint):
 
 
 def test_unsupported_towers_raise(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP, queue 1: 5, diffusion towers"):
-        run_feature_extraction(RunConfig.from_dict({"model": {
-            "vision_tower": "runwayml/stable-diffusion-v1-5"}}),
-            str(tmp_path), str(tmp_path / "o"), device="cpu")
+    # the UNet family is ported (tests/test_torch_diffusion_cli.py); DiT and
+    # SD3 are not
+    for name in ("facebook/DiT-XL-2-512",
+                 "stabilityai/stable-diffusion-3-medium-diffusers"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP, queue 1: 5, diffusion towers"):
+            run_feature_extraction(RunConfig.from_dict({"model": {
+                "vision_tower": name}}),
+                str(tmp_path), str(tmp_path / "o"), device="cpu")
     with pytest.raises(ValueError, match="precomputed-feature"):
         run_feature_extraction(RunConfig.from_dict({"model": {
             "vision_tower": "runwayml/stable-diffusion-v1-5_feature",

@@ -56,7 +56,9 @@ def test_every_port_module_imports_without_jax():
                 "policy.fit", "policy.data", "policy.predict",
                 "policy.validate", "ops.quant", "ops.int4_matmul",
                 "models.layers", "models.mpt", "models.lora",
-                "models.switch"):
+                "models.switch", "models.diffusion_blocks", "models.vae",
+                "models.unet", "models.featurizer", "models.tower_runtime",
+                "io.featurizer_bundle"):
         assert f"{PKG}.{mod}" in out["names"]
 
 

@@ -293,7 +293,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_tower_spec("debug/tiny-vit,debug/tiny-vit")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_tower_spec("runwayml/stable-diffusion-v1-5")
+        parse_tower_spec("facebook/DiT-XL-2-512")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lmm(RunConfig.from_dict(
             {"model": dict(TINY["model"], visual_keep=0.5)}), device="cpu")
