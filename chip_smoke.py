@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, law-chain (A and C
-scores), quantised serving, MPT, training-variant and diffusion-tower (SD1.5)
-paths on one NVIDIA GPU (H100).
+scores), quantised serving, MPT, training-variant and diffusion-tower (SD1.5,
+DiT-XL/2, SD3-medium) paths on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
@@ -39,7 +39,11 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      Kernel 2 also at every attention shape of an SD1.5 forward at 768 px
      (B=4, 8 heads: D=40 at S=9,216, D=80 at 2,304, D=160 at 576 and 144,
      each self and cross against 77 text tokens) and SD2.1's 5-head D=64
-     S=9,216 one, each with its launches an SD1.5 forward;
+     S=9,216 one, each with its launches an SD1.5 forward; and at
+     DiT-XL/2's self-attention (S=1,024, H=16, D=72) and SD3-medium's joint
+     attention (S=1,024 + 333, H=24, D=64) at B=1 and 16 (SD3 also at the
+     served B=4), each with the block rows the launcher takes and its
+     launches a forward (a spill of any form of the forward fails the run);
      kernel 2 also at a stage-1 step's B=16 S=639 and MPT-7B's B=2 S=2,048
      (causal, no bias), kernel 1 also at the dumps' B=1 S=577 and S=257,
      each with its plain version, SDPA and its bound; at every shape of
@@ -49,7 +53,9 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      4096->11008, 11008->4096, 4096->32000 at M=4 (its small body), 64,
      2,812 and 11,248 (its wgmma body), and its transposed form
      `int4_matmul_dx` at M=11,248 (library: `torch.matmul` on the bf16
-     weight), timed over rotating copies of the weight so every launch reads
+     weight), and at M=4 on a weight of K=1,004 with one scale a channel
+     (its words zero-padded to 1,024, x padded by `quant.int4_matmul`),
+     timed over rotating copies of the weight so every launch reads
      it from HBM, not from L2, with `nvcc -Xptxas -v`'s registers and spills
      of the two wgmma bodies; kernel 3's int8
      branch at B=4 T=704 H=32 Dh=128 with holes and a GQA case (library:
@@ -140,7 +146,8 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      similarity's fp32 held under a process-wide TF32 switch; the leg's
      extraction images/s, `run_c_score` seconds split into host reads and
      the device part, and its peak memory; and one `fit_policy` whose C
-     column holds the three reps' C scores;
+     column holds the three reps' C scores and those of SD1.5 (phase 11),
+     DiT and SD3 (phase 12);
   7. (run right after phase 4, before the first profiler session of the
      process) quantised serving at full width: LLaVA-1.5-7B through `build_lmm` with
      `model.quantize=int4` + `model.kv_quant=int8` (and the decode route
@@ -169,6 +176,20 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      `build_lmm` -> `generate_until` on phase 4's requests with 768 px
      images, 32 new tokens: finite logits, kernels 2 (tower and prefill)
      and 3 launched, TTFT and tokens/s;
+  12. (after phase 11, before phase 9) DiT-XL/2 and SD3-medium at full
+     width and depth at 512 px on seeded random weights, each written as a
+     featurizer bundle (3.00 and 8.46 GB) and passed as
+     `model.tower_weights`:
+     (a) `extract_features` on one image, card bf16 against CPU fp32
+     (`TRANSFORMER_FEATURE_REL_TOL`), 28 / 24 kernel-2 launches a forward
+     counted by shape, a repeat's bits, the featurizer at B = 1 and 16 with
+     the VAE and the backbone (`featurizer.backbone_tokens`) apart; (b)
+     `extract-features` over phase 6's synthetic SPair tree at batch 16 and
+     `run_c_score`: images/s, peak memory, the C scores that phase 6's fit
+     takes; (c) SD3 only: LLaVA-1.5-7B over the tower (`mlp2x_gelu`
+     6,144 -> 4,096, 256 image tokens) through `build_lmm` ->
+     `generate_until` on phase 4's requests at 512 px, 32 new tokens:
+     finite logits, kernels 2 and 3 launched, TTFT and tokens/s;
   10. (after phase 9) LLaVA-1.5-7B through `run_training`, stage 2, 3 steps
      of 16: `train.lora_enable` (r=128, alpha=256), the same with
      `train.quantize_base=int4` (QLoRA: kernel 10 forward, its transposed
@@ -181,7 +202,8 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
 
 TF32 is switched off (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`) so every plain version runs in
-full fp32. Every metric line carries the card's name and power limit.
+full fp32. Every metric line carries the card's name and power limit, and
+each phase prints its seconds.
 The last lines are the kernels JSON, the card line from nvidia-smi and
 `{"ok": true, "device": {...}}`.
 """
@@ -1207,7 +1229,8 @@ def print_ptxas(tag: str, report: str) -> None:
     ALiBi), the backward of kernels 5 and 6 by theirs (head size, causal,
     ALiBi), kernel 9's two bodies (its SIMT body by input type) and kernel
     3 by head size, group size and cache type. Fails if kernel 9's wgmma
-    body or any form of kernel 3 spills."""
+    body, any form of the attention forward (DiT's D = 72 among them) or
+    any form of kernel 3 spills."""
     import re
     name = None
     for line in report.splitlines():
@@ -1243,6 +1266,9 @@ def print_ptxas(tag: str, report: str) -> None:
                 fail(f"kernel 9's wgmma body spills: {line.strip()}")
             if name.startswith("decode_kernel") and spill and int(spill[1]):
                 fail(f"kernel 3 spills in {name}: {line.strip()}")
+            if name.startswith("flash_fwd") and spill and int(spill[1]):
+                fail(f"the attention forward spills in {name}: "
+                     f"{line.strip()}")
 
 
 def check_sass_tf32(tag: str, lib_path) -> None:
@@ -1380,10 +1406,53 @@ def check_int4_matmul(tag: str, dev) -> dict:
         if (di, do) == (4096, 4096):
             dx_headline = r
         del dy, got, ref, leaves, dense, leaf
+    cases.append(check_int4_odd_k(tag, dev, g))
     return {"int4_matmul": dict(headline, cases=cases,
                                 err=max(c["err"] for c in cases)),
             "int4_matmul_dx": dict(dx_headline, cases=dx_cases,
                                    err=max(c["err"] for c in dx_cases))}
+
+
+# kernel 10 at a contraction dim that 8 does not divide (the JAX packing
+# takes any even one): its words hold the one group zero-padded to 1,024
+INT4_ODD_K = (4, 1004, 4096)        # M, K, out
+
+
+def check_int4_odd_k(tag: str, dev, g) -> dict:
+    """Phase 2, kernel 10 on a weight of K = 1,004 with one scale a channel
+    (`group_size=None`): `quant.int4_matmul` pads x with zeros to the
+    stored 1,024 and launches the kernel (its small body), held to the
+    plain version on the same padded x and to a repeat's bits."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        int4_matmul as K, quant as Q)
+    m, di, do = INT4_ODD_K
+    leaf = Q.quantize_int4(torch.randn((do, di), generator=g, device=dev)
+                           * 0.02, group_size=None)
+    stored = leaf["q4"].shape[1] * 8
+    x = torch.randn((m, di), generator=g, device=dev, dtype=torch.bfloat16)
+    before = K.int4_matmul_kernel.launches
+    got = Q.int4_matmul(x, leaf)
+    if K.int4_matmul_kernel.launches != before + 1:
+        fail(f"int4_matmul at K={di}: kernel 10 was not launched")
+    xp = Q.pad_groups(x, 1, stored)
+    ref = K.int4_matmul_plain(xp, leaf["q4"], leaf["scale"])
+    if not torch.equal(got, Q.int4_matmul(x, leaf)):
+        fail(f"int4_matmul at K={di} gave other bits on a second run")
+    dense = Q.dequantize_int4(leaf, torch.bfloat16, di=di)
+    r = dict(err=max_err(got, ref),
+             tol=INT4_REL_TOL * max(1.0, ref.float().abs().max().item()),
+             ms=graph_ms(lambda: Q.int4_matmul(x, leaf)),
+             plain_ms=cuda_ms(lambda: K.int4_matmul_plain(
+                 Q.pad_groups(x, 1, stored), leaf["q4"], leaf["scale"])),
+             library_ms=graph_ms(lambda: x @ dense.T),
+             shape=f"M={m} {di}->{do} group_size=None (stored K {stored}, "
+                   f"x padded with zeros), one weight",
+             **bound(do * stored // 2 + do * 4 + x.numel() * 2 + m * do * 2,
+                     2.0 * m * di * do, H100_BF16_TFLOPS))
+    report_kernel(tag, "int4_matmul", r)
+    return {k: r[k] for k in ("shape", "err", "ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by")}
 
 
 def check_decode_int8(tag: str, dev) -> dict:
@@ -1547,6 +1616,18 @@ UNET_ATTENTION = tuple(
     for sq, skv, d, what in SD15_ATTENTION) + (
     (4, 9216, 9216, 5, 64, "SD2.1 block 0 self"),)
 SD15_KERNEL2_LAUNCHES = 14      # kernel-2 launches of one SD1.5 forward
+# kernel 2 at the transformer towers' attentions at 512 px (phase 2), at
+# one image, at the extraction batch and (SD3) at the four served requests:
+# DiT-XL/2's self-attention (1,024
+# tokens, 16 heads of 72: the Dp = 128 tile, columns 72-127 read as zeros)
+# and SD3-medium's joint attention over [1,024 latent, 333 context] tokens
+# (24 heads of 64), each launched once a block of the forward
+TRANSFORMER_ATTENTION = tuple(
+    (b, s, s, h, d, what) for b in (1, C_BATCH)
+    for s, h, d, what in ((1024, 16, 72, "DiT self"),
+                          (1024 + 333, 24, 64, "SD3 joint"))) + (
+    (4, 1357, 1357, 24, 64, "SD3 joint"),)    # phase 12 (c): 4 requests
+TRANSFORMER_KERNEL2_LAUNCHES = {"DiT": 28, "SD3": 24}
 
 
 def attn_key(sq: int, skv: int, h: int, d: int) -> str:
@@ -1556,12 +1637,15 @@ def attn_key(sq: int, skv: int, h: int, d: int) -> str:
 def check_unet_attention(tag: str, dev) -> list:
     """Phase 2, kernel 2 non-causal at every attention shape of an SD1.5
     forward at 768 px (head sizes 40, 80, 160; Sq != Skv in the cross
-    attentions) at each batch phase 11 launches it at, and at SD2.1's
-    5-head D = 64 one, each held to its plain version row by row and to a
-    repeat, timed beside the plain version and SDPA. The plain version runs
-    one image at a time (its [H, Sq, Skv] fp32 scores are 2.7 GB at
-    S = 9,216). Returns the cases; phase 11 adds to the SD1.5 ones the
-    launches it counts of each shape in one forward."""
+    attentions) at each batch phase 11 launches it at, at SD2.1's 5-head
+    D = 64 one, and at DiT-XL/2's and SD3-medium's at 512 px (phase 12),
+    each held to its plain version row by row and to a repeat, timed beside
+    the plain version and SDPA, with the block rows that a launch at the
+    shape took (as the launcher reports them after the launch). The
+    plain version runs one image at a time (its [H, Sq, Skv] fp32 scores
+    are 2.7 GB at S = 9,216). Returns the cases; phases 11 and 12 add to
+    their towers' ones the launches they count of each shape in one
+    forward."""
     import torch
     from law_of_vision_representation_in_mllms_torch.ops import (
         flash_attention as fl)
@@ -1573,8 +1657,9 @@ def check_unet_attention(tag: str, dev) -> list:
                                                    v[i:i + 1])
                           for i in range(q.shape[0])])
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = []
-    for b, sq, skv, h, d, what in UNET_ATTENTION:
+    for b, sq, skv, h, d, what in UNET_ATTENTION + TRANSFORMER_ATTENTION:
         q = torch.randn((b, sq, h, d), generator=g, device=dev,
                         dtype=torch.bfloat16)
         k, v = (torch.randn((b, skv, h, d), generator=g, device=dev,
@@ -1586,7 +1671,18 @@ def check_unet_attention(tag: str, dev) -> list:
         if not case["err"] <= case["tol"]:
             fail(f"kernel 2 at {case['shape']}: {case['err']} > "
                  f"{case['tol']}")
-        case.update(what=what, batch=b, attn=attn_key(sq, skv, h, d))
+        fl.flash_attention(q, k, v)     # one launch more: the rows it took
+        torch.cuda.synchronize(dev)
+        rows = fl.last_block_rows()
+        if rows not in (64, 128):
+            fail(f"kernel 2 at {case['shape']}: the launcher reports "
+                 f"{rows}-row blocks")
+        case.update(what=what, batch=b, attn=attn_key(sq, skv, h, d),
+                    block_rows=rows)
+        print(f"{tag} kernel 2 {what} B={b} {attn_key(sq, skv, h, d)}: "
+              f"{rows}-row blocks (reported by the launch; "
+              f"{-(-sq // rows) * h * b} blocks on {sms} SMs), "
+              f"{case['ms']:.4f} ms")
         cases.append(case)
         del q, k, v
         torch.cuda.empty_cache()
@@ -3827,7 +3923,8 @@ def _sd_image(rng, size: int):
     return np.asarray(img, np.float32) / 127.5 - 1.0
 
 
-def run_diffusion_tower(tag: str, dev, counters, unet_cases: list) -> dict:
+def run_diffusion_tower(tag: str, dev, counters, unet_cases: list,
+                        c_scores: dict) -> dict:
     """Phase 11: the SD1.5 representation at full width (VAE encoder
     (128, 256, 512, 512), UNet (320, 640, 1280, 1280) with 8 heads, up block
     0 harvested: 576 tokens of 1280 at 768 px) on seeded random weights,
@@ -3843,8 +3940,9 @@ def run_diffusion_tower(tag: str, dev, counters, unet_cases: list) -> dict:
         prefill) and kernel 3 launched, TTFT and tokens/s.
     Every tower attention of (a)-(c) is recorded by its shape, which must be
     one that phase 2 held to its plain version (`unet_cases`); each SD1.5
-    case gets the launches of its shape counted in (a)'s forward. Returns
-    the launches of each path, counted from 0."""
+    case gets the launches of its shape counted in (a)'s forward. Puts
+    the C score (PCK@0.10 per image) into `c_scores["SD1.5"]` for phase
+    6's fit. Returns the launches of each path, counted from 0."""
     import collections
     import contextlib
     import io
@@ -4006,6 +4104,7 @@ def run_diffusion_tower(tag: str, dev, counters, unet_cases: list) -> dict:
         extract_peak = torch.cuda.max_memory_allocated(dev) / 1e9
         res, parts, _ = _c_score_run(root, out_dir, grid, dev,
                                      lambda args, out: None)
+        c_scores["SD1.5"] = res["per_img"][0]
         launches = read_counts(counters)
         paths["sd15_c_score"] = launches
         want = {"flash_attention": SD15_KERNEL2_LAUNCHES * calls}
@@ -4096,6 +4195,338 @@ def run_diffusion_tower(tag: str, dev, counters, unet_cases: list) -> dict:
     return paths
 
 
+DIT = "facebook/DiT-XL-2-512"
+SD3 = "stabilityai/stable-diffusion-3-medium-diffusers"
+# phase 12: the two transformer towers, each a bundle of its own seed
+TRANSFORMER_TOWERS = (("DiT", DIT, 22), ("SD3", SD3, 23))
+# phase 12 (a): the last block's tokens (2x2-unfolded) from the card in bf16
+# against the CPU in fp32, ||card - CPU|| / ||CPU||. The VAE encoder at
+# 512 px rounds every activation to bf16 (2^-9 relative on average) some
+# 60 times, each block ~10 times (adaLN, q / k / v, P, the attention output,
+# the MLP, two residual adds): ~340 roundings for DiT's 28 blocks, ~300 for
+# SD3's 24 (its latent stream; the context stream adds its own);
+# independent roundings add in quadrature, sqrt(340) x 2^-9 = 3.6 %, the
+# bound SD1.5 is held to (`SD_FEATURE_REL_TOL`, 250 roundings)
+TRANSFORMER_FEATURE_REL_TOL = 5e-2
+
+
+def run_transformer_towers(tag: str, dev, counters, cases: list,
+                           c_scores: dict) -> dict:
+    """Phase 12: DiT-XL/2 (VAE encoder + 28 blocks of 1,152 over 16 heads
+    of 72) and SD3-medium (16-channel VAE + 24 joint blocks of 1,536 over
+    24 heads of 64, a 192² position table, 333 context tokens) at full width
+    and depth on seeded random weights, each written as a featurizer bundle
+    in a temporary directory and read back through `model.tower_weights`:
+    (a) `extract_features` on one 512 px image, the last block harvested:
+        card bf16 against CPU fp32 (`TRANSFORMER_FEATURE_REL_TOL`), kernel-2
+        launches by shape (28 / 24 a forward), a repeat's bits, and the
+        featurizer's time at B = 1 and 16 with the VAE and the backbone
+        apart;
+    (b) `extract-features` over phase 6's synthetic SPair tree at batch 16,
+        then `run_c_score` on the card: images/s, peak memory;
+    (c) SD3 only: LLaVA-1.5-7B (`mlp2x_gelu` 6,144 -> 4,096, 256 image
+        tokens) through `build_lmm` -> `generate_until` on phase 4's
+        requests at 512 px, 32 new tokens: finite logits, kernels 2 and 3
+        launched, TTFT and tokens/s.
+    Every tower attention is recorded by its (B, shape), which must be one
+    that phase 2 held to its plain version (`cases`); each of phase 2's
+    cases of the tower gets the launches of its shape in (a)'s forward.
+    Puts each tower's C score (PCK@0.10 per image) into `c_scores` under
+    its name in the AC table ("DiT", "SD3") for phase 6's fit. Returns the
+    launches of each path, counted from 0."""
+    import collections
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch import cli
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        BF16_PRECISION, FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.io import (
+        featurizer_bundle as FB, from_jax)
+    from law_of_vision_representation_in_mllms_torch.models import (
+        diffusion_blocks as DB, featurizer as F, tower_runtime as TR)
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        init_weights)
+    from law_of_vision_representation_in_mllms_torch.pipeline import (
+        features as pfeat, runner as prunner)
+
+    def attn_shape(args, out):      # the card's launches; None on the CPU
+        (b, sq, h, d), skv = args[0].shape, args[1].shape[1]
+        return (b, sq, skv, h, d) if args[0].is_cuda else None
+
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="lvr_dit_sd3_")
+    seen = _Spy(DB, "flash_attention", keep=attn_shape).__enter__()
+    try:
+        root = os.path.join(tmp, "SPair-71k")
+        n_images = _spair_tree(root, C_IMAGES, C_PAIRS)
+        for label, name, seed in TRANSFORMER_TOWERS:
+            key = label.lower()
+            per_forward = TRANSFORMER_KERNEL2_LAUNCHES[label]
+            # the bundle: seeded random fp32 weights, built on the card ---
+            cfg = F.FEATURIZER_PRESETS[name]()
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            own = F.FeaturizerParams(cfg, FP32_PRECISION, device=dev)
+            init_weights(own, gen)
+            for buf in own.buffers():           # SD3's prompt and pooled
+                buf.normal_(generator=gen)
+            if label == "SD3":                  # zeros at its Flax init
+                own.backbone.pos_embed.data.normal_(0.0, 0.02, generator=gen)
+            n_params = sum(p.numel() for p in own.parameters())
+            n_backbone = sum(p.numel() for p in own.backbone.parameters())
+            bundle = FB.save_featurizer_bundle(os.path.join(tmp, key), own,
+                                               cfg)
+            del own
+            torch.cuda.empty_cache()
+            print(f"{tag} phase 12 {label} featurizer ({n_params / 1e6:.1f} "
+                  f"M params, {n_backbone / 1e6:.1f} M of them the "
+                  f"backbone's, all {own_blocks(cfg)} blocks; seeded random) "
+                  f"written as a bundle of "
+                  f"{os.path.getsize(bundle) / 1e9:.2f} GB in "
+                  f"{time.perf_counter() - t0:.2f} s; "
+                  f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB left there")
+
+            # (a) one image, card bf16 against CPU fp32 ------------------
+            tree, bcfg = FB.load_featurizer_bundle(bundle)
+            sd = from_jax.featurizer_state_dict(tree)
+            del tree
+            card = F.FeaturizerParams.for_state_dict(sd, bcfg,
+                                                     BF16_PRECISION,
+                                                     device=dev)
+            cpu = F.FeaturizerParams.for_state_dict(sd, bcfg,
+                                                    FP32_PRECISION)
+            del sd
+            px = torch.from_numpy(_sd_image(np.random.RandomState(seed),
+                                            cfg.img_size))[None]
+            F.extract_features(card, bcfg, px.to(dev), deterministic=True)
+            torch.cuda.synchronize(dev)
+            with _Spy(DB, "flash_attention", keep=attn_shape) as one:
+                got, launches = counted_run(
+                    counters, lambda: F.extract_features(
+                        card, bcfg, px.to(dev), deterministic=True))
+            paths[f"{key}_features"] = launches
+            want = {"flash_attention": per_forward}
+            if any(launches[k] != want.get(k, 0) for k in launches):
+                fail(f"{label} forward launches {launches}, not {want}")
+            by_shape = collections.Counter(attn_key(*k[1:])
+                                           for k in one.kept)
+            mine = [c for c in cases if c["what"].startswith(label)]
+            if sum(by_shape.values()) != per_forward or \
+                    not set(by_shape) <= {c["attn"] for c in mine}:
+                fail(f"{label} forward: tower attentions {dict(by_shape)}, "
+                     f"not {per_forward} at phase 2's shapes")
+            for c in mine:
+                c["launches_per_forward"] = by_shape[c["attn"]]
+            again = F.extract_features(card, bcfg, px.to(dev),
+                                       deterministic=True)
+            if not torch.equal(got, again):
+                fail(f"{label} features: a repeat on the card gave other "
+                     f"bits")
+            t0 = time.perf_counter()
+            ref = F.extract_features(cpu, bcfg, px, deterministic=True)
+            cpu_s = time.perf_counter() - t0
+            del cpu
+            grid, dim = F.feature_grid(bcfg), F.feature_dim(bcfg)
+            if got.shape != (1, grid * grid, dim) or ref.shape != got.shape:
+                fail(f"{label} features {tuple(got.shape)}, CPU "
+                     f"{tuple(ref.shape)}, not (1, {grid * grid}, {dim})")
+            if not torch.isfinite(got).all():
+                fail(f"{label} features on the card are not finite")
+            diff = got.float().cpu() - ref
+            rel = (diff.norm() / ref.norm()).item()
+            rel_max = (diff.abs().max() / ref.abs().max()).item()
+            cos = torch.nn.functional.cosine_similarity(
+                got.float().cpu()[0], ref[0], dim=-1)
+            print(f"{tag} phase 12 (a) {label} extract_features, one "
+                  f"{cfg.img_size} px image, block {bcfg.up_ft_index} of "
+                  f"{own_blocks(bcfg)}: {tuple(got.shape)} tokens; card bf16 "
+                  f"vs CPU fp32 ||diff|| / ||CPU|| {rel:.3e} (tol "
+                  f"{TRANSFORMER_FEATURE_REL_TOL}), max|diff| / max|CPU| "
+                  f"{rel_max:.3e}, token cosine min {cos.min().item():.5f} "
+                  f"mean {cos.mean().item():.5f}; max|CPU| "
+                  f"{ref.abs().max().item():.3e}; a repeat's bits equal; "
+                  f"kernel-2 launches by shape (counted) {dict(by_shape)}; "
+                  f"CPU {cpu_s:.2f} s")
+            if not rel <= TRANSFORMER_FEATURE_REL_TOL:
+                fail(f"{label} features: card bf16 against CPU fp32 {rel} > "
+                     f"{TRANSFORMER_FEATURE_REL_TOL}")
+            for b in (1, C_BATCH):
+                xb = px.to(dev).expand(b, -1, -1, -1).contiguous()
+                noisy = F._noisy_latents(card, bcfg, xb, None,
+                                         deterministic=True)
+                whole = cuda_ms(lambda: F.extract_features(
+                    card, bcfg, xb, deterministic=True), iters=3, warmup=1)
+                vae = cuda_ms(lambda: card.vae(xb), iters=3, warmup=1)
+                back = cuda_ms(lambda: F.backbone_tokens(
+                    card, bcfg, noisy), iters=3, warmup=1)
+                print(f"{tag} phase 12 {label} featurizer at B={b}: "
+                      f"{whole:.2f} ms a call, {b / whole * 1e3:.2f} "
+                      f"images/s (synced, the card alone); the VAE encoder "
+                      f"{vae:.2f} ms, the backbone and the unfold "
+                      f"{back:.2f} ms")
+                del xb, noisy
+            del card, got, again, ref, diff
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b) extract-features over the synthetic SPair tree ----------
+            out_dir = os.path.join(tmp, f"spair_{key}")
+            argv = ["extract-features", "--images",
+                    os.path.join(root, "JPEGImages"), "--out-dir", out_dir,
+                    "--batch-size", str(C_BATCH), "--device", str(dev),
+                    "--set", "model.vision_tower=" + name,
+                    "--set", f"model.tower_weights={bundle}",
+                    "--set", "model.decoder_layers=2"]
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            with _Spy(prunner, "extract_tower_features", dev) as ext, \
+                    _Spy(pfeat, "preprocess_image") as prep, \
+                    _Spy(TR, "extract_features", dev) as fwd, \
+                    contextlib.redirect_stdout(io.StringIO()) as said:
+                rc = cli.main(argv)
+            total_s = time.perf_counter() - t0
+            torch.cuda.synchronize(dev)
+            calls = -(-n_images // C_BATCH)
+            if rc != 0 or said.getvalue().strip() != (
+                    f"extracted {n_images} feature files to {out_dir}"):
+                fail(f"{label} extract-features: rc {rc}, said "
+                     f"{said.getvalue()!r}")
+            if [len(ext.seconds), len(fwd.seconds)] != [1, calls]:
+                fail(f"{label} extract-features: {len(fwd.seconds)} tower "
+                     f"calls, not {calls}")
+            files = sorted(f for f in os.listdir(out_dir)
+                           if f.endswith(".npy"))
+            if len(files) != n_images:
+                fail(f"{label}: {len(files)} feature files, not {n_images}")
+            for f in files[:C_BATCH]:
+                x = np.load(os.path.join(out_dir, f))
+                if x.shape != (grid * grid, dim) or not np.isfinite(x).all():
+                    fail(f"{label}: {f} is not a finite fp32 "
+                         f"{(grid * grid, dim)}")
+            extract_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            res, parts, _ = _c_score_run(root, out_dir, grid, dev,
+                                         lambda args, out: None)
+            c_scores[label] = res["per_img"][0]
+            launches = read_counts(counters)
+            paths[f"{key}_c_score"] = launches
+            want = {"flash_attention": per_forward * calls}
+            if any(launches[k] != want.get(k, 0) for k in launches):
+                fail(f"{label} C-score launches {launches}, not {want}")
+            for k in ("per_img", "per_kpt", "geo"):
+                if not all(0.0 <= v <= 1.0 for v in res[k]):
+                    fail(f"{label}: {k} {res[k]} is not in [0, 1]")
+            ext_s = ext.seconds[0]
+            print(f"{tag} phase 12 (b) {label} C score ({n_images} images, "
+                  f"{C_PAIRS * 18} pairs, batch {C_BATCH}): per_img "
+                  f"PCK@.10/.05/.01 "
+                  f"{', '.join(f'{v:.4f}' for v in res['per_img'])}, "
+                  f"per_kpt {res['per_kpt'][0]:.4f}, geo "
+                  f"{res['geo'][0]:.4f}; extraction {n_images / ext_s:.2f} "
+                  f"images/s ({ext_s:.2f} s: preprocess_image "
+                  f"{sum(prep.seconds):.2f} (host), tower calls "
+                  f"{sum(fwd.seconds):.2f} (card, synced); the build with a "
+                  f"2-layer decoder {total_s - ext_s:.2f} s apart); "
+                  f"extraction peak memory allocated {extract_peak:.2f} GB; "
+                  f"run_c_score {parts['total']:.2f} s (feature files "
+                  f"{parts['features']:.2f}, compute_pck_batch "
+                  f"{parts['device']:.3f}); launches {launches}")
+            shutil.rmtree(out_dir)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if label == "SD3":
+                paths["sd3_serve"] = serve_tower(tag, dev, counters, name,
+                                                 bundle, per_forward)
+            os.remove(bundle)
+            os.remove(bundle + ".json")
+        checked = {(c["batch"], c["attn"]) for c in cases}
+        ran = collections.Counter((k[0], attn_key(*k[1:])) for k in seen.kept
+                                  if k is not None)
+        if not set(ran) <= checked:
+            fail(f"phase 12 ran tower attentions that phase 2 did not hold "
+                 f"to the plain version: {sorted(set(ran) - checked)}")
+        print(f"{tag} phase 12 tower attentions by (B, shape), each held to "
+              f"its plain version in phase 2: {dict(sorted(ran.items()))}")
+    finally:
+        seen.__exit__()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def own_blocks(cfg) -> int:
+    """The blocks of a DiT / MMDiT featurizer configuration."""
+    return (cfg.dit or cfg.mmdit).num_layers
+
+
+def serve_tower(tag: str, dev, counters, name: str, bundle: str,
+                tower_launches: int) -> dict:
+    """Phase 12 (c): LLaVA-1.5-7B over a diffusion tower's bundle through
+    `build_lmm` -> `generate_until` on phase 4's four requests at the
+    tower's image size, 32 new tokens (the graph path): finite logits,
+    kernel 2 launched `tower_launches` times by the tower and once a layer
+    by the prefill, kernel 3 by the decode; TTFT and tokens/s. Returns the
+    launches, counted from 0."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.config import (
+        RunConfig)
+    from law_of_vision_representation_in_mllms_torch.eval.runner import (
+        build_lmm)
+    from law_of_vision_representation_in_mllms_torch.models import (
+        llava as M)
+    label = name.split("/")[-1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    lmm = build_lmm(RunConfig.from_dict({"model": {
+        "vision_tower": name, "tower_weights": [bundle]}}), device=dev)
+    torch.cuda.synchronize(dev)
+    entry = lmm.cfg.tower_spec.entries[0]
+    print(f"{tag} phase 12 (c) LLaVA-1.5-7B over {label} "
+          f"({entry.num_patches} tokens of {entry.hidden_size} -> "
+          f"{lmm.cfg.projector_type} -> {lmm.cfg.decoder.hidden_size}) built "
+          f"in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    reqs = _requests(4, lmm.processors[0].crop, diffusion=True)
+    graph_dec = lmm.chunked_decoder()
+    texts, launches = counted_run(
+        counters, lambda: lmm.generate_until(reqs), graph_dec)
+    dec = lmm.cfg.decoder
+    if launches["flash_attention"] != tower_launches + dec.num_layers:
+        fail(f"{label} serving: kernel 2 ran {launches['flash_attention']} "
+             f"times, not {tower_launches} (tower) + {dec.num_layers} "
+             f"(prefill)")
+    if launches["decode_attention"] < dec.num_layers or \
+            launches["encoder_attention"]:
+        fail(f"{label} serving launches {launches}")
+    ids, mask, pixels = lmm._encode_batch(reqs)
+    pre = M.prefill(lmm.params, lmm.cfg, ids, mask, pixels, max_new_tokens=2)
+    if not (torch.isfinite(pre.logits).all()
+            and pre.logits.shape == (4, dec.vocab_size)):
+        fail(f"{label} serving: the prefill's logits are not finite [B, V]")
+    del pre
+    ttft_s = timed_s(lambda: M.prefill(
+        lmm.params, lmm.cfg, ids, mask, pixels, max_new_tokens=32), dev)
+    gen_s = timed_s(lambda: lmm.generate_until(reqs), dev, reps=2)
+    n_tok = 4 * 32
+    print(f"{tag} phase 12 (c) {label} serving (B=4, {entry.img_size} px, "
+          f"S={ids.shape[1] + lmm.cfg.num_patches - 1}, 32 new tokens, the "
+          f"graph path): TTFT (tower + projector + prefill) "
+          f"{ttft_s * 1e3:.2f} ms; generate_until {gen_s * 1e3:.2f} ms, "
+          f"{n_tok / (gen_s - ttft_s):.1f} tokens/s after the first token "
+          f"({n_tok / gen_s:.1f} with it); launches {launches}; peak memory "
+          f"allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+          f"sample answer {texts[0][:60]!r}")
+    del lmm, graph_dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def sd15_split() -> int:
     """`--sd15-split`: where an SD1.5 featurization's device time goes at
     768 px (seeded random bf16 weights): the VAE encoder and the UNet pass
@@ -4182,11 +4613,13 @@ def sd15_split() -> int:
     return 0
 
 
-def run_law_chain(tag: str, dev, counters) -> tuple:
+def run_law_chain(tag: str, dev, counters, tower_c: dict) -> tuple:
     """Phase 6: benchmark eval -> embedding dump -> A score -> C score ->
     AC policy at full LLaVA-1.5-7B width through the port's entry points.
-    Returns the launches of the law chain up to the A score and those of
-    the C-score leg, each counted from 0."""
+    `tower_c`: the diffusion towers' C scores of phases 11 and 12 by their
+    names in the AC table, which join the fit's C column. Returns the
+    launches of the law chain up to the A score and those of the C-score
+    leg, each counted from 0."""
     import shutil
 
     import numpy as np
@@ -4289,8 +4722,9 @@ def run_law_chain(tag: str, dev, counters) -> tuple:
         torch.cuda.reset_peak_memory_stats(dev)
 
         # made-up benchmark scores plus these A and C scores -> one policy
-        # fit; the C column holds the three reps' C scores (PCK@0.10 per
-        # image, the paper's 'corres')
+        # fit; the C column holds the three reps' C scores and the
+        # diffusion towers' of phases 11 and 12 (PCK@0.10 per image, the
+        # paper's 'corres')
         prng = np.random.default_rng(0)
         n_models = len(policy.ALL_MODELS)
         a_col = prng.random(n_models)
@@ -4301,6 +4735,8 @@ def run_law_chain(tag: str, dev, counters) -> tuple:
                            ("DINOv2", target)):
             c_col[policy.ALL_MODELS.index(model)] = \
                 c_results[rep]["per_img"][0]
+        for model, c in tower_c.items():
+            c_col[policy.ALL_MODELS.index(model)] = c
         table = policy.ACTable(
             models=list(policy.ALL_MODELS),
             perf={b: 2 * a_col ** 2 + a_col * c_col + 0.5 * c_col
@@ -4422,7 +4858,9 @@ def run_law_chain(tag: str, dev, counters) -> tuple:
               f"A scores and the C scores of CLIP336, CLIP224 and DINOv2 ("
               + ", ".join(f"{c_results[r]['per_img'][0]:.4f}"
                           for r in ("clip336", "clip224", target))
-              + f"): r2 {fit.r2:.4f}, mse {fit.mse:.5f}")
+              + ") and of " + ", ".join(f"{m} {c:.4f}"
+                                        for m, c in tower_c.items())
+              + f": r2 {fit.r2:.4f}, mse {fit.mse:.5f}")
         if not (np.isfinite(fit.r2) and np.isfinite(fit.coef).all()):
             fail("fit_policy gave a non-finite fit")
 
@@ -4829,6 +5267,13 @@ def main() -> int:
     t_start = time.perf_counter()
     print(f"{tag} torch {torch.__version__} cuda {torch.version.cuda}; "
           f"TF32 off (matmul and cudnn)")
+    clock = [t_start]
+
+    def mark(what: str) -> None:
+        """The seconds since the previous mark."""
+        now = time.perf_counter()
+        print(f"{tag} {what} took {now - clock[0]:.1f} s")
+        clock[0] = now
 
     t0 = time.perf_counter()
     # the registers and spills of the wgmma kernels (kernel 10, the
@@ -4848,6 +5293,7 @@ def main() -> int:
         for report in reports:
             print_ptxas(tag, report.result())
     check_sass_tf32(tag, lib_path)
+    mark("phase 1 (the build, ptxas, SASS)")
 
     kernels = check_kernels(tag, dev)
     unet_cases = check_unet_attention(tag, dev)
@@ -4865,6 +5311,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     check_routes(tag, dev)
+    mark("phase 2 (kernels against their plain versions)")
     check_narrow_llava(tag, dev)
     check_narrow_training(tag, dev)
     check_narrow_loglikelihood(tag, dev)
@@ -4875,6 +5322,7 @@ def main() -> int:
     check_narrow_training(tag, dev, variant="lora")
     check_narrow_training(tag, dev, quantize_base="int4", variant="lora")
     check_narrow_training(tag, dev, variant="switch")
+    mark("phase 3 (narrow models, CUDA against CPU)")
     counters = {name: (wrapper, "launches") for name, wrapper in (
         ("encoder_attention", enc.encoder_attention),
         ("flash_attention", fl.flash_attention),
@@ -4899,6 +5347,7 @@ def main() -> int:
     paths = {}
     paths["serve"], bf16_fig, backends = run_full_width(tag, dev, counters)
     paths.update({f"serve_{k}": v for k, v in backends.items()})
+    mark("phase 4 (serving, its backends)")
     gc.collect()
     torch.cuda.empty_cache()
     print(f"{tag} after the serving phase: "
@@ -4912,25 +5361,40 @@ def main() -> int:
         paths.update({f"{name}_{k}": v for k, v in backends.items()})
         gc.collect()
         torch.cuda.empty_cache()
+    mark("phase 7 (quantised serving)")
     # the SD1.5 representation at full width (phase 11), also before
     # torch.profiler first runs: it serves through the chunked decoder
-    paths.update(run_diffusion_tower(tag, dev, counters, unet_cases))
+    tower_c = {}        # the diffusion towers' C scores, for phase 6's fit
+    paths.update(run_diffusion_tower(tag, dev, counters, unet_cases,
+                                     tower_c))
+    mark("phase 11 (SD1.5)")
+    # DiT-XL/2 and SD3-medium at full width and depth (phase 12), before
+    # torch.profiler first runs for the same reason
+    paths.update(run_transformer_towers(tag, dev, counters, unet_cases,
+                                        tower_c))
+    mark("phase 12 (DiT-XL/2, SD3-medium)")
     # MPT-7B and the switch variant, also before torch.profiler first runs;
     # the LoRA and QLoRA variants each end with a profiled step, after their
     # own steps are timed. Every training step here keeps the device busy
     # (idle share ~0.03 in phase 5's split), so the tracing's cost to the
     # host does not show in the later step times
     paths["mpt"] = run_full_width_mpt(tag, dev, counters)
+    mark("phase 9 (MPT-7B)")
     for variant in VARIANT_TRAIN:
         paths[f"train_{variant}"] = run_full_width_variant(tag, dev, counters,
                                                            variant)
+    mark("phase 10 (training variants)")
     paths["train"] = run_full_width_training(tag, dev, counters)
+    mark("phase 5 (stage-1 training)")
     gc.collect()
     torch.cuda.empty_cache()
-    paths["law_chain"], paths["c_score"] = run_law_chain(tag, dev, counters)
+    paths["law_chain"], paths["c_score"] = run_law_chain(tag, dev, counters,
+                                                         tower_c)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phase 6 (the law chain, the C-score leg)")
     profile_formats(tag, dev)
+    mark("phase 8 (profiled decode)")
     # every kernel must have launched on at least one main path
     for name in counters:
         if sum(p[name] for p in paths.values()) == 0:
@@ -4973,9 +5437,9 @@ def main() -> int:
             f"{TPU_PKG}/models/vit.py:226 (tower_attn_impl=tpu_flash)"],
         "flash_attention": [
             f"{TPU_PKG}/ops/flash_attention.py:130 (flash_attention_bhsd "
-            f"without ALiBi, tower_attn_impl=flash, and every UNet "
-            f"attention of the diffusion towers through flash_mha: head "
-            f"sizes 40, 80, 160 and 64)"],
+            f"without ALiBi, tower_attn_impl=flash, and every attention of "
+            f"the diffusion towers through flash_mha: the UNets' head "
+            f"sizes 40, 80, 160 and 64, DiT-XL/2's 72, SD3's joint 64)"],
         "flash_attention_alibi": [
             f"{TPU_PKG}/ops/flash_attention.py:130 (flash_attention_bhsd "
             f"with alibi_slopes: the same function without the LSE)"],

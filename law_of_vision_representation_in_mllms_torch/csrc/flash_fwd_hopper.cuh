@@ -480,6 +480,10 @@ inline int sm_count(int* sms) {
   return 0;
 }
 
+// The query rows a block of the last forward launched from this file took
+// (64 or 128; 0 before the first): what the launcher chose, for reports.
+std::atomic<int> last_fwd_rows{0};
+
 template <int D, int NCONS, bool CAUSAL, bool ALIBI>
 int launch_fwd_blocks(const AttnArgs& args, int batch, cudaStream_t stream) {
   using L = FwdShape<D, NCONS>;
@@ -508,7 +512,11 @@ int launch_fwd_blocks(const AttnArgs& args, int batch, cudaStream_t stream) {
   const dim3 grid((args.sq + L::kRows - 1) / L::kRows, args.heads, batch);
   kernel<<<grid, L::kThreads, L::kSmem, stream>>>(q_map, k_map, v_map, o_map,
                                                    args);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) {
+    last_fwd_rows.store(L::kRows, std::memory_order_relaxed);
+  }
+  return static_cast<int>(launched);
 }
 
 // Launch the forward for head size D on `stream`; returns a cudaError_t

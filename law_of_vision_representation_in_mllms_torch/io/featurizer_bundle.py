@@ -2,7 +2,8 @@
 `io/featurizer_bundle.py` save and load).
 
 A bundle is a flat `param_io` .npz of the featurizer's tree (`vae/...`,
-`backbone/...`, `prompt_embeds` [1, T, D], `image_encoder/...` for imsd)
+`backbone/...` (a UNet, DiT or MMDiT), `prompt_embeds` [1, T, D] (not dit
+or imsd), `pooled` [1, D] (sd3), `image_encoder/...` for imsd)
 plus `<path>.json`, the `FeaturizerConfig` as `config_to_dict` writes it.
 The JAX CLI's `port-featurizer` makes one from a diffusers snapshot; either
 package reads what the other writes. Porting a snapshot stays in the JAX

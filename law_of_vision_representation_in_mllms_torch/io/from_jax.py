@@ -29,13 +29,16 @@ Layout mapping:
   they are (one `BottleneckBlock`'s tree maps the same way without the
   `bottlenecks.{i}.` prefix);
 - a diffusion featurizer bundle tree (`vae`, `backbone`, `image_encoder`,
-  `prompt_embeds`; `models/featurizer.py`) becomes a `FeaturizerParams`
-  state dict: the port's modules carry the Flax names, so a path maps
-  name by name, `kernel` to `weight` (a Dense [in, out] transposed, a conv
-  [kh, kw, I, O] to [O, I, kh, kw]), a norm's `scale` to `weight`; the
-  imsd `image_encoder` (CLIPVisionPooled) maps its `encoder` as a ViT tower
-  does, its `post_ln` as a LayerNorm, and keeps `visual_projection`
-  [hidden, projection] and the `prompt_embeds` buffer as they are;
+  `prompt_embeds`, `pooled`; `models/featurizer.py`) becomes a
+  `FeaturizerParams` state dict: the port's modules carry the Flax names
+  (the UNets', DiT's and MMDiT's alike), so a path maps name by name,
+  `kernel` to `weight` (a Dense [in, out] transposed, a conv [kh, kw, I, O],
+  the DiT / MMDiT patch embedding's (p, p, C, D) among them, to
+  [O, I, kh, kw]), a norm's `scale` to `weight`, and a bare leaf (MMDiT's
+  `pos_embed` [1, 192², D]) as it is; the imsd `image_encoder`
+  (CLIPVisionPooled) maps its `encoder` as a ViT tower does, its `post_ln`
+  as a LayerNorm, and keeps `visual_projection` [hidden, projection]; the
+  `prompt_embeds` and `pooled` buffers stay as they are;
 - a weight-only quantised decoder leaf of the JAX `ops/quant.py` becomes the
   buffers of a `QuantDense`: `{"q8" [in, out], "scale" [1, out]}` ->
   `q8` [out, in], `scale` [out]; `{"q4" [in / 2, out] bytes, "scale"
@@ -102,7 +105,7 @@ def _quant_leaf(leaf, prefix: str, out: StateDict) -> None:
         out[f"{prefix}.scale"] = _t(scale.reshape(-1))
     else:
         codes = _unpack_q4_jax(leaf["q4"], scale.shape[0])
-        out[f"{prefix}.q4"] = quant.pack_int4(_t(codes.T))
+        out[f"{prefix}.q4"] = quant.pack_int4(_t(codes.T), scale.shape[0])
         out[f"{prefix}.scale"] = _t(scale)
 
 
@@ -241,12 +244,9 @@ def featurizer_state_dict(tree: Dict[str, Any],
         out.update(vit_state_dict(enc, p))
         _ln(enc["post_ln"], f"{p}post_ln", out)
         out[f"{p}visual_projection"] = _t(enc["visual_projection"])
-    if "prompt_embeds" in tree:
-        out[f"{prefix}prompt_embeds"] = _t(tree["prompt_embeds"])
-    if "pooled" in tree:
-        raise NotImplementedError(
-            "the SD3 featurizer is not ported to the PyTorch package yet "
-            "(ROADMAP, queue 1: 5, diffusion towers)")
+    for name in ("prompt_embeds", "pooled"):
+        if name in tree:
+            out[f"{prefix}{name}"] = _t(tree[name])
     return out
 
 
@@ -361,17 +361,28 @@ def vit_tree(sd: StateDict, patch_size: int,
     return {"encoder": enc}
 
 
-def _llama_dense_tree(sd: StateDict, prefix: str):
+def _llama_dense_tree(sd: StateDict, prefix: str, di=None):
     """Inverse of `_llama_dense` for one module: a dense [in, out] kernel or
-    the JAX quantised leaf."""
+    the JAX quantised leaf. `di` is the contraction dim of an int4 leaf
+    whose words hold zero-padded groups (`quant.stored_width`)."""
     if f"{prefix}.weight" in sd:
         return _np(sd[f"{prefix}.weight"]).T.copy()
     scale = _np(sd[f"{prefix}.scale"])
     if f"{prefix}.q8" in sd:
         return {"q8": sd[f"{prefix}.q8"].cpu().numpy().T.copy(),
                 "scale": scale.reshape(1, -1)}
-    codes = quant._unpack_int4(sd[f"{prefix}.q4"].cpu(), torch.int8).numpy()
+    codes = quant._unpack_int4(sd[f"{prefix}.q4"].cpu(), torch.int8)
+    if di is not None:
+        codes = quant.unpad_groups(codes, scale.shape[0], di)
+    codes = codes.numpy()
     return {"q4": _pack_q4_jax(codes.T, scale.shape[0]), "scale": scale}
+
+
+def _out_dim(sd: StateDict, prefix: str) -> int:
+    """Output channels of a dense or quantised decoder matmul."""
+    if f"{prefix}.weight" in sd:
+        return sd[f"{prefix}.weight"].shape[0]
+    return sd[f"{prefix}.scale"].shape[-1]
 
 
 def _stack(leaves):
@@ -385,7 +396,13 @@ def llama_tree(sd: StateDict) -> Dict[str, Any]:
     Dense weights back to [in, out] kernels, `QuantDense` buffers back to
     the JAX quantised leaves."""
     n = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
-    layers = {name: _stack([_llama_dense_tree(sd, f"layers.{i}.{name}")
+    hidden = sd["embed"].shape[1]
+    # contraction dims: the attention's width into wo, the MLP's into down
+    di = {name: hidden for name in _LLAMA_DENSES}
+    di["wo"] = _out_dim(sd, "layers.0.wq")
+    di["down"] = _out_dim(sd, "layers.0.up")
+    layers = {name: _stack([_llama_dense_tree(sd, f"layers.{i}.{name}",
+                                              di[name])
                             for i in range(n)])
               for name in _LLAMA_DENSES}
     for name in ("rms1", "rms2"):
@@ -393,7 +410,7 @@ def llama_tree(sd: StateDict) -> Dict[str, Any]:
                                  for i in range(n)])
     return {"embed": _np(sd["embed"]), "layers": layers,
             "final_norm": _np(sd["final_norm"]),
-            "lm_head": _llama_dense_tree(sd, "lm_head")}
+            "lm_head": _llama_dense_tree(sd, "lm_head", hidden)}
 
 
 def mpt_tree(sd: StateDict) -> Dict[str, Any]:
@@ -480,8 +497,9 @@ def featurizer_tree(sd: StateDict) -> Dict[str, Any]:
         sub["post_ln"] = _ln_tree(enc, "post_ln")
         sub["visual_projection"] = _np(enc["visual_projection"])
         tree["image_encoder"] = sub
-    if "prompt_embeds" in sd:
-        tree["prompt_embeds"] = _np(sd["prompt_embeds"])
+    for name in ("prompt_embeds", "pooled"):
+        if name in sd:
+            tree[name] = _np(sd[name])
     return tree
 
 

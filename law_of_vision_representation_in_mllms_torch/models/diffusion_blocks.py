@@ -13,8 +13,9 @@ Precision as in the JAX blocks: matmuls and convolutions in
 `precision.compute_dtype`; GroupNorm statistics in `precision.accum_dtype`;
 the transformer blocks' LayerNorms in fp32.
 
-Attention. `CrossAttention` (every UNet attention) runs kernel 2,
-non-causal, `kv_len = Skv` (`ops.flash_attention`), whatever
+Attention. `diffusion_attention` (every attention of the UNets' and the
+DiT / MMDiT blocks) runs kernel 2, non-causal, `kv_len = Skv`
+(`ops.flash_attention`), whatever
 `diffusion_attn_impl` names: `None`, `flash`, `auto`, `xla_expclamp` and
 `xla_expclamp_fused` are the JAX package's formulations of one softmax
 attention (the `xla_*` ones steer the TPU compiler; a fused kernel writes no
@@ -235,6 +236,13 @@ class Upsample(nn.Module):
         return self.conv(x)
 
 
+def diffusion_attention(q, k, v, dtype):
+    """The diffusion towers' attention (the JAX `_attn` dispatch): q
+    [B, Sq, H, D], k and v [B, Skv, H, D] through kernel 2 non-causal (its
+    plain version for CPU tensors), returned in `dtype`."""
+    return flash_attention(q, k, v).to(dtype)
+
+
 class CrossAttention(nn.Module):
     """diffusers Attention: q, k, v without bias, out with bias; self
     attention when no context is given."""
@@ -266,7 +274,7 @@ class CrossAttention(nn.Module):
             # the plain version takes fp32 as the JAX upcast does; kernel 2
             # keeps bf16 operands and accumulates in fp32 (module docstring)
             q, k, v = q.float(), k.float(), v.float()
-        o = flash_attention(q, k, v).to(self.precision.compute_dtype)
+        o = diffusion_attention(q, k, v, self.precision.compute_dtype)
         return self.to_out(o.reshape(b, s, h * d))
 
 

@@ -6,11 +6,11 @@ A spec string names one tower, or several joined by '.' (channel concat into
 one shared projector). A `*_feature` name is the precomputed-feature
 pseudo-tower (JAX `kind="feature"`, the reference's `build_vision_tower`): the
 dataset hands its features in and `encode_images` passes them through, so
-feature-cached training runs no tower. SD1.5, SD2.1, SD image-variations and
-SDXL are `kind="diffusion"` entries (`models/featurizer.py`), with the
-featurizer knobs `t`, `up_ft_index`, `ensemble_size` and the image size.
-DiT, SD3 and ',' (MoF, per-tower projectors) specs are not ported yet and
-raise NotImplementedError.
+feature-cached training runs no tower. SD1.5, SD2.1, SD image-variations, SDXL,
+DiT-XL/2 and SD3-medium are `kind="diffusion"` entries
+(`models/featurizer.py`), with the featurizer knobs `t`, `up_ft_index`,
+`ensemble_size` and the image size. ',' (MoF, per-tower projectors) specs
+are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,9 +51,6 @@ DIFFUSION_IMG_SIZES = {
     "stabilityai/stable-diffusion-3-medium-diffusers": 512,
 }
 DIFFUSION_TOWERS = tuple(DIFFUSION_HIDDEN_SIZES)
-# the diffusion towers this port does not run yet
-UNPORTED_DIFFUSION = ("facebook/DiT-XL-2-512",
-                      "stabilityai/stable-diffusion-3-medium-diffusers")
 # precomputed-feature pseudo-towers: name -> feature width; 576 tokens each
 # (the reference's dummy feature, `train.py:830-831`)
 FEATURE_TOWERS = {"runwayml/stable-diffusion-v1-5_feature": 1280}
@@ -109,9 +106,6 @@ def _make_entry(name: str, **overrides) -> TowerEntry:
         return TowerEntry(name=name, kind="feature",
                           hidden_size=FEATURE_TOWERS[name],
                           num_patches=FEATURE_TOKENS)
-    if name in UNPORTED_DIFFUSION:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what=f"diffusion tower {name}", item="5, diffusion towers"))
     if name in DIFFUSION_TOWERS:
         overrides = dict(overrides)
         img = overrides.pop("img_size", None) or DIFFUSION_IMG_SIZES[name]
@@ -123,11 +117,14 @@ def _make_entry(name: str, **overrides) -> TowerEntry:
 
 
 def diffusion_grid(name: str, img_size: int, up_ft_index: int = 0) -> int:
-    """Side of a UNet tower's harvested feature map at the production block
-    counts: the VAE's /8 latent, 3 downsamplers (SDXL 2); up block i has
-    run its upsampler but for the last block. SD1.5 at 768, up_ft 0:
-    24 x 24 x 1280 = 576 tokens (`train.py:830-831`)."""
+    """Side of a diffusion tower's harvested feature map at the production
+    block counts: the VAE's /8 latent; a UNet has 3 downsamplers (SDXL 2)
+    and up block i has run its upsampler but for the last block (SD1.5 at
+    768, up_ft 0: 24 x 24 x 1280 = 576 tokens, `train.py:830-831`); DiT and
+    SD3 patchify the latent by 2 and unfold 2x2 (512 px: 16 x 16)."""
     latent = img_size // 8
+    if "DiT" in name or "diffusion-3" in name:
+        return latent // 4
     n_up = 3 if "xl" in name else 4
     mid = latent >> (n_up - 1)
     return mid << min(up_ft_index + 1, n_up - 1)

@@ -4,9 +4,9 @@ package's `models/vae.py`).
 The featurizers VAE-encode the [-1, 1] image, take the posterior (its mean,
 or a sample), and scale it; the decoder is never used, so only the encoder
 exists. SD1.5 / 2.1: block_out (128, 256, 512, 512), 2 layers a block,
-4 latent channels, scaling 0.18215; SDXL the same trunk at scaling 0.13025;
-SD3 (a configuration only here: its featurizer is not ported) 16 latent
-channels, scaling 1.5305, shift 0.0609, no quant conv.
+4 latent channels, scaling 0.18215 (DiT-XL/2 takes the same); SDXL the same
+trunk at scaling 0.13025; SD3 16 latent channels, scaling 1.5305, shift
+0.0609, and no quant conv (the module and its bundle have no `quant_conv`).
 """
 
 from __future__ import annotations

@@ -15,6 +15,8 @@ function returns `cudaGetLastError()` after its launch):
   lvr_encoder_attention(q, k, v, out, B, S, H, D, scale, stream)
   lvr_flash_attention(q, k, v, out, lse, slopes, B, Sq, Skv, H, KV, D,
                       kv_len, causal, scale, stream)
+  lvr_flash_attention_block_rows() -> the query rows a block of the last
+                      forward launched by `lvr_flash_attention` took
   lvr_decode_attention(q, k, v, mask, out, B, T, H, KV, D, scale, stream)
   lvr_decode_attention_int8(q, k, v, k_scale, v_scale, mask, out, B, T, H,
                             KV, D, scale, stream)
@@ -72,6 +74,7 @@ _SIGNATURES = {
     "lvr_a_score_tf32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lvr_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lvr_int4_matmul_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "lvr_flash_attention_block_rows": (),
 }
 
 

@@ -56,9 +56,10 @@ image is spliced before the pad); a pad row's labels are ignored, so its dO
 is zero.
 
 Head sizes: 64 and 128 in every form; the forward's non-causal form without
-ALiBi also takes 40, 80 and 160 (`UNET_HEAD_DIMS`), the diffusion UNets'
-attention (the JAX `flash_mha` -> `flash_attention_bhsd`), on a tile of D
-rounded up to 64 whose columns past D TMA reads as zeros. Any other head size
+ALiBi also takes 40, 72, 80 and 160 (`DIFFUSION_HEAD_DIMS`), the diffusion
+towers' attention (the JAX `flash_mha` -> `flash_attention_bhsd`: the UNets'
+40, 80 and 160, DiT-XL/2's 72), on a tile of D rounded up to 64 whose columns
+past D TMA reads as zeros. Any other head size
 raises on CUDA; the backward kernels take 64 and 128 only.
 
 Every wrapper takes the plain version only for CPU tensors; for CUDA tensors
@@ -201,9 +202,10 @@ def _check_shapes(name: str, q, k, v, kv_len):
 
 
 # head sizes of kernel 2's non-causal, unbiased form: the decoder's 64 and
-# 128, and the diffusion UNets' 40, 80 and 160 (SD1.5's 8 heads over 320,
-# 640 and 1280 channels), which run on a tile of D rounded up to 64
-UNET_HEAD_DIMS = (40, 64, 80, 128, 160)
+# 128 (and SD3's joint attention), the diffusion UNets' 40, 80 and 160
+# (SD1.5's 8 heads over 320, 640 and 1280 channels) and DiT-XL/2's 72 (1,152
+# channels over 16 heads), which run on a tile of D rounded up to 64
+DIFFUSION_HEAD_DIMS = (40, 64, 72, 80, 128, 160)
 
 
 def _flash_forward(q, k, v, causal: bool, kv_len: int, return_lse: bool,
@@ -220,7 +222,7 @@ def _flash_forward(q, k, v, causal: bool, kv_len: int, return_lse: bool,
     skv, kvh = k.shape[1], k.shape[2]
     plain_form = not causal and slopes is None
     _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v}, d,
-                        UNET_HEAD_DIMS if plain_form else (64, 128))
+                        DIFFUSION_HEAD_DIMS if plain_form else (64, 128))
     out = q.new_empty(q.shape)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -403,6 +405,13 @@ def flash_attention(q, k, v, *, causal: bool = False,
                                         slopes)
         return (out, lse) if return_lse else out
     return _flash_forward(q, k, v, causal, kv_len, return_lse, slopes)
+
+
+def last_block_rows() -> int:
+    """The query rows a block of kernel 2's last forward launch took: 64 or
+    128, as `launch_flash_fwd` chose them from the grid (0 before the first
+    launch). A report of the card's launches: it builds the library."""
+    return _build.library().lvr_flash_attention_block_rows()
 
 
 # `launches` counts every launch of a wrapper's kernel, `alibi_launches` those

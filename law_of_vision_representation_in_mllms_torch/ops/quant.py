@@ -22,8 +22,12 @@ and the quantised leaves keep that orientation:
   `int4_k_order`: inside every tile of 128 the order is the one in which a
   warp's lanes consume B operands of `mma.m16n8k16`, so kernel 10
   (`ops/int4_matmul.py`) feeds the tensor cores from one 16-byte load a
-  lane; a contraction dim that 128 does not divide (tiny models) is stored
-  in natural order and served by the plain path only. `io/from_jax.py`
+  lane; a stored width that 128 does not divide (tiny models) is stored in
+  natural order and served by the plain path only. A contraction dim that
+  8 does not divide (the JAX package takes any even one) is stored with
+  every group zero-padded at its end to whole tiles of 128 (zero codes),
+  and `int4_matmul` pads x the same way, so kernel 10 takes such a weight
+  too; `dequantize_int4(..., di=...)` drops the padding. `io/from_jax.py`
   carries a JAX `{"q4", "scale"}` leaf (rows j and j + 64 of a group sharing
   a byte) into this layout exactly: the codes and scales are the same
   numbers.
@@ -106,9 +110,40 @@ def int4_k_order(di: int, device=None):
     return _k_order_cached(di).to(device)
 
 
-def pack_int4(codes):
-    """Signed codes [..., out, in] in [-7, 7] -> int32 [..., out, in / 8]."""
-    di = codes.shape[-1]
+def stored_width(di: int, groups: int = 1) -> int:
+    """Contraction elements a row of int4 words holds for a contraction dim
+    `di` in `groups` groups: `di` where 8 divides it, else every group
+    zero-padded to whole tiles of 128."""
+    if di % 8 == 0:
+        return di
+    return groups * (-(-(di // groups) // _k10.TILE) * _k10.TILE)
+
+
+def pad_groups(x, groups: int, stored: int):
+    """x [..., di] -> [..., stored]: each of the `groups` groups zero-padded
+    at its end to `stored / groups` (x itself where the widths agree)."""
+    di = x.shape[-1]
+    if di == stored:
+        return x
+    xg = x.reshape(*x.shape[:-1], groups, di // groups)
+    return torch.nn.functional.pad(
+        xg, (0, (stored - di) // groups)).reshape(*x.shape[:-1], stored)
+
+
+def unpad_groups(x, groups: int, di: int):
+    """Inverse of `pad_groups`: [..., stored] -> [..., di]."""
+    stored = x.shape[-1]
+    if di == stored:
+        return x
+    xg = x.reshape(*x.shape[:-1], groups, stored // groups)
+    return xg[..., :di // groups].reshape(*x.shape[:-1], di)
+
+
+def pack_int4(codes, groups: int = 1):
+    """Signed codes [..., out, in] in [-7, 7], in `groups` groups along
+    `in` -> int32 [..., out, stored_width(in, groups) / 8]."""
+    di = stored_width(codes.shape[-1], groups)
+    codes = pad_groups(codes, groups, di)
     u = (codes.to(torch.int64) + 8)[..., int4_k_order(di, codes.device)]
     u = u.reshape(*codes.shape[:-1], di // 8, 8)
     shifts = 4 * torch.arange(8, device=codes.device)
@@ -136,9 +171,9 @@ def quantize_int4(w, group_size: Optional[int] = 128) -> Leaf:
     The range is [-7, 7]: -8 is left out so the grid is symmetric."""
     wf = w.detach().float()
     do, di = wf.shape[-2], wf.shape[-1]
-    if di % 8:
-        raise ValueError(f"int4 packing needs a contraction dim that 8 "
-                         f"divides, got {di}")
+    if di % 2:
+        raise ValueError(f"int4 packing needs an even contraction dim, "
+                         f"got {di}")
     # a group can never exceed the contraction dim (tiny models keep the
     # production default of 128)
     g = di if group_size is None else min(int(group_size), di)
@@ -149,18 +184,21 @@ def quantize_int4(w, group_size: Optional[int] = 128) -> Leaf:
     amax = wg.abs().amax(dim=-1, keepdim=True)             # [..., out, G, 1]
     scale = amax.clamp_min(1e-12) / 7.0
     q = torch.round(wg / scale).clamp(-7, 7).reshape(*lead, do, di)
-    return {"q4": pack_int4(q),
+    return {"q4": pack_int4(q, di // g),
             "scale": scale[..., 0].transpose(-1, -2).contiguous()}
 
 
-def dequantize_int4(qw: Leaf, dtype=torch.float32):
-    """The dense [out, in] weight the codes stand for."""
+def dequantize_int4(qw: Leaf, dtype=torch.float32, di: Optional[int] = None):
+    """The dense [out, in] weight the codes stand for. `di` is the
+    contraction dim of a weight that 8 does not divide (its words hold
+    zero-padded groups, `stored_width`); by default the stored width."""
     q, scale = qw["q4"], qw["scale"]
-    do, di = q.shape[-2], q.shape[-1] * 8
+    do, stored = q.shape[-2], q.shape[-1] * 8
     ng = scale.shape[-2]
-    w = _unpack_int4(q, dtype).reshape(*q.shape[:-2], do, ng, di // ng)
+    w = _unpack_int4(q, dtype).reshape(*q.shape[:-2], do, ng, stored // ng)
     s = scale.transpose(-1, -2).to(dtype)[..., None]        # [..., out, G, 1]
-    return (w * s).reshape(*q.shape[:-2], do, di)
+    w = (w * s).reshape(*q.shape[:-2], do, stored)
+    return w if di is None else unpad_groups(w, ng, di)
 
 
 def int4_matmul(x, qw: Leaf):
@@ -172,9 +210,12 @@ def int4_matmul(x, qw: Leaf):
     training path); it raises on a shape the kernel does not take. A CPU
     tensor takes the formulation below in `x.dtype`, the one the JAX package
     runs wherever its TPU kernel does not: for G == 1 the int8 path's
-    post-dot scaling, for G > 1 one batched dot with G as the batch dim."""
+    post-dot scaling, for G > 1 one batched dot with G as the batch dim.
+    Where the words hold zero-padded groups (a contraction dim that 8 does
+    not divide), x is padded with zeros the same way first."""
     q, scale = qw["q4"], qw["scale"]
     do, di = q.shape[-2], q.shape[-1] * 8
+    x = pad_groups(x, scale.shape[-2], di)
     if x.device.type != "cpu":
         y = _k10.int4_matmul_kernel(x.reshape(-1, di), q, scale)
         return y.reshape(*x.shape[:-1], do)

@@ -28,8 +28,9 @@ def run_feature_extraction(cfg: RunConfig, images: str, out_dir: str, *,
     the CPU. A diffusion tower (its bundle in `model.tower_weights`)
     featurizes deterministically: the posterior mean and no noise, so a
     feature cache is the same bits from run to run
-    (`C_score/extract_feature.py`); DiT and SD3 raise NotImplementedError
-    from the tower registry (ROADMAP, queue 1: 5, diffusion towers)."""
+    (`C_score/extract_feature.py`), at the tower's image size (512 px for
+    DiT-XL/2, SDXL and SD3-medium, 768 px for the others) unless
+    `model.img_size` sets another."""
     precision = DEFAULT_PRECISION if cfg.train.bf16 else FP32_PRECISION
     if os.path.isdir(images):
         paths = sorted(p for ext in ("jpg", "jpeg", "png")

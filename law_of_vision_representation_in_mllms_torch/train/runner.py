@@ -3,9 +3,11 @@
 
 `build_model` supports ViT towers and the precomputed-feature pseudo-tower
 with seeded random weights, per-tower weights from `model.tower_weights`
-(JAX `param_io` .npz files; for a UNet-family diffusion tower its featurizer
-bundle, whose `.json` sidecar configuration replaces the tower's preset and
-sets the entry's token grid and width), a full LLaVA parameter file in
+(JAX `param_io` .npz files; for a diffusion tower (a UNet, DiT-XL/2 or
+SD3-medium) its featurizer bundle, whose `.json` sidecar configuration
+replaces the tower's preset and sets the entry's token grid and width; a
+diffusion tower without one has no weights and refuses to run, as in the JAX
+package), a full LLaVA parameter file in
 `model.checkpoint` (a `param_io` .npz such as the JAX CLI's `consolidate` or
 the port's `save_train_state` writes, or a directory of `checkpoint-{step}`),
 and a stage-1 projector in `train.pretrain_mm_mlp_adapter`.

@@ -25,12 +25,12 @@ from law_of_vision_representation_in_mllms_torch.ops.encoder_attention import (
     encoder_attention, encoder_attention_plain)
 from law_of_vision_representation_in_mllms_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-    flash_attention_bwd_plain, flash_attention_plain)
+    flash_attention_bwd_plain, flash_attention_plain, last_block_rows)
 from law_of_vision_representation_in_mllms_torch.ops.int4_matmul import (
     int4_matmul_dx, int4_matmul_dx_plain, int4_matmul_kernel,
     int4_matmul_plain)
 from law_of_vision_representation_in_mllms_torch.ops.quant import (
-    dequantize_int4, quantize_int4, quantize_kv)
+    dequantize_int4, int4_matmul, pad_groups, quantize_int4, quantize_kv)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -153,7 +153,48 @@ def test_flash_kernel_unet_extraction_batch(cuda_device, skv):
     assert torch.equal(got, flash_attention(q, k, v))       # same bits
 
 
-@pytest.mark.parametrize("d", [32, 48, 72, 96, 192])
+# DiT-XL/2's head size 72 (1,152 channels over 16 heads; the Dp = 128 tile,
+# five k16 steps of Q·Kᵀ with columns 72-79 zero) at the tile edges, and the
+# two transformer towers' own attentions at 512 px: DiT's S = 1,024, H = 16,
+# D = 72 and SD3's joint [latent, context] S = 1,024 + 333 = 1,357, H = 24,
+# D = 64, at one image and at the extraction's batch of 16 (the plain
+# version one image at a time)
+TRANSFORMER_CASES = [(2, s, s, 4, 72) for s in (1, 63, 65, 128, 129, 300)] \
+    + [(b, s, s, h, d) for b in (1, 16)
+       for s, h, d in ((1024, 16, 72), (1357, 24, 64))]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", TRANSFORMER_CASES)
+def test_flash_kernel_dit_and_sd3_shapes(cuda_device, b, sq, skv, h, d):
+    q = _randn((b, sq, h, d), 0, cuda_device)
+    k = _randn((b, skv, h, d), 1, cuda_device)
+    v = _randn((b, skv, h, d), 2, cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    for i in range(b):
+        assert _close(got[i:i + 1], flash_attention_plain(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1]))
+    assert torch.equal(got, flash_attention(q, k, v))       # same bits
+
+
+# (B, S, H, D) -> the block rows `launch_flash_fwd` documents: at Dp = 128 a
+# grid of 64-row blocks that fits in one wave takes them, a larger one
+# 128-row blocks; Dp = 192 always takes 64
+BLOCK_ROWS_CASES = [((1, 64, 2, 72), 64), ((16, 1024, 16, 72), 128),
+                    ((16, 576, 8, 160), 64)]
+
+
+@pytest.mark.parametrize("shape,rows", BLOCK_ROWS_CASES)
+def test_flash_kernel_reports_its_block_rows(cuda_device, shape, rows):
+    q = _randn(shape, 0, cuda_device)
+    flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert last_block_rows() == rows
+
+
+@pytest.mark.parametrize("d", [32, 48, 56, 96, 192])
 def test_flash_kernel_other_head_dims_raise(cuda_device, d):
     q = _randn((1, 16, 2, d), 0, cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
@@ -283,6 +324,27 @@ def test_int4_matmul_kernel(cuda_device, m, di, do, group):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2 ** -6 * max(1.0, want.float().abs().max().item())
     assert torch.equal(got, int4_matmul_kernel(x, leaf["q4"], leaf["scale"]))
+
+
+@pytest.mark.parametrize("m,di,group", [(4, 1004, None), (3, 12, None),
+                                        (20, 1004, 502)])
+def test_int4_matmul_odd_contraction_dims(cuda_device, m, di, group):
+    """A contraction dim that 8 does not divide: the words hold each group
+    zero-padded to whole tiles, `quant.int4_matmul` pads x the same way and
+    launches kernel 10 (both bodies), held to its plain version."""
+    rng = np.random.RandomState(di + m)
+    w = torch.from_numpy(rng.randn(64, di).astype(np.float32) * 0.05)
+    leaf = {k: v.to(cuda_device)
+            for k, v in quantize_int4(w, group_size=group).items()}
+    x = _randn((m, di), 1, cuda_device)
+    before = int4_matmul_kernel.launches
+    got = int4_matmul(x, leaf)
+    torch.cuda.synchronize()
+    assert int4_matmul_kernel.launches == before + 1 and got.shape == (m, 64)
+    xp = pad_groups(x, leaf["scale"].shape[0], leaf["q4"].shape[1] * 8)
+    want = int4_matmul_plain(xp, leaf["q4"], leaf["scale"])
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2 ** -6 * max(1.0, want.float().abs().max().item())
 
 
 def _int4_leaf(seed, do, di, group, device):

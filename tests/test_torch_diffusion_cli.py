@@ -1,5 +1,6 @@
-"""A UNet-family diffusion tower through the port's commands, against the JAX
-package's commands on the same featurizer bundle, on the CPU in fp32
+"""A diffusion tower (UNet family, DiT, SD3) through the port's commands,
+against the JAX package's commands on the same featurizer bundle, on the CPU
+in fp32
 (`tests/test_diffusion_cli.py` with a bundle of the JAX modules' own
 parameters in place of a diffusers snapshot).
 
@@ -33,6 +34,7 @@ from law_of_vision_representation_in_mllms_tpu.eval.tasks import (
 from law_of_vision_representation_in_mllms_tpu.io import (
     featurizer_bundle as JFB)
 from law_of_vision_representation_in_mllms_tpu.io import param_io as jio
+from law_of_vision_representation_in_mllms_tpu.models import featurizer as JF
 from law_of_vision_representation_in_mllms_tpu.train import (
     runner as jrunner)
 from law_of_vision_representation_in_mllms_torch import cli
@@ -41,6 +43,7 @@ from law_of_vision_representation_in_mllms_torch.models import (
     featurizer as TF, llava as TM)
 from law_of_vision_representation_in_mllms_torch.train import runner
 from test_spair import _make_synthetic_spair
+import test_torch_dit_mmdit as DM
 from test_torch_featurizer import jax_config, jax_tree
 from test_torch_train import _check_run, _jax_tree_np, _run_both, _write_data
 
@@ -62,15 +65,30 @@ TOWERS = {
             jax_config("sd").unet, use_linear_projection=True,
             upcast_attention=True)),
     "stabilityai/stable-diffusion-xl-base-1.0": lambda: jax_config("sdxl"),
+    # the JAX tiny DiT and MMDiT (head size 8) at 32 px: 4 x 4 tokens after
+    # the 2x2 unfold
+    DM.DIT: lambda: DM.jax_config("dit", img_size=32),
+    DM.SD3: lambda: DM.jax_config("sd3", img_size=32),
 }
+# the towers of the eval and train tests: a UNet, DiT and SD3
+EVAL_TOWERS = [SD15, DM.DIT, DM.SD3]
+
+
+def _jcfg(name=SD15):
+    """`name`'s tiny stand-in: the UNets at 16 px (8 x 8 tokens)."""
+    jcfg = TOWERS[name]()
+    if jcfg.family in ("dit", "sd3"):
+        return jcfg
+    return dataclasses.replace(jcfg, img_size=IMG)
 
 
 def _bundle(folder, name=SD15):
     """A JAX featurizer bundle (`save_featurizer_bundle`) of `name`'s tiny
-    stand-in at 16 px."""
-    jcfg = dataclasses.replace(TOWERS[name](), img_size=IMG)
-    return JFB.save_featurizer_bundle(str(folder / "tower"),
-                                      jax_tree(jcfg, 7), jcfg)
+    stand-in."""
+    jcfg = _jcfg(name)
+    tree = (DM.jax_tree if jcfg.family in ("dit", "sd3") else jax_tree)(
+        jcfg, 7)
+    return JFB.save_featurizer_bundle(str(folder / "tower"), tree, jcfg)
 
 
 def _raw(bundle, name=SD15, **sections):
@@ -94,11 +112,6 @@ def _checkpoint(folder, raw):
 @pytest.fixture(scope="module")
 def bundle(tmp_path_factory):
     return _bundle(tmp_path_factory.mktemp("bundle"))
-
-
-@pytest.fixture(scope="module")
-def jax_checkpoint(bundle, tmp_path_factory):
-    return _checkpoint(tmp_path_factory.mktemp("ckpt"), _raw(bundle))
 
 
 def _yaml(path, raw):
@@ -152,9 +165,11 @@ def test_extract_features_and_c_score_match_jax(tmp_path, name, capsys):
     files = sorted(n for n in os.listdir(want) if n.endswith(".npy"))
     assert files == sorted(n for n in os.listdir(got) if n.endswith(".npy"))
     assert len(files) == 6
+    jcfg = _jcfg(name)
+    grid, dim = JF.feature_grid(jcfg), JF.feature_dim(jcfg)
     for f in files:
         a, b = np.load(f"{got}/{f}"), np.load(f"{want}/{f}")
-        assert a.shape == b.shape == (64, 40)
+        assert a.shape == b.shape == (grid * grid, dim)
         assert np.abs(a - b).max() <= FEAT_REL_TOL * np.abs(b).max()
     # deterministic featurization: a second run gives the same bits
     again = str(tmp_path / "torch2")
@@ -169,7 +184,7 @@ def test_extract_features_and_c_score_match_jax(tmp_path, name, capsys):
     for main, feats, extra in ((jcli.main, want, []),
                                (cli.main, got, ["--device", "cpu"])):
         assert main(["c-score", "--spair-dir", root, "--feature-dir", feats,
-                     "--num-patches", "8", "--anno-size", "64",
+                     "--num-patches", str(grid), "--anno-size", "64",
                      "--categories", "cat", *extra]) == 0
         scores.append(json.loads(capsys.readouterr().out))
     want_s, got_s = scores
@@ -178,7 +193,11 @@ def test_extract_features_and_c_score_match_jax(tmp_path, name, capsys):
         np.testing.assert_allclose(got_s[key], want_s[key], atol=C_TOL)
 
 
-def test_eval_matches_jax(tmp_path, bundle, jax_checkpoint):
+@pytest.mark.parametrize("name", EVAL_TOWERS)
+def test_eval_matches_jax(tmp_path, name):
+    bundle = _bundle(tmp_path, name)
+    jax_checkpoint = _checkpoint(tmp_path, _raw(bundle, name))
+    tokens = JF.feature_grid(_jcfg(name)) ** 2
     docs = [{"question": "Shape?", "options": ["circle", "square"],
              "answer": "A"},
             {"question": "Color?", "options": ["red", "blue"],
@@ -192,7 +211,7 @@ def test_eval_matches_jax(tmp_path, bundle, jax_checkpoint):
     tcfg["dataset_path"] = str(d / "q.json")
     tcfg["image_root"] = str(d)
     task = _yaml(d / "task.yaml", tcfg)
-    config = _yaml(tmp_path / "run.yaml", _raw(bundle))
+    config = _yaml(tmp_path / "run.yaml", _raw(bundle, name))
     out = {}
     for tag, main, extra in (
             ("jax", jcli.main, []),
@@ -218,19 +237,21 @@ def test_eval_matches_jax(tmp_path, bundle, jax_checkpoint):
     for i in (1, 2):
         a = np.load(f"{dumps['torch']}/tensor_{i}.npy")
         b = np.load(f"{dumps['jax']}/tensor_{i}.npy")
-        assert a.shape == b.shape == (64, 64)
+        assert a.shape == b.shape == (tokens, 64)
         assert np.abs(a - b).max() <= FEAT_REL_TOL * np.abs(b).max()
 
 
-def test_train_stage1_matches_jax(tmp_path, bundle):
-    """Stage 1 from PNGs through the tower: both runners from the JAX
+@pytest.mark.parametrize("name", EVAL_TOWERS)
+def test_train_stage1_matches_jax(tmp_path, name):
+    """Stage 1 from PNGs through the frozen tower: both runners from the JAX
     runner's weights, 3 steps."""
+    bundle = _bundle(tmp_path, name)
     rng = np.random.RandomState(1)
     for i in range(3):
         Image.fromarray(rng.randint(0, 255, (30 + 6 * i, 28, 3),
                                     dtype=np.uint8)).save(
             tmp_path / f"img{i}.png")
-    raw = _raw(bundle,
+    raw = _raw(bundle, name,
                train={"stage": 1, "batch_size": 2, "epochs": 1,
                       "max_length": 64, "learning_rate": 1e-2,
                       "output_dir": str(tmp_path / "out"),

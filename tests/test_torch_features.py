@@ -218,15 +218,18 @@ def test_run_feature_extraction_matches_jax(tmp_path, jax_checkpoint):
 
 
 def test_unsupported_towers_raise(tmp_path):
-    # the UNet family is ported (tests/test_torch_diffusion_cli.py); DiT and
-    # SD3 are not
+    # every diffusion tower is ported (tests/test_torch_diffusion_cli.py,
+    # tests/test_torch_dit_mmdit.py); without a bundle in
+    # model.tower_weights it has no weights and refuses to run
+    folder = str(tmp_path / "imgs")
+    _images(folder, 1, seed=3)
     for name in ("facebook/DiT-XL-2-512",
                  "stabilityai/stable-diffusion-3-medium-diffusers"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP, queue 1: 5, diffusion towers"):
+        with pytest.raises(ValueError, match="has no params"):
             run_feature_extraction(RunConfig.from_dict({"model": {
-                "vision_tower": name}}),
-                str(tmp_path), str(tmp_path / "o"), device="cpu")
+                "vision_tower": name, "decoder": "tiny"},
+                "train": {"bf16": False}}),
+                folder, str(tmp_path / "o"), device="cpu")
     with pytest.raises(ValueError, match="precomputed-feature"):
         run_feature_extraction(RunConfig.from_dict({"model": {
             "vision_tower": "runwayml/stable-diffusion-v1-5_feature",

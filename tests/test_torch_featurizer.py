@@ -42,6 +42,7 @@ from law_of_vision_representation_in_mllms_tpu.models import vae as JV
 from law_of_vision_representation_in_mllms_tpu.models import vit as JVIT
 from law_of_vision_representation_in_mllms_tpu.models.splice import (
     IGNORE_INDEX, IMAGE_TOKEN_INDEX)
+import test_torch_dit_mmdit as DM
 from test_torch_diffusion_blocks import close, flax_params, rand, t
 
 torch.set_num_threads(1)
@@ -184,20 +185,26 @@ def test_feature_grid_and_dim():
                 == (je.kind, je.num_patches, je.hidden_size, je.img_size)
 
 
-@pytest.mark.parametrize("name", ["facebook/DiT-XL-2-512",
-                                  "stabilityai/stable-diffusion-3-medium-"
-                                  "diffusers"])
-def test_dit_and_sd3_raise(name):
-    match = "ROADMAP, queue 1: 5, diffusion towers"
-    cfg = TF.FEATURIZER_PRESETS[name]()
-    with pytest.raises(NotImplementedError, match=match):
-        TF.extract_features(None, cfg, torch.zeros(1, 8, 8, 3))
-    with pytest.raises(NotImplementedError, match=match):
-        TF.config_from_dict({"family": cfg.family})
-    with pytest.raises(NotImplementedError, match=match):
-        TF.feature_grid(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        TT.parse_tower_spec(name)
+@pytest.mark.parametrize("family", ["dit", "sd3"])
+def test_dit_and_sd3_run_through_the_registry_and_the_featurizer(family):
+    """The two transformer towers, refused until they were ported, now
+    resolve through the tower registry and `tower_runtime` and featurize as
+    the JAX package does (`test_torch_dit_mmdit.py` holds the pieces)."""
+    name = {"dit": DM.DIT, "sd3": DM.SD3}[family]
+    entry = TT.parse_tower_spec(name).entries[0]
+    assert (entry.kind, entry.num_patches) == ("diffusion", 256)
+    preset = TR.resolve_featurizer_config(entry)
+    assert preset.family == family and TF.feature_grid(preset) == 16
+    jcfg = DM.jax_config(family)
+    cfg = port_config(jcfg)
+    tree = DM.jax_tree(jcfg, 95)
+    entry = TT.TowerEntry(name=name, kind="diffusion",
+                          hidden_size=TF.feature_dim(cfg), num_patches=9,
+                          img_size=DM.IMG, t=jcfg.t, up_ft_index=-1)
+    apply = TR.make_diffusion_apply(config_overrides={name: cfg})
+    px = DM.pixels(96)
+    close(apply(DM.port_params(tree, cfg), entry, t(px)),
+          DM.jax_features(tree, jcfg, px))
 
 
 def test_bundle_round_trip_both_ways(tmp_path):
@@ -262,10 +269,12 @@ def _tiny_llava(jcfg, tree, seed=0):
     """The JAX and port LLaVAs over one tiny diffusion tower ("tiny-sd"),
     the port's weights from the JAX tree (towers included)."""
     grid, dim = JF.feature_grid(jcfg), JF.feature_dim(jcfg)
+    img = jcfg.img_size
     dec = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
                num_kv_heads=4, intermediate_size=64)
     jentry = JT.TowerEntry(name="tiny-sd", kind="diffusion", hidden_size=dim,
-                           num_patches=grid * grid, img_size=IMG, t=jcfg.t)
+                           num_patches=grid * grid, img_size=img, t=jcfg.t,
+                           up_ft_index=jcfg.up_ft_index)
     jm = JM.LlavaConfig(tower_spec=JT.TowerSpec(entries=[jentry],
                                                 join="single"),
                         decoder=JL.tiny(**dec))
@@ -273,26 +282,35 @@ def _tiny_llava(jcfg, tree, seed=0):
                              init_towers=False)
     jparams["towers"] = [jax.tree.map(jnp.asarray, tree)]
     tentry = TT.TowerEntry(name="tiny-sd", kind="diffusion", hidden_size=dim,
-                           num_patches=grid * grid, img_size=IMG, t=jcfg.t)
+                           num_patches=grid * grid, img_size=img, t=jcfg.t,
+                           up_ft_index=jcfg.up_ft_index)
     cfg = port_config(jcfg)
     tm = TM.LlavaConfig(tower_spec=TT.TowerSpec(entries=[tentry],
                                                 join="single"),
                         decoder=TL.tiny(**dec),
                         featurizer_overrides={"tiny-sd": cfg})
     params = TM.LlavaParams(tm, T_FP32)
-    params.towers[0] = TF.FeaturizerParams(cfg, T_FP32, n_up=2,
-                                           prompt_len=PROMPT_LEN)
+    params.towers[0] = TF.FeaturizerParams.for_state_dict(
+        from_jax.featurizer_state_dict(tree), cfg, T_FP32)
     params.load_state_dict(from_jax.llava_state_dict(
         jax.tree.map(np.asarray, jparams)))
     return jm, jparams, tm, params.eval()
 
 
-def test_llava_with_a_diffusion_tower_matches_jax():
-    """`encode_images` and `loss_fn` over a tiny SD tower (the diffLVLM
-    path), both packages on the same weights; the tower takes no
+@pytest.mark.parametrize("family", ["sd", "dit", "sd3"])
+def test_llava_with_a_diffusion_tower_matches_jax(family):
+    """`encode_images` and `loss_fn` over a tiny SD, DiT or SD3 tower (the
+    diffLVLM path), both packages on the same weights; the tower takes no
     gradient."""
-    jcfg = jax_config("sd")
-    jm, jparams, tm, params = _tiny_llava(jcfg, jax_tree(jcfg, 100))
+    if family == "sd":
+        jcfg = jax_config("sd")
+        tree = jax_tree(jcfg, 100)
+        px = pixels(101)
+    else:
+        jcfg = DM.jax_config(family)
+        tree = DM.jax_tree(jcfg, 100)
+        px = DM.pixels(101)
+    jm, jparams, tm, params = _tiny_llava(jcfg, tree)
     japply = JR.make_diffusion_apply(deterministic=True, precision=J_FP32,
                                      config_overrides={"tiny-sd": jcfg})
     rng = np.random.RandomState(2)
@@ -301,7 +319,6 @@ def test_llava_with_a_diffusion_tower_matches_jax():
     ids[:, 0] = IMAGE_TOKEN_INDEX
     labels = ids.copy()
     labels[:, :2] = IGNORE_INDEX
-    px = pixels(101)
     want = JM.encode_images(jparams, jm, [jnp.asarray(px)], J_FP32, japply)
     with torch.no_grad():
         got = TM.encode_images(params, tm, [t(px)])

@@ -292,8 +292,10 @@ def test_unported_options_raise():
         parse_tower_spec)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_tower_spec("debug/tiny-vit,debug/tiny-vit")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_tower_spec("facebook/DiT-XL-2-512")
+    # DiT and SD3 are ported: a diffusion entry of 16 x 16 tokens at 512 px
+    entry = parse_tower_spec("facebook/DiT-XL-2-512").entries[0]
+    assert (entry.kind, entry.num_patches, entry.hidden_size) == (
+        "diffusion", 256, 4608)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lmm(RunConfig.from_dict(
             {"model": dict(TINY["model"], visual_keep=0.5)}), device="cpu")

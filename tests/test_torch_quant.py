@@ -137,10 +137,48 @@ def test_int4_nibbles_sign_extend_in_every_position():
     assert sorted(order.tolist()) == list(range(256))
     assert order[:8].tolist() == [0, 8, 16, 24, 1, 9, 17, 25]
     assert TQ.int4_k_order(96).tolist() == list(range(96))
-    with pytest.raises(ValueError, match="8 divides"):
-        TQ.quantize_int4(torch.zeros(4, 12))
+    with pytest.raises(ValueError, match="even contraction dim"):
+        TQ.quantize_int4(torch.zeros(4, 13))
     with pytest.raises(ValueError, match="group_size"):
         TQ.quantize_int4(torch.zeros(4, 96), group_size=64)
+
+
+@pytest.mark.parametrize("di,group", [(6, None), (6, 2), (12, 128),
+                                      (12, 4), (1004, None), (1004, 502)])
+def test_int4_odd_contraction_dims_match_jax(di, group):
+    """Contraction dims that 8 does not divide, which the JAX packing takes
+    (an even dim, an even group that divides it, or one group): equal codes
+    and scales, the same dense weight, the product of the JAX XLA route
+    (fp32), and `from_jax` both ways. The port's words hold every group
+    zero-padded to whole 128-element tiles, so kernel 10 takes the weight
+    (`chip_smoke.py` launches it at K = 1,004)."""
+    rng = np.random.RandomState(di + (group or 0))
+    w = rng.randn(di, 24).astype(np.float32) * 0.05
+    x = rng.randn(2, 3, di).astype(np.float32)
+    want = JQ.quantize_int4(jnp.asarray(w), group_size=group)
+    got = TQ.quantize_int4(torch.from_numpy(w.T.copy()), group_size=group)
+    ng = got["scale"].shape[0]
+    stored = TQ.stored_width(di, ng)
+    assert stored % 128 == 0 and got["q4"].shape == (24, stored // 8)
+    np.testing.assert_array_equal(got["scale"].numpy(),
+                                  np.asarray(want["scale"]))
+    codes = TQ._unpack_int4(got["q4"], torch.int8)
+    np.testing.assert_array_equal(TQ.unpad_groups(codes, ng, di).numpy(),
+                                  _jax_codes(want).T)
+    assert torch.equal(TQ.pad_groups(TQ.unpad_groups(codes, ng, di), ng,
+                                     stored), codes)       # zero padding
+    np.testing.assert_array_equal(
+        TQ.dequantize_int4(got, di=di).numpy(),
+        np.asarray(JQ.dequantize_int4(want)).T)
+    y = TQ.quant_matmul(torch.from_numpy(x), got)
+    np.testing.assert_allclose(y.numpy(), np.asarray(JQ.int4_matmul(
+        jnp.asarray(x), want)), **CLOSE)
+    assert TK.kernel_supported(got["q4"], got["scale"])
+    sd = {}
+    from_jax._quant_leaf({k: np.asarray(v) for k, v in want.items()}, "w", sd)
+    assert torch.equal(sd["w.q4"], got["q4"])
+    back = from_jax._llama_dense_tree(sd, "w", di)
+    np.testing.assert_array_equal(back["q4"], np.asarray(want["q4"]))
 
 
 def test_quantize_kv_matches_jax():
