@@ -120,6 +120,27 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      eager one and kernel 3 at its shape to its plain version. A token
      that differs from greedy must follow a near-tie of the eager logits
      (top-2 gap within `LOGITS_REL_TOL` of max|logit|);
+  4c. (inside phases 4 and 7, on the model they built) the inflight
+     engine (`models.inflight.InflightEngine`, 4 slots, prompt cap 128,
+     gen cap 32, chunks of 16 replayed from CUDA graphs, a prompt-KV store):
+     6 of phase 4's requests with staggered budgets (two join freed slots
+     while the others decode, one samples), a request sharing a stored
+     prompt's image and leading text (a partial hit: only its suffix is
+     prefilled) and an exact repeat (a store hit: no tower pass and no
+     prefill launch); every greedy request's first-token logits (kept in
+     the store) against the eager prefill's (`LOGITS_REL_TOL` of
+     max|logit|), and its tokens against the eager `generate_greedy` of
+     that request alone (where they part, the eager logit of the engine's
+     token must lie within `ENGINE_TIE_REL_TOL` plus twice its logit gap,
+     of max|logit|, below the eager top; the partings are counted),
+     tokens/s,
+     each request's latency, captures, replays and the launches of kernels
+     1, 2, 3 and 10; in bf16 also `LMMServer(inflight=True)`: two
+     concurrent chat completions, a `stream: true` request whose tokens
+     arrive as deltas, and /health's engine counts. Every (kernel, shape)
+     the engine called kernels 1, 2, 3 and 10 at, the server's engine
+     included, is recorded and then held to its plain version (kernel 2
+     with the block rows its launcher reports); a shape not held fails;
   5. the training slice at full width: `run_training(RunConfig)` trains
      LLaVA-1.5-7B stage 1 (fp32 weights, bf16 compute, block remat) for 4
      steps of 16 random 336 px PNGs with 20-40-word captions. Losses finite,
@@ -210,6 +231,7 @@ The last lines are the kernels JSON, the card line from nvidia-smi and
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -287,6 +309,31 @@ DRAFT_LEN = 8
 BEAMS = 2
 SAMPLING = {"temperature": 0.7, "top_p": 0.9}
 SAMPLE_SEED = 1234
+# phase 4c: the inflight engine on phase 4's and 7's LLaVA. The v1
+# template makes phase 4's prompts 57-77 tokens, so the prompt cap is 128
+# (t_max = 128 + 575 + 32 = 735 slots a row); the budgets stagger the
+# requests' ends, so that the fifth and sixth join freed slots while the
+# others decode; request 5 samples
+INFLIGHT = dict(n_slots=4, prompt_cap=128, gen_cap=32, chunk=DECODE_CHUNK)
+INFLIGHT_BUDGETS = (8, 16, 32, 24, 32, 32)
+INFLIGHT_SAMPLED = 5
+INFLIGHT_BLOCK = 32             # the store's partial-prefix granularity
+# where an engine's greedy tokens part from the eager decode of the request
+# alone, the eager logit of the token the engine chose must lie within
+# ENGINE_TIE_REL_TOL + 2 d of max|logit| below the eager top. d is the
+# largest gap between the engine's and the eager prefill's first-token
+# logits of that request (held to LOGITS_REL_TOL): its cache carries that
+# difference, and two routes d apart rank two tokens apart only at a gap
+# under 2 d. ENGINE_TIE_REL_TOL covers what the decode steps add: eight
+# bf16 ulps of max|logit| at the least (an ulp is 2^-8 to 2^-7 of it). On
+# an H100 (700 W) the partings of requests whose first-token logits were
+# equal to the eager ones (d = 0) lay at 0 to three ulps (up to 1.78e-2 in
+# int4 + kv8), so a bound of 1e-2 failed correct runs. The bound is on the
+# eager logit of the engine's own token: a faulty engine's token (a wrong
+# slot, position or stale graph input) is the top of other logits and lies
+# about max|logit| below the eager top, not a few ulps. No share of
+# partings is bounded: up to 7 of 7 greedy requests parted, all at ties
+ENGINE_TIE_REL_TOL = 2 ** -4
 LAW_IMAGES = 100                # the A-score protocol's image count
 LAW_HIDDEN = 4096               # the LLM width the embeddings live in
 LAW_EVAL_LIMIT = 8
@@ -2533,6 +2580,11 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
     backend_paths = check_backends(tag, dev, counters, lmm, label, reqs,
                                    texts, toks, fig, quantize, first_s,
                                    every=bf16 is None)
+    # phase 4c: the inflight engine, in bf16 and under int4 + kv8
+    if bf16 is None or model == SERVING_FORMATS[1]:
+        backend_paths.update(run_inflight(tag, dev, counters, lmm, label,
+                                          quantize, fig["decode_cases"],
+                                          serve=bf16 is None))
     if bf16 is not None:
         print(f"{tag} [{label}] beside the bf16 run: prefill "
               f"{fig['prefill_ms']:.2f} vs {bf16['prefill_ms']:.2f} ms, "
@@ -2585,10 +2637,12 @@ def counted_run(counters, fn, decoder=None):
     return out, launches
 
 
-def near_tie_gaps(lmm, inputs, want, got) -> list:
+def near_tie_gaps(lmm, inputs, want, got, chosen: bool = False) -> list:
     """For each row where `got` differs from the eager greedy tokens
     `want`: (row, first differing step, the eager path's top-2 logit gap
-    there relative to the row's max |logit|), the eager steps fed `want`."""
+    there relative to the row's max |logit|), the eager steps fed `want`.
+    With `chosen`, the gap is the eager top logit less the eager logit of
+    the token `got` chose there, which is at least the top-2 gap."""
     from law_of_vision_representation_in_mllms_torch.models import llava as M
     diff = got.cpu() != want.cpu()
     first = {r: int(diff[r].nonzero()[0]) for r in range(diff.shape[0])
@@ -2605,7 +2659,8 @@ def near_tie_gaps(lmm, inputs, want, got) -> list:
             if step == t:
                 row = logits[r].float()
                 top2 = row.topk(2).values
-                gaps.append((r, step, ((top2[0] - top2[1])
+                other = row[got[r, step]] if chosen else top2[1]
+                gaps.append((r, step, ((top2[0] - other)
                                        / row.abs().max()).item()))
     return gaps
 
@@ -3017,6 +3072,492 @@ def serve_smoke(tag: str, label: str, lmm, counters, dev,
                  eager, got)
     cases.append(check_decode_at(tag, dev, "the served wave", 2, t_cache,
                                  bool(lmm.cfg.kv_quant)))
+    return launches
+
+
+def inflight_inputs(lmm, text: str, image):
+    """A request as the server's worker submits it: host ids [1, L], mask
+    and [1, H, W, 3] pixels; and the same on the card as a batch of one
+    for the eager reference."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.data.preprocess import (
+        tokenizer_image_token)
+    ids = np.asarray(tokenizer_image_token(lmm._prompt(text), lmm.tok),
+                     np.int64)[None]
+    px = np.asarray(image, np.float32)[None]
+    host = (ids, np.ones_like(ids, bool), [px])
+    card = (torch.from_numpy(ids).to(lmm.device),
+            torch.ones(ids.shape, dtype=torch.bool, device=lmm.device),
+            [torch.from_numpy(px).to(lmm.device)])
+    return host, card
+
+
+def hold_first_logits(tag: str, label: str, what: str, lmm, card,
+                      got) -> float:
+    """The first-token logits [V] an engine's prefill gave one request
+    against the eager prefill of that request alone: their largest gap,
+    relative to the eager max|logit|, must be within `LOGITS_REL_TOL`.
+    Returns that gap."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    want = M.prefill(lmm.params, lmm.cfg, *card,
+                     max_new_tokens=1).logits[0].float()
+    got = torch.as_tensor(got, device=want.device).float()
+    gap = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"{tag} [{label}] {what}: the engine's first-token logits lie "
+          f"{gap:.3e} of max|logit| from the eager prefill's (tol "
+          f"{LOGITS_REL_TOL})")
+    if not gap <= LOGITS_REL_TOL:
+        fail(f"[{label}] {what}: the engine's first-token logits lie "
+             f"{gap:.3e} of max|logit| from the eager prefill's")
+    return gap
+
+
+def check_engine_tokens(tag: str, label: str, what: str, lmm, card, got,
+                        n: int, bound: float) -> bool:
+    """An engine's tokens for one request (EOS excluded) against the eager
+    `generate_greedy` of that request alone. Where they part, the eager
+    logit of the token the engine chose must lie within `bound` of
+    max|logit| below the eager top. Returns whether they parted."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    eos = lmm.tok.eos_token_id
+    want = M.generate_greedy(lmm.params, lmm.cfg, *card, max_new_tokens=n,
+                             eos_id=eos)
+    row = list(got)[:n]
+    row += [eos] * (n - len(row))
+    gaps = near_tie_gaps(lmm, card, want, torch.tensor(
+        [row], device=want.device), chosen=True)
+    if not gaps:
+        print(f"{tag} [{label}] {what}: tokens equal to the eager greedy "
+              f"decode's")
+        return False
+    for _, step, gap in gaps:
+        print(f"{tag} [{label}] {what}: first differs at step {step}; the "
+              f"eager logit of the engine's token there is {gap:.3e} of "
+              f"max|logit| below the eager top (bound {bound:.3e})")
+        if gap > bound:
+            fail(f"[{label}] {what}: the engine chose at step {step} a token "
+                 f"{gap:.3e} of max|logit| below the eager top")
+    return True
+
+
+@contextlib.contextmanager
+def engine_shapes(seen):
+    """Counts into the Counter `seen`, by kernel and shape, the card's calls
+    of kernels 1, 2, 3 and 10 made inside, through the names the model's
+    modules call them by: the tower's `encoder_attention`, the decoder's
+    `flash_attention` and `decode_attention`, and `quant.int4_matmul`. A
+    chunk graph's capture is one call; its replays rerun the captured
+    shapes."""
+    from law_of_vision_representation_in_mllms_torch.models import llama, vit
+    from law_of_vision_representation_in_mllms_torch.ops import quant as Q
+
+    def attention(name):
+        def keep(args, out):
+            q, k = args[0], args[1]
+            if not q.is_cuda:
+                return None
+            b, s, h, d = q.shape
+            if name == "decode_attention":
+                int8 = len(args) > 4 and args[4] is not None
+                return (name + "_int8" * int8, b, k.shape[1], h, d)
+            if name == "flash_attention":
+                return (name, b, s, h, k.shape[2], d)
+            return (name, b, s, h, d)
+        return keep
+
+    def matmul(args, out):
+        x, leaf = args[0], args[1]
+        if not x.is_cuda:
+            return None
+        q4, scale = leaf["q4"], leaf["scale"]
+        di = q4.shape[-1] * 8
+        return ("int4_matmul", x.numel() // x.shape[-1], di, q4.shape[-2],
+                scale.shape[-2])
+    spies = [_Spy(vit, "encoder_attention",
+                  keep=attention("encoder_attention")),
+             _Spy(llama, "flash_attention", keep=attention("flash_attention")),
+             _Spy(llama, "decode_attention",
+                  keep=attention("decode_attention")),
+             _Spy(Q, "int4_matmul", keep=matmul)]
+    with contextlib.ExitStack() as stack:
+        for spy in spies:
+            stack.enter_context(spy)
+        try:
+            yield
+        finally:
+            for spy in spies:
+                seen.update(k for k in spy.kept if k is not None)
+
+
+def check_int4_at(tag: str, dev, g, leaves: dict, what: str, m: int, di: int,
+                  do: int, groups: int) -> dict:
+    """Kernel 10 against its plain version at one (M, K, N, groups) an engine
+    launched it at, on a seeded random int4 weight (one a shape, kept in
+    `leaves`) and x; a repeat must give the same bits."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        int4_matmul as K, quant as Q)
+    if (di, do, groups) not in leaves:
+        leaves[di, do, groups] = Q.quantize_int4(
+            torch.randn((do, di), generator=g, device=dev) * 0.02,
+            group_size=di // groups)
+    leaf = leaves[di, do, groups]
+    x = torch.randn((m, di), generator=g, device=dev, dtype=torch.bfloat16)
+    got = K.int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
+    # the plain version holds an fp32 partial for every group
+    ref = torch.cat([K.int4_matmul_plain(rows, leaf["q4"], leaf["scale"])
+                     for rows in x.split(1024)])
+    err = max_err(got, ref)
+    tol = INT4_REL_TOL * max(1.0, ref.float().abs().max().item())
+    shape = (f"M={m} {di}->{do} group {di // groups}, the "
+             f"{'mma.sync' if m <= 16 else 'wgmma'} body")
+    same_bits(f"kernel 10 at {what}'s {shape}", lambda: K.int4_matmul_kernel(
+        x, leaf["q4"], leaf["scale"]))
+    print(f"{tag} kernel int4_matmul at {what}'s shape [{shape}]: "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}); a repeat gives the same "
+          f"bits")
+    if not err <= tol:
+        fail(f"int4_matmul disagrees with its plain version at {what}'s "
+             f"shape {shape}: err {err}")
+    return dict(kernel="int4_matmul", path=what, shape=shape, err=err,
+                tol=tol)
+
+
+ENGINE_HELD = set()     # the engine's launch shapes held so far in this run
+
+
+def hold_engine_shapes(tag: str, dev, label: str, seen, cases: list) -> None:
+    """Holds each kernel shape in `seen` (see `engine_shapes`) that this run
+    has not held yet to its plain version, on seeded random inputs: kernels
+    1 and 2 by `attention_case` (kernel 2 with the block rows its launcher
+    reports), kernel 3 by `check_decode_at`, kernel 10 by `check_int4_at`.
+    Appends the cases to `cases`, then fails if a shape in `seen` was not
+    held."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        encoder_attention as enc, flash_attention as fl)
+    g = torch.Generator(device=dev).manual_seed(17)
+    leaves = {}
+    what = f"[{label}] inflight engine"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+    for key in sorted(set(seen) - ENGINE_HELD):
+        name, *dims = key
+        if name == "encoder_attention":
+            b, s, h, d = dims
+            case = attention_case(
+                tag, enc.encoder_attention, enc.encoder_attention_plain,
+                lambda q, k, v: sdpa(q, k, v),
+                (randn(b, s, h, d) for _ in range(3)), s * s,
+                f"kernel 1 at {what}'s B={b} S={s} H={h} D={d}")
+        elif name == "flash_attention":
+            b, s, h, kvh, d = dims
+            if kvh != h:
+                fail(f"{what} launched kernel 2 with KV={kvh} heads of "
+                     f"{h}: no case here holds that")
+            qkv = [randn(b, s, h, d) for _ in range(3)]
+            case = attention_case(
+                tag, lambda q, k, v: fl.flash_attention(q, k, v, causal=True),
+                lambda q, k, v: fl.flash_attention_plain(q, k, v,
+                                                         causal=True),
+                lambda q, k, v: sdpa(q, k, v, is_causal=True), qkv,
+                s * (s + 1) // 2,
+                f"kernel 2 at {what}'s B={b} S={s} H=KV={h} D={d} causal")
+            fl.flash_attention(*qkv, causal=True)   # the rows it takes
+            torch.cuda.synchronize(dev)
+            case["block_rows"] = fl.last_block_rows()
+            print(f"{tag} kernel 2 at {what}'s B={b} S={s}: "
+                  f"{case['block_rows']}-row blocks (reported by the launch)")
+            del qkv
+        elif name.startswith("decode_attention"):
+            b, t, h, d = dims
+            if (h, d) != (32, 128):
+                fail(f"{what} launched kernel 3 at H={h} D={d}: "
+                     f"check_decode_at holds Vicuna-7B's 32 heads of 128")
+            case = check_decode_at(tag, dev, what, b, t,
+                                   name.endswith("int8"))
+        else:
+            case = check_int4_at(tag, dev, g, leaves, what, *dims)
+        if not case["err"] <= case["tol"]:
+            fail(f"{name} at {case['shape']}: {case['err']} > {case['tol']}")
+        case.update(kernel=name, path=what)
+        cases.append(case)
+        ENGINE_HELD.add(key)
+    if not set(seen) <= ENGINE_HELD:
+        fail(f"{what} launched shapes that were not held to the plain "
+             f"version: {sorted(set(seen) - ENGINE_HELD)}")
+    print(f"{tag} {what} kernel calls by (kernel, shape), a capture one "
+          f"call, each held to its plain version: {dict(sorted(seen.items()))}")
+    del leaves
+    torch.cuda.empty_cache()
+
+
+def run_inflight(tag: str, dev, counters, lmm, label: str, quantize,
+                 cases: list, serve: bool) -> dict:
+    """Phase 4c on phase 4's or 7's LLaVA: the continuous-batching engine
+    at full width (see the module docstring). Appends kernel 3's case at
+    the slot step's shape to `cases`; returns the launches of each of its
+    paths ("inflight", and with `serve` "inflight_http")."""
+    import threading
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models.inflight import (
+        InflightEngine)
+
+    t_phase = time.perf_counter()
+    layers = lmm.cfg.decoder.num_layers
+    int8 = bool(lmm.cfg.kv_quant)
+    dec_name = "decode_attention_int8" if int8 else "decode_attention"
+    reqs = _requests(len(INFLIGHT_BUDGETS), lmm.processors[0].crop)
+    texts = [r.args[0] for r in reqs]
+    images = [r.visual[0] for r in reqs]
+    # the partial hit: request 3's image and text with its last 4 words
+    # replaced; the exact repeat: request 0
+    words = texts[3].split()
+    texts.append(" ".join(words[:-4] + [w for w in WORDS
+                                        if w not in words[-4:]][:4]))
+    images.append(images[3])
+    texts.append(texts[0])
+    images.append(images[0])
+    budgets = list(INFLIGHT_BUDGETS) + [32, INFLIGHT_BUDGETS[0]]
+    inputs = [inflight_inputs(lmm, t, im) for t, im in zip(texts, images)]
+    lengths = [h[0].shape[1] for h, _ in inputs]
+    eng = InflightEngine(lmm.params, lmm.cfg, eos_id=lmm.tok.eos_token_id,
+                         prefix_cache=16, prefix_block=INFLIGHT_BLOCK,
+                         prefix_cache_bytes=int(8e9), sample_seed=SAMPLE_SEED,
+                         **INFLIGHT)
+    t_max = eng.t_max
+    done_at = {}
+    seen = collections.Counter()    # kernel calls by shape (engine_shapes)
+
+    def submit(i):
+        kw = SAMPLING if i == INFLIGHT_SAMPLED else {}
+        handle = eng.submit(*inputs[i][0], budgets[i], **kw)
+        t0 = time.perf_counter()
+
+        def wait():
+            handle.event.wait(600)
+            done_at[i] = time.perf_counter() - t0
+        threading.Thread(target=wait, daemon=True).start()
+        return handle
+
+    handles = {}
+
+    def main_run():
+        handles.update({i: submit(i) for i in range(len(INFLIGHT_BUDGETS))})
+        handles[3].result(timeout=600)        # request 3's prompt is stored
+        handles[6] = submit(6)
+        return {i: h.result(timeout=600).tolist() for i, h in
+                handles.items()}
+
+    def repeat_run():
+        handles[7] = eng.submit(*inputs[7][0], budgets[7])
+        return handles[7].result(timeout=600).tolist()
+
+    try:
+        t0 = time.perf_counter()
+        # each chunk's host seconds: the inputs' copy, the replay (or the
+        # warm-up and the capture) and the read back, which syncs
+        with _Spy(eng, "_step") as chunk_spy, engine_shapes(seen):
+            outs, launches = counted_run(counters, main_run, eng)
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(v) for v in outs.values())
+        stats = dict(eng.stats())
+        # the exact repeat alone: a store hit, no tower pass, no prefill
+        prefills = eng.prefills
+        with engine_shapes(seen):
+            rep, rep_launches = counted_run(counters, repeat_run, eng)
+        outs[7] = rep
+        for name, n in rep_launches.items():
+            launches[name] += n
+        captures, replays = eng.captures, eng.replays
+        chunk_launches = {k: g.step.launches for k, g in eng._keys.items()
+                          if g.step is not None}
+        final = eng.stats()
+        # each prefilled prompt's first-token logits, kept in the store
+        # (the repeat's are request 0's)
+        stored = {i: eng._prefix_store.get(eng._prefix_key(h))
+                  for i, h in handles.items()}
+    finally:
+        eng.shutdown()
+    greedy = [i for i in range(len(inputs)) if i != INFLIGHT_SAMPLED]
+    if any(stored.get(i) is None for i in greedy):
+        fail(f"[{label}] the store lost a greedy request's prompt: "
+             f"{sorted(i for i in greedy if stored.get(i) is None)}")
+    gaps = {i: hold_first_logits(tag, label, f"inflight request {i}", lmm,
+                                 inputs[i][1], stored[i][2]) for i in greedy}
+    parted = [i for i in greedy if check_engine_tokens(
+        tag, label, f"inflight request {i} (L={lengths[i]}, "
+        f"{budgets[i]} new)", lmm, inputs[i][1], outs[i], budgets[i],
+        ENGINE_TIE_REL_TOL + 2 * gaps[i])]
+    print(f"{tag} [{label}] inflight engine: {len(parted)} of "
+          f"{len(greedy)} greedy requests part from their eager decode "
+          f"({parted}), each at a tie within {ENGINE_TIE_REL_TOL} + twice "
+          f"its first-token logit gap of max|logit|")
+    # the served prompts are prefilled whole, as requests 0-5 were
+    full = max(gaps[i] for i in greedy if i < len(INFLIGHT_BUDGETS))
+    sampled = outs[INFLIGHT_SAMPLED]
+    if not (0 < len(sampled) <= budgets[INFLIGHT_SAMPLED] and all(
+            0 <= t < lmm.cfg.decoder.vocab_size for t in sampled)):
+        fail(f"[{label}] the sampled inflight request gave {sampled}")
+    if final["prefills"] != prefills or final["prefix_hits"] != 1 or \
+            rep_launches["encoder_attention"] or \
+            rep_launches["flash_attention"]:
+        fail(f"[{label}] the exact repeat was not a store hit without a "
+             f"prefill: {final}, its launches {rep_launches}")
+    if stats["partial_hits"] != 1:
+        fail(f"[{label}] the request sharing request 3's image and leading "
+             f"text was not a partial hit: {stats}")
+    if (True,) not in chunk_launches:
+        fail(f"[{label}] the sampling chunk was not captured: "
+             f"{list(chunk_launches)}")
+    want10 = DECODE_CHUNK * (7 * layers + 1) if quantize == "int4" else 0
+    for key, rec in chunk_launches.items():
+        if rec[dec_name] != DECODE_CHUNK * layers or \
+                rec["int4_matmul"] != want10:
+            fail(f"[{label}] the inflight chunk {key} recorded {rec}")
+    # what the phase must have launched: kernels 1 and 2 in each full
+    # prefill (23 tower blocks, 32 decoder layers), kernel 3 in each chunk
+    # (the warm-up before each capture and each replay), kernel 10 in each
+    # prefill, suffix prefill and chunk step under int4
+    chunks = captures + replays
+    want = {"encoder_attention": 23 * prefills,
+            "flash_attention": layers * prefills,
+            dec_name: layers * DECODE_CHUNK * chunks,
+            "int4_matmul": (7 * layers + 1) * (prefills + 1 + DECODE_CHUNK
+                                               * chunks)
+            if quantize == "int4" else 0}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"[{label}] the inflight engine launched {launches}, not {want}")
+    lat = ", ".join(f"{i}: {done_at.get(i, float('nan')):.2f}"
+                    for i in sorted(done_at))
+    print(f"{tag} [{label}] inflight engine ({INFLIGHT['n_slots']} slots, "
+          f"T={t_max}, chunk {DECODE_CHUNK}, prompts of {lengths} tokens, "
+          f"budgets {budgets}, request {INFLIGHT_SAMPLED} sampled): {n_tok} "
+          f"tokens in {wall:.2f} s, {n_tok / wall:.1f} tokens/s (host clock, "
+          f"captures included); request latencies s {{{lat}}}; {stats}; the "
+          f"repeat of request 0: {final['prefix_hits']} store hit, "
+          f"{final['prefills'] - prefills} prefills, launches {rep_launches}")
+    secs = sorted(chunk_spy.seconds)
+    print(f"{tag} [{label}] inflight engine: {captures} chunk graphs "
+          f"captured ({sorted(k[0] for k in chunk_launches)} sampled), "
+          f"{replays} replays; the main run's chunks, host ms sorted "
+          f"{[round(x * 1e3, 2) for x in secs]} (median "
+          f"{secs[len(secs) // 2] * 1e3:.2f} ms, "
+          f"{secs[len(secs) // 2] * 1e3 / DECODE_CHUNK:.2f} ms a step of "
+          f"{INFLIGHT['n_slots']} slots); launches {launches} (kernel 3 "
+          f"{launches[dec_name]}, kernel 10 {launches['int4_matmul']}); "
+          f"store {final['prefix_entries']} entries, "
+          f"{final['prefix_bytes'] / 1e9:.2f} GB; phase 4c took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    paths = {"inflight": launches}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if serve:
+        paths["inflight_http"] = serve_inflight(tag, label, lmm, counters,
+                                                seen,
+                                                ENGINE_TIE_REL_TOL + 2 * full)
+    hold_engine_shapes(tag, dev, label, seen, cases)
+    return paths
+
+
+def serve_inflight(tag: str, label: str, lmm, counters, seen,
+                   bound: float) -> dict:
+    """`LMMServer(inflight=True)` on 127.0.0.1 (port 0): two concurrent chat
+    completions with a 336 px PNG each and a `stream: true` request, each
+    answer held to the eager greedy decode of its request alone; the
+    stream must bring more than one delta; /health must carry the engine's
+    counts. Adds the engine's kernel calls by shape to `seen`. Returns the
+    launches of the server's run."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    import numpy as np
+    from PIL import Image
+    from law_of_vision_representation_in_mllms_torch.eval.api import Instance
+    from law_of_vision_representation_in_mllms_torch.serve import (
+        LMMServer, _parse_messages)
+
+    rng = np.random.RandomState(4)
+    payloads = []
+    for i in range(2):
+        buf = io.BytesIO()
+        Image.fromarray(rng.randint(0, 255, (336, 336, 3), np.uint8)).save(
+            buf, format="PNG")
+        url = "data:image/png;base64," + base64.b64encode(
+            buf.getvalue()).decode()
+        payloads.append({"max_tokens": 32, "messages": [{
+            "role": "user", "content": [
+                {"type": "image_url", "image_url": {"url": url}},
+                {"type": "text",
+                 "text": " ".join(WORDS[6 * i:6 * i + 14])}]}]})
+    payloads.append(dict(payloads[1], stream=True))
+    answers, health = [None] * 3, {}
+    srv = LMMServer(lmm, model_name="llava-1.5-7b", host="127.0.0.1", port=0,
+                    inflight=True, inflight_kwargs=INFLIGHT)
+
+    def post(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/v1/chat/completions",
+            data=json.dumps(payloads[i]).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            answers[i] = r.read().decode()
+
+    def serve_three():
+        srv.start_background()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        post(2)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/health", timeout=60) as r:
+            health.update(json.loads(r.read()))
+
+    t0 = time.perf_counter()
+    try:
+        with engine_shapes(seen):
+            _, launches = counted_run(counters, serve_three,
+                                      srv.worker.engine)
+    finally:
+        srv.shutdown()
+    wall = time.perf_counter() - t0
+    texts = [json.loads(a)["choices"][0]["message"]["content"]
+             for a in answers[:2]]
+    events = [json.loads(line[6:]) for line in answers[2].split("\n")
+              if line.startswith("data: {")]
+    deltas = [e["choices"][0]["delta"].get("content") for e in events[1:-1]]
+    texts.append("".join(deltas).strip())
+    print(f"{tag} [{label}] serve --inflight: 2 concurrent chat completions "
+          f"and a streamed one (336 px PNGs) answered in {wall:.2f} s (server "
+          f"start and stop included); the stream brought {len(deltas)} "
+          f"deltas; /health {health}; launches {launches}")
+    if len(deltas) < 2 or health.get("requests") != 3 or \
+            health.get("inflight", {}).get("completions") != 3:
+        fail(f"[{label}] serve --inflight: {len(deltas)} deltas, /health "
+             f"{health}")
+    parted = 0
+    for i, (p, text) in enumerate(zip(payloads, texts)):
+        prompt, imgs = _parse_messages(p["messages"])
+        inst = Instance("generate_until", {}, i, "serve",
+                        (prompt, {"max_new_tokens": 32}), visual=imgs)
+        card = lmm._encode_batch([inst])
+        parted += check_engine_tokens(
+            tag, label, f"served inflight answer {i}", lmm, card,
+            [int(w[1:]) for w in text.split()], 32, bound)
+    print(f"{tag} [{label}] serve --inflight: {parted} of {len(texts)} "
+          f"answers part from their eager decode, each at a tie within "
+          f"{bound:.3e} of max|logit|")
     return launches
 
 
@@ -3638,14 +4179,15 @@ def _c_score_run(spair_dir: str, feature_dir: str, num_patches: int, dev,
     sync = dev if dev.type == "cuda" else None
     t0 = time.perf_counter()
     with _Spy(spair, "load_spair_data") as annos, \
-            _Spy(c_score_run, "_load_features") as loads, \
+            _Spy(c_score_run, "_load_features",
+                 keep=lambda args, out: args) as loads, \
             _Spy(c_score_run, "compute_pck_batch", sync, keep) as steps:
         res = c_score_run.run_c_score(spair_dir, feature_dir, device=dev,
                                       num_patches=num_patches,
                                       anno_size=C_ANNO, compute_geo=True)
     parts = {"total": time.perf_counter() - t0, "annotations":
              sum(annos.seconds), "features": sum(loads.seconds),
-             "device": sum(steps.seconds)}
+             "device": sum(steps.seconds), "feature_reads": loads.kept}
     n_cats = len(spair.SPAIR_CATEGORIES)
     seen = [len(res["categories"]), len(annos.seconds), len(loads.seconds),
             len(steps.seconds)]
@@ -3653,6 +4195,22 @@ def _c_score_run(spair_dir: str, feature_dir: str, num_patches: int, dev,
         fail(f"run_c_score on {dev}: categories, annotation loads, feature "
              f"loads and compute_pck_batch calls {seen}, not {n_cats} each")
     return res, parts, steps.kept
+
+
+def _plain_feature_reads(reads) -> float:
+    """Seconds of the plain numpy reader (one `np.load` a file) over the
+    files of `run_c_score`'s feature reads `reads` ([(files, feature_dir,
+    suffix)]), right after the native loader read them."""
+    import numpy as np
+    from law_of_vision_representation_in_mllms_torch.io import native_cache
+    from law_of_vision_representation_in_mllms_torch.pipeline import (
+        c_score_run)
+    t0 = time.perf_counter()
+    for files, feature_dir, suffix in reads:
+        paths = c_score_run.feature_paths(files, feature_dir, suffix)
+        first = np.load(paths[0], mmap_mode="r")
+        native_cache.numpy_batch_load(paths, first.shape, first.dtype)
+    return time.perf_counter() - t0
 
 
 def _near_tie_gap(c_mod, args, pair: int, kpt: int, n: int) -> float:
@@ -3686,6 +4244,15 @@ def run_c_score_leg(tag: str, dev, counters, tmp: str, reps: dict):
     from law_of_vision_representation_in_mllms_torch.pipeline import (
         features as pfeat, runner as prunner)
 
+    from law_of_vision_representation_in_mllms_torch.io import native_cache
+    t0 = time.perf_counter()
+    native = native_cache.native_available()
+    print(f"{tag} C score: native_available() {native} (the feature loader "
+          f"built from native/lvr_loader.cpp into "
+          f"{os.path.relpath(native_cache.library_path(), REPO)} in "
+          f"{time.perf_counter() - t0:.2f} s)")
+    if not native:
+        fail("the native feature loader did not build")
     root = os.path.join(tmp, "SPair-71k")
     t0 = time.perf_counter()
     n_images = _spair_tree(root, C_IMAGES, C_PAIRS)
@@ -3764,6 +4331,8 @@ def run_c_score_leg(tag: str, dev, counters, tmp: str, reps: dict):
 
         res, parts, card_correct = _c_score_run(root, out_dir, grid, dev,
                                                 on_card)
+        parts["plain_features"] = _plain_feature_reads(
+            parts.pop("feature_reads"))
         # the same function on the CPU in fp32 over the same files
         cpu_res, cpu_parts, cpu_steps = _c_score_run(
             root, out_dir, grid, torch.device("cpu"), on_cpu)
@@ -3855,7 +4424,9 @@ def run_c_score_leg(tag: str, dev, counters, tmp: str, reps: dict):
               f"{ext_s - sum(split.values()):.2f}; the 7B build "
               f"{build_s:.2f} s apart); run_c_score "
               f"{parts['total']:.2f} s: annotations {parts['annotations']:.2f}"
-              f", feature files {parts['features']:.2f} (host), "
+              f", feature files {parts['features']:.2f} (host, the native "
+              f"batch_load; the plain numpy reader on the same files "
+              f"{parts['plain_features']:.2f}), "
               f"compute_pck_batch {parts['device']:.3f} (device), the rest "
               f"{parts['total'] - parts['annotations'] - parts['features'] - parts['device']:.2f}"
               f"; the CPU's run {cpu_parts['total']:.2f} s "
@@ -5466,9 +6037,11 @@ def main() -> int:
             kernels[case.pop("kernel")].setdefault("path_cases",
                                                    []).append(case)
     # the paths whose decode steps are replayed CUDA graphs: the serving
-    # runs' greedy decode (phases 4 and 7), the served wave and speculation
+    # runs' greedy decode (phases 4 and 7), the served wave, speculation and
+    # the inflight engine (phase 4c, its server too)
     graph_paths = ("serve", "serve_int4_kv8", "serve_int8", "serve_http",
-                   "serve_speculative")
+                   "serve_speculative", "serve_inflight",
+                   "serve_inflight_http", "serve_int4_kv8_inflight")
     print(f"{tag} chip_smoke phases took "
           f"{time.perf_counter() - t_start:.1f} s")
     # launches: the serving run (phase 4, its decode replayed CUDA graphs:

@@ -7,7 +7,7 @@ Commands:
                     `train.switch_enable=true`)
   generate          one-shot inference (image + prompt -> answer)
   serve             OpenAI-compatible chat-completions server (wave
-                    batching; --inflight is not ported yet)
+                    batching, or --inflight continuous batching)
   eval              benchmark evaluation through the eval harness
   tasks             list the bundled eval tasks
   extract-embeds    dump post-projector embeddings for the A score
@@ -90,13 +90,30 @@ def main(argv=None):
                    help="decode backend (shorthand for --set "
                         "model.gen_backend=...; all three give greedy's "
                         "tokens; on the card greedy runs as chunked)")
-    # the continuous-batching flags of the JAX CLI: accepted, and refused
-    # (models/inflight.py is not ported yet)
-    p.add_argument("--inflight", action="store_true")
-    for flag in ("--slots", "--prompt-cap", "--gen-cap",
-                 "--decode-chunk-serve", "--prefix-cache", "--prefix-block",
-                 "--prefix-cache-mb"):
-        p.add_argument(flag, type=int)
+    p.add_argument("--inflight", action="store_true",
+                   help="continuous batching: requests join and leave a "
+                        "running slot pool between decode chunks "
+                        "(models/inflight.py)")
+    p.add_argument("--slots", type=int, default=4,
+                   help="--inflight: concurrent decode slots")
+    p.add_argument("--prompt-cap", type=int, default=256,
+                   help="--inflight: max prompt tokens a request")
+    p.add_argument("--gen-cap", type=int, default=256,
+                   help="--inflight: max generated tokens a request")
+    p.add_argument("--decode-chunk-serve", type=int, default=4,
+                   help="--inflight: decode steps a chunk (one CUDA graph "
+                        "replay; admission waits at most one chunk)")
+    p.add_argument("--prefix-cache", type=int, default=0,
+                   help="--inflight: prompt-KV store entries (a repeated "
+                        "prompt skips the tower and the prefill; 0 = off)")
+    p.add_argument("--prefix-block", type=int, default=64,
+                   help="--prefix-cache: partial-prefix reuse granularity "
+                        "in spliced cache slots")
+    p.add_argument("--prefix-cache-mb", type=int, default=0,
+                   help="--prefix-cache: byte budget of the store in MB (0 = "
+                        "the entry count only); one stored prompt of "
+                        "LLaVA-1.5-7B at --prompt-cap 64 --gen-cap 32 is "
+                        "~350 MB in bf16")
     _add_device(p)
 
     p = sub.add_parser("eval", help="benchmark evaluation")
@@ -208,21 +225,25 @@ def _cmd_generate(args):
 
 def _cmd_serve(args):
     """Serve the LLaVA of the RunConfig until interrupted."""
-    from .serve import INFLIGHT_NOT_PORTED, run_server
-    inflight = {k: v for k, v in vars(args).items()
-                if k in ("slots", "prompt_cap", "gen_cap",
-                         "decode_chunk_serve", "prefix_cache",
-                         "prefix_block", "prefix_cache_mb")
-                and v is not None}
-    if args.inflight or inflight:
-        raise NotImplementedError(INFLIGHT_NOT_PORTED)
+    from .serve import run_server
     device = _device(args)
     cfg = _run_config(args)
     if args.gen_backend:
         cfg.model.gen_backend = args.gen_backend
     srv = run_server(cfg, device=device, model=args.model, host=args.host,
                      port=args.port, max_batch=args.max_batch,
-                     batch_window_ms=args.batch_window_ms)
+                     batch_window_ms=args.batch_window_ms,
+                     inflight=args.inflight,
+                     inflight_kwargs={
+                         "n_slots": args.slots,
+                         "prompt_cap": args.prompt_cap,
+                         "gen_cap": args.gen_cap,
+                         "chunk": args.decode_chunk_serve,
+                         "prefix_cache": args.prefix_cache,
+                         "prefix_block": args.prefix_block,
+                         "prefix_cache_bytes":
+                             args.prefix_cache_mb * (1 << 20),
+                     } if args.inflight else None)
     print(f"serving {args.model} on http://{args.host}:{srv.port}/v1",
           file=sys.stderr)
     try:

@@ -93,19 +93,19 @@ class SupervisedDataset:
 
 class FeatureDataset:
     """Feature-cached training: one `<image stem>.npy` per sample instead of
-    a tower forward per step. The JAX package's `packed_cache` (a mmapped
-    `.lvrpack` read through the native loader) is not ported yet."""
+    a tower forward per step.
+
+    With `packed_cache`, a `.lvrpack` file (`io.native_cache.pack`), the
+    features come out of that one file through the native loader's gathers
+    instead of one file a sample. `pack_index` maps image stems to pack rows
+    (by default the order of the records' first mention of each stem)."""
 
     def __init__(self, data_path: str, feature_folder: str,
                  template: Conversation, tokenizer, *,
                  feature_shape=(576, 1280),
                  max_length: Optional[int] = None,
-                 packed_cache: Optional[str] = None):
-        if packed_cache:
-            raise NotImplementedError(
-                "FeatureDataset(packed_cache=...) needs the native loader "
-                "binding, which is not ported to the PyTorch package yet "
-                "(ROADMAP, queue 1: 4, the rest of the CLI and eval)")
+                 packed_cache: Optional[str] = None,
+                 pack_index: Optional[Dict[str, int]] = None):
         with open(data_path) as f:
             self.records = json.load(f)
         self.feature_folder = feature_folder
@@ -113,6 +113,17 @@ class FeatureDataset:
         self.tokenizer = tokenizer
         self.feature_shape = tuple(feature_shape)
         self.max_length = max_length
+        self._pack = None
+        if packed_cache:
+            from ..io.native_cache import PackedCache
+            self._pack = PackedCache(packed_cache, self.feature_shape)
+            if pack_index is None:
+                pack_index = {}
+                for r in self.records:
+                    if "image" in r:
+                        stem = os.path.splitext(r["image"])[0]
+                        pack_index.setdefault(stem, len(pack_index))
+            self._pack_index = pack_index
 
     def __len__(self):
         return len(self.records)
@@ -126,8 +137,12 @@ class FeatureDataset:
                                          max_length=self.max_length)
         if has_image:
             stem = os.path.splitext(rec["image"])[0]
-            feat = np.load(os.path.join(self.feature_folder,
-                                        stem + ".npy")).astype(np.float32)
+            if self._pack is not None:
+                feat = self._pack.gather(
+                    [self._pack_index[stem]])[0].astype(np.float32)
+            else:
+                feat = np.load(os.path.join(
+                    self.feature_folder, stem + ".npy")).astype(np.float32)
         else:
             feat = np.zeros(self.feature_shape, np.float32)
         return {"input_ids": ids, "labels": labels, "pixel_values": [feat],

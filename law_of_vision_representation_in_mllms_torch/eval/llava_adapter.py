@@ -46,6 +46,19 @@ def _bucket(n: int, minimum: int = 32) -> int:
     return b
 
 
+def sampling_knobs(kwargs: dict) -> Tuple[float, float]:
+    """(temperature, top_p) of a request's gen_kwargs: the reference's
+    do_sample iff temperature > 0 (lmms_eval/models/llava.py:391-417), with
+    `do_sample=False` a greedy override; top_p None is 1.0, but an explicit
+    0.0 is honoured (the top token only)."""
+    temperature = float(kwargs.get("temperature", 0) or 0)
+    if not kwargs.get("do_sample", True):
+        temperature = 0.0
+    top_p = (1.0 if kwargs.get("top_p") is None
+             else float(kwargs["top_p"]))
+    return temperature, top_p
+
+
 class LlavaLMM(LMM):
     def __init__(self, params: M.LlavaParams, cfg: M.LlavaConfig, tokenizer,
                  template: Conversation, *,
@@ -156,15 +169,7 @@ class LlavaLMM(LMM):
         """One batch's tokens, routed as the JAX adapter routes them."""
         max_new = kwargs.get("max_new_tokens", 16)
         eos = self.tok.eos_token_id
-        # reference contract: do_sample iff temperature > 0
-        # (lmms_eval/models/llava.py:391-417)
-        temperature = float(kwargs.get("temperature", 0) or 0)
-        if not kwargs.get("do_sample", True):
-            temperature = 0.0
-        # top_p None -> 1.0, but an explicit 0.0 is honoured (the top token
-        # only)
-        top_p = (1.0 if kwargs.get("top_p") is None
-                 else float(kwargs["top_p"]))
+        temperature, top_p = sampling_knobs(kwargs)
         num_beams = int(kwargs.get("num_beams", 1) or 1)
         common = dict(max_new_tokens=max_new, eos_id=eos)
         if num_beams > 1:        # deterministic: beams win over temperature

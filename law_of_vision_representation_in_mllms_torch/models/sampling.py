@@ -7,6 +7,8 @@ vocabulary is sorted by probability, and a token is kept iff the cumulative
 probability BEFORE it is <= top_p, so the top token always survives. The
 draw over the kept set is Gumbel-max: an argmax over logits plus Gumbel
 noise. `temperature <= 0` gives the plain argmax, row for row.
+`sample_rows` takes a temperature and a top_p per row, as tensors (the
+inflight engine's slots, greedy and sampled in one captured step).
 
 The noise comes from an explicit `torch.Generator` on the logits' device, or
 is handed in as a tensor (`noise`), so that a test can give both packages the
@@ -34,6 +36,18 @@ def gumbel_noise(shape, generator: torch.Generator, device):
     return e.exponential_(generator=generator).log_().neg_()
 
 
+def _nucleus_draw(scaled, top_p, noise):
+    """Gumbel-max draw over the nucleus of fp32 `scaled` logits [..., V];
+    `noise` in the order of the sorted vocabulary."""
+    # stable, as `jnp.argsort`: equal logits keep their vocabulary order
+    order = torch.argsort(-scaled, dim=-1, stable=True)
+    sorted_logits = torch.gather(scaled, -1, order)
+    keep = top_p_mask(torch.softmax(sorted_logits, dim=-1), top_p)
+    sorted_logits = sorted_logits.masked_fill(~keep, float("-inf"))
+    pick = (sorted_logits + noise).argmax(dim=-1, keepdim=True)
+    return torch.gather(order, -1, pick)[..., 0]
+
+
 def sample_token(logits, generator: Optional[torch.Generator],
                  temperature: float, top_p: float = 1.0, *,
                  noise: Optional[torch.Tensor] = None):
@@ -45,13 +59,18 @@ def sample_token(logits, generator: Optional[torch.Generator],
     t = float(temperature)
     if t <= 0:
         return greedy
-    scaled = logits.float() / max(t, 1e-6)
-    # stable, as `jnp.argsort`: equal logits keep their vocabulary order
-    order = torch.argsort(-scaled, dim=-1, stable=True)
-    sorted_logits = torch.gather(scaled, -1, order)
-    keep = top_p_mask(torch.softmax(sorted_logits, dim=-1), top_p)
-    sorted_logits = sorted_logits.masked_fill(~keep, float("-inf"))
     if noise is None:
-        noise = gumbel_noise(sorted_logits.shape, generator, logits.device)
-    pick = (sorted_logits + noise).argmax(dim=-1, keepdim=True)
-    return torch.gather(order, -1, pick)[..., 0]
+        noise = gumbel_noise(logits.shape, generator, logits.device)
+    return _nucleus_draw(logits.float() / max(t, 1e-6), top_p, noise)
+
+
+def sample_rows(logits, temperature, top_p, noise):
+    """Row-wise `sample_token` (the JAX function with a traced temperature,
+    one row at a time): logits [B, V]; temperature and top_p [B] tensors;
+    noise [B, V] fp32 in the order of each row's sorted vocabulary. A row
+    with `temperature <= 0` gets its exact argmax, so one program serves
+    greedy and sampled rows together; nothing here is a host value."""
+    greedy = logits.argmax(dim=-1)
+    scaled = logits.float() / temperature.clamp_min(1e-6)[:, None]
+    sampled = _nucleus_draw(scaled, top_p[:, None], noise)
+    return torch.where(temperature > 0, sampled, greedy)

@@ -17,18 +17,28 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..io.native_cache import batch_load
 from ..metrics import spair as S
 from ..metrics.c_score import compute_pck_batch, concat_two_features
 
 
+def feature_paths(files: Sequence[str], feature_dir: str, suffix: str
+                  ) -> list:
+    """The feature file of each image: `<feature_dir>/<stem><suffix>.npy`."""
+    return [os.path.join(
+        feature_dir,
+        f"{os.path.splitext(os.path.basename(f))[0]}{suffix}.npy")
+        for f in files]
+
+
 def _load_features(files: Sequence[str], feature_dir: str, suffix: str
                    ) -> np.ndarray:
-    # one np.load a file; the JAX package's threaded reader
-    # (`io/native_cache.batch_load`) waits in ROADMAP, queue 1: 4
-    return np.stack([np.load(os.path.join(
-        feature_dir,
-        f"{os.path.splitext(os.path.basename(f))[0]}{suffix}.npy"))
-        for f in files])
+    """The images' feature files, read by the native loader's threads
+    (`io.native_cache.batch_load`) into one array; the first file's header
+    gives the shape and dtype."""
+    paths = feature_paths(files, feature_dir, suffix)
+    first = np.load(paths[0], mmap_mode="r")
+    return batch_load(paths, first.shape, first.dtype)
 
 
 def run_c_score(spair_dir: str, feature_dir: str, *, device,

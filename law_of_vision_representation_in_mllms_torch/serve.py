@@ -15,8 +15,14 @@ Requests are batched in waves (`_BatchWorker`): concurrent requests that
 arrive within `batch_window_ms` of the first ride one `generate_until`
 call, grouped by their generation kwargs, while the HTTP threads parse and
 decode images. max_tokens / temperature / top_p / stop map onto the
-generation kwargs the adapter understands. The continuous-batching engine
-(`--inflight`, the JAX `models/inflight.py`) is not ported yet.
+generation kwargs the adapter understands.
+
+With `inflight=True` (`serve --inflight`) every request goes through the
+continuous-batching engine instead (`_InflightWorker` over
+`models.inflight.InflightEngine`): the HTTP threads tokenise and preprocess,
+the engine's thread alone touches the device, a `stream: true` request
+receives its tokens as the engine produces them, and `/health` reports the
+engine's counts under "inflight". The wave worker is not built then.
 """
 
 from __future__ import annotations
@@ -32,10 +38,6 @@ from typing import List, Optional
 
 from .eval.api import Instance, LMM
 
-INFLIGHT_NOT_PORTED = (
-    "continuous batching (serve --inflight, models/inflight.py) is not "
-    "ported to the PyTorch package yet (ROADMAP, queue 1: 6, serving "
-    "backends)")
 _DATA_URL = re.compile(r"^data:image/[\w.+-]+;base64,(.*)$", re.DOTALL)
 
 
@@ -176,22 +178,111 @@ class _BatchWorker:
             done.set()
 
 
+class _InflightWorker:
+    """Continuous-batching worker: requests stream through the slot pool of
+    `models.inflight.InflightEngine` instead of riding co-arrival waves. A
+    request waits for a free slot, never for a longer neighbour to finish.
+    Needs the port's `LlavaLMM` (its params, config, tokenizer and
+    processors)."""
+
+    def __init__(self, lmm, n_slots: int = 4, prompt_cap: int = 256,
+                 gen_cap: int = 256, chunk: int = 4,
+                 prefix_cache: int = 0, prefix_block: int = 64,
+                 prefix_cache_bytes: int = 0):
+        from .models.inflight import InflightEngine
+        self.lmm = lmm
+        self.engine = InflightEngine(
+            lmm.params, lmm.cfg, eos_id=lmm.tok.eos_token_id,
+            n_slots=n_slots, prompt_cap=prompt_cap, gen_cap=gen_cap,
+            chunk=chunk, prefix_cache=prefix_cache,
+            prefix_block=prefix_block,
+            prefix_cache_bytes=prefix_cache_bytes)
+
+    @property
+    def dispatches(self):
+        return self.engine.dispatches
+
+    def _submit(self, inst: Instance):
+        """Tokenise and preprocess on the calling thread, then queue."""
+        import numpy as np
+        from .data.preprocess import tokenizer_image_token
+        from .eval.llava_adapter import sampling_knobs
+        lmm = self.lmm
+        ids = np.asarray(tokenizer_image_token(lmm._prompt(inst.args[0]),
+                                               lmm.tok), np.int64)[None]
+        pixels = [(lmm._pixel(inst.visual[0], proc) if inst.visual
+                   else np.zeros((proc.crop, proc.crop, 3), np.float32))[None]
+                  for proc in lmm.processors]
+        kwargs = inst.args[1] if len(inst.args) > 1 else {}
+        temperature, top_p = sampling_knobs(kwargs)
+        return self.engine.submit(
+            ids, np.ones_like(ids, bool), pixels,
+            kwargs.get("max_new_tokens", 16), temperature=temperature,
+            top_p=top_p), kwargs
+
+    @staticmethod
+    def _truncate(text: str, kwargs: dict) -> str:
+        for stop in kwargs.get("until", []):
+            if stop and stop in text:
+                text = text.split(stop)[0]
+        return text.strip()
+
+    def submit(self, inst: Instance) -> str:
+        handle, kwargs = self._submit(inst)
+        row = handle.result(timeout=600).tolist()
+        return self._truncate(self.lmm.tok.decode(row).strip(), kwargs)
+
+    def submit_stream(self, inst: Instance):
+        """Text deltas as the engine decodes: the growing token row is
+        detokenised at each token and the new suffix sent; stops at the
+        first stop string (the engine ends the slot at EOS or its budget by
+        itself)."""
+        handle, kwargs = self._submit(inst)
+        stops = [s for s in kwargs.get("until", []) if s]
+        row: list = []
+        sent = ""
+        try:
+            for tok in handle.iter_tokens():
+                row.append(int(tok))
+                text = self.lmm.tok.decode(row).strip()
+                cut = next((text.split(s)[0] for s in stops if s in text),
+                           None)
+                if cut is not None:
+                    if cut[len(sent):]:
+                        yield cut[len(sent):]
+                    return
+                if text.startswith(sent) and len(text) > len(sent):
+                    yield text[len(sent):]
+                    sent = text
+        finally:
+            # a stop string or a client that hung up (GeneratorExit): free
+            # the slot instead of decoding to the budget; a no-op once done
+            handle.cancel()
+
+    def shutdown(self):
+        self.engine.shutdown()
+
+
 class LMMServer:
-    """Serve one LMM instance over HTTP until ``shutdown()``."""
+    """Serve one LMM instance over HTTP until ``shutdown()``. `inflight`
+    serves through `_InflightWorker` with `inflight_kwargs` (n_slots,
+    prompt_cap, gen_cap, chunk, prefix_cache, prefix_block,
+    prefix_cache_bytes)."""
 
     def __init__(self, lmm: LMM, model_name: str = "lvr",
                  host: str = "127.0.0.1", port: int = 8000,
                  max_batch: int = 8, batch_window_ms: float = 5.0,
                  inflight: bool = False, inflight_kwargs: Optional[dict]
                  = None):
-        if inflight or inflight_kwargs:
-            raise NotImplementedError(INFLIGHT_NOT_PORTED)
         self.lmm = lmm
         self.model_name = model_name
         self._count = 0
         self._count_lock = threading.Lock()
-        self.worker = _BatchWorker(lmm, max_batch=max_batch,
-                                   window_ms=batch_window_ms)
+        if inflight:
+            self.worker = _InflightWorker(lmm, **(inflight_kwargs or {}))
+        else:
+            self.worker = _BatchWorker(lmm, max_batch=max_batch,
+                                       window_ms=batch_window_ms)
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -208,10 +299,14 @@ class LMMServer:
 
             def do_GET(self):
                 if self.path == "/health":
-                    self._send(200, {
-                        "status": "ok", "requests": outer._count,
-                        "dispatches": outer.worker.dispatches,
-                        "queued": outer.worker.q.qsize()})
+                    payload = {"status": "ok", "requests": outer._count,
+                               "dispatches": outer.worker.dispatches}
+                    engine = getattr(outer.worker, "engine", None)
+                    if engine is not None:
+                        payload["inflight"] = engine.stats()
+                    else:
+                        payload["queued"] = outer.worker.q.qsize()
+                    self._send(200, payload)
                 elif self.path == "/v1/models":
                     self._send(200, {"object": "list", "data": [
                         {"id": outer.model_name, "object": "model"}]})
@@ -249,6 +344,18 @@ class LMMServer:
                     inst = Instance("generate_until", {}, 0,
                                     "serve", (prompt, gen_kwargs),
                                     visual=images or None)
+                    if req.get("stream") and hasattr(outer.worker,
+                                                     "submit_stream"):
+                        # the inflight worker: each token as it is decoded
+                        with outer._count_lock:
+                            outer._count += 1
+                            rid = outer._count
+                        try:
+                            self._send_stream(
+                                rid, outer.worker.submit_stream(inst))
+                        except OSError:
+                            pass   # client hung up mid-stream
+                        return
                     text = outer.worker.submit(inst)
                     with outer._count_lock:
                         outer._count += 1
@@ -277,8 +384,10 @@ class LMMServer:
 
             def _send_stream(self, rid: int, deltas):
                 """OpenAI SSE protocol (`stream: true`): role delta,
-                content deltas (word chunks replaying the finished
-                generation), finish chunk, [DONE]."""
+                content deltas, finish chunk, [DONE]. `deltas` yields text
+                fragments: word chunks replaying a finished generation (the
+                wave worker), or each token's text as the engine decodes
+                it (the inflight worker), each flushed as it comes."""
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")
@@ -318,9 +427,11 @@ class LMMServer:
 def run_server(cfg, *, device, model: str = "llava",
                host: str = "127.0.0.1", port: int = 8000,
                model_name: Optional[str] = None, max_batch: int = 8,
-               batch_window_ms: float = 5.0) -> LMMServer:
+               batch_window_ms: float = 5.0, inflight: bool = False,
+               inflight_kwargs: Optional[dict] = None) -> LMMServer:
     """CLI entry: build the adapter as `eval.runner.run_evaluation` does, on
-    `device`, and serve it. Only `--model llava` is ported."""
+    `device`, and serve it, in waves or (`inflight`) through the
+    continuous-batching engine. Only `--model llava` is ported."""
     if model != "llava":
         raise NotImplementedError(
             f"serve model {model!r}: the adapter registry "
@@ -331,4 +442,5 @@ def run_server(cfg, *, device, model: str = "llava",
     lmm = build_lmm(cfg, device=device)
     return LMMServer(lmm, model_name=model_name or model, host=host,
                      port=port, max_batch=max_batch,
-                     batch_window_ms=batch_window_ms)
+                     batch_window_ms=batch_window_ms, inflight=inflight,
+                     inflight_kwargs=inflight_kwargs)

@@ -939,3 +939,56 @@ def test_captured_verify_round_equals_eager_rounds(cuda_device, monkeypatch):
     want, want_rounds = eager.generate(*inputs, max_new_tokens=12)
     assert eager.captures == 0
     assert torch.equal(got, want) and rounds == want_rounds
+
+
+@pytest.mark.parametrize("quantize,kv_quant", [(None, None),
+                                               ("int4", "int8")])
+def test_inflight_captured_chunk_equals_eager_chunk(cuda_device, quantize,
+                                                    kv_quant, monkeypatch):
+    """`InflightEngine` on the card: 3 requests of different lengths through
+    2 slots (the third joins a freed slot beside a decoding one), each chunk
+    of 4 steps one replayed CUDA graph with kernel 3 (its int8 branch over
+    the int8 cache) and kernel 10 recorded in it, give the tokens of the
+    same engine whose chunks run eagerly on the card, bit for bit; so does a
+    sampled request alone (the sampling chunk's sort inside the graph)."""
+    from law_of_vision_representation_in_mllms_torch.models import decode as D
+    from law_of_vision_representation_in_mllms_torch.models.inflight import (
+        InflightEngine)
+    cfg, params, (ids, mask, px) = _narrow_llava(cuda_device, quantize,
+                                                 kv_quant)
+    ids, mask, px = ids.cpu().numpy(), mask.cpu().numpy(), px[0].cpu().numpy()
+    reqs = [(ids[i:i + 1, :n], np.ones((1, n), bool), [px[i:i + 1]])
+            for i, n in enumerate(mask.sum(1))]
+    budgets = [6, 12, 12]
+    layers = cfg.decoder.num_layers
+    name = "decode_attention_int8" if kv_quant else "decode_attention"
+
+    def run(eager, reqs, budgets, n_slots=2, **kw):
+        eng = InflightEngine(params, cfg, eos_id=-1, n_slots=n_slots,
+                             prompt_cap=32, gen_cap=12, chunk=4,
+                             sample_seed=5)
+        if eager:
+            def run_eagerly(st, fn, device):
+                st.step = D.Replayable(fn, torch.device("cpu"))  # no graph
+                return False
+            monkeypatch.setattr(eng, "_capture", run_eagerly)
+        try:
+            hs = [eng.submit(*r, m, **kw) for r, m in zip(reqs, budgets)]
+            return [h.result(timeout=300).tolist() for h in hs], eng
+        finally:
+            eng.shutdown()
+    # one sampled request alone: the same chunks draw the same noise from
+    # the seeded generator, captured (the sort inside the graph) or not
+    sampled = [run(eager, reqs[:1], [12], n_slots=1, temperature=0.8,
+                   top_p=0.9)[0] for eager in (True, False)]
+    assert sampled[0] == sampled[1] and len(sampled[0][0]) == 12
+    want, eager = run(True, reqs, budgets)
+    got, eng = run(False, reqs, budgets)
+    assert eager.captures == 0 and eng.captures == 1
+    assert eng.replays == eng.dispatches >= 3
+    assert [len(t) for t in got] == budgets and got == want
+    ((_, chunk),) = eng._keys.items()
+    assert chunk.step.launches[name] == 4 * layers
+    assert chunk.step.launches["int4_matmul"] == (4 * (7 * layers + 1)
+                                                  if quantize else 0)
+    assert eng.graph_launches()[name] == eng.replays * 4 * layers

@@ -176,7 +176,19 @@ def test_feature_dataset_matches_jax(tmp_path):
                              tpre.SimpleTokenizer(300), **kw)
     for i in range(4):
         _assert_items_equal(got[i], want[i])
-    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1: 4"):
-        tds.FeatureDataset(*args, tconv.get_template("plain"),
-                           tpre.SimpleTokenizer(300),
-                           packed_cache="feats.lvrpack")
+    # packed_cache: the same items out of one .lvrpack (fp32 items, as the
+    # pack is read), through each package's loader
+    from law_of_vision_representation_in_mllms_torch.io import native_cache
+    paths = []
+    for i in range(3):
+        paths.append(str(tmp_path / f"f32_{i}.npy"))
+        np.save(paths[-1], np.load(tmp_path / f"img{i}.npy").astype(
+            np.float32))
+    native_cache.pack(paths, (6, 5), str(tmp_path / "feats.lvrpack"))
+    kw["packed_cache"] = str(tmp_path / "feats.lvrpack")
+    want = jds.FeatureDataset(*args, jconv.get_template("plain"),
+                              jpre.SimpleTokenizer(300), **kw)
+    got = tds.FeatureDataset(*args, tconv.get_template("plain"),
+                             tpre.SimpleTokenizer(300), **kw)
+    for i in range(4):
+        _assert_items_equal(got[i], want[i])

@@ -44,6 +44,8 @@ from law_of_vision_representation_in_mllms_torch.models import llama as TL
 from law_of_vision_representation_in_mllms_torch.models import llava as TM
 from law_of_vision_representation_in_mllms_torch.models import splice as TS
 
+from test_torch_near_tie import check_answers, use_crc_ids
+
 # One intra-op thread: with two, the first multi-threaded fp32 call in a
 # loaded process has been seen to come out ~5e-5 off its fp64 value, over
 # the tolerances below; on one thread it stays at ~5e-7.
@@ -225,12 +227,16 @@ def test_generate_until_matches_jax(tmp_path):
         {"model": dict(TINY["model"], checkpoint=path),
          "train": TINY["train"]}), device="cpu")
     images = _images(2, seed=1)
+    # CRC ids (the same prompts in every process); a differing answer must
+    # part from the JAX one at a near tie of the JAX logits
+    use_crc_ids(jlmm, lmm)
     want = jlmm.generate_until(_requests(JInstance, images))
-    assert lmm.generate_until(_requests(Instance, images)) == want
+    got = lmm.generate_until(_requests(Instance, images))
+    check_answers(jlmm, _requests(JInstance, images), want, got)
     # a preprocessed HWC array is accepted in place of a PIL image
     arrays = [timg.preprocess_image(im, lmm.processors[0], pad_square=True)
               for im in images]
-    assert lmm.generate_until(_requests(Instance, arrays)) == want
+    assert lmm.generate_until(_requests(Instance, arrays)) == got
 
 
 def test_cli_generate_on_cpu(capsys):
@@ -259,6 +265,47 @@ def test_cli_generate_on_cpu(capsys):
                       "top_p": 0.9}), [])
     assert sampled == build_lmm(RunConfig.from_dict(TINY),
                                 device="cpu").generate_until([inst])[0]
+
+
+def test_cli_serve_inflight_answers_a_chat_completion(monkeypatch):
+    """`serve --inflight --slots 2 --device cpu` on the tiny LLaVA answers a
+    chat completion through the continuous-batching engine (the wave worker
+    is not built), as the adapter's `generate_until` answers it."""
+    import json
+    import threading
+    import urllib.request
+    from law_of_vision_representation_in_mllms_torch import serve
+    seen = {}
+    real_forever = serve.LMMServer.serve_forever
+
+    def forever(self):
+        threading.Thread(target=real_forever, args=(self,),
+                         daemon=True).start()
+        payload = {"max_tokens": 4, "messages": [
+            {"role": "user", "content": "what is in the picture"}]}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{self.port}/v1/chat/completions",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            seen["answer"] = json.loads(r.read())[
+                "choices"][0]["message"]["content"]
+        seen["worker"] = self.worker
+        seen["lmm"] = self.lmm
+        raise KeyboardInterrupt
+    monkeypatch.setattr(serve.LMMServer, "serve_forever", forever)
+    argv = ["serve", "--inflight", "--slots", "2", "--gen-cap", "8",
+            "--prompt-cap", "64", "--device", "cpu", "--port", "0"]
+    for k, v in TINY["model"].items():
+        argv += ["--set", f"model.{k}={v}"]
+    assert cli.main(argv + ["--set", "train.bf16=false"]) == 0
+    engine = seen["worker"].engine
+    assert (engine.n_slots, engine.gen_cap, engine.prompt_cap) == (2, 8, 64)
+    assert engine.completions == 1 and engine._stop     # shut down
+    inst = Instance("generate_until", {}, 0, "serve",
+                    ("what is in the picture", {"max_new_tokens": 4}), [])
+    assert seen["answer"] == seen["lmm"].generate_until([inst])[0]
+    assert seen["answer"].startswith("t")
 
 
 def test_cli_refuses_missing_cuda(monkeypatch):
@@ -299,8 +346,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_lmm(RunConfig.from_dict(
             {"model": dict(TINY["model"], visual_keep=0.5)}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1: 6"):
-        cli.main(["serve", "--inflight", "--device", "cpu"])
     # the serving backends are ported: every gen_backend builds, an
     # unknown one is a ValueError
     for backend in ("chunked", "speculative"):

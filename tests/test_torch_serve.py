@@ -4,8 +4,9 @@ serve.py`): the wave server's cases of `tests/test_serve.py` on the port's
 wave batcher's coalescing and its grouping by generation kwargs), then the
 tiny LLaVA served by the port against the same weights served by the JAX
 package's server, and against the port's own `generate_until`. Also the
-not-ported refusals: `--inflight` and its flags (ROADMAP item 6), a
-`--model` other than llava (item 4).
+`--inflight` flags as the CLI hands them on (the engine itself is in
+`tests/test_torch_inflight.py`) and the not-ported refusal of a `--model`
+other than llava (ROADMAP item 4).
 """
 
 import base64
@@ -25,6 +26,8 @@ from law_of_vision_representation_in_mllms_torch.eval.api import (
     LMM, Instance)
 from law_of_vision_representation_in_mllms_torch.serve import (
     LMMServer, _parse_messages, _word_deltas, run_server)
+
+from test_torch_near_tie import check_answers, use_crc_ids
 
 torch.set_num_threads(1)
 
@@ -297,6 +300,8 @@ def test_tiny_llava_served_matches_jax_server(tmp_path, server):
     `generate_until`, under the greedy and the chunked backend."""
     from law_of_vision_representation_in_mllms_tpu.core.config import (
         RunConfig as JRunConfig)
+    from law_of_vision_representation_in_mllms_tpu.eval.api import (
+        Instance as JInstance)
     from law_of_vision_representation_in_mllms_tpu.eval.runner import (
         build_lmm as j_build_lmm)
     from law_of_vision_representation_in_mllms_tpu.io import param_io as jio
@@ -315,6 +320,9 @@ def test_tiny_llava_served_matches_jax_server(tmp_path, server):
     lmm = build_lmm(RunConfig.from_dict(
         {"model": dict(model, checkpoint=path), "train": {"bf16": False}}),
         device="cpu")
+    # CRC ids (the same prompts in every process); a differing answer must
+    # part from the JAX one at a near tie of the JAX logits
+    use_crc_ids(jlmm, lmm)
     jsrv = JServer(jlmm, port=0)
     jsrv.start_background()
     try:
@@ -328,6 +336,12 @@ def test_tiny_llava_served_matches_jax_server(tmp_path, server):
                 for p in payloads]
     finally:
         jsrv.shutdown()
+    jreqs = []
+    for p in payloads:
+        prompt, images = _parse_messages(p["messages"])
+        jreqs.append(JInstance("generate_until", {}, len(jreqs), "serve",
+                               (prompt, {"max_new_tokens": 6}),
+                               visual=images))
     for backend in ("greedy", "chunked"):
         lmm.gen_backend = backend
         srv = server(lmm, max_batch=4, batch_window_ms=500)
@@ -341,7 +355,7 @@ def test_tiny_llava_served_matches_jax_server(tmp_path, server):
             t.start()
         for t in threads:
             t.join(timeout=120)
-        assert got == want, backend
+        check_answers(jlmm, jreqs, want, got)
         assert _get(srv.port, "/health")["dispatches"] == 1
         # the served answers are the adapter's on the same prompts
         reqs = []
@@ -350,20 +364,36 @@ def test_tiny_llava_served_matches_jax_server(tmp_path, server):
             reqs.append(Instance("generate_until", {}, len(reqs), "serve",
                                  (prompt, {"max_new_tokens": 6}),
                                  visual=images))
-        assert lmm.generate_until(reqs) == want
+        assert lmm.generate_until(reqs) == got
 
 
 def test_inflight_and_other_models_refused(monkeypatch):
-    """`--inflight` and each continuous-batching flag raise the item-6
-    error before anything is built; `--model` other than llava points at
-    item 4; `LMMServer(inflight=True)` refuses too."""
-    for extra in (["--inflight"], ["--slots", "4"], ["--prefix-cache", "1"],
-                  ["--gen-cap", "64"]):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP, queue 1: 6, serving backends"):
+    """`--inflight` and its flags reach `run_server` as the engine's
+    arguments (the JAX CLI's defaults; without `--inflight` the flags are
+    not used); `--model` other than llava points at ROADMAP item 4."""
+    from law_of_vision_representation_in_mllms_torch import serve
+    seen = []
+
+    def fake_run_server(cfg, **kw):
+        seen.append(kw)
+        raise KeyboardInterrupt       # stop before anything is served
+    monkeypatch.setattr(serve, "run_server", fake_run_server)
+    for extra in (["--inflight"], ["--inflight", "--slots", "2",
+                                   "--prefix-cache", "1", "--gen-cap", "64",
+                                   "--prefix-cache-mb", "3",
+                                   "--decode-chunk-serve", "16"],
+                  ["--slots", "4"]):
+        with pytest.raises(KeyboardInterrupt):
             cli.main(["serve", "--device", "cpu"] + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1: 6"):
-        LMMServer(CannedLMM(), port=0, inflight=True)
+    assert [kw["inflight"] for kw in seen] == [True, True, False]
+    assert seen[0]["inflight_kwargs"] == {
+        "n_slots": 4, "prompt_cap": 256, "gen_cap": 256, "chunk": 4,
+        "prefix_cache": 0, "prefix_block": 64, "prefix_cache_bytes": 0}
+    assert seen[1]["inflight_kwargs"] == {
+        "n_slots": 2, "prompt_cap": 256, "gen_cap": 64, "chunk": 16,
+        "prefix_cache": 1, "prefix_block": 64,
+        "prefix_cache_bytes": 3 << 20}
+    assert seen[2]["inflight_kwargs"] is None
     with pytest.raises(NotImplementedError, match="ROADMAP, queue 1: 4"):
         run_server(None, device="cpu", model="openai-api", port=0)
 
