@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, law-chain (A and C
-scores), quantised serving, MPT, training-variant and diffusion-tower (SD1.5,
-DiT-XL/2, SD3-medium) paths on one NVIDIA GPU (H100).
+scores), quantised serving, MPT, training-variant, diffusion-tower (SD1.5,
+DiT-XL/2, SD3-medium) and checkpoint-porting paths on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
@@ -44,6 +45,10 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      attention (S=1,024 + 333, H=24, D=64) at B=1 and 16 (SD3 also at the
      served B=4), each with the block rows the launcher takes and its
      launches a forward (a spill of any form of the forward fails the run);
+     kernel 2's causal form at the CLIP text encoders' attention (S=77,
+     D=64; 12, 16 and 20 heads: SD1.5's CLIP-L, SD2.1's OpenCLIP-H, the
+     bigG of SDXL and SD3), held row by row with its LSE, a repeat's bits,
+     SDPA (`is_causal`) and its bound;
      kernel 2 also at a stage-1 step's B=16 S=639 and MPT-7B's B=2 S=2,048
      (causal, no bias), kernel 1 also at the dumps' B=1 S=577 and S=257,
      each with its plain version, SDPA and its bound; at every shape of
@@ -186,9 +191,30 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      S=2,048 and a forward + backward of the next-token loss; finite logits
      and gradients; the ALiBi form of kernel 2 launched 32 times a pass, of
      kernels 5 and 6 32 times each; tokens/s and peak memory;
-  11. (after phase 7, before phase 9) the SD1.5 representation at full
-     width on seeded random weights, written as a featurizer bundle in a
-     temporary directory and passed as `model.tower_weights`: (a)
+  13. (after phase 7, before phase 11) checkpoint porting: a full-width
+     CLIP-L/14-336 vision snapshot and SD1.5's CLIP-L text encoder snapshot
+     (config.json and fp16 .safetensors written by this script in the
+     published key names and layouts, seeded) through `python -m
+     <port>.io.port_cli` (`clip_vision --image-size 336`, `clip_text`,
+     `clip_text --penultimate`; three processes at once): every ported
+     tensor equal to the snapshot's in the documented layout (a Linear's
+     kernel its weight transposed, the patch kernel the conv weight
+     `transpose(2, 3, 1, 0)`); the tower loaded as `model.tower_weights`
+     loads a file, on the card (kernel 1, B=4) against the CPU fp32 tower
+     (`PORT_REL_TOL`); the text encoder, whole (pooled too) and
+     penultimate, on the card (kernel 2 causal, one launch a block at B=1
+     S=77 H=12 D=64, each call recorded) against the CPU on the empty
+     prompt's ids;
+  11. (after phase 13, before phase 9) the SD1.5 representation at full
+     width on seeded random weights, written as a diffusers snapshot root
+     (`unet/`, `vae/` with diffusers' key names and the CLIP-L
+     `text_encoder/`, fp16 .safetensors) in a temporary directory, made a
+     bundle by `port-featurizer sd15 ... --device cuda:0` (its weights
+     against the snapshot's, exactly: the layout and the fp16 cast, as the
+     snapshot takes its key names from the port's porters, which the CPU
+     tests hold to the JAX porters; its `prompt_embeds`, encoded on the
+     card through kernel 2's causal form, against a CPU fp32 encode) and
+     passed as `model.tower_weights`: (a)
      `extract_features` on one 768 px image, card bf16 against CPU fp32
      (`SD_FEATURE_REL_TOL`), 14 kernel-2 launches a forward, a repeat's
      bits, and the featurizer's time at B = 1, 4, 16; (b) `extract-features`
@@ -1734,6 +1760,50 @@ def check_unet_attention(tag: str, dev) -> list:
         del q, k, v
         torch.cuda.empty_cache()
     return cases
+
+
+# kernel 2's causal form at the CLIP text encoders' attention (phase 2): one
+# prompt of 77 tokens, head size 64; SD1.5's CLIP-L has 12 heads, SD2.1's
+# OpenCLIP-H 16, SDXL's and SD3's bigG 20. Phase 13 and phase 11's
+# `port-featurizer` launch it at 12
+TEXT_ATTENTION = ((1, 77, 12, 64, "CLIP-L text"),
+                  (1, 77, 16, 64, "OpenCLIP-H text"),
+                  (1, 77, 20, 64, "bigG text"))
+
+
+def check_text_attention(tag: str, dev) -> list:
+    """Phase 2, kernel 2 causal at the text encoders' shapes, each held to
+    its plain version row by row and by its LSE, to a repeat's bits, and
+    timed beside the plain version, SDPA (`is_causal`) and the bound.
+    Returns the cases, with `attn` the key that phase 13 counts launches
+    under."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        flash_attention as fl)
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    cases = []
+    for b, s, h, d, what in TEXT_ATTENTION:
+        qkv = [torch.randn((b, s, h, d), generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3)]
+        case = attention_case(
+            tag, lambda q, k, v: fl.flash_attention(q, k, v, causal=True,
+                                                    return_lse=True),
+            lambda q, k, v: fl.flash_attention_plain(q, k, v, causal=True,
+                                                     return_lse=True),
+            lambda q, k, v: sdpa(q, k, v, is_causal=True), qkv,
+            s * (s + 1) // 2, f"kernel 2 {what} B={b} S={s} H={h} D={d} "
+                              f"causal")
+        if not case["err"] <= case["tol"]:
+            fail(f"kernel 2 at {case['shape']}: {case['err']} > "
+                 f"{case['tol']}")
+        case.update(what=what, batch=b, attn=text_key(b, s, h, d))
+        cases.append(case)
+    return cases
+
+
+def text_key(b: int, s: int, h: int, d: int) -> str:
+    return f"B={b} S={s} H={h} D={d} causal"
 
 
 def check_routes(tag: str, dev) -> None:
@@ -4473,6 +4543,468 @@ def _check_pinned_fp32(tag: str, C, feature_dir: str, spair_dir: str,
 
 
 SD15 = "runwayml/stable-diffusion-v1-5"
+# phases 13 and 11: checkpoints in the layout of the published snapshots,
+# written by this script (the card's machine has no `safetensors` package)
+SAFETENSORS_DTYPES = {"torch.float16": "F16", "torch.float32": "F32",
+                      "torch.bfloat16": "BF16"}
+PORT_SEED = 31
+# phase 13's snapshots: openai/clip-vit-large-patch14-336's vision tower
+# and SD1.5's text encoder (openai/clip-vit-large-patch14's CLIP-L text
+# tower), at their published widths and depths
+PORT_VISION = dict(hidden=1024, inter=4096, layers=24, heads=16, patch=14,
+                   size=336)
+PORT_TEXT = dict(hidden=768, inter=3072, layers=12, heads=12, vocab=49408,
+                 positions=77)
+# phase 13 and phase 11's prompt: the card in bf16 compute (fp32 weights and
+# LayerNorm statistics) against the CPU in fp32 on the same ported weights,
+# as ||card - CPU|| / ||CPU|| over the whole output and over its worst
+# token. Every activation is rounded to bf16 (2^-9 relative on average)
+# about ten times a block; independent roundings add in quadrature, so the
+# 23 blocks of the CLIP-L/14-336 tower give sqrt(230) x 2^-9 = 3 % and the
+# 12 of the CLIP-L text encoder 2 %
+PORT_REL_TOL = 5e-2
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """`tensors` (name -> CPU tensor, fp16 / fp32 / bf16) as one
+    .safetensors file: an 8-byte little-endian header length, the JSON
+    header (each tensor's dtype, shape and data_offsets, padded with spaces
+    to 8 bytes, as the reference writer pads it), then the raw bytes in
+    the header's order. Returns the bytes written."""
+    import struct
+
+    import torch
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[str(t.dtype)],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(raw) + offset
+
+
+def _write_snapshot(folder: str, config: dict, tensors: dict,
+                    name: str = "model.safetensors") -> int:
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    return write_safetensors(os.path.join(folder, name), tensors)
+
+
+class _Init:
+    """Seeded fp16 weights for a snapshot, drawn on the card: a Linear /
+    conv weight N(0, 1 / fan_in), biases and embeddings N(0, 0.02), norms
+    1 + N(0, 0.02)."""
+
+    def __init__(self, dev, seed: int):
+        import torch
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.sd = {}
+
+    def rand(self, name: str, shape, std: float, mean: float = 0.0):
+        import torch
+        x = torch.randn(shape, generator=self.gen, device=self.gen.device)
+        self.sd[name] = (x * std + mean).half().cpu()
+
+    def linear(self, prefix: str, dout: int, din: int) -> None:
+        self.rand(prefix + ".weight", (dout, din), din ** -0.5)
+        self.rand(prefix + ".bias", (dout,), 0.02)
+
+    def norm(self, prefix: str, dim: int) -> None:
+        self.rand(prefix + ".weight", (dim,), 0.02, 1.0)
+        self.rand(prefix + ".bias", (dim,), 0.02)
+
+    def clip_layers(self, prefix: str, n: int, d: int, inter: int) -> None:
+        for i in range(n):
+            lp = f"{prefix}.layers.{i}"
+            self.norm(f"{lp}.layer_norm1", d)
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                self.linear(f"{lp}.self_attn.{proj}", d, d)
+            self.norm(f"{lp}.layer_norm2", d)
+            self.linear(f"{lp}.mlp.fc1", inter, d)
+            self.linear(f"{lp}.mlp.fc2", d, inter)
+
+
+def clip_vision_snapshot(folder: str, dev, seed: int) -> dict:
+    """openai/clip-vit-large-patch14-336's vision tower as a
+    CLIPVisionModel snapshot (its config.json and key names, `PORT_VISION`:
+    24 layers of 1,024, patch 14 at 336 px), seeded fp16 weights. Returns
+    the tensors."""
+    v = PORT_VISION
+    d, inter, layers, p, size = (v["hidden"], v["inter"], v["layers"],
+                                 v["patch"], v["size"])
+    w, pre = _Init(dev, seed), "vision_model"
+    w.rand(f"{pre}.embeddings.class_embedding", (d,), 0.02)
+    w.rand(f"{pre}.embeddings.patch_embedding.weight", (d, 3, p, p),
+           (3 * p * p) ** -0.5)
+    w.rand(f"{pre}.embeddings.position_embedding.weight",
+           ((size // p) ** 2 + 1, d), 0.02)
+    w.norm(f"{pre}.pre_layrnorm", d)
+    w.clip_layers(f"{pre}.encoder", layers, d, inter)
+    w.norm(f"{pre}.post_layernorm", d)
+    _write_snapshot(folder, {
+        "architectures": ["CLIPVisionModel"],
+        "model_type": "clip_vision_model", "hidden_size": d,
+        "intermediate_size": inter, "num_hidden_layers": layers,
+        "num_attention_heads": v["heads"], "num_channels": 3,
+        "image_size": size,
+        "patch_size": p, "hidden_act": "quick_gelu",
+        "layer_norm_eps": 1e-05, "projection_dim": 768,
+        "torch_dtype": "float16"}, w.sd)
+    return w.sd
+
+
+def clip_text_snapshot(folder: str, dev, seed: int) -> dict:
+    """SD1.5's text encoder (openai/clip-vit-large-patch14's text tower)
+    as a CLIPTextModel snapshot: its config.json (the legacy eos_token_id
+    2 included) and key names, `PORT_TEXT`: 12 layers of 768, 77
+    positions, seeded fp16 weights. Returns the tensors."""
+    t = PORT_TEXT
+    d, inter, layers = t["hidden"], t["inter"], t["layers"]
+    w, pre = _Init(dev, seed), "text_model"
+    w.rand(f"{pre}.embeddings.token_embedding.weight", (t["vocab"], d), 0.02)
+    w.rand(f"{pre}.embeddings.position_embedding.weight",
+           (t["positions"], d), 0.01)
+    w.clip_layers(f"{pre}.encoder", layers, d, inter)
+    w.norm(f"{pre}.final_layer_norm", d)
+    _write_snapshot(folder, {
+        "architectures": ["CLIPTextModel"], "model_type": "clip_text_model",
+        "vocab_size": t["vocab"], "hidden_size": d,
+        "intermediate_size": inter, "num_hidden_layers": layers,
+        "num_attention_heads": t["heads"],
+        "max_position_embeddings": t["positions"], "hidden_act": "quick_gelu",
+        "layer_norm_eps": 1e-05, "bos_token_id": 0, "eos_token_id": 2,
+        "pad_token_id": 1, "projection_dim": 768,
+        "torch_dtype": "float16"}, w.sd)
+    return w.sd
+
+
+def flat_tree(tree) -> dict:
+    """A nested tree of arrays as {"a/b/c": array}, keyed as the port's
+    `.npz` files are (`io.param_io`; the CPU tests use this one too)."""
+    from law_of_vision_representation_in_mllms_torch.io.param_io import (
+        _flatten)
+    out = {}
+    _flatten(tree, "", out)
+    return out
+
+
+def _f32(snap: dict, key: str):
+    return snap[key].float().numpy()
+
+
+def _ln_leaf(snap: dict, p: str) -> dict:
+    return {"ln": {"scale": _f32(snap, p + ".weight"),
+                   "bias": _f32(snap, p + ".bias")}}
+
+
+def _clip_blocks(snap: dict, prefix: str, n_blocks: int) -> dict:
+    """The JAX-layout trees of `n_blocks` CLIP layers under `prefix`, as
+    the documented layout gives them from the snapshot's tensors in fp32:
+    a Linear's kernel is its weight transposed, a LayerNorm's scale its
+    weight."""
+    def lin(p):
+        return {"kernel": _f32(snap, p + ".weight").T,
+                "bias": _f32(snap, p + ".bias")}
+    tree = {}
+    for i in range(n_blocks):
+        lp = f"{prefix}.layers.{i}"
+        tree[f"block_{i}"] = {
+            "ln1": _ln_leaf(snap, f"{lp}.layer_norm1"),
+            "q": lin(f"{lp}.self_attn.q_proj"),
+            "k": lin(f"{lp}.self_attn.k_proj"),
+            "v": lin(f"{lp}.self_attn.v_proj"),
+            "o": lin(f"{lp}.self_attn.out_proj"),
+            "ln2": _ln_leaf(snap, f"{lp}.layer_norm2"),
+            "fc1": lin(f"{lp}.mlp.fc1"), "fc2": lin(f"{lp}.mlp.fc2")}
+    return tree
+
+
+def expected_vision_tree(snap: dict, n_blocks: int) -> dict:
+    """The ViTEncoder tree `port_cli clip_vision` must write: the patch
+    kernel the conv weight `transpose(2, 3, 1, 0)`, the class token
+    reshaped to [1, 1, D], the position table given a leading axis."""
+    emb = "vision_model.embeddings"
+    return {
+        **_clip_blocks(snap, "vision_model.encoder", n_blocks),
+        "patch_kernel": _f32(snap, f"{emb}.patch_embedding.weight"
+                             ).transpose(2, 3, 1, 0),
+        "cls_token": _f32(snap, f"{emb}.class_embedding").reshape(1, 1, -1),
+        "pos_embed": _f32(snap, f"{emb}.position_embedding.weight")[None],
+        "pre_ln": _ln_leaf(snap, "vision_model.pre_layrnorm")}
+
+
+def expected_text_tree(snap: dict, n_blocks: int) -> dict:
+    """The CLIPTextEncoder tree `port_cli clip_text` must write."""
+    emb = "text_model.embeddings"
+    return {
+        **_clip_blocks(snap, "text_model.encoder", n_blocks),
+        "token_embedding": _f32(snap, f"{emb}.token_embedding.weight"),
+        "pos_embed": _f32(snap, f"{emb}.position_embedding.weight")[None],
+        "final_ln": _ln_leaf(snap, "text_model.final_layer_norm")}
+
+
+def check_exact(what: str, got: dict, want: dict) -> int:
+    """Every leaf of `got` equals `want`'s bit for bit, with the same keys,
+    shapes and fp32 dtype. Returns the count of values compared."""
+    import numpy as np
+    got, want = flat_tree(got), flat_tree(want)
+    if sorted(got) != sorted(want):
+        fail(f"{what}: ported keys {sorted(set(got) ^ set(want))[:6]} differ "
+             f"from the snapshot's")
+    n = 0
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != np.float32 or g.shape != w.shape or \
+                not np.array_equal(g, w):
+            fail(f"{what}: {k} is not the snapshot's tensor in the "
+                 f"documented layout ({g.dtype} {g.shape} vs {w.shape})")
+        n += w.size
+    return n
+
+
+def rel_errors(got, ref) -> tuple:
+    """(||got - ref|| / ||ref||, the same over the worst token (the last
+    axis), max|got - ref|) of a card output against its CPU fp32 run."""
+    import torch
+    diff = got.float().cpu() - ref.float()
+    rows = diff.norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    return ((diff.norm() / ref.float().norm()).item(), rows.max().item(),
+            diff.abs().max().item())
+
+
+@contextlib.contextmanager
+def kernel2_calls(module):
+    """Records (q's shape, causal) of every `module.flash_attention` call
+    in the block."""
+    orig, calls = module.flash_attention, []
+
+    def spy(q, k, v, **kw):
+        calls.append((tuple(q.shape), bool(kw.get("causal", False))))
+        return orig(q, k, v, **kw)
+    module.flash_attention = spy
+    try:
+        yield calls
+    finally:
+        module.flash_attention = orig
+
+
+def run_port_cli(tag: str, jobs: dict) -> float:
+    """`python -m <port>.io.port_cli KIND SRC OUT [flags]` for every job
+    (name -> argv), all started at once; each must end 0 and say what it
+    wrote. Returns the seconds until the last ended."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.io.port_cli", *argv], cwd=REPO,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in jobs.items()}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            fail(f"port_cli {name} did not end in 900 s")
+        kind, src, dst = jobs[name][:3]
+        if proc.returncode != 0 or out.strip() != (
+                f"ported {kind} from {src} -> {dst}"):
+            fail(f"port_cli {name}: rc {proc.returncode}, said {out!r}, "
+                 f"{err[-2000:]}")
+    seconds = time.perf_counter() - t0
+    print(f"{tag} phase 13 port_cli {', '.join(jobs)} (one process each, "
+          f"started together) took {seconds:.1f} s")
+    return seconds
+
+
+def run_checkpoint_porting(tag: str, dev, counters, text_cases: list
+                           ) -> dict:
+    """Phase 13: a full-width CLIP-L/14-336 vision snapshot and SD1.5's
+    CLIP-L text encoder snapshot (config.json and fp16 .safetensors in the
+    published layouts, seeded) through `python -m <port>.io.port_cli`
+    (`clip_vision --image-size 336`, `clip_text` and `clip_text
+    --penultimate`, three processes); every ported tensor against the
+    snapshot's in the documented layout, exactly; the ported tower loaded
+    as `model.tower_weights` loads a file, on the card (kernel 1, B = 4)
+    against the CPU fp32 tower; the text encoder on the card (kernel 2's
+    causal form, one launch a block at B 1, S 77, H 12, D 64) against the
+    CPU, on the empty prompt's ids, whole and penultimate. Returns the
+    launches of each path, counted from 0."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION, FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.io import (
+        featurizer_bundle as FB, from_jax)
+    from law_of_vision_representation_in_mllms_torch.io.param_io import (
+        load_params)
+    from law_of_vision_representation_in_mllms_torch.models import (
+        text_encoder as TE, vit)
+
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="lvr_port_")
+    try:
+        t0 = time.perf_counter()
+        vis_dir, text_dir = (os.path.join(tmp, n) for n in ("clip336",
+                                                             "clip_l_text"))
+        vis = clip_vision_snapshot(vis_dir, dev, PORT_SEED)
+        text = clip_text_snapshot(text_dir, dev, PORT_SEED + 1)
+        size = sum(os.path.getsize(os.path.join(d, f)) for d in
+                   (vis_dir, text_dir) for f in os.listdir(d))
+        print(f"{tag} phase 13 snapshots (CLIP-L/14-336 vision, "
+              f"{sum(t.numel() for t in vis.values()) / 1e6:.1f} M; CLIP-L "
+              f"text, {sum(t.numel() for t in text.values()) / 1e6:.1f} M; "
+              f"fp16 .safetensors, {size / 1e9:.2f} GB) written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        outs = {n: os.path.join(tmp, n + ".npz") for n in
+                ("vision", "text", "text_penultimate")}
+        run_port_cli(tag, {
+            "vision": ["clip_vision", vis_dir, outs["vision"],
+                       "--image-size", "336"],
+            "text": ["clip_text", text_dir, outs["text"]],
+            "text_penultimate": ["clip_text", text_dir,
+                                 outs["text_penultimate"], "--penultimate"]})
+
+        # every ported tensor is the snapshot's, in the documented layout
+        v, n_text = PORT_VISION, PORT_TEXT["layers"]
+        cfg = dataclasses.replace(
+            vit.clip_l14(v["size"]), hidden_size=v["hidden"],
+            intermediate_size=v["inter"], num_layers=v["layers"],
+            num_heads=v["heads"], patch_size=v["patch"])
+        n_vis = cfg.resolve_layer(-2)
+        trees = {n: load_params(p) for n, p in outs.items()}
+        counted = (check_exact("clip_vision", trees["vision"],
+                               expected_vision_tree(vis, n_vis))
+                   + check_exact("clip_text", trees["text"],
+                                 expected_text_tree(text, n_text))
+                   + check_exact("clip_text --penultimate",
+                                 trees["text_penultimate"],
+                                 expected_text_tree(text, n_text - 1)))
+        print(f"{tag} phase 13 ported trees: {counted / 1e6:.1f} M values "
+              f"equal the snapshots' bit for bit (fp16 -> fp32; Linear "
+              f"kernel = weight.T, patch kernel = weight.transpose(2, 3, 1, "
+              f"0)); vision {n_vis} of {v['layers']} blocks (select_layer "
+              f"-2), text {n_text} and {n_text - 1}")
+
+        # the tower, loaded as model.tower_weights loads a file
+        sd = from_jax.vit_state_dict(trees.pop("vision"))
+        card = vit.ViTTower(cfg, select_layer=-2, precision=DEFAULT_PRECISION,
+                            device=dev)
+        card.load_state_dict(sd)
+        cpu = vit.ViTTower(cfg, select_layer=-2, precision=FP32_PRECISION)
+        cpu.load_state_dict(sd)
+        del sd
+        rng = np.random.RandomState(PORT_SEED)
+        px = torch.from_numpy(np.stack([_sd_image(rng, cfg.image_size)
+                                        for _ in range(4)]))
+        with torch.no_grad():
+            card(px.to(dev))
+            got, launches = counted_run(counters, lambda: card(px.to(dev)))
+            paths["port_clip_vision"] = launches
+            want = {"encoder_attention": n_vis}
+            if any(launches[k] != want.get(k, 0) for k in launches):
+                fail(f"ported tower launches {launches}, not {want}")
+            t1 = time.perf_counter()
+            ref = cpu(px)
+            cpu_s = time.perf_counter() - t1
+        if got.shape != (4, cfg.num_patches, cfg.hidden_size) or \
+                not torch.isfinite(got).all():
+            fail(f"ported tower on the card: {tuple(got.shape)}, finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        rel, worst, abs_err = rel_errors(got, ref)
+        print(f"{tag} phase 13 ported CLIP-L/14-336 tower, B=4 "
+              f"{cfg.image_size} px, "
+              f"{n_vis} blocks: card bf16 (kernel 1) vs CPU fp32 "
+              f"||diff|| / ||CPU|| {rel:.3e}, worst token {worst:.3e} (tol "
+              f"{PORT_REL_TOL} each), max|diff| {abs_err:.3e} of max|CPU| "
+              f"{ref.abs().max().item():.3e}; launches {launches}; CPU "
+              f"{cpu_s:.2f} s")
+        if not (rel <= PORT_REL_TOL and worst <= PORT_REL_TOL):
+            fail(f"ported tower: card against CPU {rel}, worst token "
+                 f"{worst} > {PORT_REL_TOL}")
+        del card, cpu, got, ref
+        torch.cuda.empty_cache()
+
+        # the text encoder, whole (with the pooled output) and penultimate
+        with open(os.path.join(text_dir, "config.json")) as f:
+            tcfg = TE.text_config_from_hf(json.load(f), text)
+        ids = torch.from_numpy(FB._empty_prompt_ids()).long()
+        key = text_key(1, 77, tcfg.num_heads, tcfg.hidden_size //
+                       tcfg.num_heads)
+        if key not in {c["attn"] for c in text_cases}:
+            fail(f"phase 2 did not hold kernel 2 at the text encoder's "
+                 f"{key}")
+        for name, n in (("text", None), ("text_penultimate", n_text - 1)):
+            tree = trees.pop(name)
+            sd = from_jax.text_encoder_state_dict(tree)
+            n_tree = sum(k.startswith("block_") for k in tree)
+            encs = [TE.CLIPTextEncoder(tcfg, prec, num_blocks=n_tree,
+                                       device=d)
+                    for prec, d in ((DEFAULT_PRECISION, dev),
+                                    (FP32_PRECISION, None))]
+            for enc in encs:
+                enc.load_state_dict(sd)
+            pooled = n is None
+            with torch.no_grad():
+                with kernel2_calls(vit) as calls:
+                    (h, p), launches = counted_run(counters, lambda: encs[0](
+                        ids.to(dev), num_blocks=n, want_pooled=pooled))
+                h_ref, p_ref = encs[1](ids, num_blocks=n, want_pooled=pooled)
+            blocks = n or tcfg.num_layers
+            paths[f"port_clip_{name}"] = launches
+            shape = (1, 77, tcfg.num_heads,
+                     tcfg.hidden_size // tcfg.num_heads)
+            if launches["flash_attention"] != blocks or any(
+                    v for k, v in launches.items()
+                    if k != "flash_attention") or \
+                    calls != [(shape, True)] * blocks:
+                fail(f"ported text encoder ({name}): launches {launches}, "
+                     f"kernel-2 calls {calls[:3]}, not {blocks} causal at "
+                     f"{shape}")
+            for c in text_cases:
+                if c["attn"] == key:
+                    c.setdefault("launches_phase13", 0)
+                    c["launches_phase13"] += blocks
+            errs = [("hidden", *rel_errors(h, h_ref))]
+            if pooled:
+                errs.append(("pooled", *rel_errors(p[:, None], p_ref[:, None])))
+            if not torch.isfinite(h).all() or \
+                    h.shape != (1, 77, tcfg.hidden_size):
+                fail(f"ported text encoder ({name}): {tuple(h.shape)} not "
+                     f"finite (1, 77, {tcfg.hidden_size})")
+            print(f"{tag} phase 13 ported CLIP-L text encoder "
+                  f"({'whole, pooled at the eos' if pooled else 'penultimate'}"
+                  f", {blocks} blocks) on the empty prompt: card bf16 "
+                  f"(kernel 2 causal, {blocks} launches at {key}) vs CPU "
+                  f"fp32 " + "; ".join(
+                      f"{what} ||diff|| / ||CPU|| {r:.3e}, worst token "
+                      f"{w:.3e}, max|diff| {a:.3e}" for what, r, w, a in errs)
+                  + f" (tol {PORT_REL_TOL})")
+            for what, r, w, _ in errs:
+                if not (r <= PORT_REL_TOL and w <= PORT_REL_TOL):
+                    fail(f"ported text encoder ({name}) {what}: card against "
+                         f"CPU {r}, worst token {w} > {PORT_REL_TOL}")
+            del encs, sd, tree
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 SD_SEED = 21
 # phase 11 (a): SD1.5's up-block-0 tokens from the card in bf16 against the
 # CPU in fp32, on the same weights and image, as ||card - CPU|| / ||CPU||.
@@ -4494,13 +5026,166 @@ def _sd_image(rng, size: int):
     return np.asarray(img, np.float32) / 127.5 - 1.0
 
 
+def snapshot_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+class _Probe(dict):
+    """A state dict that holds every key and answers the i-th read with a
+    [1, 1, 1, 1] tensor of value i: run through a porter, it ties each leaf
+    of the porter's tree to the key the porter read for it."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = []
+
+    def __contains__(self, key):
+        return True
+
+    def __getitem__(self, key):
+        import torch
+        self.reads.append(key)
+        return torch.full((1, 1, 1, 1), float(len(self.reads) - 1))
+
+
+def diffusers_snapshot(porter, tree: dict, half: bool = True) -> tuple:
+    """(state dict, {tree path: key}): the diffusers-keyed state dict (fp16,
+    or fp32 with `half=False`) from which `porter(sd)` gives `tree` (fp32
+    numpy, the JAX layout), a `kernel` of rank 2 transposed back to
+    [out, in], of rank 4 to [O, I, kh, kw]; the keys are those the porter
+    reads, a bias or shortcut only where `tree` has it. The key names are
+    thus the porter's own: phase 11 passes the port's porters, so its
+    check of the bundle covers the layout and the cast, not the names,
+    which the CPU tests hold to the JAX porters by passing those here."""
+    import numpy as np
+    import torch
+    probe = _Probe()
+    where = {path: probe.reads[int(leaf.reshape(-1)[0])]
+             for path, leaf in flat_tree(porter(probe)).items()}
+    sd, used = {}, {}
+    for path, leaf in flat_tree(tree).items():
+        if path.endswith("kernel"):
+            leaf = leaf.T if leaf.ndim == 2 else leaf.transpose(3, 2, 0, 1)
+        t = torch.from_numpy(np.ascontiguousarray(leaf))
+        sd[where[path]] = t.half() if half else t
+        used[path] = where[path]
+    return sd, used
+
+
+def sd15_snapshot(root: str, tree: dict, cfg, dev) -> dict:
+    """A full-width SD1.5 diffusers snapshot root of the bundle tree `tree`
+    in fp16: `unet/` and `vae/` (`diffusion_pytorch_model.safetensors` with
+    diffusers' key names, as the port's porters read them) and
+    `text_encoder/` (`clip_text_snapshot`). Returns {"backbone" | "vae":
+    (state dict, {tree path: key})} for the check of the bundle."""
+    from law_of_vision_representation_in_mllms_torch.io import (
+        diffusers_port as DP)
+    out = {"backbone": diffusers_snapshot(lambda s: DP.port_unet(
+        s, cfg.unet, (cfg.up_ft_index,)), tree["backbone"]),
+        "vae": diffusers_snapshot(lambda s: DP.port_vae_encoder(
+            s, cfg.vae), tree["vae"])}
+    for part, folder, cls in (("backbone", "unet", "UNet2DConditionModel"),
+                              ("vae", "vae", "AutoencoderKL")):
+        _write_snapshot(os.path.join(root, folder), {"_class_name": cls},
+                        out[part][0], "diffusion_pytorch_model.safetensors")
+    clip_text_snapshot(os.path.join(root, "text_encoder"), dev, SD_SEED + 1)
+    with open(os.path.join(root, "model_index.json"), "w") as f:
+        json.dump({"_class_name": "StableDiffusionPipeline"}, f)
+    return out
+
+
+def port_sd15_bundle(tag: str, dev, counters, root: str, snap: dict,
+                     bundle: str, text_cases: list) -> dict:
+    """Phase 11's bundle: `cli.main(["port-featurizer", "sd15", root,
+    bundle, "--device", dev])`, counted (the prompt's 12 kernel-2 causal
+    launches at B 1, S 77, H 12, D 64); the bundle's UNet and VAE against
+    the snapshot's tensors (exact: fp16 -> fp32, a Linear's kernel the
+    weight transposed, a conv's the weight `transpose(2, 3, 1, 0)`; the
+    layout and the cast only, as the snapshot's keys are the port's
+    porters' own, `diffusers_snapshot`); its
+    `prompt_embeds` against a CPU fp32 encode of the same snapshot
+    (`PORT_REL_TOL`, whole and worst token). Returns the launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch import cli
+    from law_of_vision_representation_in_mllms_torch.io import (
+        featurizer_bundle as FB)
+    from law_of_vision_representation_in_mllms_torch.models import vit
+
+    argv = ["port-featurizer", "sd15", root, bundle, "--device", str(dev)]
+    t0 = time.perf_counter()
+    with kernel2_calls(vit) as calls, \
+            contextlib.redirect_stdout(io.StringIO()) as said:
+        rc, launches = counted_run(counters, lambda: cli.main(argv))
+    port_s = time.perf_counter() - t0
+    if rc != 0 or said.getvalue().strip() != f"ported sd15 bundle -> {bundle}":
+        fail(f"port-featurizer sd15: rc {rc}, said {said.getvalue()!r}")
+    t = PORT_TEXT
+    blocks, shape = t["layers"], (1, 77, t["heads"], t["hidden"] // t["heads"])
+    key = text_key(*shape)
+    if launches["flash_attention"] != blocks or any(
+            v for k, v in launches.items() if k != "flash_attention") or \
+            calls != [(shape, True)] * blocks:
+        fail(f"port-featurizer sd15: launches {launches}, kernel-2 calls "
+             f"{calls[:3]}, not {blocks} causal at {key}")
+    for c in text_cases:
+        if c["attn"] == key:
+            c["launches_phase11"] = blocks
+    tree, _ = FB.load_featurizer_bundle(bundle)
+    n = 0
+    for part, (sd, where) in snap.items():
+        got = flat_tree(tree[part])
+        if sorted(got) != sorted(where):
+            fail(f"port-featurizer sd15: the bundle's {part} keys differ "
+                 f"from the snapshot's: {sorted(set(got) ^ set(where))[:6]}")
+        for path, k in where.items():
+            want = sd[k].float().numpy()
+            if path.endswith("kernel"):
+                want = want.T if want.ndim == 2 else want.transpose(2, 3, 1, 0)
+            if got[path].dtype != np.float32 or \
+                    not np.array_equal(got[path], want):
+                fail(f"port-featurizer sd15: {part}/{path} is not the "
+                     f"snapshot's {k}")
+            n += want.size
+    t1 = time.perf_counter()
+    ref, _ = FB._encode_prompt(os.path.join(root, "text_encoder"),
+                               FB._empty_prompt_ids(), penultimate=False)
+    cpu_s = time.perf_counter() - t1
+    got = torch.from_numpy(tree["prompt_embeds"])
+    if got.shape != (1, 77, t["hidden"]) or not torch.isfinite(got).all():
+        fail(f"port-featurizer sd15: prompt_embeds {tuple(got.shape)} are "
+             f"not finite (1, 77, {t['hidden']})")
+    rel, worst, abs_err = rel_errors(got, torch.from_numpy(ref))
+    print(f"{tag} phase 11 port-featurizer sd15 on the card: "
+          f"{port_s:.1f} s, bundle {os.path.getsize(bundle) / 1e9:.2f} GB; "
+          f"UNet + VAE {n / 1e6:.1f} M values equal the snapshot's bit for "
+          f"bit (fp16 -> fp32, the documented layout: this holds the "
+          f"layout and the cast; the key names are the port's porters' own, "
+          f"held to the JAX porters by the CPU tests); prompt_embeds (card "
+          f"bf16, kernel 2 causal, {blocks} launches at {key}) vs a CPU fp32 "
+          f"encode ({cpu_s:.2f} s): ||diff|| / ||CPU|| {rel:.3e}, worst "
+          f"token {worst:.3e} (tol {PORT_REL_TOL} each), max|diff| "
+          f"{abs_err:.3e} of max|CPU| {np.abs(ref).max():.3e}; launches "
+          f"{launches}")
+    if not (rel <= PORT_REL_TOL and worst <= PORT_REL_TOL):
+        fail(f"port-featurizer sd15: prompt_embeds card against CPU {rel}, "
+             f"worst token {worst} > {PORT_REL_TOL}")
+    return launches
+
+
 def run_diffusion_tower(tag: str, dev, counters, unet_cases: list,
-                        c_scores: dict) -> dict:
+                        c_scores: dict, text_cases: list) -> dict:
     """Phase 11: the SD1.5 representation at full width (VAE encoder
     (128, 256, 512, 512), UNet (320, 640, 1280, 1280) with 8 heads, up block
     0 harvested: 576 tokens of 1280 at 768 px) on seeded random weights,
-    written as a featurizer bundle in a temporary directory and read back
-    through `model.tower_weights`, as a user's ported bundle is:
+    written as a diffusers snapshot (fp16, with a CLIP-L text encoder) in a
+    temporary directory, made into a bundle by `port-featurizer` on the
+    card (`port_sd15_bundle`) and read back through `model.tower_weights`,
+    as a user's ported bundle is:
     (a) `extract_features` on one image, card bf16 against CPU fp32, 14
         kernel-2 launches a forward, a repeat's bits;
     (b) `extract-features` over a synthetic SPair tree (phase 6's
@@ -4546,22 +5231,29 @@ def run_diffusion_tower(tag: str, dev, counters, unet_cases: list,
     tmp = tempfile.mkdtemp(prefix="lvr_sd15_")
     seen = _Spy(DB, "flash_attention", keep=attn_shape).__enter__()
     try:
-        # the bundle: seeded random fp32 weights, built on the card ------
+        # the bundle: a diffusers snapshot of seeded random weights, then
+        # `port-featurizer` on the card ---------------------------------
         cfg = F.FEATURIZER_PRESETS[SD15]()
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(SD_SEED)
         own = F.FeaturizerParams(cfg, FP32_PRECISION, device=dev)
         init_weights(own, gen)
-        own.prompt_embeds.normal_(generator=gen)
         n_params = sum(p.numel() for p in own.parameters())
-        bundle = FB.save_featurizer_bundle(os.path.join(tmp, "sd15"), own,
-                                           cfg)
+        tree = from_jax.featurizer_tree(own.state_dict())
         del own
         torch.cuda.empty_cache()
-        print(f"{tag} SD1.5 featurizer ({n_params / 1e6:.1f} M params: VAE "
-              f"encoder + UNet through up block 0, seeded random) written "
-              f"as a bundle of {os.path.getsize(bundle) / 1e9:.2f} GB in "
+        root = os.path.join(tmp, "sd15_snapshot")
+        snap = sd15_snapshot(root, tree, cfg, dev)
+        del tree
+        print(f"{tag} phase 11 SD1.5 diffusers snapshot ({n_params / 1e6:.1f}"
+              f" M params: VAE encoder + UNet through up block 0, seeded "
+              f"random; and the CLIP-L text encoder; fp16 .safetensors, "
+              f"{snapshot_bytes(root) / 1e9:.2f} GB) written in "
               f"{time.perf_counter() - t0:.2f} s")
+        bundle = os.path.join(tmp, "sd15.npz")
+        paths["sd15_port"] = port_sd15_bundle(tag, dev, counters, root, snap,
+                                              bundle, text_cases)
+        del snap
 
         # (a) one image, card bf16 against CPU fp32 ----------------------
         tree, bcfg = FB.load_featurizer_bundle(bundle)
@@ -5868,7 +6560,8 @@ def main() -> int:
 
     kernels = check_kernels(tag, dev)
     unet_cases = check_unet_attention(tag, dev)
-    kernels["flash_attention"]["cases"] += unet_cases
+    text_cases = check_text_attention(tag, dev)
+    kernels["flash_attention"]["cases"] += unet_cases + text_cases
     gc.collect()
     torch.cuda.empty_cache()
     kernels.update(check_flash_bwd(tag, dev))
@@ -5933,11 +6626,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     mark("phase 7 (quantised serving)")
+    # checkpoint porting (phase 13): the port's own snapshot readers and
+    # porters, before phase 11 takes its bundle from `port-featurizer`
+    paths.update(run_checkpoint_porting(tag, dev, counters, text_cases))
+    mark("phase 13 (checkpoint porting)")
     # the SD1.5 representation at full width (phase 11), also before
     # torch.profiler first runs: it serves through the chunked decoder
     tower_c = {}        # the diffusion towers' C scores, for phase 6's fit
     paths.update(run_diffusion_tower(tag, dev, counters, unet_cases,
-                                     tower_c))
+                                     tower_c, text_cases))
     mark("phase 11 (SD1.5)")
     # DiT-XL/2 and SD3-medium at full width and depth (phase 12), before
     # torch.profiler first runs for the same reason

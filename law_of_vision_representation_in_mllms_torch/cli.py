@@ -17,8 +17,16 @@ Commands:
   c-score           SPair / AP-10k / PF-Pascal PCK over extracted features
                     (the zero-shot C score and its geo-aware subset)
   policy            fit / predict / validate the AC policy over a results CSV
+  make-config       a RunConfig YAML for one of the paper's 13
+                    representations (the JAX package's text)
+  port-featurizer   a diffusers snapshot directory -> a featurizer bundle
+                    (the prompt encoded on the card: kernel 2, causal)
 
-The other commands of the JAX CLI are not ported yet (ROADMAP, queue 1).
+Single components of HF / diffusers snapshots are ported by `python -m
+law_of_vision_representation_in_mllms_torch.io.port_cli`. Eight commands
+of the JAX CLI are not ported yet (ROADMAP, queue 1): `apply-delta`,
+`make-delta`, `consolidate`, `merge-results`, `c-train`, `sam-masks`,
+`preprocess-map` and `pose-awareness`.
 Run on the card with `--device cuda` (the default); there is no silent CPU
 fallback, a CPU run takes an explicit `--device cpu`.
 """
@@ -178,6 +186,36 @@ def main(argv=None):
                    choices=["polynomial", "linear"])
     p.add_argument("--train-models", nargs="*")
     p.add_argument("--top", type=int, default=1)
+    _add_device(p)
+
+    p = sub.add_parser("make-config",
+                       help="emit a RunConfig YAML for one of the paper's "
+                            "13 representations")
+    p.add_argument("rep", help="e.g. CLIP336, SD1.5, CLIP336+DINOv2; "
+                               "'list' prints all")
+    p.add_argument("--stage", type=int, default=1, choices=[1, 2])
+    p.add_argument("--tokenizer", default="/ckpts/vicuna-7b-v1.5")
+    p.add_argument("--output-dir")
+    p.add_argument("--data-path", default="")
+    p.add_argument("--image-folder", default="")
+    p.add_argument("--n-data", type=int, default=8)
+    p.add_argument("--n-model", type=int, default=1)
+    p.add_argument("--zero", type=int, default=2)
+    p.add_argument("--lora", action="store_true",
+                   help="finetune_lora.sh variant (r=128, alpha=256)")
+    p.add_argument("--qlora", choices=["int4", "int8"],
+                   help="LoRA + quantized frozen decoder base (QLoRA)")
+
+    p = sub.add_parser("port-featurizer",
+                       help="diffusers snapshot dir -> featurizer bundle")
+    p.add_argument("kind",
+                   choices=["sd15", "sd21", "imsd", "sdxl", "dit", "sd3"])
+    p.add_argument("src_root", help="snapshot with unet/ vae/ text_encoder*/")
+    p.add_argument("out_path")
+    p.add_argument("--t", type=int, default=1)
+    p.add_argument("--up-ft-index", type=int)
+    p.add_argument("--ensemble-size", type=int, default=1)
+    p.add_argument("--img-size", type=int)
     _add_device(p)
 
     args = parser.parse_args(argv)
@@ -360,6 +398,34 @@ def _cmd_policy(args):
     return 0
 
 
+def _cmd_make_config(args):
+    from .core.representations import REPRESENTATIONS, render_config
+    if args.rep == "list":
+        for name, rep in REPRESENTATIONS.items():
+            print(f"{name}\t{rep.tower}")
+        return 0
+    print(render_config(args.rep, args.stage, tokenizer=args.tokenizer,
+                        output_dir=args.output_dir,
+                        data_path=args.data_path,
+                        image_folder=args.image_folder,
+                        n_data=args.n_data, n_model=args.n_model,
+                        zero=args.zero, lora=args.lora,
+                        qlora=args.qlora))
+    return 0
+
+
+def _cmd_port_featurizer(args):
+    """A diffusers snapshot -> a bundle for `model.tower_weights`: the
+    weights ported on the host, the fixed prompt encoded on `--device`."""
+    from .io.featurizer_bundle import port_featurizer_bundle
+    out = port_featurizer_bundle(
+        args.kind, args.src_root, args.out_path, t=args.t,
+        up_ft_index=args.up_ft_index, ensemble_size=args.ensemble_size,
+        img_size=args.img_size, device=_device(args))
+    print(f"ported {args.kind} bundle -> {out}")
+    return 0
+
+
 DISPATCH = {
     "train": _cmd_train,
     "generate": _cmd_generate,
@@ -371,6 +437,8 @@ DISPATCH = {
     "a-score": _cmd_a_score,
     "c-score": _cmd_c_score,
     "policy": _cmd_policy,
+    "make-config": _cmd_make_config,
+    "port-featurizer": _cmd_port_featurizer,
 }
 
 

@@ -150,7 +150,7 @@ def load_pretrained(model_dir: str, params, *, lora_cfg=None):
     `LlavaParams`, changed IN PLACE and returned): the newest
     `checkpoint-{step}` if there is one; else LoRA adapters, merged into the
     decoder's dense weights, and/or a projector (`mm_projector.npz`, then
-    `mm_projector.bin`).
+    `mm_projector.bin`, which wins where both are there).
 
     The adapters are read from `lora_adapters.npz`, the name the runners of
     both packages write, or from `lora.npz`, the name the JAX
@@ -189,9 +189,11 @@ def load_pretrained(model_dir: str, params, *, lora_cfg=None):
         break
     proj_path = os.path.join(model_dir, PROJECTOR_NPZ)
     torch_proj = os.path.join(model_dir, "mm_projector.bin")
+    # both files may be there: the `.bin` is applied last and wins, as in
+    # the JAX `load_pretrained`
     if os.path.exists(proj_path):
         params.projector.load_state_dict(load_projector(proj_path))
-    elif os.path.exists(torch_proj):
+    if os.path.exists(torch_proj):
         sd = torch.load(torch_proj, map_location="cpu", weights_only=True)
         weights = sorted((k for k in sd if k.endswith(".weight")),
                          key=lambda k: [int(t) for t in k.split(".")

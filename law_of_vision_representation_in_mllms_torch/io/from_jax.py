@@ -39,6 +39,10 @@ Layout mapping:
   (CLIPVisionPooled) maps its `encoder` as a ViT tower does, its `post_ln`
   as a LayerNorm, and keeps `visual_projection` [hidden, projection]; the
   `prompt_embeds` and `pooled` buffers stay as they are;
+- a CLIP text encoder's tree (`token_embedding`, `pos_embed`, `final_ln`,
+  `block_{i}` as a tower's, `text_projection` [hidden, projection]) becomes
+  a `models.text_encoder.CLIPTextEncoder` state dict, its blocks named as
+  a tower's (`blocks.{i}.q.weight`, ...);
 - a weight-only quantised decoder leaf of the JAX `ops/quant.py` becomes the
   buffers of a `QuantDense`: `{"q8" [in, out], "scale" [1, out]}` ->
   `q8` [out, in], `scale` [out]; `{"q4" [in / 2, out] bytes, "scale"
@@ -133,8 +137,10 @@ def _ln(tree, prefix: str, out: StateDict) -> None:
 
 
 def vit_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
-    """One ViTTower's params ({"encoder": {...}}) -> ViTTower state dict."""
-    enc = tree["encoder"]
+    """One ViTTower's params ({"encoder": {...}}) -> ViTTower state dict.
+    The encoder's tree alone (what `io.port_cli` writes for a ViT tower)
+    maps the same way."""
+    enc = tree["encoder"] if "encoder" in tree else tree
     out: StateDict = {}
     e = f"{prefix}encoder"
     kernel = np.asarray(enc["patch_kernel"])
@@ -156,6 +162,25 @@ def vit_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
         for name in ("ls1", "ls2"):
             if name in blk:
                 out[f"{bp}.{name}"] = _t(blk[name])
+    return out
+
+
+def text_encoder_state_dict(tree: Dict[str, Any],
+                            prefix: str = "") -> StateDict:
+    """A CLIPTextEncoder tree (`models.text_encoder.port_clip_text`) ->
+    `CLIPTextEncoder` state dict (its blocks as a tower's)."""
+    out: StateDict = {f"{prefix}token_embedding": _t(tree["token_embedding"]),
+                      f"{prefix}pos_embed": _t(tree["pos_embed"])}
+    _ln(tree["final_ln"], f"{prefix}final_ln", out)
+    n_blocks = sum(1 for k in tree if k.startswith("block_"))
+    for i in range(n_blocks):
+        blk, bp = tree[f"block_{i}"], f"{prefix}blocks.{i}"
+        _ln(blk["ln1"], f"{bp}.ln1", out)
+        _ln(blk["ln2"], f"{bp}.ln2", out)
+        for name in _VIT_DENSES:
+            _dense(blk[name], f"{bp}.{name}", out)
+    if "text_projection" in tree:
+        out[f"{prefix}text_projection"] = _t(tree["text_projection"])
     return out
 
 
@@ -237,8 +262,12 @@ def featurizer_state_dict(tree: Dict[str, Any],
     """A JAX featurizer bundle tree -> `models.featurizer.FeaturizerParams`
     state dict."""
     out: StateDict = {}
-    for name in ("vae", "backbone"):
-        _flax_into(tree[name], f"{prefix}{name}.", out)
+    _flax_into(tree["vae"], f"{prefix}vae.", out)
+    # SDXL's text-time addition embedding: the porters of both packages
+    # keep it, but no featurizer runs it (the reference's UNet forward has
+    # no added-cond branch), and the port's UNetHarvest has no such module
+    _flax_into({k: v for k, v in tree["backbone"].items()
+                if k != "add_embedding"}, f"{prefix}backbone.", out)
     if "image_encoder" in tree:
         enc, p = tree["image_encoder"], f"{prefix}image_encoder."
         out.update(vit_state_dict(enc, p))

@@ -40,7 +40,7 @@ def make_diffusion_apply(config_overrides: Optional[Dict[str, Any]] = None):
         if not isinstance(tower_params, FeaturizerParams):
             raise ValueError(
                 f"diffusion tower '{entry.name}' has no params — port a "
-                "checkpoint first (the JAX CLI's `port-featurizer`) and pass "
+                "checkpoint first (`lvr-torch port-featurizer`) and pass "
                 "the bundle in model.tower_weights")
         cfg = resolve_featurizer_config(entry, overrides.get(entry.name))
         return extract_features(tower_params, cfg, pixels,

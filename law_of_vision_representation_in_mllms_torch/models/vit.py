@@ -159,9 +159,17 @@ VIT_PRESETS = {
 
 
 class ViTBlock(nn.Module):
-    def __init__(self, cfg: ViTConfig, precision: Precision, *, device=None):
+    """A pre-LN transformer block. `causal=True` (the CLIP text encoders,
+    `models.text_encoder`) always runs kernel 2's causal form, whatever
+    `attn_impl` names: kernel 1 has no causal form, and the JAX block's
+    causal routes (the masked `mha`, or `flash_attention_bhsd` under
+    `flash`) compute that function."""
+
+    def __init__(self, cfg: ViTConfig, precision: Precision, *,
+                 causal: bool = False, device=None):
         super().__init__()
         self.cfg = cfg
+        self.causal = causal
         self.route = attention_route(cfg.attn_impl)
         d, i = cfg.hidden_size, cfg.intermediate_size
         eps = cfg.layer_norm_eps
@@ -188,8 +196,10 @@ class ViTBlock(nn.Module):
         h = self.ln1(x)
         b, s, _ = h.shape
         shape = (b, s, cfg.num_heads, cfg.head_dim)
-        attn = attend(self.route, self.q(h).view(shape),
-                      self.k(h).view(shape), self.v(h).view(shape))
+        q, k, v = (self.q(h).view(shape), self.k(h).view(shape),
+                   self.v(h).view(shape))
+        attn = (flash_attention(q, k, v, causal=True) if self.causal
+                else attend(self.route, q, k, v))
         attn = self.o(attn.reshape(b, s, cfg.hidden_size))
         if cfg.use_layerscale:
             attn = attn * self.ls1.to(attn.dtype)

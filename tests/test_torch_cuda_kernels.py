@@ -179,6 +179,70 @@ def test_flash_kernel_dit_and_sd3_shapes(cuda_device, b, sq, skv, h, d):
     assert torch.equal(got, flash_attention(q, k, v))       # same bits
 
 
+# the CLIP text encoders' attention: kernel 2's causal form at S = 77,
+# D = 64, with the 12, 16 and 20 heads of SD1.5's CLIP-L, SD2.1's
+# OpenCLIP-H and SDXL / SD3's bigG, one prompt and a batch of three
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("h", [12, 16, 20])
+def test_flash_kernel_text_encoder_causal(cuda_device, b, h):
+    q, k, v = (_randn((b, 77, h, 64), i, cuda_device) for i in range(3))
+    before = flash_attention.launches
+    got, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, want_lse = flash_attention_plain(q, k, v, causal=True,
+                                           return_lse=True)
+    assert _close(got, want)
+    # row by row: a late row averages many keys and is small beside row 0
+    rows = ((got.float() - want.float()).abs().amax(-1)
+            / want.float().abs().amax(-1))
+    assert rows.max().item() <= TOL
+    assert (lse - want_lse).abs().max().item() < 1e-2
+    assert torch.equal(got, flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("penultimate, pooled",
+                         [(False, True), (True, False), (True, True)])
+def test_text_encoder_bf16_on_the_card(cuda_device, penultimate, pooled):
+    """SD1.5's CLIP-L text encoder at full width (two of its 12 blocks,
+    seeded random weights) on the empty prompt, whole with the pooled
+    output, penultimate (SDXL) and penultimate with the pooled output of
+    the whole stack (SD3): the card in bf16 compute (kernel 2, causal, one
+    launch a block run) against the CPU in fp32, as ||card - CPU|| /
+    ||CPU|| (bf16 rounding of every activation; the pooled output through
+    the final LayerNorm)."""
+    import dataclasses
+
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION, FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.io.featurizer_bundle \
+        import _empty_prompt_ids
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        init_weights)
+    from law_of_vision_representation_in_mllms_torch.models.text_encoder \
+        import CLIPTextEncoder, clip_l_text
+    cfg = dataclasses.replace(clip_l_text(), num_layers=2)
+    cpu = CLIPTextEncoder(cfg, FP32_PRECISION)
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    card = CLIPTextEncoder(cfg, DEFAULT_PRECISION, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.from_numpy(_empty_prompt_ids()).long()
+    n = cfg.num_layers - 1 if penultimate else None
+    before = flash_attention.launches
+    with torch.no_grad():
+        got, got_pooled = card(ids.to(cuda_device), num_blocks=n,
+                               want_pooled=pooled)
+        torch.cuda.synchronize()
+        want, want_pooled = cpu(ids, num_blocks=n, want_pooled=pooled)
+    blocks = cfg.num_layers if pooled else n
+    assert flash_attention.launches == before + blocks
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 77, 768)
+    pairs = [(got, want)] + ([(got_pooled, want_pooled)] if pooled else [])
+    for g, w in pairs:
+        rel = ((g.float().cpu() - w).norm() / w.norm()).item()
+        assert rel <= 2e-2, rel
+
+
 # (B, S, H, D) -> the block rows `launch_flash_fwd` documents: at Dp = 128 a
 # grid of 64-row blocks that fits in one wave takes them, a larger one
 # 128-row blocks; Dp = 192 always takes 64

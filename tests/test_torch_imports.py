@@ -38,7 +38,8 @@ def test_every_port_module_imports_without_jax():
         frameworks = [m for m in ("jax", "flax", "optax", "orbax")
                       if m in sys.modules]
         # host-side packages the card machine may lack stay unloaded
-        optional = [m for m in ("PIL", "yaml", "transformers")
+        optional = [m for m in ("PIL", "yaml", "transformers",
+                                "safetensors", "diffusers")
                     if m in sys.modules]
         tpu = [m for m in sys.modules if m.startswith("{TPU}")]
         print(json.dumps({{"names": names, "frameworks": frameworks,
@@ -58,8 +59,42 @@ def test_every_port_module_imports_without_jax():
                 "models.layers", "models.mpt", "models.lora",
                 "models.switch", "models.diffusion_blocks", "models.vae",
                 "models.unet", "models.featurizer", "models.tower_runtime",
-                "io.featurizer_bundle"):
+                "io.featurizer_bundle", "io.port_cli", "io.hf_port",
+                "io.diffusers_port", "models.text_encoder",
+                "core.representations"):
         assert f"{PKG}.{mod}" in out["names"]
+
+
+def test_porting_a_snapshot_loads_no_jax_and_no_hf_package(tmp_path):
+    """`port_cli` on a CLIP text snapshot and `port_featurizer_bundle` on a
+    tiny SD1.5 root (both written here with `safetensors` and
+    `transformers`) run in a fresh interpreter that never loads JAX, the
+    JAX package, `safetensors`, `transformers` or `diffusers`."""
+    import test_torch_port_featurizer as PF
+    from law_of_vision_representation_in_mllms_torch.models import (
+        featurizer as TF)
+    root = PF.snapshot_root(str(tmp_path / "snap"), "sd15")
+    with open(tmp_path / "cfg.json", "w") as f:
+        json.dump(TF.config_to_dict(PF.CONFIGS["sd15"]), f)
+    out = _run(f"""
+        import json, sys
+        from {PKG}.io import featurizer_bundle as FB, port_cli
+        from {PKG}.models import featurizer as F
+        port_cli.main(["clip_text", "{root}/text_encoder",
+                       "{tmp_path}/text.npz", "--penultimate"])
+        with open("{tmp_path}/cfg.json") as f:
+            cfg = F.config_from_dict(json.load(f))
+        path = FB.port_featurizer_bundle("sd15", "{root}",
+                                         "{tmp_path}/bundle", config=cfg,
+                                         device="cpu")
+        tree, _ = FB.load_featurizer_bundle(path)
+        loaded = [m for m in sys.modules if m.split(".")[0] in (
+            "jax", "flax", "optax", "orbax", "{TPU}", "safetensors",
+            "transformers", "diffusers")]
+        print(json.dumps({{"loaded": loaded,
+                          "prompt": list(tree["prompt_embeds"].shape)}}))
+    """)
+    assert out == {"loaded": [], "prompt": [1, 77, 16]}
 
 
 def test_cli_tasks_runs_without_jax():
