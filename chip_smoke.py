@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, law-chain (A and C
 scores), quantised serving, MPT, training-variant, diffusion-tower (SD1.5,
-DiT-XL/2, SD3-medium) and checkpoint-porting paths on one NVIDIA GPU
-(H100).
+DiT-XL/2, SD3-medium), checkpoint-porting and eval-zoo paths on one NVIDIA
+GPU (H100).
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
@@ -146,6 +146,21 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      the engine called kernels 1, 2, 3 and 10 at, the server's engine
      included, is recorded and then held to its plain version (kernel 2
      with the block rows its launcher reports); a shape not held fails;
+  14. (inside phase 4, after 4c, on its bf16 model) the eval zoo:
+     `simple_evaluate` over six tasks read from their bundled YAMLs, only
+     the dataset fields pointed at 4 synthetic docs each and their random
+     336 px PNGs (one batch of B = 4): llava_wild (graded by a stub judge on
+     127.0.0.1, set as OPENAI_API_URL for that task alone, which must get
+     one rubric request a doc), olympiadbench_test_en (math equivalence)
+     and mathvista_testmini (rules only), each 1,024 new tokens through the
+     captured decode (64 replays of a 16-step chunk, cache T ~1,700),
+     refcoco_bbox_rec_val, coco_cap and mmupd_base. Every task a finite
+     aggregate of n = 4; kernels 1, 2 and 3 launched; every (kernel, shape)
+     of the phase held to its plain version, kernel 3 at the long tasks' T
+     among them; the first 64 tokens of the first 1,024-token batch held to
+     eager `generate_greedy`'s (near-ties allowed as in 4b). Docs/s a task,
+     the long decode's tokens/s and ms a step beside phase 4's at T = 735,
+     the cache T, the graph captures and the peak memory are printed;
   5. the training slice at full width: `run_training(RunConfig)` trains
      LLaVA-1.5-7B stage 1 (fp32 weights, bf16 compute, block remat) for 4
      steps of 16 random 336 px PNGs with 20-40-word captions. Losses finite,
@@ -2655,6 +2670,10 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
         backend_paths.update(run_inflight(tag, dev, counters, lmm, label,
                                           quantize, fig["decode_cases"],
                                           serve=bf16 is None))
+    # phase 14: the eval zoo, in bf16
+    if bf16 is None:
+        backend_paths["eval_zoo"] = run_eval_zoo(tag, dev, counters, lmm,
+                                                 label, fig)
     if bf16 is not None:
         print(f"{tag} [{label}] beside the bf16 run: prefill "
               f"{fig['prefill_ms']:.2f} vs {bf16['prefill_ms']:.2f} ms, "
@@ -3299,19 +3318,20 @@ def check_int4_at(tag: str, dev, g, leaves: dict, what: str, m: int, di: int,
 ENGINE_HELD = set()     # the engine's launch shapes held so far in this run
 
 
-def hold_engine_shapes(tag: str, dev, label: str, seen, cases: list) -> None:
+def hold_engine_shapes(tag: str, dev, label: str, seen, cases: list,
+                       path: str = "inflight engine") -> None:
     """Holds each kernel shape in `seen` (see `engine_shapes`) that this run
     has not held yet to its plain version, on seeded random inputs: kernels
     1 and 2 by `attention_case` (kernel 2 with the block rows its launcher
     reports), kernel 3 by `check_decode_at`, kernel 10 by `check_int4_at`.
     Appends the cases to `cases`, then fails if a shape in `seen` was not
-    held."""
+    held. `path` names the path that launched them."""
     import torch
     from law_of_vision_representation_in_mllms_torch.ops import (
         encoder_attention as enc, flash_attention as fl)
     g = torch.Generator(device=dev).manual_seed(17)
     leaves = {}
-    what = f"[{label}] inflight engine"
+    what = f"[{label}] {path}"
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev,
@@ -3629,6 +3649,289 @@ def serve_inflight(tag: str, label: str, lmm, counters, seen,
           f"answers part from their eager decode, each at a tie within "
           f"{bound:.3e} of max|logit|")
     return launches
+
+
+# phase 14: the eval zoo on phase 4's LLaVA-1.5-7B. One task of each task
+# file the JAX package has beside the paper's (judged, math equivalence,
+# mathvista, grounding, captions, mmupd), read from its bundled YAML with
+# only the dataset fields pointed at ZOO_DOCS synthetic docs (one batch,
+# B = 4) and their random 336 px PNGs. The first three generate up to 1,024
+# new tokens: 64 replays of a 16-step chunk over a cache of bucket(prompt) +
+# 575 + 1,024 slots
+ZOO_TASKS = ("llava_wild", "olympiadbench_test_en", "mathvista_testmini",
+             "refcoco_bbox_rec_val", "coco_cap", "mmupd_base")
+ZOO_DOCS = 4
+ZOO_JUDGED = "llava_wild"       # the only task the stub judge grades
+ZOO_HELD_TOKENS = 64            # the graph path's first tokens held to eager
+
+
+def zoo_docs(name: str) -> list:
+    """ZOO_DOCS docs of task `name` with the fields the JAX package's tests
+    give them (`tests/test_eval_harness.py`), each over its own PNG. Three
+    of olympiadbench's four docs have two-part answers: the random model's
+    1,024 tokens decode to ~5,000 characters with no comma, which
+    `math_equivalence.judge` refuses at its answer count, while one
+    single-answer doc takes the whole sympy path (~11 s of host time on a
+    text that long)."""
+    docs = {
+        "llava_wild": [
+            {"question": q, "category": c, "caption": [cap],
+             "gpt_answer": a}
+            for q, c, cap, a in (
+                ("Describe the scene.", "detail", "a dog on grass",
+                 "A dog on a lawn."),
+                ("What is unusual here?", "complex", "a man irons on a taxi",
+                 "He irons clothes on a moving car."),
+                ("What color is the bus?", "conv", "a red bus", "Red."),
+                ("How many people are there?", "conv", "two people walk",
+                 "Two."))],
+        "olympiadbench_test_en": [
+            {"question": "Compute the area of the triangle.",
+             "subfield": "Mathematics", "is_multiple_answer": False,
+             "answer_type": "a numeric value",
+             "final_answer": [r"\frac{\sqrt{3}}{2}"], "error": 1e-5,
+             "source": "OE_en"}] + [
+            {"question": f"Find all real roots of polynomial {i}.",
+             "subfield": "Mathematics", "is_multiple_answer": True,
+             "answer_type": "Numerical", "final_answer": [f"{i},{i + 1}"],
+             "error": None, "source": "OE_en"} for i in range(1, 4)],
+        "mathvista_testmini": [
+            {"question": "Which number is missing?",
+             "question_type": "free_form", "answer_type": "integer",
+             "answer": "14", "query": "Question: Which number is missing?"},
+            {"question": "What fraction is shaded?",
+             "question_type": "free_form", "answer_type": "float",
+             "answer": "0.6", "precision": 1},
+            {"question": "What fraction is blue?",
+             "question_type": "multi_choice", "answer_type": "text",
+             "choices": ["3/11", "8/11", "6/11"], "answer": "8/11"},
+            {"question": "How many sides?", "question_type": "free_form",
+             "answer_type": "integer", "answer": "5"}],
+        "refcoco_bbox_rec_val": [
+            {"question": "", "answer": a, "bbox": b} for a, b in (
+                ("the red car", [0.1, 0.1, 0.5, 0.5]),
+                ("the dog", [0.6, 0.6, 0.9, 0.9]),
+                ("a cup on the left", [0.0, 0.2, 0.3, 0.6]),
+                ("the tall tree", [0.4, 0.0, 0.7, 0.9]))],
+        "coco_cap": [
+            {"question": "", "answers": [a]} for a in (
+                "a red fox jumps over the lazy dog",
+                "two boats float near the old pier",
+                "children play chess in a quiet hall",
+                "a man rides a bike down the street")],
+        "mmupd_base": [
+            {"question": q, "A": "red", "B": "blue", "C": "green",
+             "answer": ans, "masked_answer": masked, "index": i,
+             "hint": "", "source": "s", "split": "v", "category": "c",
+             "type": "aad"}
+            for i, (q, ans, masked) in enumerate((
+                ("Which color is the sky?", "B", ""),
+                ("Which color is grass?", "C", ""),
+                ("Which color is the car?", "D", "black"),
+                ("Which color is the sign?", "D", "yellow")))],
+    }[name]
+    return [dict(d, image=f"img{i}.png") for i, d in enumerate(docs)]
+
+
+class _ZooJudge:
+    """A stub chat-completions judge on 127.0.0.1 (port 0) in a thread:
+    every request is kept, and a pairwise review answers "8 6"."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+        seen = self.seen = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                seen.append(json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"]))))
+                body = json.dumps({"choices": [{"message": {
+                    "content": "8 6\nAssistant 2 was less detailed."}}]})
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body.encode())
+
+            def log_message(self, *a):
+                pass
+        self.httpd = HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = (f"http://127.0.0.1:{self.httpd.server_port}"
+                    f"/v1/chat/completions")
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def run_eval_zoo(tag: str, dev, counters, lmm, label: str, fig: dict
+                 ) -> dict:
+    """Phase 14 on phase 4's LLaVA-1.5-7B (bf16): `simple_evaluate` over
+    ZOO_TASKS, ZOO_DOCS docs each (one batch of B = 4), every task's
+    launches counted from 0 (the graph path's derived from its captures and
+    replays) and summed. Holds: every task a finite aggregate of n =
+    ZOO_DOCS; the judged task's stub got one rubric request a doc (and only
+    it reached the stub); kernels 1, 2 and 3 launched; every (kernel,
+    shape) of the phase held to its plain version (kernel 3 at the cache T
+    the long tasks reached among them); the first ZOO_HELD_TOKENS tokens
+    of the first 1,024-token batch equal eager `generate_greedy`'s on its
+    inputs, or part at a near-tie. Prints docs/s a task, the long decode's
+    tokens/s and ms a step beside phase 4's at T = 735, the cache T,
+    the graph captures and the peak memory. Returns the summed launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from law_of_vision_representation_in_mllms_torch.eval.evaluator import (
+        simple_evaluate)
+    from law_of_vision_representation_in_mllms_torch.eval.task import (
+        read_task_file)
+    from law_of_vision_representation_in_mllms_torch.eval.tasks import (
+        task_yaml)
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+
+    t_phase = time.perf_counter()
+    dec = lmm.chunked_decoder()
+    captures0 = dec.captures
+    layers = lmm.cfg.decoder.num_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    # each graph-path generate: its inputs, tokens, the decode part's
+    # device ms (CUDA events around the replays and their host reads) and
+    # the chunks it ran
+    calls, decodes = [], []
+    generate, decode = dec.generate, dec._decode
+
+    def timed_decode(st, n_chunks):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ran = decode(st, n_chunks)
+        e1.record()
+        e1.synchronize()
+        decodes.append((e0.elapsed_time(e1), ran))
+        return ran
+
+    def kept_generate(*inputs, max_new_tokens):
+        out = generate(*inputs, max_new_tokens=max_new_tokens)
+        calls.append(dict(inputs=inputs, n_new=max_new_tokens, out=out,
+                          ms=decodes[-1][0], chunks=decodes[-1][1]))
+        return out
+    dec.generate, dec._decode = kept_generate, timed_decode
+    env = {k: os.environ.get(k) for k in ("OPENAI_API_URL", "OPENAI_API_KEY")}
+    judge = _ZooJudge()
+    seen = collections.Counter()
+    total = collections.Counter()
+    rows = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rng = np.random.RandomState(14)
+            for i in range(ZOO_DOCS):
+                Image.fromarray(rng.randint(0, 256, (336, 336, 3),
+                                            dtype=np.uint8)).save(
+                    os.path.join(tmp, f"img{i}.png"))
+            for name in ZOO_TASKS:
+                # the bundled task file; only its dataset fields change
+                cfg = read_task_file(task_yaml(name))
+                with open(os.path.join(tmp, f"{name}.json"), "w") as f:
+                    json.dump(zoo_docs(name), f)
+                cfg.update(dataset_path=os.path.join(tmp, f"{name}.json"),
+                           image_root=tmp)
+                if name == ZOO_JUDGED:
+                    os.environ["OPENAI_API_URL"] = judge.url
+                    os.environ["OPENAI_API_KEY"] = "stub"
+                else:
+                    os.environ.pop("OPENAI_API_URL", None)
+                n_judged, n_calls = len(judge.seen), len(calls)
+                t0 = time.perf_counter()
+                with engine_shapes(seen):
+                    res, launches = counted_run(
+                        counters, lambda: simple_evaluate(
+                            lmm, [cfg], log_samples=True), dec)
+                secs = time.perf_counter() - t0
+                total.update(launches)
+                r = res[name]
+                if r["n"] != ZOO_DOCS or not math.isfinite(r["value"]):
+                    fail(f"phase 14 {name}: n = {r['n']}, value "
+                         f"{r['value']} (want n = {ZOO_DOCS}, finite)")
+                judged = judge.seen[n_judged:]
+                if name == ZOO_JUDGED:
+                    rubric = [b for b in judged
+                              if "[Assistant 2]" in b["messages"][-1][
+                                  "content"]]
+                    if len(rubric) != ZOO_DOCS or len(judged) != ZOO_DOCS:
+                        fail(f"phase 14 {name}: the stub judge got "
+                             f"{len(judged)} requests ({len(rubric)} "
+                             f"rubrics), not one rubric a doc")
+                elif judged:
+                    fail(f"phase 14 {name} reached the judge without "
+                         f"OPENAI_API_URL")
+                new = calls[n_calls:]
+                if len(new) != 1 or new[0]["out"].shape[0] != ZOO_DOCS:
+                    fail(f"phase 14 {name}: {len(new)} graph-path batches, "
+                         f"not one of B = {ZOO_DOCS}")
+                c = new[0]
+                c["t"] = (c["inputs"][0].shape[1] + lmm.cfg.num_patches - 1
+                          + -(-c["n_new"] // DECODE_CHUNK) * DECODE_CHUNK)
+                c["name"] = name
+                rows.append(c)
+                print(f"{tag} [{label}] phase 14 {name}: value "
+                      f"{r['value']:.4f}, n {r['n']}; {ZOO_DOCS / secs:.3f} "
+                      f"docs/s ({secs:.2f} s; max_new_tokens {c['n_new']}, "
+                      f"{c['chunks']} chunks of {DECODE_CHUNK} run, cache "
+                      f"T={c['t']}); launches {dict(launches)}")
+    finally:
+        del dec.generate, dec._decode
+        judge.close()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    for name in ("encoder_attention", "flash_attention", "decode_attention"):
+        if not total[name]:
+            fail(f"phase 14 launched no {name}")
+    if total["decode_attention"] % layers:
+        fail(f"phase 14's {total['decode_attention']} kernel-3 launches are "
+             f"not {layers} a decode step")
+    # every kernel shape of the phase, kernel 3 at the long tasks' T among
+    # them, against its plain version
+    long_t = {c["t"] for c in rows if c["n_new"] >= 1024}
+    held_t = {key[2] for key in seen if key[0] == "decode_attention"}
+    if not long_t or not long_t <= held_t:
+        fail(f"phase 14: kernel 3 ran at T {sorted(held_t)}, not at every "
+             f"long task's {sorted(long_t)}")
+    hold_engine_shapes(tag, dev, label, seen, fig["decode_cases"],
+                       path="eval zoo")
+    # the first ZOO_HELD_TOKENS tokens of the first 1,024-token batch
+    # against the eager greedy decode on the same inputs
+    first = next(c for c in rows if c["n_new"] >= 1024)
+    want = M.generate_greedy(lmm.params, lmm.cfg, *first["inputs"],
+                             max_new_tokens=ZOO_HELD_TOKENS,
+                             eos_id=lmm.tok.eos_token_id)
+    check_tokens(tag, label, f"phase 14 {first['name']}'s first "
+                 f"{ZOO_HELD_TOKENS} of {first['n_new']} tokens (graph path, "
+                 f"T={first['t']})", lmm, first["inputs"], want,
+                 first["out"][:, :ZOO_HELD_TOKENS])
+    for c in rows:
+        if c["n_new"] < 1024:
+            continue
+        steps = c["chunks"] * DECODE_CHUNK
+        print(f"{tag} [{label}] phase 14 {c['name']} decode at T={c['t']}: "
+              f"{ZOO_DOCS * steps / c['ms'] * 1e3:.1f} tokens/s "
+              f"({c['ms'] / steps:.3f} ms/step over {steps} steps, CUDA "
+              f"events around the replays) beside phase 4's "
+              f"{fig['graph']['decode_tok_s']:.1f} tokens/s "
+              f"({fig['graph']['step_ms']:.3f} ms/step) at T=735")
+    print(f"{tag} [{label}] phase 14: cache T reached {max(long_t)}; "
+          f"{dec.captures - captures0} graph captures; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(total)
 
 
 def _training_records(folder: str, n: int = FULL_RECORDS) -> str:
@@ -6738,7 +7041,8 @@ def main() -> int:
     # the inflight engine (phase 4c, its server too)
     graph_paths = ("serve", "serve_int4_kv8", "serve_int8", "serve_http",
                    "serve_speculative", "serve_inflight",
-                   "serve_inflight_http", "serve_int4_kv8_inflight")
+                   "serve_inflight_http", "serve_int4_kv8_inflight",
+                   "serve_eval_zoo")
     print(f"{tag} chip_smoke phases took "
           f"{time.perf_counter() - t_start:.1f} s")
     # launches: the serving run (phase 4, its decode replayed CUDA graphs:

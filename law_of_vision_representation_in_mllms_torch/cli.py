@@ -8,8 +8,11 @@ Commands:
   generate          one-shot inference (image + prompt -> answer)
   serve             OpenAI-compatible chat-completions server (wave
                     batching, or --inflight continuous batching)
-  eval              benchmark evaluation through the eval harness
+  eval              benchmark evaluation through the eval harness (`--model`
+                    names any adapter of the registry, `--model-args k=v`)
   tasks             list the bundled eval tasks
+  merge-results     merge doc-sharded per-process sample logs into one
+                    aggregated result
   extract-embeds    dump post-projector embeddings for the A score
   a-score           A score over dumped embeddings (kernel 9 on the card)
   extract-features  per-image tower features for the C score (the tower's
@@ -23,10 +26,10 @@ Commands:
                     (the prompt encoded on the card: kernel 2, causal)
 
 Single components of HF / diffusers snapshots are ported by `python -m
-law_of_vision_representation_in_mllms_torch.io.port_cli`. Eight commands
+law_of_vision_representation_in_mllms_torch.io.port_cli`. Seven commands
 of the JAX CLI are not ported yet (ROADMAP, queue 1): `apply-delta`,
-`make-delta`, `consolidate`, `merge-results`, `c-train`, `sam-masks`,
-`preprocess-map` and `pose-awareness`.
+`make-delta`, `consolidate`, `c-train`, `sam-masks`, `preprocess-map` and
+`pose-awareness`.
 Run on the card with `--device cuda` (the default); there is no silent CPU
 fallback, a CPU run takes an explicit `--device cpu`.
 """
@@ -86,7 +89,9 @@ def main(argv=None):
     p = sub.add_parser("serve", help="OpenAI-compatible model server")
     _add_common(p)
     p.add_argument("--model", default="llava",
-                   help="adapter name (only llava is ported)")
+                   help="adapter name (llava | registered)")
+    p.add_argument("--model-args", default="",
+                   help="k=v,k=v kwargs for non-llava adapters")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=8,
@@ -130,13 +135,25 @@ def main(argv=None):
     p.add_argument("--limit", type=int)
     p.add_argument("--output", default="eval_results.json")
     p.add_argument("--model", default="llava",
-                   help="adapter name (only llava is ported)")
+                   help="adapter name (llava | hf-vision2seq | registered)")
+    p.add_argument("--model-args", default="",
+                   help="k=v,k=v kwargs for non-llava adapters")
     p.add_argument("--log-samples", action="store_true",
                    help="write per-doc records next to --output "
                         "(lmms-eval --log_samples)")
     _add_device(p)
 
     p = sub.add_parser("tasks", help="list bundled eval tasks")
+    _add_device(p)
+
+    p = sub.add_parser("merge-results",
+                       help="merge per-process sample logs into one "
+                            "aggregated result (multi-host eval gather)")
+    p.add_argument("--task", required=True,
+                   help="task yaml path or bundled task name")
+    p.add_argument("--samples", nargs="+", required=True,
+                   help="per-process *_samples.jsonl files")
+    p.add_argument("--output", default="merged_results.json")
     _add_device(p)
 
     p = sub.add_parser("extract-embeds", help="A-score embedding dump")
@@ -262,14 +279,16 @@ def _cmd_generate(args):
 
 
 def _cmd_serve(args):
-    """Serve the LLaVA of the RunConfig until interrupted."""
+    """Serve the LLaVA of the RunConfig (or `--model`'s adapter) until
+    interrupted."""
     from .serve import run_server
     device = _device(args)
     cfg = _run_config(args)
     if args.gen_backend:
         cfg.model.gen_backend = args.gen_backend
-    srv = run_server(cfg, device=device, model=args.model, host=args.host,
-                     port=args.port, max_batch=args.max_batch,
+    srv = run_server(cfg, device=device, model=args.model,
+                     model_args=_parse_model_args(args.model_args) or None,
+                     host=args.host, port=args.port, max_batch=args.max_batch,
                      batch_window_ms=args.batch_window_ms,
                      inflight=args.inflight,
                      inflight_kwargs={
@@ -293,15 +312,38 @@ def _cmd_serve(args):
     return 0
 
 
+def _parse_model_args(spec: str) -> dict:
+    """k=v,k=v adapter kwargs with bool/int/float coercion (lmms-eval's
+    simple_parse_args_string semantics)."""
+    margs = {}
+    for kv in filter(None, spec.split(",")):
+        if "=" not in kv:
+            raise SystemExit(f"--model-args entry '{kv}' is not k=v")
+        k, v = kv.split("=", 1)
+        if v.lower() in ("true", "false"):
+            v = v.lower() == "true"
+        else:
+            for cast in (int, float):
+                try:
+                    v = cast(v)
+                    break
+                except ValueError:
+                    pass
+        margs[k] = v
+    return margs
+
+
 def _cmd_eval(args):
-    """`lmms_eval --model llava --tasks ...`: results JSON to `--output`
-    (and per-doc `*_samples.jsonl` with `--log-samples`), the task values to
-    stdout."""
+    """`lmms_eval --model X --model_args k=v --tasks ...`: results JSON to
+    `--output` (and per-doc `*_samples.jsonl` with `--log-samples`), the
+    task values to stdout."""
     import os
 
     from .eval.runner import run_evaluation
+    margs = _parse_model_args(args.model_args)
     res = run_evaluation(_run_config(args), args.tasks, device=_device(args),
                          limit=args.limit, model=args.model,
+                         model_args=margs or None,
                          log_samples=args.log_samples)
     with open(args.output, "w") as f:
         json.dump({k: {kk: vv for kk, vv in v.items() if kk != "samples"}
@@ -330,6 +372,39 @@ def _cmd_tasks(args):
             if first.startswith("#"):
                 desc = first.lstrip("# ")
         print(f"{name:28s} {desc}")
+    return 0
+
+
+def _cmd_merge_results(args):
+    """Host-side gather for doc-sharded multi-process eval: each process
+    runs `eval --log-samples` over its shard; this re-aggregates the union
+    of their sample logs (the reference gathers rank results with
+    accelerate, `evaluator.py` tail). Overlapping doc ids are refused."""
+    import os
+
+    _device(args)
+    from .eval.evaluator import aggregate_records
+    from .eval.task import read_task_file
+    from .eval.tasks import task_yaml
+    path = args.task if os.path.exists(args.task) else task_yaml(args.task)
+    cfg = read_task_file(path)
+    recs = []
+    for fp in args.samples:
+        with open(fp) as f:
+            recs.extend(json.loads(line) for line in f if line.strip())
+    seen = set()
+    for r in recs:
+        did = r.get("doc_id")
+        if did in seen:
+            raise SystemExit(
+                f"doc_id {did} appears in more than one shard — "
+                "the per-process runs overlapped")
+        seen.add(did)
+    out = {cfg["task"]: aggregate_records(recs,
+                                          cfg.get("aggregation", "mean"))}
+    with open(args.output, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out, indent=1))
     return 0
 
 
@@ -432,6 +507,7 @@ DISPATCH = {
     "serve": _cmd_serve,
     "eval": _cmd_eval,
     "tasks": _cmd_tasks,
+    "merge-results": _cmd_merge_results,
     "extract-embeds": _cmd_extract_embeds,
     "extract-features": _cmd_extract_features,
     "a-score": _cmd_a_score,

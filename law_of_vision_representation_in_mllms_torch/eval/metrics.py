@@ -312,25 +312,13 @@ def _hallusion_aggregate(records):
     return hallusion_aggregate(records)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP, queue "
-        f"1: 4, the rest of the CLI and eval)")
-
-
 def _llava_wild_aggregate(records):
-    try:
-        from .tasks.judged_tasks import llava_wild_aggregate
-    except ImportError:
-        raise _not_ported("eval/tasks/judged_tasks.py (llava_wild)") from None
+    from .tasks.judged_tasks import llava_wild_aggregate
     return llava_wild_aggregate(records)
 
 
 def _mmupd_dual(records):
-    try:
-        from .tasks.extra_tasks import mmupd_dual_accuracy
-    except ImportError:
-        raise _not_ported("eval/tasks/extra_tasks.py (mmupd_dual)") from None
+    from .tasks.extra_tasks import mmupd_dual_accuracy
     return mmupd_dual_accuracy(records)["dual"]
 
 

@@ -4,8 +4,7 @@ package's `eval/runner.py`).
 The `accelerate launch -m lmms_eval --model llava ...` equivalent
 (`lmms_eval/__main__.py`), plus the embedding-extraction loop
 (`run_embed_extract.sh`) as a function. Every entry point takes an explicit
-`device`. Only `--model llava` is ported; the adapter registry comes with the
-rest of the eval harness.
+`device`; `--model` names any adapter of `eval/models_registry.py`.
 """
 
 from __future__ import annotations
@@ -19,13 +18,15 @@ from ..data.conversation import get_template
 from .evaluator import simple_evaluate
 from .llava_adapter import LlavaLMM
 from .task import load_task
-from .tasks import PAPER_TASKS, task_yaml
+from .tasks import task_yaml
 
 
 def _resolve_task(name_or_path: str):
+    """A task file's path, or the bundled YAML of a task name (any of the
+    44, not only the paper's)."""
     if os.path.exists(name_or_path):
         return name_or_path
-    if name_or_path in PAPER_TASKS:
+    if os.path.exists(task_yaml(name_or_path)):
         return task_yaml(name_or_path)
     raise FileNotFoundError(f"unknown task {name_or_path}")
 
@@ -54,21 +55,30 @@ def build_lmm(cfg: RunConfig, *, device) -> LlavaLMM:
                     sample_seed=cfg.model.sample_seed)
 
 
+def build_eval_model(cfg: RunConfig, model: str,
+                     model_args: Optional[dict], *, device):
+    """`model` "llava": `build_lmm(cfg)`; else the registry's adapter of that
+    name, built with `model_args` and `device` (a registered builder takes a
+    `device` keyword)."""
+    if model == "llava":
+        return build_lmm(cfg, device=device)
+    from .models_registry import build_lmm_by_name
+    return build_lmm_by_name(model, **{"device": device,
+                                       **(model_args or {})})
+
+
 def run_evaluation(cfg: RunConfig, tasks: List[str], *, device,
                    limit: Optional[int] = None, log_samples: bool = False,
                    model: str = "llava", model_args: Optional[dict] = None,
                    process_index: int = 0, process_count: int = 1):
     """`--model llava` evaluates the model built from the RunConfig on
-    `device`. Docs are sharded `docs[process_index::process_count]`; both
-    stay 0/1 until the port has multi-process runs."""
-    if model != "llava":
-        raise NotImplementedError(
-            f"eval model {model!r}: the adapter registry "
-            f"(eval/models_registry.py) is not ported to the PyTorch "
-            f"package yet (ROADMAP, queue 1: 4, the rest of the CLI and "
-            f"eval)")
+    `device`; any other name resolves through the adapter registry with
+    `model_args` kwargs and `device` (the reference's `--model X
+    --model_args k=v`, `lmms_eval/__main__.py:43`). Docs are sharded
+    `docs[process_index::process_count]`; both stay 0/1 until the port has
+    multi-process runs."""
     paths = [_resolve_task(t) for t in tasks]
-    lmm = build_lmm(cfg, device=device)
+    lmm = build_eval_model(cfg, model, model_args, device=device)
     return simple_evaluate(lmm, paths, limit=limit, log_samples=log_samples,
                            process_index=process_index,
                            process_count=process_count)

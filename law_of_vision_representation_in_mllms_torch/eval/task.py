@@ -39,16 +39,7 @@ def _resolve(name_or_path: Optional[str]) -> Optional[Callable]:
     if name_or_path in FUNCTION_REGISTRY:
         return FUNCTION_REGISTRY[name_or_path]
     mod, _, attr = name_or_path.rpartition(".")
-    try:
-        return getattr(importlib.import_module(mod), attr)
-    except (ImportError, AttributeError, ValueError):
-        # the hooks of the task files that are not ported yet register
-        # under names such as "mmvet.doc_to_text"
-        raise NotImplementedError(
-            f"task hook {name_or_path!r} is not registered: the task files "
-            f"other than paper_tasks.py are not ported to the PyTorch "
-            f"package yet (ROADMAP, queue 1: 4, the rest of the CLI and "
-            f"eval)") from None
+    return getattr(importlib.import_module(mod), attr)
 
 
 class LazyVisual:
@@ -205,15 +196,19 @@ class Task:
         return {"score": score}
 
 
+def read_task_file(path: str) -> dict:
+    """A task file's fields: `.json` (read without PyYAML) or YAML."""
+    with open(path) as f:
+        if path.endswith(".json"):
+            return json.load(f)
+        import yaml
+        return yaml.safe_load(f)
+
+
 def load_task(path_or_cfg, **overrides) -> Task:
     """Load a task from a YAML (or `.json`) file path or a dict."""
     if isinstance(path_or_cfg, str):
-        with open(path_or_cfg) as f:
-            if path_or_cfg.endswith(".json"):   # needs no YAML parser
-                raw = json.load(f)
-            else:
-                import yaml
-                raw = yaml.safe_load(f)
+        raw = read_task_file(path_or_cfg)
     else:
         raw = dict(path_or_cfg)
     raw.update(overrides)

@@ -1,10 +1,15 @@
-"""The bundled task YAMLs and their doc hooks. Only the paper's benchmarks
-(`paper_tasks.py`) are ported; the judged, grounding, mathvista and extra
-task files of the JAX package come with queue 1, item 4 of the ROADMAP."""
+"""The bundled task YAMLs (byte copies of the JAX package's 44) and their
+doc hooks: the paper's benchmarks and the other plain ones
+(`paper_tasks.py`), the judged, grounding, mathvista and extra task files.
+`PAPER_TASKS` stays the paper's 11."""
 
 import os
 
 from . import paper_tasks  # noqa: F401  (registers doc hooks)
+from . import judged_tasks  # noqa: F401  (GPT-judged tasks)
+from . import grounding_tasks  # noqa: F401  (refcoco family)
+from . import mathvista_tasks  # noqa: F401  (mathvista)
+from . import extra_tasks  # noqa: F401  (cmmmu/mmupd/mathverse)
 
 TASK_DIR = os.path.dirname(__file__)
 

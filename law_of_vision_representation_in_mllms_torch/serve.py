@@ -425,21 +425,19 @@ class LMMServer:
 
 
 def run_server(cfg, *, device, model: str = "llava",
-               host: str = "127.0.0.1", port: int = 8000,
-               model_name: Optional[str] = None, max_batch: int = 8,
-               batch_window_ms: float = 5.0, inflight: bool = False,
+               model_args: Optional[dict] = None, host: str = "127.0.0.1",
+               port: int = 8000, model_name: Optional[str] = None,
+               max_batch: int = 8, batch_window_ms: float = 5.0,
+               inflight: bool = False,
                inflight_kwargs: Optional[dict] = None) -> LMMServer:
     """CLI entry: build the adapter as `eval.runner.run_evaluation` does, on
-    `device`, and serve it, in waves or (`inflight`) through the
-    continuous-batching engine. Only `--model llava` is ported."""
-    if model != "llava":
-        raise NotImplementedError(
-            f"serve model {model!r}: the adapter registry "
-            f"(eval/models_registry.py) is not ported to the PyTorch "
-            f"package yet (ROADMAP, queue 1: 4, the rest of the CLI and "
-            f"eval)")
-    from .eval.runner import build_lmm
-    lmm = build_lmm(cfg, device=device)
+    `device`, and serve it, in waves or (`inflight`, the llava adapter only)
+    through the continuous-batching engine."""
+    if inflight and model != "llava":
+        raise ValueError("--inflight requires the llava adapter (raw "
+                         "params); other adapters use the wave batcher")
+    from .eval.runner import build_eval_model
+    lmm = build_eval_model(cfg, model, model_args, device=device)
     return LMMServer(lmm, model_name=model_name or model, host=host,
                      port=port, max_batch=max_batch,
                      batch_window_ms=batch_window_ms, inflight=inflight,

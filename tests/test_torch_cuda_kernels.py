@@ -1056,3 +1056,47 @@ def test_inflight_captured_chunk_equals_eager_chunk(cuda_device, quantize,
     assert chunk.step.launches["int4_matmul"] == (4 * (7 * layers + 1)
                                                   if quantize else 0)
     assert eng.graph_launches()[name] == eng.replays * 4 * layers
+
+
+def test_captured_decode_of_1024_tokens_equals_eager(cuda_device,
+                                                     monkeypatch):
+    """The eval zoo's long generations on the card: `ChunkedGreedyDecoder`
+    at `max_new_tokens=1024` (64 replays of a 16-step chunk over a cache of
+    l_out + 1,024 slots, the eager path's T) gives eager `generate_greedy`'s
+    1,024 tokens bit for bit. Kernel 3's shapes in the captured chunk (T >
+    1,024) are recorded and each held to its plain version on random inputs
+    with masked slots."""
+    from law_of_vision_representation_in_mllms_torch.models import llama
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models.decode import (
+        ChunkedGreedyDecoder)
+    cfg, params, inputs = _narrow_llava(cuda_device, None, None)
+    n_new = 1024
+    want = M.generate_greedy(params, cfg, *inputs, max_new_tokens=n_new,
+                             eos_id=-1)
+    shapes = set()
+    kernel = llama.decode_attention
+
+    def spy(q, k, v, mask, *rest):
+        shapes.add((q.shape[0], k.shape[1], q.shape[2], k.shape[2],
+                    q.shape[3]))
+        return kernel(q, k, v, mask, *rest)
+    monkeypatch.setattr(llama, "decode_attention", spy)
+    dec = ChunkedGreedyDecoder(params, cfg, eos_id=-1, chunk=16)
+    got = dec.generate(*inputs, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    assert dec.captures == 1 and dec.replays == n_new // 16
+    assert torch.equal(got, want)
+    l_out = inputs[0].shape[1] + cfg.num_patches - 1
+    assert shapes == {(3, l_out + n_new, 2, 1, 128)}
+    for b, t, h, kvh, d in shapes:
+        q = _randn((b, 1, h, d), t, cuda_device)
+        k = _randn((b, t, kvh, d), t + 1, cuda_device)
+        v = _randn((b, t, kvh, d), t + 2, cuda_device)
+        mask = torch.from_numpy(
+            np.random.RandomState(t).rand(b, t) < 0.8).to(cuda_device)
+        mask[:, 0] = True
+        mask[-1] = False
+        mask[-1, t - 1] = True
+        assert _close(decode_attention(q, k, v, mask),
+                      decode_attention_plain(q, k, v, mask))

@@ -109,10 +109,19 @@ CASES = {
 }
 
 
+def _bundled(yaml_of):
+    folder = os.path.dirname(yaml_of("mme"))
+    return sorted(f[:-5] for f in os.listdir(folder) if f.endswith(".yaml"))
+
+
 def test_bundled_tasks_are_the_paper_tasks():
+    """`PAPER_TASKS` stays the paper's 11; the port bundles the JAX
+    package's 44 task YAMLs (byte equality: tests/test_torch_eval_zoo.py)."""
     assert PAPER_TASKS == J_PAPER_TASKS
     for name in PAPER_TASKS:
         assert open(task_yaml(name)).read() == open(j_task_yaml(name)).read()
+    assert _bundled(task_yaml) == _bundled(j_task_yaml)
+    assert len(_bundled(task_yaml)) == 44
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -197,16 +206,31 @@ def test_metric_functions_match_jax():
 
 
 def test_unported_eval_parts_point_at_the_roadmap(tmp_path):
-    for agg in ("llava_wild", "mmupd_dual"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmetrics.AGGREGATIONS[agg]([])
+    """The eval parts that once pointed at the ROADMAP are ported: the
+    `llava_wild` and `mmupd_dual` aggregations and an `mmvet` hook load and
+    give the JAX package's values; an unknown model name raises the JAX
+    registry's KeyError, an unknown task a FileNotFoundError."""
+    wild = [{"scores": [8.0, 6.0]}, {"scores": [-1.0, -1.0]}]
+    dual = [{"split": "standard", "score": 1.0},
+            {"split": "masked", "score": 0.5}]
+    for agg, recs in (("llava_wild", wild), ("mmupd_dual", dual)):
+        assert tmetrics.AGGREGATIONS[agg](recs) == \
+            jmetrics.AGGREGATIONS[agg](recs)
+    assert tmetrics.AGGREGATIONS["llava_wild"](wild) == 75.0
+    assert tmetrics.AGGREGATIONS["mmupd_dual"](dual) == 0.5
     cfg = dict(_task_cfg(tmp_path, "gqa", CASES["gqa"][0]),
                doc_to_text="mmvet.doc_to_text")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttask.load_task(cfg)
-    with pytest.raises(NotImplementedError, match="models_registry"):
-        trunner.run_evaluation(RunConfig.from_dict(TINY), ["mme"],
-                               device="cpu", model="hf-vision2seq")
+    doc = CASES["gqa"][0][0]
+    assert ttask.load_task(cfg).doc_to_text(doc) == \
+        jtask.load_task(cfg).doc_to_text(doc) == "What is it?"
+    for run in (lambda: trunner.run_evaluation(
+                    RunConfig.from_dict(TINY), ["mme"], device="cpu",
+                    model="no-such-model"),
+                lambda: jrunner.run_evaluation(
+                    JRunConfig.from_dict(TINY), ["mme"],
+                    model="no-such-model")):
+        with pytest.raises(KeyError, match="unknown LMM 'no-such-model'"):
+            run()
     with pytest.raises(FileNotFoundError):
         trunner.run_evaluation(RunConfig.from_dict(TINY), ["no_such_task"],
                                device="cpu")
@@ -444,11 +468,13 @@ def test_law_chain_cli_and_cross_package_scores(lmms, task_files, tmp_path,
     assert cli.main(["tasks", "--device", "cpu"]) == 0
     listed = [line.split()[0]
               for line in capsys.readouterr().out.splitlines()]
-    assert listed == sorted(PAPER_TASKS)
+    assert listed == _bundled(j_task_yaml)
+    assert set(PAPER_TASKS) < set(listed)
 
 
 @pytest.mark.parametrize("cmd", [
     ["eval", "--tasks", "mme"],
+    ["merge-results", "--task", "mme", "--samples", "x.jsonl"],
     ["extract-embeds", "--task", "mme", "--out-dir", "x"],
     ["a-score", "--base-folder", "x", "--reps", "y"],
     ["policy", "fit", "--csv", "x.csv"],

@@ -39,7 +39,7 @@ def test_every_port_module_imports_without_jax():
                       if m in sys.modules]
         # host-side packages the card machine may lack stay unloaded
         optional = [m for m in ("PIL", "yaml", "transformers",
-                                "safetensors", "diffusers")
+                                "safetensors", "diffusers", "sympy")
                     if m in sys.modules]
         tpu = [m for m in sys.modules if m.startswith("{TPU}")]
         print(json.dumps({{"names": names, "frameworks": frameworks,
@@ -61,7 +61,11 @@ def test_every_port_module_imports_without_jax():
                 "models.unet", "models.featurizer", "models.tower_runtime",
                 "io.featurizer_bundle", "io.port_cli", "io.hf_port",
                 "io.diffusers_port", "models.text_encoder",
-                "core.representations"):
+                "core.representations", "eval.judge",
+                "eval.math_equivalence", "eval.models_registry",
+                "eval.hf_adapters", "eval.tasks.judged_tasks",
+                "eval.tasks.grounding_tasks", "eval.tasks.mathvista_tasks",
+                "eval.tasks.extra_tasks"):
         assert f"{PKG}.{mod}" in out["names"]
 
 
@@ -98,7 +102,8 @@ def test_porting_a_snapshot_loads_no_jax_and_no_hf_package(tmp_path):
 
 
 def test_cli_tasks_runs_without_jax():
-    """`lvr-torch tasks` lists the bundled paper tasks and loads no JAX."""
+    """`lvr-torch tasks` lists the 44 bundled tasks (the paper's 11 among
+    them) and loads no JAX."""
     out = _run(f"""
         import contextlib, io, json, sys
         from {PKG} import cli
@@ -114,7 +119,9 @@ def test_cli_tasks_runs_without_jax():
                           "paper": sorted(PAPER_TASKS), "loaded": loaded}}))
     """)
     assert out["rc"] == 0
-    assert out["listed"] == out["paper"] and len(out["listed"]) == 11
+    assert len(out["listed"]) == 44 and out["listed"] == sorted(
+        out["listed"])
+    assert set(out["paper"]) < set(out["listed"])
     assert out["loaded"] == []
 
 

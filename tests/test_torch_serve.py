@@ -5,8 +5,8 @@ wave batcher's coalescing and its grouping by generation kwargs), then the
 tiny LLaVA served by the port against the same weights served by the JAX
 package's server, and against the port's own `generate_until`. Also the
 `--inflight` flags as the CLI hands them on (the engine itself is in
-`tests/test_torch_inflight.py`) and the not-ported refusal of a `--model`
-other than llava (ROADMAP item 4).
+`tests/test_torch_inflight.py`), a registry `--model` served in waves and
+refused with `--inflight`.
 """
 
 import base64
@@ -370,7 +370,8 @@ def test_tiny_llava_served_matches_jax_server(tmp_path, server):
 def test_inflight_and_other_models_refused(monkeypatch):
     """`--inflight` and its flags reach `run_server` as the engine's
     arguments (the JAX CLI's defaults; without `--inflight` the flags are
-    not used); `--model` other than llava points at ROADMAP item 4."""
+    not used); a `--model` of the registry other than llava is served by
+    the wave batcher, and `--inflight` refuses it."""
     from law_of_vision_representation_in_mllms_torch import serve
     seen = []
 
@@ -394,8 +395,19 @@ def test_inflight_and_other_models_refused(monkeypatch):
         "prefix_cache": 1, "prefix_block": 64,
         "prefix_cache_bytes": 3 << 20}
     assert seen[2]["inflight_kwargs"] is None
-    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1: 4"):
-        run_server(None, device="cpu", model="openai-api", port=0)
+    with pytest.raises(ValueError, match="--inflight requires the llava"):
+        run_server(None, device="cpu", model="openai-api", port=0,
+                   inflight=True)
+    srv = run_server(None, device="cpu", model="openai-api",
+                     model_args={"api_url": "http://127.0.0.1:9/none"},
+                     port=0)
+    try:
+        assert type(srv.lmm).__name__ == "OpenAIAPILMM"
+        assert srv.lmm.api_url == "http://127.0.0.1:9/none"
+        assert srv.model_name == "openai-api"
+    finally:
+        srv.worker.shutdown()
+        srv.httpd.server_close()
 
 
 def test_cli_serve_builds_and_serves(monkeypatch, capsys):
