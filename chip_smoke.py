@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, law-chain (A and C
 scores), quantised serving, MPT, training-variant, diffusion-tower (SD1.5,
-DiT-XL/2, SD3-medium), checkpoint-porting and eval-zoo paths on one NVIDIA
-GPU (H100).
+DiT-XL/2, SD3-medium), checkpoint-porting, eval-zoo and projector / token
+variant (perceiver, MoF, visual_keep, anyres) paths on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
@@ -50,7 +51,11 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      bigG of SDXL and SD3), held row by row with its LSE, a repeat's bits,
      SDPA (`is_causal`) and its bound;
      kernel 2 also at a stage-1 step's B=16 S=639 and MPT-7B's B=2 S=2,048
-     (causal, no bias), kernel 1 also at the dumps' B=1 S=577 and S=257,
+     (causal, no bias) and at the perceiver projector's attention (Sq=64
+     latents over Skv=640 keys, H=8, D=64, non-causal) at B=4 and 16, its
+     backward (kernel 5 forming δ, then kernel 6) at B=16 held row by row,
+     δ, a repeat's bits, timed in turns with SDPA's backward; kernel 1
+     also at the dumps' B=1 S=577 and S=257,
      each with its plain version, SDPA and its bound; at every shape of
      kernels 1 and 2 a repeat must give the same bits, and ptxas's
      registers and spills of their wgmma forward are printed.
@@ -92,6 +97,17 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      same codes and scales on the CPU in fp32; and 3 stage-1 training steps
      through the int4 frozen decoder (`train.quantize_base`), CUDA against
      CPU as in 3b;
+  3f. the projector and token variants on the narrow LLaVA, the logits of
+     a prefill and 3 decode steps on CUDA against the CPU: perceiver2x
+     (kernel 2 twice an encode), MoF of the narrow tower and a narrow
+     DINOv2-like one (1,152 interleaved tokens), visual_keep = 144 by the
+     CLS attention and by the norm (the kept index sets equal, or parted
+     only within twice the run's own score error of the K-th / (K+1)-th
+     boundary, the CPU then fed the card's set), and an anyres splice
+     (base view + 2 x 2 crops, the unpad mask as `image_valid`, the prefill
+     on the masked attention, decode through kernel 3); and 3b's three
+     stage-1 steps with a perceiver2x projector (kernels 5 and 6 at the
+     perceiver's shape, launches counted);
   3e. a narrow MPT (3 layers, 4 heads of 64): logits and `wqkv` gradients,
      CUDA bf16 through the ALiBi kernels against CPU fp32 on the plain
      biased attention; and 3b's three steps for the training variants: LoRA
@@ -161,6 +177,18 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      eager `generate_greedy`'s (near-ties allowed as in 4b). Docs/s a task,
      the long decode's tokens/s and ms a step beside phase 4's at T = 735,
      the cache T, the graph captures and the peak memory are printed;
+  15. (inside phase 4, after 14, on its bf16 model) the projector and
+     token variants at full width: phase 4's 4 requests, 32 new tokens,
+     through `generate_until` (the captured decode) with (a) a seeded
+     perceiver2x projector over CLIP-L/14-336 (64 image tokens; 2 more
+     kernel-2 launches an encode), (b) MoF CLIP-L/14-336 + a seeded
+     DINOv2-L/14-336 with an mlp2x_gelu projector each (1,152 image
+     tokens, T = 1,311) and (c) visual_keep = 144 by CLIP's CLS attention
+     from block 22: finite logits, the image-token count, the captured
+     tokens against eager (near-ties allowed as in 4b), the launches of
+     kernels 1, 2 and 3, every kernel shape held to its plain version;
+     TTFT, tokens/s and peak GB of each; then `utils.burner.burn` for 2 s
+     (sustained bf16 TFLOP/s);
   5. the training slice at full width: `run_training(RunConfig)` trains
      LLaVA-1.5-7B stage 1 (fp32 weights, bf16 compute, block remat) for 4
      steps of 16 random 336 px PNGs with 20-40-word captions. Losses finite,
@@ -921,6 +949,106 @@ def check_flash_bwd(tag: str, dev) -> dict:
               f"reached); the library's one backward call does the work of "
               f"kernels 5 and 6 together")
     return results
+
+
+# the perceiver projector's attention (phase 15 (a), phase 3's narrow
+# perceiver): 64 latents over [576 CLIP-L/14-336 patches; 64 latents],
+# 8 heads of 64, non-causal; B = 4 serves, B = 16 is a stage-1 step
+PERCEIVER_ATTENTION = dict(sq=64, skv=640, h=8, d=64)
+
+
+def perceiver_key(b: int) -> str:
+    a = PERCEIVER_ATTENTION
+    return (f"kernel 2 B={b} Sq={a['sq']} Skv={a['skv']} H={a['h']} "
+            f"D={a['d']} non-causal (perceiver)")
+
+
+def check_perceiver_attention(tag: str, dev) -> tuple:
+    """Phase 2, the perceiver's attention: kernel 2 non-causal at Sq = 64,
+    Skv = 640 (B = 4 and 16), each with its LSE, a repeat's bits, SDPA and
+    its bound (`attention_case`); then its stage-1 backward at B = 16:
+    kernel 5 forming δ, then kernel 6 (Sq != Skv, non-causal), every row of
+    dq, dk, dv held (`check_bwd_outputs`), δ against rowsum(dO·O), a repeat
+    of the whole backward call to the same bits, each kernel timed, and the
+    whole call in turns with SDPA's backward. Returns (the forward cases,
+    kernel 5's case, kernel 6's case)."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        flash_attention as fl)
+
+    g = torch.Generator(device=dev).manual_seed(64)
+    a = PERCEIVER_ATTENTION
+    sq, skv, h, d = a["sq"], a["skv"], a["h"], a["d"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    fwd = [attention_case(
+        tag, lambda q, k, v: fl.flash_attention(q, k, v, return_lse=True),
+        lambda q, k, v: fl.flash_attention_plain(q, k, v, return_lse=True),
+        lambda q, k, v: sdpa(q, k, v),
+        (randn(b, sq, h, d), randn(b, skv, h, d), randn(b, skv, h, d)),
+        sq * skv, perceiver_key(b)) for b in (4, 16)]
+
+    b = 16
+    q, k, v, do = (randn(b, sq, h, d), randn(b, skv, h, d),
+                   randn(b, skv, h, d), randn(b, sq, h, d))
+    out, lse = fl.flash_attention(q, k, v, return_lse=True)
+    args = (q, k, v, out, lse, do)
+    case = f"B={b} Sq={sq} Skv={skv} H={h} D={d} non-causal (perceiver)"
+    dq, delta = fl.flash_attention_bwd_dq(*args, return_delta=True)
+    e_delta = check_delta(case, delta, out, do)
+    dk, dv = fl.flash_attention_bwd_dkv(*args, delta)
+    refs = fl.flash_attention_bwd_plain(*args)
+    e = check_bwd_outputs(case, (dq, dk, dv), refs)
+
+    def whole():
+        return fl.flash_attention_bwd(*args)
+    if not all(torch.equal(x, r) for x, r in zip(whole(), (dq, dk, dv))):
+        fail(f"kernels 5/6 at {case}: a repeat of the whole backward gave "
+             f"other bits")
+    lib, lib_grads, backend = library_bwd(q, k, v, do)
+    for n, got, ref in zip(("dq", "dk", "dv"), lib_grads, refs):
+        if not max_err(got, ref) <= kernel_tol(ref):
+            fail(f"the library backward's {n} computes another function at "
+                 f"{case}")
+    t = dict(dq=cuda_ms(lambda: fl.flash_attention_bwd_dq(*args)),
+             dkv=cuda_ms(lambda: fl.flash_attention_bwd_dkv(*args, delta)),
+             plain=cuda_ms(lambda: fl.flash_attention_bwd_plain(*args),
+                           iters=5))
+    t["whole"], t["library"] = whole_bwd_turns(whole, lib)
+    pairs = sq * skv
+    q_bytes, kv_bytes = q.numel() * 2, k.numel() * 2
+    stats = b * h * sq * 4
+    bounds = (bound(4 * q_bytes + 2 * kv_bytes + 2 * stats,
+                    6 * d * pairs * b * h, H100_BF16_TFLOPS),
+              bound(2 * q_bytes + 4 * kv_bytes + 2 * stats,
+                    8 * d * pairs * b * h, H100_BF16_TFLOPS))
+    cases = []
+    for name, ms, errs, bnd in (("dq", t["dq"], [e["dq"]], bounds[0]),
+                                ("dkv", t["dkv"], [e["dk"], e["dv"]],
+                                 bounds[1])):
+        cases.append(dict(shape=case, err=max(x[0] for x in errs),
+                          tol=min(x[1] for x in errs),
+                          row_err=max(x[2] for x in errs), ms=ms,
+                          whole_ms=t["whole"], plain_ms=t["plain"],
+                          library_ms=t["library"], library_backend=backend,
+                          delta_err=e_delta, **bnd))
+    print(f"{tag} kernels 5/6 [{case}]: " + ", ".join(
+        f"{n} max_abs_err {err:.3e} (tol {tol:.3e}), worst row {rows:.3e} "
+        f"of its max|plain| (tol {KERNEL_REL_TOL})"
+        for n, (err, tol, rows) in e.items())
+        + f"; δ max_abs_err {e_delta:.3e}; a repeat gave the same bits; "
+        f"kernel 5 (forming δ) {t['dq']:.4f} ms (bound "
+        f"{bounds[0]['bound_ms']:.4f} ms by {bounds[0]['bound_by']}), "
+        f"kernel 6 {t['dkv']:.4f} ms (bound {bounds[1]['bound_ms']:.4f} ms "
+        f"by {bounds[1]['bound_by']}); the whole backward call "
+        f"{t['whole']:.4f} ms against the library's backward ({backend}) "
+        f"{t['library']:.4f} ms in the same turns (x"
+        f"{t['whole'] / t['library']:.3f}); plain backward "
+        f"{t['plain']:.4f} ms")
+    return fwd, cases[0], cases[1]
 
 
 def reset_counts(counters: dict) -> None:
@@ -1992,7 +2120,10 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
     `int4_matmul_dx` backward. `variant="lora"` trains rank-8 adapters (with a small non-zero
     B, so that A's gradient is not 0) and the projector over the frozen
     decoder, with `quantize_base` over the int4 one (QLoRA);
-    `variant="switch"` trains the switch matrix alone."""
+    `variant="switch"` trains the switch matrix alone; `variant="perceiver"`
+    trains a `perceiver2x` projector, whose attention's gradient runs
+    kernels 5 and 6 at Sq = 64, Skv = 640, non-causal (2 launches each a
+    backward beside the decoder's 3)."""
     import numpy as np
     import torch
     from law_of_vision_representation_in_mllms_torch.core.precision import (
@@ -2010,6 +2141,8 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
     from law_of_vision_representation_in_mllms_torch.ops import (
         int4_matmul as K)
     cfg = narrow_config(768 if quantize_base else 688)
+    if variant == "perceiver":
+        cfg = dataclasses.replace(cfg, projector_type="perceiver2x")
     cpu = M.init_params(torch.Generator().manual_seed(1), cfg,
                         FP32_PRECISION, "cpu")
     gpu = M.LlavaParams(cfg, DEFAULT_PRECISION, device=dev)
@@ -2077,7 +2210,7 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
                       [p for _, p in opt.named_params]))
     trained = sorted({n.split(".")[0] for n, _ in opt.named_params})
     if trained != {None: ["projector"], "lora": ["lora", "projector"],
-                   "switch": ["switch"]}[variant]:
+                   "switch": ["switch"], "perceiver": ["projector"]}[variant]:
         fail(f"{what}: the trainable subtrees are {trained}")
 
     def trainable_grad(params, tc, bt, trainable):
@@ -2119,6 +2252,16 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
     if any(c.launches == n for c, n in zip(bwd, before)):
         fail(f"{what} on CUDA did not launch "
              f"{[c.__name__ for c in bwd]}")
+    if variant == "perceiver":
+        # two backward passes a step (the gradient held, then the step's)
+        want = 2 * TRAIN_STEPS * (cfg.decoder.num_layers
+                                  + len(gpu.projector.layers))
+        ran = [c.launches - n for c, n in zip(bwd, before)]
+        print(f"{tag} {what}: kernels 5 and 6 launched {ran} times "
+              f"(decoder and perceiver, {want} each expected)")
+        if ran != [want, want]:
+            fail(f"{what}: kernels 5 and 6 launched {ran}, not {want} "
+                 f"each")
     if quantize_base == "int4" and (
             K.int4_matmul_kernel.launches == k10_before[0]
             or K.int4_matmul_dx.launches == k10_before[1]):
@@ -2227,6 +2370,273 @@ def check_narrow_loglikelihood(tag: str, dev) -> None:
           f"{LL_REL_TOL}); sums {got[0][0]:.4f} .. {got[-1][0]:.4f}; greedy "
           f"flags compared on {compared} of 8, True and False among them "
           f"(the others' top two log-probs are closer than the tolerance)")
+
+
+# phase 3's token variants: the narrow tower's 576 tokens pruned to 144;
+# anyres: a base view and 2 x 2 crops of a 600 x 400 image (rows masked)
+NARROW_KEEP = 144
+ANYRES_GRID = (2, 2)
+ANYRES_SIZE = (600, 400)
+
+
+def narrow_variant_config(variant: str):
+    """`narrow_config` under one of phase 3's variants: `perceiver2x`; `mof`,
+    the narrow tower and a narrow DINOv2-like one (erf GELU, no pre-LN,
+    patch bias; 3 layers) with a projector each; `keep_saliency` /
+    `keep_norm`, `visual_keep` = NARROW_KEEP by the tower's CLS attention
+    or the token norm; `anyres`, the plain narrow model (its splice masked
+    by `image_valid`)."""
+    from law_of_vision_representation_in_mllms_torch.models.towers import (
+        TowerEntry, TowerSpec)
+    from law_of_vision_representation_in_mllms_torch.models.vit import (
+        ViTConfig)
+    cfg = narrow_config()
+    if variant == "perceiver2x":
+        return dataclasses.replace(cfg, projector_type="perceiver2x")
+    if variant == "mof":
+        vit = ViTConfig(image_size=336, patch_size=14, hidden_size=256,
+                        num_layers=3, num_heads=4, intermediate_size=1024,
+                        hidden_act="gelu", layer_norm_eps=1e-6,
+                        use_pre_layernorm=False, patch_bias=True)
+        dino = TowerEntry(name="narrow-dinov2-336", kind="vit",
+                          vit_config=vit, vit_family="dinov2",
+                          hidden_size=256, num_patches=vit.num_patches,
+                          img_size=336)
+        return dataclasses.replace(cfg, tower_spec=TowerSpec(
+            entries=[*cfg.tower_spec.entries, dino], join="mof"))
+    if variant.startswith("keep_"):
+        return dataclasses.replace(cfg, visual_keep=NARROW_KEEP,
+                                   prune_score=variant[len("keep_"):])
+    return cfg
+
+
+def prune_scores(params, cfg, pixels):
+    """The scores `encode_images` prunes by (fp32 [B, P]): the lead tower's
+    CLS attention from its last block, or the projected tokens' norm."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    with torch.no_grad():
+        if cfg.prune_score == "norm":
+            full = M.encode_images(params, dataclasses.replace(
+                cfg, visual_keep=None), pixels)
+            return torch.linalg.vector_norm(full.float(), dim=-1)
+        return M._vit_forward_with_saliency(params.towers[0],
+                                            pixels[0])[1].float()
+
+
+def check_kept_tokens(tag: str, what: str, ref_scores, got_scores,
+                      keep: int):
+    """The token sets a card run keeps against the CPU's: equal, or parted
+    only at a near tie of the CPU's scores. Phase 4's rule for tokens, made
+    no looser than this run's own score error: each score of the card within
+    LOGITS_REL_TOL of the row's max|score| of the CPU's, and each token in
+    one set and not the other within twice the row's largest score error
+    (at most LOGITS_REL_TOL of max|score|) of the boundary between the K-th
+    and (K+1)-th CPU scores. Returns (the CPU's kept indices, the card's,
+    the rows whose sets part)."""
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    ref_scores, got_scores = ref_scores.float().cpu(), got_scores.float().cpu()
+    ref_idx = M._top_k(ref_scores, keep)[1].sort(dim=-1).values
+    got_idx = M._top_k(got_scores, keep)[1].sort(dim=-1).values
+    parted = 0
+    for r in range(ref_scores.shape[0]):
+        row = ref_scores[r]
+        scale = row.abs().max().item()
+        row_err = (got_scores[r] - row).abs().max().item()
+        if row_err > LOGITS_REL_TOL * scale:
+            fail(f"{what}: the card's prune scores of row {r} are "
+                 f"{row_err:.3e} off the CPU's (tol "
+                 f"{LOGITS_REL_TOL * scale:.3e})")
+        a, b = set(ref_idx[r].tolist()), set(got_idx[r].tolist())
+        if a == b:
+            continue
+        parted += 1
+        top = row.sort(descending=True).values
+        edge = (top[keep - 1] + top[keep]) / 2
+        tol = (min(2 * row_err, LOGITS_REL_TOL * scale)
+               + (top[keep - 1] - top[keep]) / 2).item()
+        worst = max(abs(row[i].item() - edge.item()) for i in a ^ b)
+        print(f"{tag} {what}: row {r} keeps {len(a ^ b) // 2} other tokens "
+              f"on the card; the farthest from the CPU's K-th / (K+1)-th "
+              f"boundary is {worst:.3e} (near-tie bound {tol:.3e})")
+        if worst > tol:
+            fail(f"{what}: the card kept tokens of row {r} that the CPU's "
+                 f"scores do not put near the boundary ({worst} > {tol})")
+    score_err = (max_err(got_scores, ref_scores)
+                 / ref_scores.abs().max().item())
+    print(f"{tag} {what}: prune scores card vs CPU max err {score_err:.3e} "
+          f"of max|score|; kept sets equal in "
+          f"{ref_scores.shape[0] - parted} of {ref_scores.shape[0]} rows")
+    return ref_idx, got_idx, parted
+
+
+@contextlib.contextmanager
+def forced_prune(idx):
+    """`llava.prune_visual_tokens` keeps the tokens `idx` [B, K] whatever
+    the scores (the CPU reference fed a card run's index set)."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    orig = M.prune_visual_tokens
+
+    def take(tokens, scores, keep):
+        i = idx.to(tokens.device)
+        return torch.gather(tokens, 1, i[..., None].expand(
+            -1, -1, tokens.shape[-1]))
+    M.prune_visual_tokens = take
+    try:
+        yield
+    finally:
+        M.prune_visual_tokens = orig
+
+
+def anyres_prefill(params, cfg, ids, mask, pixels, n_new: int):
+    """A prefill over an anyres splice: each row's base view and its 2 x 2
+    crops (`pixels[0]` [B * 5, ...]) through tower and projector, assembled
+    by `models.anyres.assemble_anyres_tokens` into [base; crop grid] tokens
+    with the unpad mask, spliced with `image_valid`. The masked tokens sit
+    between valid ones, where kernel 2 (no key mask) cannot go: the prefill
+    takes the decoder's masked attention; the decode steps run kernel 3
+    over the cache's holes. Returns (`llava.Prefill`, kept image tokens)."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import anyres as A
+    from law_of_vision_representation_in_mllms_torch.models import llama as L
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models.splice import (
+        IGNORE_INDEX, splice_embeds, splice_plan)
+    dec = params.decoder
+    b = ids.shape[0]
+    views = 1 + ANYRES_GRID[0] * ANYRES_GRID[1]
+    with torch.inference_mode():
+        feats = M.encode_images(params, cfg, pixels).float().cpu().numpy()
+    grid = int(round(feats.shape[1] ** 0.5))
+    tokens, valid = [], []
+    for r in range(b):
+        f = feats[r * views:(r + 1) * views]
+        t, v = A.assemble_anyres_tokens(f[0], f[1:], ANYRES_GRID,
+                                        ANYRES_SIZE, grid)
+        tokens.append(t)
+        valid.append(v)
+    dev = ids.device
+    img = torch.from_numpy(np.stack(tokens)).to(dev, dec.precision
+                                                 .compute_dtype)
+    image_valid = torch.from_numpy(np.stack(valid)).to(dev)
+    with torch.inference_mode():
+        plan = splice_plan(ids, torch.full_like(ids, IGNORE_INDEX), mask,
+                           img.shape[1], image_valid=image_valid)
+        embeds = splice_embeds(plan, L.embed_tokens(dec, ids), img)
+        l_out = embeds.shape[1]
+        cache = L.init_cache(cfg.decoder, b, l_out + n_new,
+                             dec.precision.compute_dtype, dev)
+        slot_valid = torch.cat([plan.attn_mask, torch.zeros(
+            (b, n_new), dtype=torch.bool, device=dev)], dim=1)
+        h, cache = dec(embeds, plan.positions, attn_mask=slot_valid,
+                       cache=cache, cache_index=0, use_flash=False)
+        n_valid = plan.attn_mask.sum(dim=1)
+        last = plan.positions.argmax(dim=1)        # the last valid slot
+        logits = L.logits_fn(dec, h[torch.arange(b, device=dev), last])
+    return M.Prefill(logits=logits, cache=cache, slot_valid=slot_valid,
+                     n_valid=n_valid, l_out=l_out), int(image_valid.sum())
+
+
+def check_narrow_variant(tag: str, dev, variant: str) -> None:
+    """Phase 3, the projector and token variants on the narrow LLaVA: the
+    logits of a prefill and 3 decode steps, CUDA bf16 with the kernels
+    against CPU fp32 plain, fed the CPU's greedy tokens (`LOGITS_REL_TOL`
+    of max|logit|). `perceiver2x` (its attention on kernel 2 at Sq 64, Skv
+    640: 2 launches an encode), `mof` (two towers on kernel 1, tokens
+    interleaved: 1,152), `keep_saliency` / `keep_norm` (144 of 576 tokens
+    kept; the kept sets held by `check_kept_tokens`, and where they part at
+    a near tie the CPU is fed the card's set) and `anyres` (a base view and
+    2 x 2 crops, the unpad mask over the splice, `anyres_prefill`)."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        BF16_PRECISION, FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models.splice import (
+        IMAGE_TOKEN_INDEX)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        decode_attention as dec, encoder_attention as enc,
+        flash_attention as fl)
+
+    cfg = narrow_variant_config(variant)
+    cpu = M.init_params(torch.Generator().manual_seed(5), cfg,
+                        FP32_PRECISION, "cpu")
+    gpu = M.LlavaParams(cfg, BF16_PRECISION, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    label = f"narrow LLaVA [{variant}]"
+    rng = np.random.RandomState(5)
+    b = 2
+    ids = rng.randint(3, 1000, size=(b, 24)).astype(np.int64)
+    ids[:, 1] = IMAGE_TOKEN_INDEX
+    mask = np.ones((b, 24), bool)
+    mask[1, 16:] = False
+    views = 1 + ANYRES_GRID[0] * ANYRES_GRID[1] if variant == "anyres" else 1
+    px = [rng.randn(b * views, 336, 336, 3).astype(np.float32)
+          for _ in cfg.tower_spec.entries]
+
+    def inputs(device):
+        return (torch.from_numpy(ids).to(device),
+                torch.from_numpy(mask).to(device),
+                [torch.from_numpy(p).to(device) for p in px])
+
+    forced = contextlib.nullcontext()
+    if cfg.visual_keep is not None:
+        ref_idx, got_idx, parted = check_kept_tokens(
+            tag, label, prune_scores(cpu, cfg, inputs("cpu")[2]),
+            prune_scores(gpu, cfg, inputs(dev)[2]), cfg.visual_keep)
+        if parted:
+            forced = forced_prune(got_idx)
+    counts = (enc.encoder_attention, fl.flash_attention,
+              dec.decode_attention)
+    before = [c.launches for c in counts]
+    with forced:
+        if variant == "anyres":
+            pre_ref, n_img = anyres_prefill(cpu, cfg, *inputs("cpu"),
+                                            NARROW_STEPS)
+        else:
+            pre_ref = M.prefill(cpu, cfg, *inputs("cpu"),
+                                max_new_tokens=NARROW_STEPS)
+    if variant == "anyres":
+        pre_got, n_got = anyres_prefill(gpu, cfg, *inputs(dev), NARROW_STEPS)
+        if n_got != n_img:
+            fail(f"{label}: the unpad masks differ ({n_got} vs {n_img})")
+    else:
+        pre_got = M.prefill(gpu, cfg, *inputs(dev),
+                            max_new_tokens=NARROW_STEPS)
+    ran_prefill = [c.launches - n for c, n in zip(counts, before)]
+    ref_steps, got_steps = [pre_ref.logits], [pre_got.logits.float().cpu()]
+    for t in range(NARROW_STEPS - 1):
+        tok = ref_steps[-1].argmax(-1)
+        ref_steps.append(M.decode_step(cpu, pre_ref, tok, t))
+        got_steps.append(M.decode_step(gpu, pre_got, tok.to(dev), t)
+                         .float().cpu())
+    ran = [c.launches - n for c, n in zip(counts, before)]
+    ref, got = torch.stack(ref_steps), torch.stack(got_steps)
+    err = max_err(got, ref)
+    tol = LOGITS_REL_TOL * ref.abs().max().item()
+    n_tok = pre_got.l_out - ids.shape[1] + 1
+    want_tok = {"perceiver2x": 64, "mof": 2 * 576,
+                "anyres": 5 * 576}.get(variant, cfg.num_patches)
+    print(f"{tag} {label} logits, prefill + {NARROW_STEPS - 1} decode steps "
+          f"(CUDA bf16 kernels vs CPU fp32 plain): max_abs_err {err:.4e} "
+          f"(tol {tol:.4e} = {LOGITS_REL_TOL} x max|logit|); {n_tok} image "
+          f"tokens spliced; launches (kernels 1, 2, 3) {ran}")
+    if not (torch.isfinite(got).all() and err <= tol):
+        fail(f"{label} logits disagree: {err} > {tol}")
+    if n_tok != want_tok:
+        fail(f"{label}: {n_tok} image tokens, not {want_tok}")
+    towers = len(cfg.tower_spec.entries)
+    layers = sum(e.vit_config.resolve_layer(cfg.select_layer)
+                 for e in cfg.tower_spec.entries)
+    want_k2 = (0 if variant == "anyres" else cfg.decoder.num_layers) + (
+        2 if variant == "perceiver2x" else 0)
+    want = [layers, want_k2,
+            (NARROW_STEPS - 1) * cfg.decoder.num_layers]
+    if ran_prefill[:2] != want[:2] or ran[2] != want[2]:
+        fail(f"{label}: kernels 1, 2, 3 launched {ran_prefill[:2]} + "
+             f"{ran[2]}, not {want} ({towers} towers)")
 
 
 def check_narrow_mpt(tag: str, dev) -> None:
@@ -2670,10 +3080,13 @@ def run_full_width(tag: str, dev, counters, model=None, bf16=None):
         backend_paths.update(run_inflight(tag, dev, counters, lmm, label,
                                           quantize, fig["decode_cases"],
                                           serve=bf16 is None))
-    # phase 14: the eval zoo, in bf16
+    # phase 14: the eval zoo, in bf16; phase 15: the projector and token
+    # variants on the same weights
     if bf16 is None:
         backend_paths["eval_zoo"] = run_eval_zoo(tag, dev, counters, lmm,
                                                  label, fig)
+        backend_paths.update(run_variants(tag, dev, counters, lmm, label,
+                                          fig))
     if bf16 is not None:
         print(f"{tag} [{label}] beside the bf16 run: prefill "
               f"{fig['prefill_ms']:.2f} vs {bf16['prefill_ms']:.2f} ms, "
@@ -3240,7 +3653,8 @@ def engine_shapes(seen):
     `flash_attention` and `decode_attention`, and `quant.int4_matmul`. A
     chunk graph's capture is one call; its replays rerun the captured
     shapes."""
-    from law_of_vision_representation_in_mllms_torch.models import llama, vit
+    from law_of_vision_representation_in_mllms_torch.models import (
+        llama, perceiver, vit)
     from law_of_vision_representation_in_mllms_torch.ops import quant as Q
 
     def attention(name):
@@ -3254,6 +3668,8 @@ def engine_shapes(seen):
                 return (name + "_int8" * int8, b, k.shape[1], h, d)
             if name == "flash_attention":
                 return (name, b, s, h, k.shape[2], d)
+            if name == "flash_attention_noncausal":
+                return (name, b, s, k.shape[1], h, d)
             return (name, b, s, h, d)
         return keep
 
@@ -3268,6 +3684,9 @@ def engine_shapes(seen):
     spies = [_Spy(vit, "encoder_attention",
                   keep=attention("encoder_attention")),
              _Spy(llama, "flash_attention", keep=attention("flash_attention")),
+             # the perceiver projector's cross-attention (phase 15)
+             _Spy(perceiver, "flash_attention",
+                  keep=attention("flash_attention_noncausal")),
              _Spy(llama, "decode_attention",
                   keep=attention("decode_attention")),
              _Spy(Q, "int4_matmul", keep=matmul)]
@@ -3364,6 +3783,19 @@ def hold_engine_shapes(tag: str, dev, label: str, seen, cases: list,
             print(f"{tag} kernel 2 at {what}'s B={b} S={s}: "
                   f"{case['block_rows']}-row blocks (reported by the launch)")
             del qkv
+        elif name == "flash_attention_noncausal":
+            b, sq, skv, h, d = dims
+            case = attention_case(
+                tag, lambda q, k, v: fl.flash_attention(q, k, v,
+                                                        return_lse=True),
+                lambda q, k, v: fl.flash_attention_plain(q, k, v,
+                                                         return_lse=True),
+                lambda q, k, v: sdpa(q, k, v),
+                (randn(b, sq, h, d), randn(b, skv, h, d),
+                 randn(b, skv, h, d)), sq * skv,
+                f"kernel 2 at {what}'s B={b} Sq={sq} Skv={skv} H={h} D={d} "
+                f"non-causal")
+            name = "flash_attention"
         elif name.startswith("decode_attention"):
             b, t, h, d = dims
             if (h, d) != (32, 128):
@@ -3932,6 +4364,192 @@ def run_eval_zoo(tag: str, dev, counters, lmm, label: str, fig: dict
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
           f"{time.perf_counter() - t_phase:.1f} s")
     return dict(total)
+
+
+# phase 15: the projector and token variants on phase 4's LLaVA-1.5-7B
+# (bf16), its decoder and CLIP-L/14-336 tower shared; 4 requests, 32 new
+# tokens each, through the captured decode
+VARIANT_SEED = 15
+MOF_SPEC = "openai/clip-vit-large-patch14-336,facebook/dinov2-large-336"
+VARIANT_KEEP = 144
+BURN_SECONDS = 2.0
+
+
+def variant_lmm(lmm, seed: int, **changes):
+    """An adapter over phase 4's weights with `changes` to its LlavaConfig:
+    the decoder (and the CLIP tower, and the projector where the variant
+    keeps it) are phase 4's modules; a new tower or projector is built on
+    the card in bf16 from a generator seeded with `seed`. The new
+    `LlavaParams` is made on the meta device, then given those modules, so
+    no second 7B decoder is allocated."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.eval.llava_adapter \
+        import LlavaLMM
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        init_weights)
+    from law_of_vision_representation_in_mllms_torch.models.projector import (
+        build_projector)
+    from law_of_vision_representation_in_mllms_torch.models.vit import (
+        ViTTower)
+    base, cfg = lmm.params, dataclasses.replace(lmm.cfg, **changes)
+    dev = base.decoder.embed.device
+    prec = base.decoder.precision
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = M.LlavaParams(cfg, prec, device="meta")
+    params.decoder = base.decoder
+    lead = lmm.cfg.tower_spec.entries[0].name
+    for i, e in enumerate(cfg.tower_spec.entries):
+        if e.name == lead:
+            params.towers[i] = base.towers[0]
+        else:
+            tower = ViTTower(e.vit_config, cfg.select_layer,
+                             M._select_feature(cfg, e), prec, device=dev)
+            init_weights(tower, g)
+            params.towers[i] = tower.eval()
+    hidden = cfg.decoder.hidden_size
+    if cfg.tower_spec.join == "mof":
+        projs = []
+        for e in cfg.tower_spec.entries:
+            if e.name == lead and cfg.projector_type == \
+                    lmm.cfg.projector_type:
+                projs.append(base.projector)
+            else:
+                p = build_projector(cfg.projector_type, e.hidden_size,
+                                    hidden, prec, device=dev)
+                init_weights(p, g)
+                projs.append(p)
+        params.projector = torch.nn.ModuleList(projs)
+    elif cfg.projector_type != lmm.cfg.projector_type:
+        params.projector = build_projector(
+            cfg.projector_type, cfg.tower_spec.mm_hidden_size, hidden, prec,
+            device=dev)
+        init_weights(params.projector, g)
+    else:
+        params.projector = base.projector
+    params.eval()
+    return LlavaLMM(params, cfg, lmm.tok, lmm.template,
+                    decode_chunk=lmm.decode_chunk)
+
+
+def run_variants(tag: str, dev, counters, lmm, label: str, fig: dict
+                 ) -> dict:
+    """Phase 15 on phase 4's LLaVA-1.5-7B (bf16, full width): phase 4's 4
+    requests, 32 new tokens, through `generate_until` (the captured decode)
+    for (a) a `perceiver2x` projector over CLIP-L/14-336 (64 image
+    tokens; its attention 2 kernel-2 launches an encode, B = 4, Sq 64, Skv
+    640), (b) MoF CLIP-L/14-336 + DINOv2-L/14-336 with an `mlp2x_gelu`
+    projector each (1,152 interleaved image tokens, T ~1,311; kernel 1 on
+    both towers) and (c) `visual_keep` = 144 by `prune_score` auto (the CLS
+    attention of CLIP's block 22, from the tower pass itself). Each run's
+    launches are counted from 0 (the graph path's derived from captures
+    and replays). Holds for each: finite prefill and decode-step logits;
+    the image-token count of `encode_images` and of the splice; the
+    captured decode's tokens against the eager `generate_greedy`'s (phase
+    4's near-tie rule); the launches of kernels 1, 2 and 3; every kernel
+    shape the runs called held to its plain version (`hold_engine_shapes`).
+    Prints TTFT (a prefill, host clock around synchronised work), decode
+    tokens/s (CUDA events around the replays) and the peak GB of each;
+    then runs `utils.burner.burn` for BURN_SECONDS and prints its TFLOP/s.
+    Returns the launches of each run by its path name."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models.towers import (
+        parse_tower_spec)
+    from law_of_vision_representation_in_mllms_torch.utils.burner import burn
+
+    t_phase = time.perf_counter()
+    layers = lmm.cfg.decoder.num_layers
+    eos = lmm.tok.eos_token_id
+    reqs = _requests(4, lmm.processors[0].crop)
+    clip_blocks = lmm.cfg.tower_spec.entries[0].vit_config.resolve_layer(
+        lmm.cfg.select_layer)
+    mof = parse_tower_spec(MOF_SPEC)
+    runs = (
+        ("perceiver2x", dict(projector_type="perceiver2x"), 64,
+         clip_blocks, layers + 2),
+        ("mof", dict(tower_spec=mof), mof.num_patches,
+         sum(e.vit_config.resolve_layer(lmm.cfg.select_layer)
+             for e in mof.entries), layers),
+        ("visual_keep", dict(visual_keep=VARIANT_KEEP, prune_score="auto"),
+         VARIANT_KEEP, clip_blocks, layers))
+    seen = collections.Counter()
+    paths = {}
+    for i, (name, changes, n_img, want_k1, want_k2) in enumerate(runs):
+        t0 = time.perf_counter()
+        vlmm = variant_lmm(lmm, VARIANT_SEED + i, **changes)
+        what = f"[{label}] phase 15 ({'abc'[i]}) {name}"
+        if vlmm.cfg.num_patches != n_img:
+            fail(f"{what}: {vlmm.cfg.num_patches} image tokens, not {n_img}")
+        dec = vlmm.chunked_decoder()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with engine_shapes(seen):
+            texts, launches = counted_run(
+                counters, lambda: vlmm.generate_until(reqs), dec)
+        paths[f"variant_{name}"] = launches
+        ids, mask, pixels = inputs = vlmm._encode_batch(reqs)
+        with torch.inference_mode():
+            img = M.encode_images(vlmm.params, vlmm.cfg, pixels)
+        if img.shape != (4, n_img, vlmm.cfg.decoder.hidden_size) or not \
+                torch.isfinite(img).all():
+            fail(f"{what}: encode_images gave {tuple(img.shape)}, finite "
+                 f"{bool(torch.isfinite(img).all())}; want [4, {n_img}, "
+                 f"4096]")
+        pre = M.prefill(vlmm.params, vlmm.cfg, ids, mask, pixels,
+                        max_new_tokens=2)
+        step = M.decode_step(vlmm.params, pre, pre.logits.argmax(-1), 0)
+        if pre.l_out != ids.shape[1] + n_img - 1 or not (
+                torch.isfinite(pre.logits).all()
+                and torch.isfinite(step).all()):
+            fail(f"{what}: spliced length {pre.l_out} (want "
+                 f"{ids.shape[1] + n_img - 1}) or the logits are not finite")
+        del pre, step, img
+        steps = launches["decode_attention"] // layers
+        print(f"{tag} {what}: launches {dict(launches)} ({steps} decode "
+              f"steps); sample answer {texts[0][:60]!r}")
+        if (launches["encoder_attention"] != want_k1
+                or launches["flash_attention"] != want_k2
+                or not steps or launches["decode_attention"] % layers):
+            fail(f"{what}: kernels 1, 2, 3 launched "
+                 f"{launches['encoder_attention']}, "
+                 f"{launches['flash_attention']}, "
+                 f"{launches['decode_attention']}; want {want_k1}, "
+                 f"{want_k2} and {layers} a decode step")
+        want = M.generate_greedy(vlmm.params, vlmm.cfg, *inputs,
+                                 max_new_tokens=32, eos_id=eos)
+        got = dec.generate(*inputs, max_new_tokens=32)
+        check_tokens(tag, label, f"phase 15 {name} (captured decode vs "
+                     f"eager)", vlmm, inputs, want, got)
+        ttft_s = timed_s(lambda: M.prefill(vlmm.params, vlmm.cfg, ids, mask,
+                                           pixels, max_new_tokens=32), dev)
+        ms = replay_ms(lambda: dec._start(*inputs, 2 * DECODE_CHUNK),
+                       lambda st: dec._decode(st, 2))
+        t_cache = ids.shape[1] + n_img - 1 + 2 * DECODE_CHUNK
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"{tag} {what}: {n_img} image tokens, cache T={t_cache}; TTFT "
+              f"(tower + projector + splice + prefill, B=4) "
+              f"{ttft_s * 1e3:.2f} ms; decode {4 * 2 * DECODE_CHUNK / ms * 1e3:.1f}"
+              f" tokens/s ({ms / (2 * DECODE_CHUNK):.3f} ms/step, CUDA events "
+              f"around the replays); peak {peak:.2f} GB; "
+              f"{time.perf_counter() - t0:.1f} s")
+        fig.setdefault("variants", {})[name] = dict(
+            ttft_ms=ttft_s * 1e3, decode_tok_s=4 * 2 * DECODE_CHUNK / ms * 1e3,
+            step_ms=ms / (2 * DECODE_CHUNK), peak_gb=peak, t=t_cache)
+        del vlmm, dec, inputs, ids, mask, pixels, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    hold_engine_shapes(tag, dev, label, seen, fig["decode_cases"],
+                       path="phase 15")
+    if not any(k[0] == "flash_attention_noncausal" for k in seen):
+        fail("phase 15 (a) never called kernel 2 from the perceiver")
+    tflops = burn(BURN_SECONDS, 8192, dev)
+    print(f"{tag} [{label}] utils.burner.burn({BURN_SECONDS} s, 8192x8192 "
+          f"bf16 chains): {tflops:.1f} TFLOP/s sustained "
+          f"({tflops / H100_BF16_TFLOPS:.1%} of {H100_BF16_TFLOPS:.0f})")
+    print(f"{tag} [{label}] phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 def _training_records(folder: str, n: int = FULL_RECORDS) -> str:
@@ -6868,6 +7486,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.update(check_flash_bwd(tag, dev))
+    perceiver_fwd, perceiver_dq, perceiver_dkv = check_perceiver_attention(
+        tag, dev)
+    kernels["flash_attention"]["cases"] += perceiver_fwd
+    kernels["flash_attention_bwd_dq"]["cases"] = [perceiver_dq]
+    kernels["flash_attention_bwd_dkv"]["cases"] = [perceiver_dkv]
     kernels.update(check_flash_alibi(tag, dev))
     gc.collect()
     torch.cuda.empty_cache()
@@ -6886,6 +7509,10 @@ def main() -> int:
     check_narrow_llava(tag, dev, quantize="int8")
     check_narrow_training(tag, dev, quantize_base="int4")
     check_narrow_mpt(tag, dev)
+    for variant in ("perceiver2x", "mof", "keep_saliency", "keep_norm",
+                    "anyres"):
+        check_narrow_variant(tag, dev, variant)
+    check_narrow_training(tag, dev, variant="perceiver")
     check_narrow_training(tag, dev, variant="lora")
     check_narrow_training(tag, dev, quantize_base="int4", variant="lora")
     check_narrow_training(tag, dev, variant="switch")
@@ -7042,7 +7669,8 @@ def main() -> int:
     graph_paths = ("serve", "serve_int4_kv8", "serve_int8", "serve_http",
                    "serve_speculative", "serve_inflight",
                    "serve_inflight_http", "serve_int4_kv8_inflight",
-                   "serve_eval_zoo")
+                   "serve_eval_zoo", "serve_variant_perceiver2x",
+                   "serve_variant_mof", "serve_variant_visual_keep")
     print(f"{tag} chip_smoke phases took "
           f"{time.perf_counter() - t_start:.1f} s")
     # launches: the serving run (phase 4, its decode replayed CUDA graphs:

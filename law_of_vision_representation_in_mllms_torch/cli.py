@@ -24,12 +24,16 @@ Commands:
                     representations (the JAX package's text)
   port-featurizer   a diffusers snapshot directory -> a featurizer bundle
                     (the prompt encoded on the card: kernel 2, causal)
+  apply-delta       target = base + delta over flat .npz parameter files
+  make-delta        delta = target - base over flat .npz parameter files
+  consolidate       a checkpoint of the port's runner -> one flat params
+                    .npz (orbax train states are refused: ROADMAP, queue
+                    1: 12, orbax train states)
 
 Single components of HF / diffusers snapshots are ported by `python -m
-law_of_vision_representation_in_mllms_torch.io.port_cli`. Seven commands
-of the JAX CLI are not ported yet (ROADMAP, queue 1): `apply-delta`,
-`make-delta`, `consolidate`, `c-train`, `sam-masks`, `preprocess-map` and
-`pose-awareness`.
+law_of_vision_representation_in_mllms_torch.io.port_cli`. Four commands of
+the JAX CLI, GeoAware's, are not ported yet (ROADMAP, queue 1: 8, C score):
+`c-train`, `sam-masks`, `preprocess-map` and `pose-awareness`.
 Run on the card with `--device cuda` (the default); there is no silent CPU
 fallback, a CPU run takes an explicit `--device cpu`.
 """
@@ -234,6 +238,24 @@ def main(argv=None):
     p.add_argument("--ensemble-size", type=int, default=1)
     p.add_argument("--img-size", type=int)
     _add_device(p)
+
+    p = sub.add_parser("apply-delta",
+                       help="target = base + delta over .npz param files")
+    p.add_argument("--base", required=True)
+    p.add_argument("--delta", required=True)
+    p.add_argument("--target", required=True)
+
+    p = sub.add_parser("make-delta",
+                       help="delta = target - base over .npz param files")
+    p.add_argument("--base", required=True)
+    p.add_argument("--target", required=True)
+    p.add_argument("--delta", required=True)
+
+    p = sub.add_parser("consolidate",
+                       help="the port's train checkpoint -> flat .npz")
+    p.add_argument("--checkpoint", required=True,
+                   help="checkpoint-N dir (or run dir; newest is used)")
+    p.add_argument("--output", required=True)
 
     args = parser.parse_args(argv)
     return DISPATCH[args.cmd](args)
@@ -501,6 +523,27 @@ def _cmd_port_featurizer(args):
     return 0
 
 
+def _cmd_apply_delta(args):
+    from .io.delta import apply_delta
+    n = apply_delta(args.base, args.delta, args.target)
+    print(f"wrote {args.target} ({n} arrays)", file=sys.stderr)
+    return 0
+
+
+def _cmd_make_delta(args):
+    from .io.delta import make_delta
+    n = make_delta(args.base, args.target, args.delta)
+    print(f"wrote {args.delta} ({n} arrays)", file=sys.stderr)
+    return 0
+
+
+def _cmd_consolidate(args):
+    from .io.delta import consolidate
+    n = consolidate(args.checkpoint, args.output)
+    print(f"wrote {args.output} ({n} arrays)", file=sys.stderr)
+    return 0
+
+
 DISPATCH = {
     "train": _cmd_train,
     "generate": _cmd_generate,
@@ -515,6 +558,9 @@ DISPATCH = {
     "policy": _cmd_policy,
     "make-config": _cmd_make_config,
     "port-featurizer": _cmd_port_featurizer,
+    "apply-delta": _cmd_apply_delta,
+    "make-delta": _cmd_make_delta,
+    "consolidate": _cmd_consolidate,
 }
 
 

@@ -3,10 +3,17 @@
 
 - `save_projector` / `load_projector`: the stage-1 artifact. It writes
   `mm_projector.npz` in the JAX flat layout (`layers.{i}.kernel` [in, out],
-  `layers.{i}.bias`), which the JAX `io.checkpoint.load_projector` reads, the
+  `layers.{i}.bias`; under MoF each tower's projector with the prefix
+  `proj{t}.`), which the JAX `io.checkpoint.load_projector` reads, the
   reference's torch `mm_projector.bin` (`model.mm_projector.{2i}.weight`
-  [out, in], the Sequential index skipping the GELUs) and `config.json`
-  (the reference's `llava_trainer.py:167-192` projector-only save).
+  [out, in], the Sequential index skipping the GELUs; not for a perceiver
+  or MoF projector, as in the JAX package) and `config.json` (the
+  reference's `llava_trainer.py:167-192` projector-only save). A perceiver
+  projector is saved whole, its tree's leaves under '.'-joined keys
+  (`latents`, `layers.{i}.norm_media.scale`, `layers.{i}.to_q`, ...,
+  `final_norm.bias`, `proj.kernel`). The JAX `save_projector` writes only
+  its `layers`, with the LayerNorms as pickled objects, which no
+  `np.load` without pickle reads: `load_projector` refuses such a file.
 - `save_train_state` / `latest_checkpoint`: `checkpoint-{step}/` holds
   `params.npz`, the whole LLaVA in the flat `param_io` layout of the JAX
   params tree (`from_jax.load_llava_npz` reads it back, as does the JAX
@@ -35,7 +42,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..models.projector import Projector, parse_projector_type
+from ..models.perceiver import PerceiverResampler
+from ..models.projector import Projector, parse_projector_type, port_perceiver
 from . import from_jax
 from .param_io import load_params, save_params
 
@@ -59,18 +67,55 @@ def export_projector_torch_sd(projector: Projector,
     return sd
 
 
-def save_projector(ckpt_dir: str, projector: Projector,
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """A projector tree's leaves under '.'-joined keys, list indices as
+    numbers: `layers.0.kernel`, `layers.0.norm_media.scale`, `latents`."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}{i}.", out)
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+
+
+def _unflatten(flat: Dict[str, np.ndarray]):
+    """Inverse of `_flatten`: numeric key parts are list indices."""
+    root: Dict = {}
+    for key, value in flat.items():
+        node, parts = root, key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return [listify(node[k]) for k in sorted(node, key=int)]
+        return {k: listify(v) for k, v in node.items()}
+    return listify(root)
+
+
+def save_projector(ckpt_dir: str, projector,
                    config: Optional[Dict] = None,
                    proj_type: Optional[str] = None) -> str:
-    """Stage-1 projector-only checkpoint; with `proj_type`, the reference's
-    torch `mm_projector.bin` too. Returns the .npz path."""
+    """Stage-1 projector-only checkpoint of a `Projector`, a
+    `PerceiverResampler` or MoF's `ModuleList` of per-tower projectors; with
+    `proj_type`, the reference's torch `mm_projector.bin` too where the
+    reference has one (not for a perceiver or MoF). Returns the .npz path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     tree = from_jax.projector_tree(projector.state_dict())
-    flat = {f"layers.{i}.{k}": v for i, layer in enumerate(tree["layers"])
-            for k, v in layer.items()}
+    flat: Dict[str, np.ndarray] = {}
+    if isinstance(tree, list):
+        for t, sub in enumerate(tree):
+            _flatten(sub, f"proj{t}.", flat)
+    else:
+        _flatten(tree, "", flat)
     path = os.path.join(ckpt_dir, PROJECTOR_NPZ)
     np.savez(path, **flat)
-    if proj_type is not None:
+    if proj_type is not None and isinstance(projector, Projector):
         torch.save(export_projector_torch_sd(projector, proj_type),
                    os.path.join(ckpt_dir, "mm_projector.bin"))
     if config is not None:
@@ -81,19 +126,49 @@ def save_projector(ckpt_dir: str, projector: Projector,
 
 def load_projector(path: str) -> Dict[str, torch.Tensor]:
     """A projector-only checkpoint (`mm_projector.npz`, or its directory),
-    as the port's or the JAX package's `save_projector` writes it -> a
-    `Projector` state dict."""
+    as the port's or the JAX package's `save_projector` writes it -> the
+    state dict of the model's projector (a `Projector`, a
+    `PerceiverResampler`, or MoF's `ModuleList`: keys `{t}.…`)."""
     if os.path.isdir(path):
         path = os.path.join(path, PROJECTOR_NPZ)
     with np.load(path) as data:
-        if any(k.startswith("proj0.") for k in data.files):
-            raise NotImplementedError(
-                "MoF (per-tower) projector checkpoints are not ported to the "
-                "PyTorch package yet (ROADMAP, queue 1: 5, diffusion towers)")
-        n = 1 + max(int(k.split(".")[1]) for k in data.files)
-        layers = [{k.split(".")[-1]: data[k] for k in data.files
-                   if k.startswith(f"layers.{i}.")} for i in range(n)]
-    return from_jax.projector_state_dict({"layers": layers})
+        keys = data.files
+        if any(".to_q" in k for k in keys) and not any(
+                k.split(".")[-1] == "latents" for k in keys):
+            raise ValueError(
+                f"{path} holds a perceiver projector without its latents, "
+                f"final norm and output Linear (the JAX save_projector keeps "
+                f"only its layers, and its LayerNorms as pickled objects): "
+                f"it cannot be loaded")
+        flat = {k: data[k] for k in keys}
+    if any(k.startswith("proj0.") for k in flat):
+        trees, t = [], 0
+        while any(k.startswith(f"proj{t}.") for k in flat):
+            pfx = f"proj{t}."
+            trees.append(_unflatten({k[len(pfx):]: v for k, v in flat.items()
+                                     if k.startswith(pfx)}))
+            t += 1
+        return from_jax.projector_state_dict(trees)
+    return from_jax.projector_state_dict(_unflatten(flat))
+
+
+def load_projector_bin(path: str, projector) -> Dict[str, torch.Tensor]:
+    """The reference's `mm_projector.bin` -> the state dict of `projector`:
+    a perceiver's `nn.Sequential(PerceiverResampler, Linear)` through
+    `port_perceiver`, else the Linears in order (GELUs between them)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(projector, PerceiverResampler):
+        prefix = ("model.mm_projector." if any(
+            k.startswith("model.mm_projector.") for k in sd) else "")
+        return port_perceiver(sd, len(projector.layers), prefix)
+    if not isinstance(projector, Projector):
+        raise ValueError(f"{path}: the reference writes no mm_projector.bin "
+                         f"for per-tower (MoF) projectors")
+    weights = sorted((k for k in sd if k.endswith(".weight")),
+                     key=lambda k: [int(t) for t in k.split(".")
+                                    if t.isdigit()])
+    return {f"layers.{i}.{kind}": sd[w[:-len("weight")] + kind]
+            for i, w in enumerate(weights) for kind in ("weight", "bias")}
 
 
 def _step_dirs(ckpt_dir: str) -> list:
@@ -150,7 +225,8 @@ def load_pretrained(model_dir: str, params, *, lora_cfg=None):
     `LlavaParams`, changed IN PLACE and returned): the newest
     `checkpoint-{step}` if there is one; else LoRA adapters, merged into the
     decoder's dense weights, and/or a projector (`mm_projector.npz`, then
-    `mm_projector.bin`, which wins where both are there).
+    `mm_projector.bin`, which wins where both are there; either of a
+    perceiver, MoF's `.npz` of per-tower projectors).
 
     The adapters are read from `lora_adapters.npz`, the name the runners of
     both packages write, or from `lora.npz`, the name the JAX
@@ -194,11 +270,6 @@ def load_pretrained(model_dir: str, params, *, lora_cfg=None):
     if os.path.exists(proj_path):
         params.projector.load_state_dict(load_projector(proj_path))
     if os.path.exists(torch_proj):
-        sd = torch.load(torch_proj, map_location="cpu", weights_only=True)
-        weights = sorted((k for k in sd if k.endswith(".weight")),
-                         key=lambda k: [int(t) for t in k.split(".")
-                                        if t.isdigit()])
-        params.projector.load_state_dict({
-            f"layers.{i}.{kind}": sd[w[:-len("weight")] + kind]
-            for i, w in enumerate(weights) for kind in ("weight", "bias")})
+        params.projector.load_state_dict(
+            load_projector_bin(torch_proj, params.projector))
     return params

@@ -14,6 +14,12 @@ Layout mapping:
   of the tower's patch embedding, then transposes;
 - LayerNorm `ln/scale`, `ln/bias` become `weight`, `bias`;
 - the projector's `layers/#i/{kernel,bias}` become `layers.i.{weight,bias}`;
+  a perceiver's tree (`latents`, `layers/#i/{norm_media, norm_latents,
+  ff_norm}/{scale,bias}`, raw matrices `to_q`, `to_kv`, `to_out`, `ff_in`,
+  `ff_out` [in, out], `final_norm`, `proj`) becomes a
+  `models.perceiver.PerceiverResampler` state dict (the matrices
+  transposed, `scale` -> `weight`); under MoF the projector is a list of
+  such trees, `projector.{t}.` the prefix of tower t's;
 - a feature pseudo-tower has no weights (an empty tree, an `nn.Identity`);
 - the MPT tree (`embed`, stacked `layers.{wqkv, wo, up, down}` [L, in, out]
   and `layers.{ln1, ln2}` [L, d], `final_ln`) becomes a `models.mpt.MptModel`
@@ -184,8 +190,40 @@ def text_encoder_state_dict(tree: Dict[str, Any],
     return out
 
 
-def projector_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
-    out: StateDict = {}
+_PERCEIVER_NORMS = ("norm_media", "norm_latents", "ff_norm")
+_PERCEIVER_MATRICES = ("to_q", "to_kv", "to_out", "ff_in", "ff_out")
+
+
+def _norm(tree, prefix: str, out: StateDict) -> None:
+    out[f"{prefix}.weight"] = _t(tree["scale"])
+    out[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def perceiver_state_dict(tree: Dict[str, Any], prefix: str = "") -> StateDict:
+    """A JAX perceiver projector tree -> `PerceiverResampler` state dict."""
+    out: StateDict = {f"{prefix}latents": _t(tree["latents"])}
+    for i, layer in enumerate(tree["layers"]):
+        lp = f"{prefix}layers.{i}"
+        for name in _PERCEIVER_NORMS:
+            _norm(layer[name], f"{lp}.{name}", out)
+        for name in _PERCEIVER_MATRICES:
+            out[f"{lp}.{name}.weight"] = _t(np.asarray(layer[name]).T)
+    _norm(tree["final_norm"], f"{prefix}final_norm", out)
+    _dense(tree["proj"], f"{prefix}proj", out)
+    return out
+
+
+def projector_state_dict(tree, prefix: str = "") -> StateDict:
+    """A JAX projector tree (dense layers or a perceiver), or MoF's list of
+    per-tower trees -> the port's projector state dict."""
+    if isinstance(tree, (list, tuple)):
+        out: StateDict = {}
+        for t, sub in enumerate(tree):
+            out.update(projector_state_dict(sub, f"{prefix}{t}."))
+        return out
+    if "latents" in tree:
+        return perceiver_state_dict(tree, prefix)
+    out = {}
     for i, layer in enumerate(tree["layers"]):
         _dense(layer, f"{prefix}layers.{i}", out)
     return out
@@ -354,9 +392,37 @@ def _ln_tree(sd: StateDict, prefix: str) -> Dict[str, Any]:
                    "bias": _np(sd[f"{prefix}.bias"])}}
 
 
-def projector_tree(sd: StateDict) -> Dict[str, Any]:
+def _norm_tree(sd: StateDict, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _np(sd[f"{prefix}.weight"]),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def perceiver_tree(sd: StateDict) -> Dict[str, Any]:
+    """Inverse of `perceiver_state_dict`."""
+    n = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
+    layers = []
+    for i in range(n):
+        lp = f"layers.{i}"
+        layer = {name: _norm_tree(sd, f"{lp}.{name}")
+                 for name in _PERCEIVER_NORMS}
+        layer.update({name: _np(sd[f"{lp}.{name}.weight"]).T.copy()
+                      for name in _PERCEIVER_MATRICES})
+        layers.append(layer)
+    return {"latents": _np(sd["latents"]), "layers": layers,
+            "final_norm": _norm_tree(sd, "final_norm"),
+            "proj": _dense_tree(sd, "proj")}
+
+
+def projector_tree(sd: StateDict):
     """Inverse of `projector_state_dict`: {"layers": [{"kernel" [in, out],
-    "bias"}, ...]}."""
+    "bias"}, ...]}, a perceiver's tree, or MoF's list of per-tower trees
+    (keys `{t}.…`)."""
+    towers = sorted({int(k.split(".")[0]) for k in sd
+                     if k.split(".")[0].isdigit()})
+    if towers:
+        return [projector_tree(_sub(sd, f"{t}.")) for t in towers]
+    if "latents" in sd:
+        return perceiver_tree(sd)
     n = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
     return {"layers": [_dense_tree(sd, f"layers.{i}") for i in range(n)]}
 

@@ -8,10 +8,13 @@
   kernel 2, deterministic, configured by `LlavaConfig.featurizer_overrides`)
   under `torch.no_grad()` (the JAX `stop_gradient`: towers never train),
   passes precomputed features of a feature pseudo-tower through,
-  concatenates channels and applies the projector; `dump_image_embeds` is
-  the A-score hook. The JAX functions take the diffusion apply as an
-  argument; every caller builds the same one from the config, so here
-  `encode_images` builds it;
+  concatenates channels and applies the projector (a perceiver's attention
+  on kernel 2); under MoF (a ',' tower spec) each tower has its projector
+  and their tokens interleave; with `LlavaConfig.visual_keep` it keeps the
+  top-K projected tokens by the tower's CLS attention or the token norm
+  (`prune_visual_tokens`); `dump_image_embeds` is the A-score hook. The JAX
+  functions take the diffusion apply as an argument; every caller builds
+  the same one from the config, so here `encode_images` builds it;
 - `loss_fn` is the training loss: splice, decoder (kernel 2 forward and
   kernels 5/6 backward on the flash route, optional remat), causal LM loss;
   with `LlavaParams.lora` set the decoder runs with the rank-r adapters
@@ -28,8 +31,7 @@
 - `generate_speculative` verifies prompt-lookup drafts (`models/
   speculative.py`), one verify round a captured CUDA graph on the card.
 
-Not ported yet: `visual_keep` pruning, MoF and perceiver projectors, the
-DiT and SD3 towers, context and pipeline parallelism.
+Not ported yet: context and pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -43,8 +45,10 @@ from torch import nn
 from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops.quant import materialize_quantized
 from . import llama as L
+from .facet import cls_scores_from_qk
 from .layers import init_weights
-from .projector import Projector
+from .perceiver import NUM_LATENTS
+from .projector import build_projector, parse_projector_type
 from .sampling import sample_token
 from .splice import IGNORE_INDEX, splice_embeds, splice_plan
 from .tower_runtime import make_diffusion_apply
@@ -67,6 +71,14 @@ class LlavaConfig:
     # tower name -> the FeaturizerConfig of its bundle (the sidecar), which
     # `encode_images` takes over the tower's preset
     featurizer_overrides: Optional[Dict] = None
+    # opt-in visual-token pruning (a PruMerge / FastV-style inference
+    # accelerator of the JAX package, beyond the reference): keep the
+    # top-`visual_keep` projected image tokens, in their order, scored by
+    # `prune_score` ("auto": the lead tower's CLS attention where it has a
+    # class token, else the projected token's L2 norm; "saliency"; "norm").
+    # None (the default) keeps every token
+    visual_keep: Optional[int] = None
+    prune_score: str = "auto"
 
     @classmethod
     def build(cls, tower: str, decoder: Optional[L.LlamaConfig] = None,
@@ -75,9 +87,24 @@ class LlavaConfig:
                    decoder=decoder or L.vicuna_7b(), **kw)
 
     @property
-    def num_patches(self) -> int:
-        """Image-token count the splice sees."""
+    def full_num_patches(self) -> int:
+        """Image-token count after the projector, before any pruning: a
+        perceiver resamples any grid to its 64 latents
+        (`perceiver_helpers.py:76`), 64 a tower under MoF."""
+        kind, _ = parse_projector_type(self.projector_type)
+        if kind == "perceiver":
+            if self.tower_spec.join == "mof":
+                return NUM_LATENTS * len(self.tower_spec.entries)
+            return NUM_LATENTS
         return self.tower_spec.num_patches
+
+    @property
+    def num_patches(self) -> int:
+        """Image-token count the splice sees (after pruning)."""
+        n = self.full_num_patches
+        if self.visual_keep is not None:
+            return min(self.visual_keep, n)
+        return n
 
 
 def _select_feature(cfg: LlavaConfig, entry: TowerEntry) -> str:
@@ -92,11 +119,11 @@ class LlavaParams(nn.Module):
     """The weights of one LLaVA: `towers` (one ViTTower per ViT entry; an
     `nn.Identity` holds the place of a feature pseudo-tower, which has no
     weights, and of a diffusion tower until `train.runner.build_model` puts
-    its bundle's `FeaturizerParams` there), `projector` and `decoder` — the
-    JAX params tree's three
-    subtrees — and the two optional ones of the training variants: `lora`
-    (`models.lora.LoraAdapters`) and `switch` (`models.switch.Switch`), None
-    until a caller sets them."""
+    its bundle's `FeaturizerParams` there), `projector` (under MoF a
+    `ModuleList` of per-tower projectors) and `decoder` — the JAX params
+    tree's three subtrees — and the two optional ones of the training
+    variants: `lora` (`models.lora.LoraAdapters`) and `switch`
+    (`models.switch.Switch`), None until a caller sets them."""
 
     def __init__(self, cfg: LlavaConfig,
                  precision: Precision = DEFAULT_PRECISION, *, device=None,
@@ -107,10 +134,17 @@ class LlavaParams(nn.Module):
                      precision, device=device) if e.kind == "vit"
             else nn.Identity()
             for e in cfg.tower_spec.entries)
-        self.projector = Projector(cfg.projector_type,
-                                   cfg.tower_spec.mm_hidden_size,
-                                   cfg.decoder.hidden_size, precision,
-                                   device=device)
+        hidden = cfg.decoder.hidden_size
+        if cfg.tower_spec.join == "mof":
+            # per-tower projectors (`llava_arch.py:169-181`)
+            self.projector = nn.ModuleList(
+                build_projector(cfg.projector_type, e.hidden_size, hidden,
+                                precision, device=device)
+                for e in cfg.tower_spec.entries)
+        else:
+            self.projector = build_projector(
+                cfg.projector_type, cfg.tower_spec.mm_hidden_size, hidden,
+                precision, device=device)
         self.decoder = L.LlamaModel(cfg.decoder, precision,
                                     device=decoder_device or device)
         self.register_module("lora", None)
@@ -142,26 +176,77 @@ def init_params(generator: torch.Generator, cfg: LlavaConfig,
     return params.eval()
 
 
+def _vit_forward_with_saliency(tower: ViTTower, pixel_values):
+    """One tower pass returning (patch features, CLS attention [B, P]): the
+    saliency comes from the last block that ran, from its q and k."""
+    out, q, k = tower.encoder(pixel_values, return_qk=True)
+    return out[:, 1:], cls_scores_from_qk(q, k, tower.cfg.head_dim)
+
+
+def prune_visual_tokens(tokens, scores, keep: int):
+    """The top-`keep` tokens [B, keep, D] by `scores` [B, P], in their
+    original order (the decoder reads their positions). Equal scores keep
+    the lower index, as `lax.top_k` does (a stable sort)."""
+    idx = _top_k(scores, keep)[1].sort(dim=-1).values
+    return torch.gather(tokens, 1,
+                        idx[..., None].expand(-1, -1, tokens.shape[-1]))
+
+
 def encode_images(params: LlavaParams, cfg: LlavaConfig,
                   pixel_values: List[torch.Tensor]) -> torch.Tensor:
     """pixel_values: one NHWC tensor per tower entry (precomputed features
     [B, P, C] for a feature pseudo-tower). Returns projected features
-    [B, P, D_llm] in the compute dtype. A diffusion entry runs
+    [B, cfg.num_patches, D_llm] in the compute dtype. A diffusion entry runs
     `tower_runtime.make_diffusion_apply(cfg.featurizer_overrides)`. The
-    towers run without autograd: they are frozen in every stage."""
+    towers run without autograd: they are frozen in every stage.
+
+    Under MoF each tower's projector runs on its own features and the
+    tokens interleave across towers (stack, transpose, reshape: the
+    reference's documented MoF design, `llava_arch.py:265-276`), each tower
+    cut to the shortest one's count. With `cfg.visual_keep` the projected
+    tokens are pruned to the top K (`prune_visual_tokens`) by the lead
+    patch-selected CLS tower's attention from its last block, or by the
+    token norm (no MoF interleave, no perceiver: their tokens do not line up
+    with the tower's patches)."""
     cd = params.decoder.precision.compute_dtype
-    feats = []
+    want_saliency = (cfg.visual_keep is not None
+                     and cfg.prune_score in ("auto", "saliency")
+                     and cfg.tower_spec.join != "mof")
+    feats, saliency = [], None
     with torch.no_grad():
         for tower, e, px in zip(params.towers, cfg.tower_spec.entries,
                                 pixel_values):
             if e.kind == "diffusion":
                 f = make_diffusion_apply(cfg.featurizer_overrides)(
                     tower, e, px)
+            elif (want_saliency and saliency is None and e.kind == "vit"
+                  and _select_feature(cfg, e) == "patch"
+                  and e.vit_config.use_class_token):
+                f, saliency = _vit_forward_with_saliency(tower, px)
             else:
                 f = tower(px)
             feats.append(f.to(cd))
-    cat = torch.cat(feats, dim=-1) if len(feats) > 1 else feats[0]
-    return params.projector(cat)
+    if cfg.tower_spec.join == "mof":
+        projected = [proj(f) for proj, f in zip(params.projector, feats)]
+        pmin = min(p.shape[1] for p in projected)
+        stack = torch.stack([p[:, :pmin] for p in projected], dim=1)
+        b, n, t, d = stack.shape
+        out = stack.transpose(1, 2).reshape(b, n * t, d)
+    else:
+        cat = torch.cat(feats, dim=-1) if len(feats) > 1 else feats[0]
+        out = params.projector(cat)
+    keep = cfg.num_patches
+    if cfg.visual_keep is not None and keep < out.shape[1]:
+        usable = saliency is not None and saliency.shape[1] == out.shape[1]
+        if cfg.prune_score == "saliency" and not usable:
+            raise ValueError(
+                "prune_score='saliency' needs a patch-selected class-token "
+                "ViT tower whose patch count matches the projected tokens "
+                "(no MoF interleave, no perceiver resampling)")
+        scores = (saliency if usable
+                  else torch.linalg.vector_norm(out.detach().float(), dim=-1))
+        out = prune_visual_tokens(out, scores, keep)
+    return out
 
 
 def dump_image_embeds(params: LlavaParams, cfg: LlavaConfig, pixel_values):

@@ -9,8 +9,9 @@ dataset hands its features in and `encode_images` passes them through, so
 feature-cached training runs no tower. SD1.5, SD2.1, SD image-variations, SDXL,
 DiT-XL/2 and SD3-medium are `kind="diffusion"` entries
 (`models/featurizer.py`), with the featurizer knobs `t`, `up_ft_index`,
-`ensemble_size` and the image size. ',' (MoF, per-tower projectors) specs
-are not ported yet and raise NotImplementedError.
+`ensemble_size` and the image size. ',' joins towers as MoF
+(`llava_arch.py:169-181`): one projector per tower, their tokens
+interleaved (`models.llava.encode_images`).
 """
 
 from __future__ import annotations
@@ -56,9 +57,6 @@ DIFFUSION_TOWERS = tuple(DIFFUSION_HIDDEN_SIZES)
 FEATURE_TOWERS = {"runwayml/stable-diffusion-v1-5_feature": 1280}
 FEATURE_TOKENS = 576
 
-_NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
-               "(ROADMAP, queue 1: {item})")
-
 
 @dataclasses.dataclass(frozen=True)
 class TowerEntry:
@@ -79,14 +77,20 @@ class TowerEntry:
 @dataclasses.dataclass(frozen=True)
 class TowerSpec:
     entries: List[TowerEntry]
-    join: str                      # "concat" ('.') | "single"
+    join: str                      # "concat" ('.') | "mof" (',') | "single"
 
     @property
     def mm_hidden_size(self) -> int:
+        if self.join == "mof":
+            raise ValueError("MoF has per-tower projectors")
         return sum(e.hidden_size for e in self.entries)
 
     @property
     def num_patches(self) -> int:
+        if self.join == "mof":
+            # token-interleaved; towers truncated to the common token count
+            return len(self.entries) * min(e.num_patches
+                                           for e in self.entries)
         n = {e.num_patches for e in self.entries}
         if len(n) != 1:
             raise ValueError(
@@ -131,15 +135,13 @@ def diffusion_grid(name: str, img_size: int, up_ft_index: int = 0) -> int:
 
 
 def parse_tower_spec(spec: str, **overrides) -> TowerSpec:
-    """'.' joins => channel concat (shared projector); a single name =>
-    single tower; ',' (MoF) raises NotImplementedError. `overrides`
+    """'.' joins => channel concat (shared projector); ',' => MoF
+    (per-tower projectors); a single name => single tower. `overrides`
     (`up_ft_index`, `t`, `ensemble_size`, `img_size`) go to the diffusion
     entries."""
     if "," in spec:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what=f"the MoF tower spec {spec!r}",
-            item="5, diffusion towers"))
-    if "." in spec and spec not in _known():
+        names, join = spec.split(","), "mof"
+    elif "." in spec and spec not in _known():
         names, join = _split_dot(spec), "concat"
     else:
         names, join = [spec], "single"

@@ -8,9 +8,11 @@ SD3-medium) its featurizer bundle, whose `.json` sidecar configuration
 replaces the tower's preset and sets the entry's token grid and width; a
 diffusion tower without one has no weights and refuses to run, as in the JAX
 package), a full LLaVA parameter file in
-`model.checkpoint` (a `param_io` .npz such as the JAX CLI's `consolidate` or
-the port's `save_train_state` writes, or a directory of `checkpoint-{step}`),
-and a stage-1 projector in `train.pretrain_mm_mlp_adapter`.
+`model.checkpoint` (a `param_io` .npz such as either package's
+`consolidate` or the port's `save_train_state` writes, or a directory of
+`checkpoint-{step}`), and a stage-1 projector in
+`train.pretrain_mm_mlp_adapter`. Any projector type (a perceiver too), MoF
+tower specs (per-tower projectors) and `model.visual_keep` pruning build.
 `model.kv_quant=int8` gives generation the int8 KV cache;
 `train.quantize_base=int4|int8` trains through a weight-only quantised
 frozen decoder, built quantised block by block: stage 1, or with
@@ -23,7 +25,8 @@ projector train), `train.switch_enable` the switch matrix
 `run_training` is the single-device loop of the reference's `train.py` +
 `scripts/v1_5/train/{pretrain,finetune}.sh`: datasets, the modality-grouped
 sampler, batches prefetched on a host thread, `make_train_step`, JSONL
-metrics, `checkpoint-{step}` saves and the projector-only stage-1 save, in
+metrics, `checkpoint-{step}` saves and the projector-only stage-1 save (a
+perceiver's whole tree, MoF's per-tower projectors), in
 stage 2 `switch.npz` for a switch run and the LoRA-split save
 (`lora_adapters.npz`, the projector, `config.json` with `lora_r` and
 `lora_alpha`) for a LoRA run.
@@ -56,6 +59,7 @@ from ..data import (FeatureDataset, SupervisedDataset, collate_batch,
                     get_template, length_grouped_indices)
 from ..data.preprocess import SimpleTokenizer
 from ..io import checkpoint, from_jax
+from ..io.delta import is_orbax_checkpoint
 from ..io.featurizer_bundle import load_featurizer_bundle
 from ..io.param_io import load_params
 from ..models import featurizer, llama, llava
@@ -69,11 +73,8 @@ from .train_step import TrainConfig, init_train_state, make_train_step
 
 _NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
                "(ROADMAP, queue 1: {item})")
-# RunConfig fields whose features the port does not have yet: field -> the
-# ROADMAP queue-1 item that brings them
-_UNPORTED = {
-    ("model", "visual_keep"): "5, diffusion towers",
-}
+# RunConfig fields of training whose features the port does not have yet:
+# field -> the ROADMAP queue-1 item that brings them
 _UNPORTED_TRAIN = {
     ("parallel", "zero"): "10, parallelism",
     ("parallel", "offload_opt_state"): "10, parallelism",
@@ -107,7 +108,6 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
     its `model.checkpoint` weights before it is quantised: the codes of a
     dense build followed by `ops.quant.quantize_decoder`, without the dense
     decoder ever being whole on `device`."""
-    _refuse(cfg, _UNPORTED)
     tower_kw = dict(up_ft_index=cfg.model.up_ft_index, t=cfg.model.t,
                     ensemble_size=cfg.model.ensemble_size)
     if cfg.model.img_size:
@@ -170,7 +170,9 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
         select_layer=cfg.model.select_layer,
         select_feature=cfg.model.select_feature,
         kv_quant=cfg.model.kv_quant,
-        featurizer_overrides=overrides or None)
+        featurizer_overrides=overrides or None,
+        visual_keep=cfg.model.visual_keep,
+        prune_score=cfg.model.prune_score)
     if cfg.model.kv_quant not in (None, "int8"):
         raise ValueError(f"unknown model.kv_quant {cfg.model.kv_quant!r}")
 
@@ -180,15 +182,17 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
         generator.manual_seed(cfg.train.seed)
     state = None
     if cfg.model.checkpoint:
-        path = cfg.model.checkpoint
-        latest = checkpoint.latest_checkpoint(path)
-        if latest is not None:
-            path = os.path.join(latest, "params.npz")
+        path = checkpoint.latest_checkpoint(cfg.model.checkpoint) or \
+            cfg.model.checkpoint
+        if os.path.isdir(path) and not is_orbax_checkpoint(path):
+            path = os.path.join(path, "params.npz")
         if not path.endswith(".npz"):
-            raise NotImplementedError(
-                "model.checkpoint must be a flat params .npz or a directory "
-                "of checkpoint-{step} saves in the PyTorch package (turn an "
-                "orbax checkpoint into one with the JAX CLI's `consolidate`)")
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="reading an orbax train state (model.checkpoint must be "
+                     "a flat params .npz or a directory of checkpoint-{step} "
+                     "saves; the JAX CLI's `consolidate` turns an orbax "
+                     "checkpoint into one)",
+                item="12, orbax train states"))
         state = from_jax.load_llava_npz(path)
     params = llava.init_params(
         generator, model_cfg, precision, device, quantize_bits=quantize_bits,
@@ -376,11 +380,15 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
                         keep=cfg.train.save_total_limit or None)
 
         if cfg.train.stage == 1:
+            # MoF: one width a tower (the JAX runner asks the spec for one
+            # width, which raises under MoF)
+            spec = model_cfg.tower_spec
             checkpoint.save_projector(
                 cfg.train.output_dir, params.projector,
                 config={"mm_projector_type": cfg.model.projector_type,
                         "mm_hidden_size":
-                        model_cfg.tower_spec.mm_hidden_size},
+                        [e.hidden_size for e in spec.entries]
+                        if spec.join == "mof" else spec.mm_hidden_size},
                 proj_type=cfg.model.projector_type)
             rank0_print(f"stage-1 projector saved to "
                         f"{cfg.train.output_dir}")

@@ -243,6 +243,73 @@ def test_text_encoder_bf16_on_the_card(cuda_device, penultimate, pooled):
         assert rel <= 2e-2, rel
 
 
+# the perceiver projector's attention: 64 latents over [576 CLIP-L/14-336
+# patches; 64 latents], 8 heads of 64, non-causal (Sq != Skv); B = 4 serves,
+# B = 16 is a stage-1 step
+PERCEIVER_CASES = [(4, 64, 640, 8, 64), (16, 64, 640, 8, 64),
+                   (2, 64, 65, 8, 64), (1, 64, 1216, 8, 64)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", PERCEIVER_CASES)
+def test_flash_kernel_perceiver_shapes(cuda_device, b, sq, skv, h, d):
+    """Kernel 2 non-causal at the perceiver's Sq = 64 against Skv keys (and
+    its LSE), then kernels 5 and 6 through `flash_attention`'s autograd
+    (`_check_backward`: every gradient, δ, a repeat's bits)."""
+    q = _randn((b, sq, h, d), 0, cuda_device)
+    k = _randn((b, skv, h, d), 1, cuda_device)
+    v = _randn((b, skv, h, d), 2, cuda_device)
+    got, lse = flash_attention(q, k, v, return_lse=True)
+    want, want_lse = flash_attention_plain(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert _close(got, want)
+    assert (lse - want_lse).abs().max().item() < 1e-2
+    assert torch.equal(got, flash_attention(q, k, v))
+    _check_backward(q, k, v, _randn((b, sq, h, d), 3, cuda_device), False,
+                    None)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_perceiver_on_the_card(cuda_device, depth):
+    """A `perceiverNx` projector at CLIP-L's width 1,024 -> 4,096 on 576
+    tokens (seeded random weights): the card in bf16 compute (its attention
+    on kernel 2, one launch a layer) against the CPU in fp32, as ||card -
+    CPU|| / ||CPU||; the stage-1 gradient through kernels 5 and 6 (one
+    launch each a layer) against the CPU's."""
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION, FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        init_weights)
+    from law_of_vision_representation_in_mllms_torch.models.perceiver import (
+        PerceiverResampler)
+    cpu = PerceiverResampler(depth, 1024, 4096, FP32_PRECISION)
+    init_weights(cpu, torch.Generator().manual_seed(depth))
+    card = PerceiverResampler(depth, 1024, 4096, DEFAULT_PRECISION,
+                              device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(depth).randn(
+        2, 576, 1024).astype(np.float32))
+    for m in (cpu, card):
+        for p in m.parameters():
+            p.requires_grad_(True)
+    before = (flash_attention.launches, flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    out = card(x.to(cuda_device))
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(
+        n + depth for n in before)
+    want = cpu(x)
+    want.square().mean().backward()
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 64, 4096)
+    rel = ((out.float().cpu() - want).norm() / want.norm()).item()
+    assert rel <= 2e-2, rel
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        rel = ((p.grad.float().cpu() - q.grad).norm()
+               / q.grad.norm()).item()
+        assert rel <= 5e-2, (name, rel)
+
+
 # (B, S, H, D) -> the block rows `launch_flash_fwd` documents: at Dp = 128 a
 # grid of 64-row blocks that fits in one wave takes them, a larger one
 # 128-row blocks; Dp = 192 always takes 64

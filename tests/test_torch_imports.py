@@ -28,23 +28,37 @@ def _run(code: str) -> dict:
 
 
 def test_every_port_module_imports_without_jax():
-    out = _run(f"""
-        import importlib, json, pkgutil, sys
+    # the walk imports every package (the figures' too, which import
+    # matplotlib and PIL); a second interpreter imports every module but
+    # the figures' first, then them
+    names = _run(f"""
+        import json, pkgutil
         import {PKG} as pkg
-        names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
-                                                        "{PKG}.")]
+        print(json.dumps([m.name for m in pkgutil.walk_packages(
+            pkg.__path__, "{PKG}.")]))
+    """)
+    out = _run(f"""
+        import importlib, json, sys
+        names = {names!r}
+        plots = [n for n in names if ".visualizations" in n]
         for name in names:
-            importlib.import_module(name)
+            if name not in plots:
+                importlib.import_module(name)
         frameworks = [m for m in ("jax", "flax", "optax", "orbax")
                       if m in sys.modules]
         # host-side packages the card machine may lack stay unloaded
         optional = [m for m in ("PIL", "yaml", "transformers",
-                                "safetensors", "diffusers", "sympy")
+                                "safetensors", "diffusers", "sympy",
+                                "matplotlib")
                     if m in sys.modules]
         tpu = [m for m in sys.modules if m.startswith("{TPU}")]
+        for name in plots:
+            importlib.import_module(name)
         print(json.dumps({{"names": names, "frameworks": frameworks,
-                          "optional": optional, "tpu": tpu}}))
+                          "optional": optional, "tpu": tpu,
+                          "matplotlib": "matplotlib" in sys.modules}}))
     """)
+    assert out["matplotlib"] is True
     assert out["frameworks"] == []
     assert out["optional"] == []
     assert out["tpu"] == []
@@ -65,7 +79,10 @@ def test_every_port_module_imports_without_jax():
                 "eval.math_equivalence", "eval.models_registry",
                 "eval.hf_adapters", "eval.tasks.judged_tasks",
                 "eval.tasks.grounding_tasks", "eval.tasks.mathvista_tasks",
-                "eval.tasks.extra_tasks"):
+                "eval.tasks.extra_tasks", "models.perceiver", "models.facet",
+                "models.anyres", "io.delta", "data.clean",
+                "utils.profiling", "utils.burner", "visualizations",
+                "visualizations.plots"):
         assert f"{PKG}.{mod}" in out["names"]
 
 

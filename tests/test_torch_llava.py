@@ -337,15 +337,19 @@ def test_init_params_is_seeded_and_samples_each_weight_once():
 def test_unported_options_raise():
     from law_of_vision_representation_in_mllms_torch.models.towers import (
         parse_tower_spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_tower_spec("debug/tiny-vit,debug/tiny-vit")
+    # MoF specs are ported: ',' joins per-tower projectors
+    mof = parse_tower_spec("debug/tiny-vit,debug/tiny-vit")
+    assert (mof.join, mof.num_patches) == ("mof", 32)
     # DiT and SD3 are ported: a diffusion entry of 16 x 16 tokens at 512 px
     entry = parse_tower_spec("facebook/DiT-XL-2-512").entries[0]
     assert (entry.kind, entry.num_patches, entry.hidden_size) == (
         "diffusion", 256, 4608)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lmm(RunConfig.from_dict(
-            {"model": dict(TINY["model"], visual_keep=0.5)}), device="cpu")
+    # visual_keep and the perceiver are ported: both build
+    lmm = build_lmm(RunConfig.from_dict(
+        {"model": dict(TINY["model"], visual_keep=5,
+                       projector_type="perceiver2x"),
+         "train": TINY["train"]}), device="cpu")
+    assert (lmm.cfg.full_num_patches, lmm.cfg.num_patches) == (64, 5)
     # the serving backends are ported: every gen_backend builds, an
     # unknown one is a ValueError
     for backend in ("chunked", "speculative"):
