@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, law-chain (A and C
 scores), quantised serving, MPT, training-variant, diffusion-tower (SD1.5,
-DiT-XL/2, SD3-medium), checkpoint-porting, eval-zoo and projector / token
-variant (perceiver, MoF, visual_keep, anyres) paths on one NVIDIA GPU
-(H100).
+DiT-XL/2, SD3-medium), checkpoint-porting, eval-zoo, projector / token
+variant (perceiver, MoF, visual_keep, anyres) and GeoAware-SC paths on one
+NVIDIA GPU (H100).
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
@@ -50,6 +50,10 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      D=64; 12, 16 and 20 heads: SD1.5's CLIP-L, SD2.1's OpenCLIP-H, the
      bigG of SDXL and SD3), held row by row with its LSE, a repeat's bits,
      SDPA (`is_causal`) and its bound;
+     kernel 2 also at GeoAware's SD1.5 at 960 px (B=1: D=40 at S=14,400,
+     D=80 at 3,600, D=160 at 900 and 225, each self and cross against 77
+     tokens; phase 16) and kernel 1 at DINOv2-B at 840 px (B=1 S=3,601
+     H=12 D=64), each with its launches a phase-16 forward;
      kernel 2 also at a stage-1 step's B=16 S=639 and MPT-7B's B=2 S=2,048
      (causal, no bias) and at the perceiver projector's attention (Sq=64
      latents over Skv=640 keys, H=8, D=64, non-causal) at B=4 and 16, its
@@ -112,6 +116,11 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      CUDA bf16 through the ALiBi kernels against CPU fp32 on the plain
      biased attention; and 3b's three steps for the training variants: LoRA
      (rank 8), QLoRA (the same over the int4 base) and the switch matrix;
+  3g. GeoAware, CUDA fp32 against CPU fp32: a narrow SAM's `segment`
+     logits and IoU (256 px, windows of 7 over a grid padded 16 -> 21, two
+     global layers), 3 `c-train` steps' losses of a narrow aggregation
+     network from the same weights, and `pair_distance` (co-PCA, fused
+     descriptors, masked NN distances);
   4. the serving slice at full width: LLaVA-1.5-7B (CLIP-L/14-336 +
      mlp2x_gelu + Vicuna-7B) with seeded random bf16 weights answers 4
      requests through `LlavaLMM.generate_until`, whose greedy decode on the
@@ -267,11 +276,11 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      images, 32 new tokens: finite logits, kernels 2 (tower and prefill)
      and 3 launched, TTFT and tokens/s;
   12. (after phase 11, before phase 9) DiT-XL/2 and SD3-medium at full
-     width and depth at 512 px on seeded random weights, each written as a
-     featurizer bundle (3.00 and 8.46 GB) and passed as
-     `model.tower_weights`:
+     width and half depth (14 and 12 blocks) at 512 px on seeded random
+     weights, each written as a featurizer bundle (its configuration in the
+     sidecar) and passed as `model.tower_weights`:
      (a) `extract_features` on one image, card bf16 against CPU fp32
-     (`TRANSFORMER_FEATURE_REL_TOL`), 28 / 24 kernel-2 launches a forward
+     (`TRANSFORMER_FEATURE_REL_TOL`), 14 / 12 kernel-2 launches a forward
      counted by shape, a repeat's bits, the featurizer at B = 1 and 16 with
      the VAE and the backbone (`featurizer.backbone_tokens`) apart; (b)
      `extract-features` over phase 6's synthetic SPair tree at batch 16 and
@@ -280,6 +289,21 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      6,144 -> 4,096, 256 image tokens) through `build_lmm` ->
      `generate_until` on phase 4's requests at 512 px, 32 new tokens:
      finite logits, kernels 2 and 3 launched, TTFT and tokens/s;
+  16. (after phase 12, before phase 9) GeoAware-SC through the CLI at full
+     width on seeded weights, over 12 pose templates, 4 pose targets and one
+     synthetic SPair category (8 JPEGs, 6 pairs, `bndbox` annotations):
+     (a) `preprocess-map` with flips (an SD1.5 bundle through up block 2 at
+     960 px: 26 kernel-2 launches a forward; DINOv2-B at 840 px, the token
+     facet of block 11: 12 kernel-1 launches), every launch's shape one that
+     phase 2 held, one template's maps and descriptors card (bf16 compute)
+     against the port's CPU fp32 (run in a second thread meanwhile); (b)
+     `sam-masks --spair` from a SAM ViT-H snapshot written in HF's key names
+     (config.json, fp16 .safetensors): a 960 x 960 mask and its mirror an
+     image; (c) `pose-awareness` over (a)'s files and (b)'s masks at res
+     128: 4 rows of 12 finite distances, n = 4; (d) `c-train --feature-dims
+     640 1280 1280 768 --num-patches 60`, 10 steps of batch 4 on [3,600,
+     3,968] files built from (a)'s maps: finite losses, best.npz, best_pck
+     in [0, 1]. Seconds, ms an image variant / image / pair, peak memory;
   10. (after phase 9) LLaVA-1.5-7B through `run_training`, stage 2, 3 steps
      of 16: `train.lora_enable` (r=128, alpha=256), the same with
      `train.quantize_base=int4` (QLoRA: kernel 10 forward, its transposed
@@ -587,6 +611,14 @@ def check_kernels(tag: str, dev) -> dict:
                        (randn(1, s, h, d) for _ in range(3)),
                        s * s, f"kernel 1 B=1 S={s} H={h} D={d}")
         for s in (577, 257)]
+    # GeoAware's DINOv2-B at 840 px (phase 16)
+    b1, s1, h1, d1 = GEO_DINO_ATTENTION
+    results["encoder_attention"]["cases"].append(dict(attention_case(
+        tag, enc.encoder_attention, enc.encoder_attention_plain,
+        lambda q, k, v: sdpa(q, k, v),
+        (randn(b1, s1, h1, d1) for _ in range(3)), s1 * s1,
+        f"kernel 1 DINOv2-B@840 B={b1} S={s1} H={h1} D={d1}"),
+        what="GeoAware DINOv2-B@840"))
 
     # prefill: Vicuna-7B heads, S=640 with a kv_len tail; plus a GQA case
     errs, tols, rows = [], [], []
@@ -1843,7 +1875,10 @@ TRANSFORMER_ATTENTION = tuple(
     for s, h, d, what in ((1024, 16, 72, "DiT self"),
                           (1024 + 333, 24, 64, "SD3 joint"))) + (
     (4, 1357, 1357, 24, 64, "SD3 joint"),)    # phase 12 (c): 4 requests
-TRANSFORMER_KERNEL2_LAUNCHES = {"DiT": 28, "SD3": 24}
+# phase 12 runs each tower at half its published depth (DiT-XL/2 28
+# blocks, SD3-medium 24; full width): the script's time limit. One kernel-2
+# launch a block
+TRANSFORMER_BLOCKS = {"DiT": 14, "SD3": 12}
 
 
 def attn_key(sq: int, skv: int, h: int, d: int) -> str:
@@ -1875,7 +1910,8 @@ def check_unet_attention(tag: str, dev) -> list:
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = []
-    for b, sq, skv, h, d, what in UNET_ATTENTION + TRANSFORMER_ATTENTION:
+    for b, sq, skv, h, d, what in (UNET_ATTENTION + TRANSFORMER_ATTENTION
+                                   + GEOWARE_ATTENTION):
         q = torch.randn((b, sq, h, d), generator=g, device=dev,
                         dtype=torch.bfloat16)
         k, v = (torch.randn((b, skv, h, d), generator=g, device=dev,
@@ -6388,7 +6424,8 @@ TRANSFORMER_TOWERS = (("DiT", DIT, 22), ("SD3", SD3, 23))
 # 512 px rounds every activation to bf16 (2^-9 relative on average) some
 # 60 times, each block ~10 times (adaLN, q / k / v, P, the attention output,
 # the MLP, two residual adds): ~340 roundings for DiT's 28 blocks, ~300 for
-# SD3's 24 (its latent stream; the context stream adds its own);
+# SD3's 24 (its latent stream; the context stream adds its own), half the
+# blocks' share at phase 12's half depth;
 # independent roundings add in quadrature, sqrt(340) x 2^-9 = 3.6 %, the
 # bound SD1.5 is held to (`SD_FEATURE_REL_TOL`, 250 roundings)
 TRANSFORMER_FEATURE_REL_TOL = 5e-2
@@ -6396,14 +6433,15 @@ TRANSFORMER_FEATURE_REL_TOL = 5e-2
 
 def run_transformer_towers(tag: str, dev, counters, cases: list,
                            c_scores: dict) -> dict:
-    """Phase 12: DiT-XL/2 (VAE encoder + 28 blocks of 1,152 over 16 heads
-    of 72) and SD3-medium (16-channel VAE + 24 joint blocks of 1,536 over
-    24 heads of 64, a 192² position table, 333 context tokens) at full width
-    and depth on seeded random weights, each written as a featurizer bundle
+    """Phase 12: DiT-XL/2 (VAE encoder + blocks of 1,152 over 16 heads
+    of 72) and SD3-medium (16-channel VAE + joint blocks of 1,536 over 24
+    heads of 64, a 192² position table, 333 context tokens) at full width
+    and half depth (`TRANSFORMER_BLOCKS`: 14 of 28, 12 of 24) on seeded
+    random weights, each written as a featurizer bundle
     in a temporary directory and read back through `model.tower_weights`:
     (a) `extract_features` on one 512 px image, the last block harvested:
         card bf16 against CPU fp32 (`TRANSFORMER_FEATURE_REL_TOL`), kernel-2
-        launches by shape (28 / 24 a forward), a repeat's bits, and the
+        launches by shape (one a block), a repeat's bits, and the
         featurizer's time at B = 1 and 16 with the VAE and the backbone
         apart;
     (b) `extract-features` over phase 6's synthetic SPair tree at batch 16,
@@ -6449,9 +6487,12 @@ def run_transformer_towers(tag: str, dev, counters, cases: list,
         n_images = _spair_tree(root, C_IMAGES, C_PAIRS)
         for label, name, seed in TRANSFORMER_TOWERS:
             key = label.lower()
-            per_forward = TRANSFORMER_KERNEL2_LAUNCHES[label]
+            per_forward = TRANSFORMER_BLOCKS[label]
             # the bundle: seeded random fp32 weights, built on the card ---
             cfg = F.FEATURIZER_PRESETS[name]()
+            part = "dit" if cfg.dit is not None else "mmdit"
+            cfg = dataclasses.replace(cfg, **{part: dataclasses.replace(
+                getattr(cfg, part), num_layers=per_forward)})
             t0 = time.perf_counter()
             gen = torch.Generator(device=dev).manual_seed(seed)
             own = F.FeaturizerParams(cfg, FP32_PRECISION, device=dev)
@@ -6468,7 +6509,7 @@ def run_transformer_towers(tag: str, dev, counters, cases: list,
             torch.cuda.empty_cache()
             print(f"{tag} phase 12 {label} featurizer ({n_params / 1e6:.1f} "
                   f"M params, {n_backbone / 1e6:.1f} M of them the "
-                  f"backbone's, all {own_blocks(cfg)} blocks; seeded random) "
+                  f"backbone's, {own_blocks(cfg)} blocks; seeded random) "
                   f"written as a bundle of "
                   f"{os.path.getsize(bundle) / 1e9:.2f} GB in "
                   f"{time.perf_counter() - t0:.2f} s; "
@@ -6641,6 +6682,696 @@ def run_transformer_towers(tag: str, dev, counters, cases: list,
     gc.collect()
     torch.cuda.empty_cache()
     return paths
+
+
+# phase 16: GeoAware-SC at full width. The SD1.5 featurizer at 960 px through
+# up block 2 (its s5 / s4 / s3 taps at 15², 30², 60²), DINOv2-B at 840 px
+# (a 60 x 60 grid; the token facet of block 11), SAM ViT-H (1,024 px, 32
+# layers of 1,280, windows of 14, global layers 7, 15, 23, 31) and the
+# aggregation network at GeoAware's feature dims on a 60 grid, all seeded
+GEO_SEED = 41
+GEO_CATEGORY = "cat"                # the SPair category of (a), (b), (d)
+GEO_IMAGES = 8                      # its images, and its pairs
+GEO_PAIRS = 6
+GEO_TARGETS = "bflr"                # the pose targets' labels
+GEO_REAL_SIZE = 960
+GEO_DINO = "facebook/dinov2-base-840"
+GEO_DINO_LAYER = 11
+GEO_FEATURE_DIMS = (640, 1280, 1280, 768)     # s3, s4, s5, DINO
+GEO_C_STEPS = 10
+# kernel 2 at the SD1.5 UNet's attentions at 960 px through up block 2 (one
+# image a call: B = 1), each launched (down blocks 0-2 twice, mid once, up
+# blocks 1 and 2 three times; self and cross) this many times a forward
+GEOWARE_SD15_ATTENTION = (
+    (14400, 14400, 40, "block 0 self", 2),
+    (14400, 77, 40, "block 0 cross", 2),
+    (3600, 3600, 80, "block 1 self", 5),
+    (3600, 77, 80, "block 1 cross", 5),
+    (900, 900, 160, "block 2 self", 5),
+    (900, 77, 160, "block 2 cross", 5),
+    (225, 225, 160, "mid self", 1),
+    (225, 77, 160, "mid cross", 1),
+)
+GEOWARE_ATTENTION = tuple((1, sq, skv, 8, d, "GeoAware 960 px " + what)
+                          for sq, skv, d, what, _ in GEOWARE_SD15_ATTENTION)
+GEO_KERNEL2_LAUNCHES = sum(n for *_, n in GEOWARE_SD15_ATTENTION)   # 26
+# kernel 1 at DINOv2-B's attention at 840 px: 1 + 60² tokens, 12 heads of 64,
+# one launch a block, 12 blocks through block 11
+GEO_DINO_ATTENTION = (1, 3601, 12, 64)
+GEO_KERNEL1_LAUNCHES = GEO_DINO_LAYER + 1
+# facebook/sam-vit-huge's config.json (the keys `sam_config_from_hf` reads)
+SAM_VIT_H_CONFIG = {
+    "architectures": ["SamModel"], "model_type": "sam",
+    "vision_config": {
+        "hidden_size": 1280, "num_hidden_layers": 32,
+        "num_attention_heads": 16, "mlp_dim": 5120, "output_channels": 256,
+        "image_size": 1024, "patch_size": 16, "window_size": 14,
+        "global_attn_indexes": [7, 15, 23, 31], "layer_norm_eps": 1e-06,
+        "num_pos_feats": 128, "qkv_bias": True, "use_abs_pos": True,
+        "use_rel_pos": True, "mlp_ratio": 4.0, "num_channels": 3,
+        "model_type": "sam_vision_model"},
+    "prompt_encoder_config": {
+        "hidden_size": 256, "image_size": 1024, "patch_size": 16,
+        "image_embedding_size": 64, "mask_input_channels": 16,
+        "num_point_embeddings": 4},
+    "mask_decoder_config": {
+        "hidden_size": 256, "mlp_dim": 2048, "num_hidden_layers": 2,
+        "num_attention_heads": 8, "attention_downsample_rate": 2,
+        "num_multimask_outputs": 3, "iou_head_depth": 3,
+        "iou_head_hidden_dim": 256},
+    "torch_dtype": "float16"}
+
+
+def sam_snapshot_tensors(config: dict, w: "_Init") -> dict:
+    """A SamModel's tensors in HF's published key names and layouts for
+    `config` (a config.json dict), drawn by `w`: linear and conv weights
+    N(0, 1 / fan_in), biases, position and relative-position tables
+    N(0, 0.02), norms 1 + N(0, 0.02), the prompt and token embeddings and
+    the Fourier table N(0, 1). The shared Fourier table is stored under
+    both of its names, as transformers saves it."""
+    v, pc = config["vision_config"], config["prompt_encoder_config"]
+    mc = config["mask_decoder_config"]
+    d, p = v["hidden_size"], v["patch_size"]
+    g = v["image_size"] // p
+    hd = d // v["num_attention_heads"]
+    oc = v["output_channels"]
+    w.rand("shared_image_embedding.positional_embedding",
+           (2, v["num_pos_feats"]), 1.0)
+    w.sd["prompt_encoder.shared_embedding.positional_embedding"] = w.sd[
+        "shared_image_embedding.positional_embedding"]
+    ve = "vision_encoder"
+    w.rand(f"{ve}.pos_embed", (1, g, g, d), 0.02)
+    w.rand(f"{ve}.patch_embed.projection.weight", (d, 3, p, p),
+           (3 * p * p) ** -0.5)
+    w.rand(f"{ve}.patch_embed.projection.bias", (d,), 0.02)
+    for i in range(v["num_hidden_layers"]):
+        side = g if i in v["global_attn_indexes"] else v["window_size"]
+        lp = f"{ve}.layers.{i}"
+        w.norm(f"{lp}.layer_norm1", d)
+        w.rand(f"{lp}.attn.rel_pos_h", (2 * side - 1, hd), 0.02)
+        w.rand(f"{lp}.attn.rel_pos_w", (2 * side - 1, hd), 0.02)
+        w.linear(f"{lp}.attn.qkv", 3 * d, d)
+        w.linear(f"{lp}.attn.proj", d, d)
+        w.norm(f"{lp}.layer_norm2", d)
+        w.linear(f"{lp}.mlp.lin1", v["mlp_dim"], d)
+        w.linear(f"{lp}.mlp.lin2", d, v["mlp_dim"])
+    w.rand(f"{ve}.neck.conv1.weight", (oc, d, 1, 1), d ** -0.5)
+    w.norm(f"{ve}.neck.layer_norm1", oc)
+    w.rand(f"{ve}.neck.conv2.weight", (oc, oc, 3, 3), (9 * oc) ** -0.5)
+    w.norm(f"{ve}.neck.layer_norm2", oc)
+    c, mic = pc["hidden_size"], pc["mask_input_channels"]
+    pe = "prompt_encoder"
+    for name, shape in (("conv1", (mic // 4, 1, 2, 2)),
+                        ("conv2", (mic, mic // 4, 2, 2)),
+                        ("conv3", (c, mic, 1, 1))):
+        w.rand(f"{pe}.mask_embed.{name}.weight", shape,
+               (shape[1] * shape[2] * shape[3]) ** -0.5)
+        w.rand(f"{pe}.mask_embed.{name}.bias", shape[:1], 0.02)
+    w.norm(f"{pe}.mask_embed.layer_norm1", mic // 4)
+    w.norm(f"{pe}.mask_embed.layer_norm2", mic)
+    for name in ("no_mask_embed", "not_a_point_embed", *(
+            f"point_embed.{i}" for i in range(4))):
+        w.rand(f"{pe}.{name}.weight", (1, c), 1.0)
+    md, n_mask = "mask_decoder", mc["num_multimask_outputs"] + 1
+    inner = c // mc["attention_downsample_rate"]
+    w.rand(f"{md}.iou_token.weight", (1, c), 1.0)
+    w.rand(f"{md}.mask_tokens.weight", (n_mask, c), 1.0)
+
+    def attn(prefix, width):
+        for name in ("q_proj", "k_proj", "v_proj"):
+            w.linear(f"{prefix}.{name}", width, c)
+        w.linear(f"{prefix}.out_proj", c, width)
+    for i in range(mc["num_hidden_layers"]):
+        lp = f"{md}.transformer.layers.{i}"
+        attn(f"{lp}.self_attn", c)
+        attn(f"{lp}.cross_attn_token_to_image", inner)
+        attn(f"{lp}.cross_attn_image_to_token", inner)
+        for j in range(1, 5):
+            w.norm(f"{lp}.layer_norm{j}", c)
+        w.linear(f"{lp}.mlp.lin1", mc["mlp_dim"], c)
+        w.linear(f"{lp}.mlp.lin2", c, mc["mlp_dim"])
+    attn(f"{md}.transformer.final_attn_token_to_image", inner)
+    w.norm(f"{md}.transformer.layer_norm_final_attn", c)
+    # ConvTranspose2d weights are [in, out, kh, kw]
+    w.rand(f"{md}.upscale_conv1.weight", (c, c // 4, 2, 2), (4 * c) ** -0.5)
+    w.rand(f"{md}.upscale_conv1.bias", (c // 4,), 0.02)
+    w.norm(f"{md}.upscale_layer_norm", c // 4)
+    w.rand(f"{md}.upscale_conv2.weight", (c // 4, c // 8, 2, 2), c ** -0.5)
+    w.rand(f"{md}.upscale_conv2.bias", (c // 8,), 0.02)
+    for i in range(n_mask):
+        hp = f"{md}.output_hypernetworks_mlps.{i}"
+        w.linear(f"{hp}.proj_in", c, c)
+        w.linear(f"{hp}.layers.0", c, c)
+        w.linear(f"{hp}.proj_out", c // 8, c)
+    ih, depth = mc["iou_head_hidden_dim"], mc["iou_head_depth"]
+    w.linear(f"{md}.iou_prediction_head.proj_in", ih, c)
+    for j in range(depth - 2):
+        w.linear(f"{md}.iou_prediction_head.layers.{j}", ih, ih)
+    w.linear(f"{md}.iou_prediction_head.proj_out", n_mask, ih)
+    return w.sd
+
+
+def _geo_tree(root: str) -> dict:
+    """Phase 16's images under `root`: 12 pose templates (`templates/*.png`),
+    the pose targets (`SPair-71k/JPEGImages/pose_targets/*.jpg`, a
+    `bndbox` annotation each, their labels in `labels.json`) and one SPair
+    category (GEO_IMAGES JPEGs with keypoints and a `bndbox` each, as
+    SPair's image annotations have, and GEO_PAIRS test pairs), all smooth
+    random images of 300-500 px a side. Returns the paths."""
+    import numpy as np
+    from PIL import Image
+    from law_of_vision_representation_in_mllms_torch.metrics import spair
+    rng = np.random.RandomState(GEO_SEED)
+
+    def image(path):
+        w, h = (int(v) for v in rng.randint(300, 501, 2))
+        coarse = rng.randint(0, 256, (h // 24 + 2, w // 24 + 2, 3),
+                             dtype=np.uint8)
+        Image.fromarray(coarse).resize(
+            (w, h), Image.Resampling.BILINEAR).save(path)
+        return w, h
+
+    def box(w, h):
+        return [int(rng.randint(0, w // 4)), int(rng.randint(0, h // 4)),
+                int(rng.randint(3 * w // 4, w)),
+                int(rng.randint(3 * h // 4, h))]
+
+    spair_root = os.path.join(root, "SPair-71k")
+    out = {"templates": os.path.join(root, "templates"),
+           "targets": os.path.join(spair_root, "JPEGImages", "pose_targets"),
+           "labels": os.path.join(root, "labels.json"),
+           "spair": spair_root}
+    os.makedirs(out["templates"])
+    for i in range(12):
+        image(os.path.join(out["templates"], f"t{i:02d}.png"))
+    for sub in ("JPEGImages", "ImageAnnotation"):
+        for cat in ("pose_targets", GEO_CATEGORY):
+            os.makedirs(os.path.join(spair_root, sub, cat))
+    os.makedirs(os.path.join(spair_root, "PairAnnotation", "test"))
+    labels = {}
+    for i, pose in enumerate(GEO_TARGETS):
+        w, h = image(os.path.join(out["targets"], f"tgt{i}.jpg"))
+        with open(os.path.join(spair_root, "ImageAnnotation", "pose_targets",
+                               f"tgt{i}.json"), "w") as f:
+            json.dump({"bndbox": box(w, h), "image_width": w,
+                       "image_height": h}, f)
+        labels[f"tgt{i}.jpg"] = pose
+    with open(out["labels"], "w") as f:
+        json.dump(labels, f)
+    groups = spair.load_geoware_tables()["SPAIR_GEO_AWARE"][GEO_CATEGORY]
+    num_kps = 1 + max(i for gr in groups
+                      for i in ([gr] if isinstance(gr, int) else gr))
+    sizes = []
+    for i in range(GEO_IMAGES):
+        name = f"{GEO_CATEGORY}_{i:03d}"
+        w, h = image(os.path.join(spair_root, "JPEGImages", GEO_CATEGORY,
+                                  f"{name}.jpg"))
+        bb = box(w, h)
+        kps = {str(k): ([float(rng.randint(bb[0], bb[2])),
+                         float(rng.randint(bb[1], bb[3]))]
+                        if rng.rand() < 0.8 else None)
+               for k in range(num_kps)}
+        with open(os.path.join(spair_root, "ImageAnnotation", GEO_CATEGORY,
+                               f"{name}.json"), "w") as f:
+            json.dump({"kps": kps, "bndbox": bb, "image_width": w,
+                       "image_height": h}, f)
+        sizes.append(([w, h, 3], bb))
+    for p in range(GEO_PAIRS):
+        s, t = (int(v) for v in rng.choice(GEO_IMAGES, 2, replace=False))
+        cat = GEO_CATEGORY
+        with open(os.path.join(
+                spair_root, "PairAnnotation", "test",
+                f"{p:06d}-{cat}_{s:03d}-{cat}_{t:03d}:{cat}.json"),
+                "w") as f:
+            json.dump({"category": cat, "src_imname": f"{cat}_{s:03d}.jpg",
+                       "trg_imname": f"{cat}_{t:03d}.jpg",
+                       "src_imsize": sizes[s][0], "trg_imsize": sizes[t][0],
+                       "src_bndbox": sizes[s][1],
+                       "trg_bndbox": sizes[t][1]}, f)
+    return out
+
+
+def _cli_quiet(argv: list) -> tuple:
+    """`cli.main(argv)` with its standard output captured: (rc, output)."""
+    import io
+    from law_of_vision_representation_in_mllms_torch import cli
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = cli.main(argv)
+    return rc, said.getvalue()
+
+
+def run_geoware(tag: str, dev, counters, unet_cases: list,
+                dino_case: dict) -> dict:
+    """Phase 16: GeoAware-SC through the port's CLI at full width on seeded
+    weights, over phase 16's images (`_geo_tree`):
+    (a) `preprocess-map` of the 12 templates, the pose targets and the SPair
+        category, flips on: an SD1.5 bundle through up block 2 at 960 px
+        (26 kernel-2 launches a forward) and DINOv2-B at 840 px (the token
+        facet of block 11: 12 kernel-1 launches); one template's s3 / s4 /
+        s5 maps and DINO descriptors, card (bf16 compute) against the
+        port's CPU fp32 run (made in a second thread while the bundles are
+        written and joined before (a), so that no host work of the check
+        overlaps the commands' times);
+    (b) `sam-masks --spair` over the targets and the category from a SAM
+        ViT-H snapshot in HF's key names (config.json + fp16 .safetensors):
+        a mask and its mirror for every image, at the canvas's shape;
+    (c) `pose-awareness` over (a)'s files with (b)'s masks, `--res 128`:
+        4 rows of 12 finite distances, n = 4;
+    (d) `c-train` at GeoAware's widths (`--feature-dims 640 1280 1280 768
+        --num-patches 60`, 10 steps of batch 4) on [3,600, 3,968] files
+        built from (a)'s maps of the category (s3, s4 and s5 repeated to
+        s3's 60 x 60 grid, then DINO's tokens): finite losses, best.npz,
+        best_pck in [0, 1].
+    Every kernel launch is counted from 0 around each command, and every
+    tower attention recorded by its shape, which must be one phase 2 held
+    to its plain version (`unet_cases`' GeoAware cases, `dino_case`); each
+    GeoAware case gets its launches a forward. Returns the launches of each
+    path."""
+    import collections
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.io import (
+        featurizer_bundle as FB, from_jax)
+    from law_of_vision_representation_in_mllms_torch.io.param_io import (
+        save_params)
+    from law_of_vision_representation_in_mllms_torch.models import (
+        diffusion_blocks as DB, facet, featurizer as F, vit)
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        init_weights)
+    from law_of_vision_representation_in_mllms_torch.pipeline import (
+        geoware as G, sam_masks as SM)
+
+    def attn_shape(args, out):
+        (b, sq, h, d), skv = args[0].shape, args[1].shape[1]
+        return (b, sq, skv, h, d) if args[0].is_cuda else None
+
+    paths = {}
+    t_phase = time.perf_counter()
+    threads = torch.get_num_threads()
+    tmp = tempfile.mkdtemp(prefix="lvr_geoware_")
+    seen2 = _Spy(DB, "flash_attention", keep=attn_shape).__enter__()
+    seen1 = _Spy(vit, "encoder_attention", keep=attn_shape).__enter__()
+    cpu_ref, worker = {}, None
+    try:
+        t0 = time.perf_counter()
+        data = _geo_tree(tmp)
+        # the bundles: seeded fp32 weights drawn on the card ------------
+        gen = torch.Generator(device=dev).manual_seed(GEO_SEED)
+        cfg = dataclasses.replace(F.FEATURIZER_PRESETS[SD15](),
+                                  img_size=GEO_REAL_SIZE, up_ft_index=2)
+        own = F.FeaturizerParams(cfg, FP32_PRECISION, device=dev)
+        init_weights(own, gen)
+        own.prompt_embeds.normal_(generator=gen)
+        n_sd = sum(p.numel() for p in own.parameters())
+        sd_state = {k: v.cpu() for k, v in own.state_dict().items()}
+        del own
+        dcfg = vit.VIT_PRESETS[GEO_DINO]()
+        dino = vit.ViTEncoder(dcfg, FP32_PRECISION, device=dev)
+        init_weights(dino, gen)
+        dino_state = {k: v.cpu() for k, v in dino.state_dict().items()}
+        del dino
+        torch.cuda.empty_cache()
+
+        # the CPU fp32 reference of one template, in a second thread while
+        # the bundles are written; joined before (a) starts, so that no
+        # host work of the check overlaps the commands' times
+        def cpu_reference():
+            try:
+                t1 = time.perf_counter()
+                with Image.open(os.path.join(data["templates"],
+                                             "t00.png")) as img:
+                    img = img.convert("RGB")
+                sd_px = torch.from_numpy(G._sd_pixels(G.load_square(
+                    img, GEO_REAL_SIZE)))[None]
+                dn_px = torch.from_numpy(G._dino_pixels(G.load_square(
+                    img, dcfg.image_size)))[None]
+                with torch.no_grad():
+                    sd_cpu = F.FeaturizerParams.for_state_dict(
+                        sd_state, cfg, FP32_PRECISION)
+                    cpu_ref["sd"] = F.extract_multiscale_features(
+                        sd_cpu, cfg, sd_px, deterministic=True)
+                    del sd_cpu
+                    enc = vit.ViTEncoder(dcfg, FP32_PRECISION,
+                                         num_blocks=GEO_DINO_LAYER + 1)
+                    enc.load_state_dict(dino_state)
+                    cpu_ref["dino"] = facet.facet_descriptors(
+                        enc, dn_px, layer=GEO_DINO_LAYER, facet="token")
+                cpu_ref["seconds"] = time.perf_counter() - t1
+            except BaseException as e:          # re-raised by the phase
+                cpu_ref["error"] = e
+        worker = threading.Thread(target=cpu_reference)
+        worker.start()
+        sd_bundle = FB.save_featurizer_bundle(
+            os.path.join(tmp, "sd15_up2"), from_jax.featurizer_tree(sd_state),
+            cfg)
+        dino_npz = os.path.join(tmp, "dinov2_b_840.npz")
+        save_params(dino_npz, from_jax.vit_tree(
+            {"encoder." + k: v for k, v in dino_state.items()},
+            dcfg.patch_size)["encoder"])
+        n_img = 12 + len(GEO_TARGETS) + GEO_IMAGES
+        print(f"{tag} phase 16 inputs: {n_img} images; SD1.5 bundle "
+              f"through up block 2 ({n_sd / 1e6:.1f} M params, {os.path.getsize(sd_bundle) / 1e9:.2f} GB), "
+              f"DINOv2-B@840 ({os.path.getsize(dino_npz) / 1e9:.2f} GB), "
+              f"seeded, written in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        worker.join()
+        if "error" in cpu_ref:
+            raise cpu_ref["error"]
+        print(f"{tag} phase 16 t00's CPU fp32 reference: "
+              f"{cpu_ref['seconds']:.1f} s on {threads} host threads, the "
+              f"bundles' writes beside it; waited {time.perf_counter() - t0:.1f}"
+              f" s for it after them")
+
+        # (a) preprocess-map over every image, flips on ------------------
+        feats = os.path.join(tmp, "geo_features")
+        argv = ["preprocess-map", tmp, feats, "--sd-bundle", sd_bundle,
+                "--dino-bundle", dino_npz, "--dino-tower", GEO_DINO,
+                "--real-size", str(GEO_REAL_SIZE), "--dino-size",
+                str(dcfg.image_size), "--layer", str(GEO_DINO_LAYER),
+                "--device", str(dev)]
+        n2, n1 = len(seen2.kept), len(seen1.kept)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with _Spy(G, "extract_multiscale_features", dev) as sd_t, \
+                _Spy(G, "facet_descriptors", dev) as dino_t:
+            (rc, said), launches = counted_run(counters,
+                                               lambda: _cli_quiet(argv))
+        pre_s = time.perf_counter() - t0
+        variants = 2 * n_img
+        if rc != 0 or said.strip() != (f"wrote {2 * variants} feature files "
+                                       f"-> {feats}"):
+            fail(f"phase 16 (a) preprocess-map: rc {rc}, said {said!r}")
+        paths["geoware_preprocess"] = launches
+        want = {"flash_attention": GEO_KERNEL2_LAUNCHES * variants,
+                "encoder_attention": GEO_KERNEL1_LAUNCHES * variants}
+        if any(launches[k] != want.get(k, 0) for k in launches):
+            fail(f"phase 16 (a) launches {launches}, not {want}")
+        by_shape = collections.Counter(
+            attn_key(*k[1:]) for k in seen2.kept[n2:] if k is not None)
+        geo = {c["attn"]: c for c in unet_cases
+               if c["what"].startswith("GeoAware")}
+        if not set(by_shape) <= set(geo) or any(
+                by_shape[attn_key(sq, skv, 8, d)] != n * variants
+                for sq, skv, d, _, n in GEOWARE_SD15_ATTENTION):
+            fail(f"phase 16 (a) kernel-2 launches by shape {dict(by_shape)},"
+                 f" not GEOWARE_SD15_ATTENTION's x {variants}")
+        for a, c in geo.items():
+            c["launches_per_geoware_forward"] = by_shape[a] // variants
+        dino_shapes = {k for k in seen1.kept[n1:] if k is not None}
+        b, s, h, d = GEO_DINO_ATTENTION
+        if dino_shapes != {(b, s, s, h, d)}:
+            fail(f"phase 16 (a) kernel-1 launches at {dino_shapes}, not the "
+                 f"held {GEO_DINO_ATTENTION}")
+        dino_case["launches_per_geoware_forward"] = (
+            launches["encoder_attention"] // variants)
+        with np.load(os.path.join(feats, "t00_sd.npz")) as z:
+            maps = {k: z[k] for k in z.files}
+        desc = np.load(os.path.join(feats, "t00_dino.npy"))
+        # s5 / s4 / s3: up blocks 0-2 before their upsamplers (SD1.5 at
+        # 960 px: 15², 30², 60² of 1280, 1280, 640)
+        chans = cfg.unet.block_out_channels
+        n = len(chans)
+        lat = GEO_REAL_SIZE // 2 ** (len(cfg.vae.block_out_channels) - 1)
+        want_shapes = {f"s{5 - i}": (1, lat >> (n - 1 - i),
+                                     lat >> (n - 1 - i), chans[n - 1 - i])
+                       for i in range(3)}
+        if {k: v.shape for k, v in maps.items()} != want_shapes or \
+                desc.shape != (1, 1, dcfg.num_patches, dcfg.hidden_size):
+            fail(f"phase 16 (a) maps {[v.shape for v in maps.values()]}, "
+                 f"descriptors {desc.shape}")
+        for v in (*maps.values(), desc):
+            if not np.isfinite(v).all():
+                fail("phase 16 (a): a map or descriptor is not finite")
+        print(f"{tag} phase 16 (a) preprocess-map, {n_img} images x 2 "
+              f"(flips), card: {pre_s:.1f} s, {variants / pre_s:.2f} image "
+              f"variants/s; SD1.5 at {GEO_REAL_SIZE} px through up block 2 "
+              f"{np.median(sd_t.seconds) * 1e3:.1f} ms a variant (median, "
+              f"synced), DINOv2-B@840 token facet "
+              f"{np.median(dino_t.seconds) * 1e3:.1f} ms; launches "
+              f"{launches}; kernel 2 a forward by shape "
+              f"{ {a: n // variants for a, n in by_shape.items()} }; peak "
+              f"memory allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+        # (b) sam-masks from a SAM ViT-H snapshot ------------------------
+        t0 = time.perf_counter()
+        snap = os.path.join(tmp, "sam_vit_h")
+        w = _Init(dev, GEO_SEED + 1)
+        nbytes = _write_snapshot(snap, SAM_VIT_H_CONFIG,
+                                 sam_snapshot_tensors(SAM_VIT_H_CONFIG, w))
+        n_sam = sum(t.numel() for k, t in w.sd.items()
+                    if not k.startswith("prompt_encoder.shared"))
+        del w
+        write_s = time.perf_counter() - t0
+        images = os.path.join(data["spair"], "JPEGImages")
+        argv = ["sam-masks", "--snapshot", snap, "--images", images,
+                "--spair", "--anno-size", str(GEO_REAL_SIZE), "--device",
+                str(dev)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with _Spy(SM, "segment_box", dev) as seg_t:
+            (rc, _), launches = counted_run(counters,
+                                            lambda: _cli_quiet(argv))
+        sam_s = time.perf_counter() - t0
+        paths["geoware_sam"] = launches
+        n_masks = len(GEO_TARGETS) + GEO_IMAGES
+        if rc != 0 or len(seg_t.seconds) != n_masks or any(launches.values()):
+            fail(f"phase 16 (b) sam-masks: rc {rc}, {len(seg_t.seconds)} "
+                 f"images, launches {launches} (SAM runs no port kernel)")
+        fg = []
+        for sub, n in (("pose_targets", len(GEO_TARGETS)),
+                       (GEO_CATEGORY, GEO_IMAGES)):
+            out_dir = os.path.join(data["spair"], "features", sub)
+            for f in sorted(os.listdir(os.path.join(images, sub))):
+                stem = os.path.splitext(f)[0]
+                m, mf = (np.asarray(Image.open(os.path.join(
+                    out_dir, f"{stem}_mask{x}.png"))) for x in ("", "_flip"))
+                if m.shape != (GEO_REAL_SIZE, GEO_REAL_SIZE) or \
+                        not np.array_equal(mf, m[:, ::-1]) or \
+                        not set(np.unique(m)) <= {0, 255}:
+                    fail(f"phase 16 (b) {sub}/{stem}: mask {m.shape}, its "
+                         f"flip not its mirror, or values not 0 / 255")
+                fg.append((m > 0).mean())
+        print(f"{tag} phase 16 (b) SAM ViT-H snapshot ({n_sam / 1e6:.1f} M "
+              f"params, fp16 .safetensors {nbytes / 1e9:.2f} GB, HF key "
+              f"names) written in {write_s:.1f} s; sam-masks over "
+              f"{n_masks} images: {sam_s:.1f} s (loading and porting on the "
+              f"host included), {np.median(seg_t.seconds) * 1e3:.1f} ms an "
+              f"image (median, synced: resize, encoder, decoder, the "
+              f"upscale to {GEO_REAL_SIZE} px); masks "
+              f"{GEO_REAL_SIZE}x{GEO_REAL_SIZE}, foreground share "
+              f"{min(fg):.3f}-{max(fg):.3f}; launches {launches}; peak "
+              f"memory allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+        # (c) pose-awareness over (a)'s files, (b)'s masks ---------------
+        out_json = os.path.join(tmp, "pose.json")
+        argv = ["pose-awareness", data["templates"], data["targets"],
+                data["labels"], feats, "--mask-dir",
+                os.path.join(data["spair"], "features", "pose_targets"),
+                "--res", "128", "--output", out_json, "--device", str(dev)]
+        t0 = time.perf_counter()
+        with _Spy(G, "pair_distance", dev) as pair_t:
+            (rc, _), launches = counted_run(counters,
+                                            lambda: _cli_quiet(argv))
+        pose_s = time.perf_counter() - t0
+        paths["geoware_pose"] = launches
+        with open(out_json) as f:
+            pose = json.load(f)
+        rows = np.asarray(pose["rows"], np.float64)
+        if rc != 0 or rows.shape != (len(GEO_TARGETS), 12) or \
+                not np.isfinite(rows).all() or \
+                pose["results"]["n"] != len(GEO_TARGETS):
+            fail(f"phase 16 (c) pose-awareness: rc {rc}, rows "
+                 f"{rows.shape}, results {pose['results']}")
+        print(f"{tag} phase 16 (c) pose-awareness, {len(GEO_TARGETS)} "
+              f"targets x 12 templates at res 128: {pose_s:.1f} s, "
+              f"{np.median(pair_t.seconds) * 1e3:.1f} ms a pair (median, "
+              f"synced: co-PCA's three SVDs, the fused descriptors, the "
+              f"16,384 x 16,384 distances); distances "
+              f"{rows.min():.4f}-{rows.max():.4f}; results "
+              f"{pose['results']}; launches {launches}")
+
+        # (d) c-train at GeoAware's widths -------------------------------
+        c_feats = os.path.join(tmp, "c_features")
+        os.makedirs(c_feats)
+        g = dcfg.grid
+        for i in range(GEO_IMAGES):
+            stem = f"{GEO_CATEGORY}_{i:03d}"
+            with np.load(os.path.join(feats, f"{stem}_sd.npz")) as z:
+                parts = [np.repeat(np.repeat(z[k][0], g // z[k].shape[1],
+                                             axis=0), g // z[k].shape[2],
+                                   axis=1) for k in ("s3", "s4", "s5")]
+            parts.append(np.load(os.path.join(
+                feats, f"{stem}_dino.npy"))[0, 0].reshape(g, g, -1))
+            np.save(os.path.join(c_feats, f"{stem}.npy"),
+                    np.concatenate(parts, axis=-1).reshape(g * g, -1))
+        out_dir = os.path.join(tmp, "c_train_out")
+        argv = ["c-train", "--spair-dir", data["spair"], "--feature-dir",
+                c_feats, "--feature-dims",
+                *(str(x) for x in GEO_FEATURE_DIMS), "--num-patches",
+                str(g), "--categories", GEO_CATEGORY, "--steps",
+                str(GEO_C_STEPS), "--out-dir", out_dir, "--device", str(dev)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        (rc, said), launches = counted_run(counters, lambda: _cli_quiet(argv))
+        train_s = time.perf_counter() - t0
+        paths["geoware_c_train"] = launches
+        res = json.loads(said.strip().splitlines()[-1]) if rc == 0 else {}
+        losses = [h["loss"] for h in res.get("history", [])]
+        if rc != 0 or not losses or not np.isfinite(losses).all() or \
+                not 0.0 <= res["best_pck"] <= 1.0 or \
+                not os.path.exists(os.path.join(out_dir, "best.npz")) or \
+                any(launches.values()):
+            fail(f"phase 16 (d) c-train: rc {rc}, said {said!r}, launches "
+                 f"{launches}")
+        print(f"{tag} phase 16 (d) c-train, {GEO_C_STEPS} steps of batch 4 "
+              f"on [{g * g}, {sum(GEO_FEATURE_DIMS)}] features of "
+              f"{GEO_IMAGES} images ({GEO_PAIRS} pairs): {train_s:.1f} s "
+              f"(the feature reads and 5 PCK evaluations included); last "
+              f"losses {losses}, best_pck {res['best_pck']:.4f}; launches "
+              f"{launches} (the aggregation network has no attention); peak "
+              f"memory allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+        # (a)'s check: the card's files against the CPU fp32 run ---------
+        errs = {k: rel_errors(torch.from_numpy(maps[k]), v)
+                for k, v in cpu_ref["sd"].items()}
+        errs["dino"] = rel_errors(torch.from_numpy(desc), cpu_ref["dino"])
+        print(f"{tag} phase 16 (a) t00, card (bf16 compute) vs the port's CPU "
+              f"fp32: ||diff|| / ||CPU||, worst token, max|diff|: "
+              + ", ".join(f"{k} {e[0]:.3e} / {e[1]:.3e} / {e[2]:.3e}"
+                          for k, e in errs.items())
+              + f" (tol {SD_FEATURE_REL_TOL} for the maps, {PORT_REL_TOL} "
+              f"the descriptors, on the whole)")
+        for k, e in errs.items():
+            tol = PORT_REL_TOL if k == "dino" else SD_FEATURE_REL_TOL
+            if not e[0] <= tol:
+                fail(f"phase 16 (a) {k}: card against CPU {e[0]} > {tol}")
+        print(f"{tag} phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        if worker is not None:
+            worker.join()
+        seen1.__exit__()
+        seen2.__exit__()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+# phase 3's GeoAware checks, CUDA fp32 (TF32 off) against the CPU fp32 on the
+# same weights and inputs: fp32 sums in another order, and co-PCA's SVD by
+# another algorithm (its signs do not reach a distance)
+NARROW_FP32_REL_TOL = 1e-4
+
+
+def check_narrow_geoware(tag: str, dev) -> None:
+    """Phase 3: (1) a narrow SAM (256 px, 4 layers of 128 over windows of
+    7 (the 16 x 16 grid padded to 21) and 2 global layers; a 64-wide
+    decoder), `segment`'s mask logits and IoU for two boxes; (2) 3
+    `c-train` steps of a narrow aggregation network (dims 32 / 64 / 64 / 48
+    on an 8 x 8 grid, batch 2) from the same initial weights, loss by loss;
+    (3) `pair_distance` (co-PCA, fusion, masked NN distances) of two
+    random multi-scale feature sets; each CUDA against the CPU within
+    NARROW_FP32_REL_TOL."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.metrics import (
+        aggregation as A)
+    from law_of_vision_representation_in_mllms_torch.models import sam as S
+    from law_of_vision_representation_in_mllms_torch.pipeline import (
+        geoware as G)
+    from law_of_vision_representation_in_mllms_torch.train import (
+        c_score_train as CT)
+
+    def rel(got, ref):
+        got, ref = got.detach().float().cpu(), ref.detach().float()
+        return ((got - ref).norm() / ref.norm()).item()
+
+    # (1) SAM
+    cfg = S.SamConfig(
+        vision=S.SamVisionCfg(image_size=256, hidden_size=128, num_layers=4,
+                              num_heads=4, mlp_dim=512, out_chans=64,
+                              window_size=7, global_attn_indexes=(1, 3)),
+        prompt_hidden=64, num_pos_feats=32, decoder_heads=4,
+        decoder_mlp_dim=256, iou_head_hidden=64, input_image_size=256)
+    cpu = S.SamModel(cfg)
+    gen = torch.Generator().manual_seed(GEO_SEED)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            x = torch.randn(p.shape, generator=gen)
+            p.copy_(x * p.shape[0] ** -0.5 if p.dim() == 2 else 0.1 * x)
+        for m in cpu.modules():
+            if isinstance(m, S._LN):
+                m.w.add_(1.0)
+    card = S.SamModel(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    px = torch.randn((1, 256, 256, 3), generator=gen)
+    boxes = torch.tensor([[[20.0, 30.0, 200.0, 220.0],
+                           [60.0, 50.0, 150.0, 120.0]]])
+    (m_cpu, iou_cpu), (m_card, iou_card) = (
+        S.segment(model, px.to(d), boxes.to(d))
+        for model, d in ((cpu, "cpu"), (card, dev)))
+    sam_err = (rel(m_card, m_cpu), rel(iou_card, iou_cpu))
+    del cpu, card
+
+    # (2) c-train, 3 steps
+    dims, n = (32, 64, 64, 48), 8
+    tcfg = CT.CTrainConfig(learning_rate=3e-3, total_steps=100, num_patches=n)
+    rng = np.random.RandomState(GEO_SEED)
+    batch = {
+        "feat1": rng.randn(2, n, n, sum(dims)).astype(np.float32),
+        "feat2": rng.randn(2, n, n, sum(dims)).astype(np.float32),
+        "kp_idx1": rng.randint(0, n * n, (2, 6)),
+        "kp_idx2": rng.randint(0, n * n, (2, 6)),
+        "kp_valid": (rng.rand(2, 6) > 0.2).astype(np.float32),
+        "gt_flow": rng.randn(2, 6, 2).astype(np.float32)}
+    losses = {}
+    for d in ("cpu", dev):
+        net = A.AggregationNetwork(feature_dims=dims, projection_dim=32,
+                                   num_norm_groups=4).to(d)
+        opt = CT.init_c_train(net, tcfg, torch.Generator(device=d)
+                              .manual_seed(0))
+        if d != "cpu":
+            net.load_state_dict(start)
+        else:
+            start = {k: v.clone() for k, v in net.state_dict().items()}
+        step = CT.make_c_train_step(net, tcfg, opt)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        losses[str(d)] = [float(step(b)["loss"]) for _ in range(3)]
+    lc, lg = losses["cpu"], losses[str(dev)]
+    train_err = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+
+    # (3) co-PCA and the masked NN distance
+    feats = [{k: torch.randn((1, gr, gr, c), generator=gen)
+              for k, gr, c in (("s5", 4, 96), ("s4", 8, 96), ("s3", 16, 48))}
+             for _ in range(2)]
+    descs = [torch.randn((1, 1, 256, 40), generator=gen) for _ in range(2)]
+    mask = (torch.rand((64, 64), generator=gen) > 0.3).float()
+    dists = [G.pair_distance(
+        {k: v.to(d) for k, v in feats[0].items()}, descs[0].to(d),
+        {k: v.to(d) for k, v in feats[1].items()}, descs[1].to(d),
+        mask.to(d), res=64, dims=(32, 32, 16)) for d in ("cpu", dev)]
+    pair_err = abs(dists[1] - dists[0]) / abs(dists[0])
+    print(f"{tag} narrow GeoAware, CUDA fp32 vs CPU fp32 (tol "
+          f"{NARROW_FP32_REL_TOL}): SAM segment logits "
+          f"{sam_err[0]:.3e}, IoU {sam_err[1]:.3e} (||diff|| / ||CPU||); "
+          f"c-train losses {lc} vs {lg}, worst {train_err:.3e}; "
+          f"pair_distance {dists[0]:.6f} vs {dists[1]:.6f} "
+          f"({pair_err:.3e})")
+    for what, e in (("SAM logits", sam_err[0]), ("SAM IoU", sam_err[1]),
+                    ("c-train loss", train_err),
+                    ("pair_distance", pair_err)):
+        if not e <= NARROW_FP32_REL_TOL:
+            fail(f"narrow GeoAware {what}: CUDA against CPU {e} > "
+                 f"{NARROW_FP32_REL_TOL}")
 
 
 def own_blocks(cfg) -> int:
@@ -7516,6 +8247,7 @@ def main() -> int:
     check_narrow_training(tag, dev, variant="lora")
     check_narrow_training(tag, dev, quantize_base="int4", variant="lora")
     check_narrow_training(tag, dev, variant="switch")
+    check_narrow_geoware(tag, dev)
     mark("phase 3 (narrow models, CUDA against CPU)")
     counters = {name: (wrapper, "launches") for name, wrapper in (
         ("encoder_attention", enc.encoder_attention),
@@ -7566,11 +8298,16 @@ def main() -> int:
     paths.update(run_diffusion_tower(tag, dev, counters, unet_cases,
                                      tower_c, text_cases))
     mark("phase 11 (SD1.5)")
-    # DiT-XL/2 and SD3-medium at full width and depth (phase 12), before
+    # DiT-XL/2 and SD3-medium at full width and half depth (phase 12), before
     # torch.profiler first runs for the same reason
     paths.update(run_transformer_towers(tag, dev, counters, unet_cases,
                                         tower_c))
     mark("phase 12 (DiT-XL/2, SD3-medium)")
+    # GeoAware-SC (phase 16), before torch.profiler first runs
+    dino_case = next(c for c in kernels["encoder_attention"]["cases"]
+                     if c.get("what") == "GeoAware DINOv2-B@840")
+    paths.update(run_geoware(tag, dev, counters, unet_cases, dino_case))
+    mark("phase 16 (GeoAware-SC)")
     # MPT-7B and the switch variant, also before torch.profiler first runs;
     # the LoRA and QLoRA variants each end with a profiled step, after their
     # own steps are timed. Every training step here keeps the device busy

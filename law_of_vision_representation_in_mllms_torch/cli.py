@@ -30,10 +30,18 @@ Commands:
                     .npz (orbax train states are refused: ROADMAP, queue
                     1: 12, orbax train states)
 
+  preprocess-map    GeoAware-SC: multi-scale SD maps and DINOv2 facet
+                    descriptors of every image and its mirror (kernels 2
+                    and 1 on the card)
+  sam-masks         GeoAware-SC foreground masks by a box-prompted SAM from
+                    a local HF snapshot (plain PyTorch)
+  pose-awareness    GeoAware-SC pose-awareness test over preprocess-map's
+                    files (co-PCA, masked nearest-neighbour distances)
+  c-train           supervised correspondence training of the aggregation
+                    network (AdamW, PCK evaluations, best.npz / last.npz)
+
 Single components of HF / diffusers snapshots are ported by `python -m
-law_of_vision_representation_in_mllms_torch.io.port_cli`. Four commands of
-the JAX CLI, GeoAware's, are not ported yet (ROADMAP, queue 1: 8, C score):
-`c-train`, `sam-masks`, `preprocess-map` and `pose-awareness`.
+law_of_vision_representation_in_mllms_torch.io.port_cli`.
 Run on the card with `--device cuda` (the default); there is no silent CPU
 fallback, a CPU run takes an explicit `--device cpu`.
 """
@@ -237,6 +245,68 @@ def main(argv=None):
     p.add_argument("--up-ft-index", type=int)
     p.add_argument("--ensemble-size", type=int, default=1)
     p.add_argument("--img-size", type=int)
+    _add_device(p)
+
+    p = sub.add_parser("preprocess-map",
+                       help="GeoAware-SC SD+DINO feature pre-extraction "
+                            "(C_score/preprocess_map.py)")
+    p.add_argument("images", help="image dir or JSON list of paths")
+    p.add_argument("out_dir")
+    p.add_argument("--sd-bundle", required=True,
+                   help="SD featurizer bundle with up blocks through 2 "
+                        "(port-featurizer --up-ft-index 2)")
+    p.add_argument("--dino-bundle", required=True,
+                   help="ported DINOv2 params npz")
+    p.add_argument("--dino-tower", default="facebook/dinov2-base-840")
+    p.add_argument("--real-size", type=int, default=960)
+    p.add_argument("--dino-size", type=int, default=840)
+    p.add_argument("--layer", type=int, default=11)
+    p.add_argument("--facet", default="token",
+                   choices=["token", "key", "query", "value"])
+    p.add_argument("--ensemble", type=int, default=1)
+    p.add_argument("--stochastic", action="store_true",
+                   help="sample VAE posterior + noise (reference behaviour);"
+                        " default is the deterministic cache-stable path")
+    p.add_argument("--no-flips", action="store_true")
+    _add_device(p)
+
+    p = sub.add_parser("sam-masks",
+                       help="GeoAware foreground masks via box-prompted "
+                            "SAM (preprocess_mask_sam.py equivalent)")
+    p.add_argument("--snapshot", required=True,
+                   help="local HF facebook/sam-vit-{base,large,huge} "
+                        "snapshot dir")
+    p.add_argument("--images", required=True,
+                   help="JPEGImages root (ImageAnnotation sibling "
+                        "holds the bbox jsons)")
+    p.add_argument("--anno-size", type=int, default=960)
+    p.add_argument("--spair", action="store_true",
+                   help="annotations use SPair 'bndbox' corners")
+    p.add_argument("--limit", type=int)
+    _add_device(p)
+
+    p = sub.add_parser("pose-awareness",
+                       help="GeoAware-SC pose-awareness test "
+                            "(C_score/pose_awareness_test.py)")
+    p.add_argument("template_dir", help="12 sorted pose-template images")
+    p.add_argument("target_dir")
+    p.add_argument("labels", help="JSON {filename: b|f|l|r}")
+    p.add_argument("feat_dir", help="preprocess-map output dir")
+    p.add_argument("--mask-dir", help="per-image <stem>_mask.npy|png")
+    p.add_argument("--res", type=int, default=128)
+    p.add_argument("--output")
+    _add_device(p)
+
+    p = sub.add_parser("c-train", help="supervised correspondence training")
+    p.add_argument("--spair-dir", required=True)
+    p.add_argument("--feature-dir", required=True)
+    p.add_argument("--feature-dims", nargs="+", type=int, required=True)
+    p.add_argument("--num-patches", type=int, required=True)
+    p.add_argument("--anno-size", type=int, default=840)
+    p.add_argument("--suffix", default="")
+    p.add_argument("--categories", nargs="*")
+    p.add_argument("--steps", type=int, default=2000)
+    p.add_argument("--out-dir", default="c_train_out")
     _add_device(p)
 
     p = sub.add_parser("apply-delta",
@@ -523,6 +593,104 @@ def _cmd_port_featurizer(args):
     return 0
 
 
+def _cmd_preprocess_map(args):
+    """The SD bundle and the DINOv2 params onto the device, then
+    `preprocess_maps` over the images (recursively, for a directory). bf16
+    compute (fp32 weights) on the card, the JAX command's default; fp32 on
+    the CPU."""
+    import dataclasses
+    import glob
+    import os
+
+    from .core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from .io import from_jax
+    from .io.featurizer_bundle import load_featurizer_bundle
+    from .io.param_io import load_params
+    from .models.featurizer import FeaturizerParams
+    from .models.vit import VIT_PRESETS, ViTEncoder
+    from .pipeline.geoware import make_geoware_extractors, preprocess_maps
+    device = _device(args)
+    precision = DEFAULT_PRECISION if device.type == "cuda" else FP32_PRECISION
+    sd_tree, sd_cfg = load_featurizer_bundle(args.sd_bundle)
+    if sd_cfg is None:
+        raise SystemExit("--sd-bundle has no featurizer config sidecar")
+    sd_cfg = dataclasses.replace(sd_cfg, img_size=args.real_size)
+    sd_params = FeaturizerParams.for_state_dict(
+        from_jax.featurizer_state_dict(sd_tree), sd_cfg, precision,
+        device=device)
+    del sd_tree
+    dino = ViTEncoder(VIT_PRESETS[args.dino_tower](), precision,
+                      num_blocks=args.layer + 1, device=device)
+    own = dino.state_dict()
+    dino.load_state_dict({k[len("encoder."):]: v for k, v in
+                          from_jax.vit_state_dict(load_params(
+                              args.dino_bundle)).items()
+                          if k[len("encoder."):] in own})
+    sd_fn, dino_fn = make_geoware_extractors(
+        sd_params, sd_cfg, dino.eval(), layer=args.layer, facet=args.facet,
+        deterministic=not args.stochastic, ensemble=args.ensemble)
+    if os.path.isdir(args.images):
+        paths = sorted(p for ext in ("jpg", "jpeg", "png") for p in
+                       glob.glob(f"{args.images}/**/*.{ext}",
+                                 recursive=True))
+    else:
+        with open(args.images) as f:
+            paths = json.load(f)
+    written = preprocess_maps(
+        paths, args.out_dir, sd_fn, dino_fn, device=device,
+        real_size=args.real_size, dino_size=args.dino_size,
+        flips=not args.no_flips)
+    print(f"wrote {len(written)} feature files -> {args.out_dir}")
+    return 0
+
+
+def _cmd_sam_masks(args):
+    """`C_score/preprocess_mask_sam.py` over the port's SAM: the snapshot's
+    config.json and weights ported on the host (`hf_port.port_sam`), then
+    one box-prompted segmentation an image on the device."""
+    import os
+
+    from .io import from_jax
+    from .io.hf_port import port_sam, sam_config_from_hf
+    from .io.port_cli import load_torch_state_dict
+    from .models.sam import SamModel
+    from .pipeline.sam_masks import run_sam_masks
+    device = _device(args)
+    with open(os.path.join(args.snapshot, "config.json")) as f:
+        cfg = sam_config_from_hf(json.load(f))
+    tree = port_sam(load_torch_state_dict(args.snapshot), cfg)
+    model = SamModel(cfg, device=device)
+    model.load_state_dict(from_jax.sam_state_dict(tree))
+    del tree
+    n = run_sam_masks(model.eval(), args.images, anno_size=args.anno_size,
+                      spair=args.spair, limit=args.limit)
+    print(f"wrote masks for {n} images", file=sys.stderr)
+    return 0
+
+
+def _cmd_pose_awareness(args):
+    from .pipeline.geoware import run_pose_awareness
+    results = run_pose_awareness(
+        args.template_dir, args.target_dir, args.labels, args.feat_dir,
+        device=_device(args), mask_dir=args.mask_dir, res=args.res,
+        out_path=args.output)
+    print(json.dumps(results, indent=1))
+    return 0
+
+
+def _cmd_c_train(args):
+    from .train.c_score_runner import run_c_training
+    res = run_c_training(args.spair_dir, args.feature_dir,
+                         feature_dims=args.feature_dims,
+                         num_patches=args.num_patches, device=_device(args),
+                         anno_size=args.anno_size, suffix=args.suffix,
+                         categories=args.categories or None,
+                         steps=args.steps, out_dir=args.out_dir)
+    print(json.dumps({"best_pck": res["best_pck"],
+                      "history": res["history"][-3:]}))
+    return 0
+
+
 def _cmd_apply_delta(args):
     from .io.delta import apply_delta
     n = apply_delta(args.base, args.delta, args.target)
@@ -558,6 +726,10 @@ DISPATCH = {
     "policy": _cmd_policy,
     "make-config": _cmd_make_config,
     "port-featurizer": _cmd_port_featurizer,
+    "preprocess-map": _cmd_preprocess_map,
+    "sam-masks": _cmd_sam_masks,
+    "pose-awareness": _cmd_pose_awareness,
+    "c-train": _cmd_c_train,
     "apply-delta": _cmd_apply_delta,
     "make-delta": _cmd_make_delta,
     "consolidate": _cmd_consolidate,

@@ -54,7 +54,11 @@ Layout mapping:
   `q8` [out, in], `scale` [out]; `{"q4" [in / 2, out] bytes, "scale"
   [G, out]}` -> `q4` int32 [out, in / 8] in the port's nibble order
   (`ops.quant.pack_int4`), `scale` [G, out]. The codes and scales are the
-  same numbers, so the two packages compute with the same weights.
+  same numbers, so the two packages compute with the same weights;
+- the SAM tree of `models/sam.py` (`pe`, `vision`, `prompt`, `decoder`;
+  `io.hf_port.port_sam` gives it) becomes a `models.sam.SamModel` state
+  dict path for path, '/' -> '.' and a list index `#i` -> `i`: the port's
+  module keeps the JAX layouts (`w` [in, out], HWIO convs).
 
 The `*_tree` functions are the inverse: the port's state dicts back to the
 JAX trees of numpy fp32 arrays, which `param_io.save_params` writes and the
@@ -69,7 +73,7 @@ import numpy as np
 import torch
 
 from ..ops import quant
-from .param_io import load_params
+from .param_io import _flatten, _listify, load_params
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -367,6 +371,14 @@ def aggregation_state_dict(tree: Dict[str, Any],
     return out
 
 
+def sam_state_dict(tree: Dict[str, Any]) -> StateDict:
+    """The JAX SAM tree -> the `models.sam.SamModel` state dict."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    return {k.replace("#", "").replace("/", "."): _t(v)
+            for k, v in flat.items()}
+
+
 def load_llava_npz(path: str) -> StateDict:
     """A `param_io.save_params` .npz of full JAX LLaVA params -> state dict."""
     return llava_state_dict(load_params(path))
@@ -620,3 +632,17 @@ def aggregation_tree(sd: StateDict) -> Dict[str, Any]:
     for i in range(n):
         tree[f"bottleneck_{i}"] = _bottleneck_tree(sd, f"bottlenecks.{i}.")
     return tree
+
+
+def sam_tree(sd: StateDict) -> Dict[str, Any]:
+    """Inverse of `sam_state_dict`: the '/'-joined tree, list indices
+    `#i` (what `param_io.save_params` writes and the JAX `models/sam`
+    reads)."""
+    root: Dict[str, Any] = {}
+    for key, t in sd.items():
+        node = root
+        parts = [f"#{p}" if p.isdigit() else p for p in key.split(".")]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = _np(t)
+    return _listify(root)

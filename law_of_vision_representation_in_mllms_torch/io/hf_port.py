@@ -12,8 +12,10 @@ package writes, and `io.from_jax` turns it into the port's state dicts
 (`vit_state_dict`, `llama_state_dict`, ...). One name map per model family,
 held to HF's own forward on tiny configs (tests/test_torch_hf_port.py).
 
-SAM's porter (`port_sam`, `sam_config_from_hf`) waits for the port's
-`models/sam`.
+SAM's porter (`port_sam`) gives the JAX `models/sam` tree, which the
+port's `models.sam.SamModel` loads through `io.from_jax.sam_state_dict`;
+`sam_config_from_hf` reads the snapshot's `config.json` as a dict (no
+`transformers.SamConfig`: the card's machine has another transformers).
 """
 
 from __future__ import annotations
@@ -25,10 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from ..models.vit import ViTConfig
-
-_SAM_NOT_PORTED = ("SAM's porter is not ported to the PyTorch package yet "
-                   "(ROADMAP, queue 1: 8, C score / GeoAware)")
-
 
 def _t(sd, key) -> np.ndarray:
     """A state-dict tensor as fp32 numpy on the host."""
@@ -214,9 +212,161 @@ def port_clip_vision_pooled(state_dict, cfg: ViTConfig) -> Dict:
             "visual_projection": _t(sd, "visual_projection.weight").T}
 
 
-def sam_config_from_hf(hf_cfg):
-    raise NotImplementedError(_SAM_NOT_PORTED)
+# transformers' SamConfig defaults, for keys a config.json leaves out
+_SAM_VISION_DEFAULTS = dict(
+    image_size=1024, patch_size=16, hidden_size=768, num_hidden_layers=12,
+    num_attention_heads=12, mlp_ratio=4.0, mlp_dim=None, output_channels=256,
+    window_size=14, global_attn_indexes=[2, 5, 8, 11], layer_norm_eps=1e-6,
+    num_pos_feats=128)
+_SAM_PROMPT_DEFAULTS = dict(hidden_size=256, image_size=1024)
+_SAM_DECODER_DEFAULTS = dict(
+    num_attention_heads=8, num_hidden_layers=2, mlp_dim=2048,
+    iou_head_hidden_dim=256, iou_head_depth=3, num_multimask_outputs=3,
+    attention_downsample_rate=2)
 
 
-def port_sam(state_dict, cfg):
-    raise NotImplementedError(_SAM_NOT_PORTED)
+def sam_config_from_hf(hf_cfg: Dict):
+    """A `models.sam.SamConfig` from a SamModel snapshot's `config.json`
+    (read with `json`), the fields the JAX `sam_config_from_hf` reads off a
+    `transformers.SamConfig`; a key the file leaves out takes transformers'
+    default."""
+    from ..models.sam import SamConfig, SamVisionCfg
+    v = {**_SAM_VISION_DEFAULTS, **(hf_cfg.get("vision_config") or {})}
+    pc = {**_SAM_PROMPT_DEFAULTS, **(hf_cfg.get("prompt_encoder_config")
+                                     or {})}
+    mc = {**_SAM_DECODER_DEFAULTS, **(hf_cfg.get("mask_decoder_config")
+                                      or {})}
+    mlp_dim = v["mlp_dim"] or int(v["hidden_size"] * v["mlp_ratio"])
+    return SamConfig(
+        vision=SamVisionCfg(
+            image_size=v["image_size"], patch_size=v["patch_size"],
+            hidden_size=v["hidden_size"], num_layers=v["num_hidden_layers"],
+            num_heads=v["num_attention_heads"], mlp_dim=mlp_dim,
+            out_chans=v["output_channels"], window_size=v["window_size"],
+            global_attn_indexes=tuple(v["global_attn_indexes"]),
+            layer_norm_eps=v["layer_norm_eps"]),
+        prompt_hidden=pc["hidden_size"],
+        num_pos_feats=v["num_pos_feats"],
+        decoder_heads=mc["num_attention_heads"],
+        decoder_layers=mc["num_hidden_layers"],
+        decoder_mlp_dim=mc["mlp_dim"],
+        iou_head_hidden=mc["iou_head_hidden_dim"],
+        iou_head_depth=mc["iou_head_depth"],
+        num_multimask_outputs=mc["num_multimask_outputs"],
+        input_image_size=pc["image_size"],
+        attention_downsample_rate=mc["attention_downsample_rate"])
+
+
+def port_sam(state_dict, cfg) -> Dict:
+    """transformers.SamModel -> the JAX `models/sam` tree (`pe`, `vision`,
+    `prompt`, `decoder`), which `io.from_jax.sam_state_dict` makes the
+    port's `SamModel` state dict.
+
+    Name map per `modeling_sam.py`: vision_encoder.* (rel-pos windowed
+    ViT + neck), prompt_encoder.* (Fourier PE + corner / point embeddings),
+    mask_decoder.* (two-way transformer + upscale + hypernetwork MLPs).
+    """
+    sd = state_dict
+    v = cfg.vision
+    p = v.patch_size
+
+    def lin(prefix):
+        out = {"w": _t(sd, prefix + ".weight").T}
+        if prefix + ".bias" in sd:
+            out["b"] = _t(sd, prefix + ".bias")
+        return out
+
+    def ln(prefix):
+        return {"w": _t(sd, prefix + ".weight"),
+                "b": _t(sd, prefix + ".bias")}
+
+    vision = {
+        # conv [C, 3, P, P] -> the (kh, kw, c)-flattened matmul kernel
+        "patch_w": _t(sd, "vision_encoder.patch_embed.projection.weight"
+                      ).transpose(2, 3, 1, 0).reshape(p * p * 3,
+                                                      v.hidden_size),
+        "patch_b": _t(sd, "vision_encoder.patch_embed.projection.bias"),
+        "pos_embed": _t(sd, "vision_encoder.pos_embed"),
+        "neck_conv1": _t(sd, "vision_encoder.neck.conv1.weight"
+                         )[:, :, 0, 0].T,
+        "neck_ln1": ln("vision_encoder.neck.layer_norm1"),
+        "neck_conv2": _t(sd, "vision_encoder.neck.conv2.weight"
+                         ).transpose(2, 3, 1, 0),
+        "neck_ln2": ln("vision_encoder.neck.layer_norm2"),
+        "layers": [],
+    }
+    for i in range(v.num_layers):
+        pre = f"vision_encoder.layers.{i}"
+        vision["layers"].append({
+            "ln1": ln(pre + ".layer_norm1"),
+            "ln2": ln(pre + ".layer_norm2"),
+            "attn": {
+                "qkv": lin(pre + ".attn.qkv"),
+                "proj": lin(pre + ".attn.proj"),
+                "rel_pos_h": _t(sd, pre + ".attn.rel_pos_h"),
+                "rel_pos_w": _t(sd, pre + ".attn.rel_pos_w"),
+            },
+            "mlp1": lin(pre + ".mlp.lin1"),
+            "mlp2": lin(pre + ".mlp.lin2"),
+        })
+
+    prompt = {
+        "point_embed": np.stack(
+            [_t(sd, f"prompt_encoder.point_embed.{i}.weight")[0]
+             for i in range(4)]),
+        "not_a_point": _t(sd, "prompt_encoder.not_a_point_embed.weight")[0],
+        "no_mask": _t(sd, "prompt_encoder.no_mask_embed.weight")[0],
+    }
+
+    def sam_attn(prefix):
+        return {"q": lin(prefix + ".q_proj"), "k": lin(prefix + ".k_proj"),
+                "v": lin(prefix + ".v_proj"),
+                "out": lin(prefix + ".out_proj")}
+
+    def ffw(prefix, depth):
+        return {"in": lin(prefix + ".proj_in"),
+                "mid": [lin(f"{prefix}.layers.{j}")
+                        for j in range(depth - 2)],
+                "out": lin(prefix + ".proj_out")}
+
+    n_mask_tokens = cfg.num_multimask_outputs + 1
+    decoder = {
+        "iou_token": _t(sd, "mask_decoder.iou_token.weight")[0],
+        "mask_tokens": _t(sd, "mask_decoder.mask_tokens.weight"),
+        "layers": [],
+        "final_t2i": sam_attn(
+            "mask_decoder.transformer.final_attn_token_to_image"),
+        "final_ln": ln("mask_decoder.transformer.layer_norm_final_attn"),
+        # ConvTranspose2d [in, out, kh, kw] -> [kh, kw, out, in]
+        "up1_w": _t(sd, "mask_decoder.upscale_conv1.weight"
+                    ).transpose(2, 3, 1, 0),
+        "up1_b": _t(sd, "mask_decoder.upscale_conv1.bias"),
+        "up_ln": ln("mask_decoder.upscale_layer_norm"),
+        "up2_w": _t(sd, "mask_decoder.upscale_conv2.weight"
+                    ).transpose(2, 3, 1, 0),
+        "up2_b": _t(sd, "mask_decoder.upscale_conv2.bias"),
+        "hyper": [ffw(f"mask_decoder.output_hypernetworks_mlps.{i}", 3)
+                  for i in range(n_mask_tokens)],
+        "iou_head": ffw("mask_decoder.iou_prediction_head",
+                        cfg.iou_head_depth),
+    }
+    for i in range(cfg.decoder_layers):
+        pre = f"mask_decoder.transformer.layers.{i}"
+        decoder["layers"].append({
+            "self_attn": sam_attn(pre + ".self_attn"),
+            "t2i": sam_attn(pre + ".cross_attn_token_to_image"),
+            "i2t": sam_attn(pre + ".cross_attn_image_to_token"),
+            "ln1": ln(pre + ".layer_norm1"),
+            "ln2": ln(pre + ".layer_norm2"),
+            "ln3": ln(pre + ".layer_norm3"),
+            "ln4": ln(pre + ".layer_norm4"),
+            "mlp1": lin(pre + ".mlp.lin1"),
+            "mlp2": lin(pre + ".mlp.lin2"),
+        })
+
+    return {
+        "pe": _t(sd, "shared_image_embedding.positional_embedding"),
+        "vision": vision,
+        "prompt": prompt,
+        "decoder": decoder,
+    }

@@ -291,3 +291,31 @@ def extract_features(params: FeaturizerParams, cfg: FeaturizerConfig,
     if e > 1:
         tokens = tokens.reshape(b, e, *tokens.shape[1:]).mean(dim=1)
     return tokens
+
+
+@torch.no_grad()
+def extract_multiscale_features(params: FeaturizerParams,
+                                cfg: FeaturizerConfig, pixel_values,
+                                generator: Optional[torch.Generator] = None,
+                                *, deterministic: bool = False) -> Dict:
+    """GeoAware-SC's multi-scale SD harvest: {"s3", "s4", "s5"} NHWC maps
+    in the compute dtype.
+
+    The reference taps ODISE's FeatureExtractorBackbone at the last
+    res / attn output of each decoder resolution BEFORE its upsampler
+    (`C_score/model_utils/extractor_sd.py`); s2 (stride 8) is dropped by
+    its consumers (`preprocess_map.py:32`). Pre-upsample harvest indices
+    0 / 1 / 2 are s5 / s4 / s3 (strides 64 / 32 / 16; 1280 / 1280 / 640
+    channels for SD1.5, the AggregationNetwork's feature_dims). UNet
+    families only; the bundle must hold up blocks through 2 (a
+    `port-featurizer --up-ft-index 2` bundle)."""
+    if cfg.family not in ("sd", "sdxl"):
+        raise ValueError("multi-scale harvest is a UNet-family feature "
+                         f"(got family={cfg.family!r})")
+    noisy = _noisy_latents(params, cfg, pixel_values, generator,
+                           deterministic=deterministic)
+    pe = params.prompt_embeds
+    ctx = pe.expand(noisy.shape[0], *pe.shape[1:])
+    got = params.backbone(noisy, cfg.t, ctx, up_ft_indices=(),
+                          pre_up_indices=(0, 1, 2))
+    return {"s5": got["pre0"], "s4": got["pre1"], "s3": got["pre2"]}

@@ -179,7 +179,7 @@ def init_params(generator: torch.Generator, cfg: LlavaConfig,
 def _vit_forward_with_saliency(tower: ViTTower, pixel_values):
     """One tower pass returning (patch features, CLS attention [B, P]): the
     saliency comes from the last block that ran, from its q and k."""
-    out, q, k = tower.encoder(pixel_values, return_qk=True)
+    out, q, k, _ = tower.encoder(pixel_values, return_qkv=True)
     return out[:, 1:], cls_scores_from_qk(q, k, tower.cfg.head_dim)
 
 

@@ -191,9 +191,10 @@ class ViTBlock(nn.Module):
             self.ls1.fill_(1.0)
             self.ls2.fill_(1.0)
 
-    def forward(self, x, return_qk: bool = False):
-        """`return_qk` also returns the block's q and k projections
-        [B, S, H, Dh] (the JAX block's sown `facet_q`, `facet_k`)."""
+    def forward(self, x, return_qkv: bool = False):
+        """`return_qkv` also returns the block's q, k and v projections
+        [B, S, H, Dh] (the JAX block's sown `facet_q`, `facet_k`,
+        `facet_v`)."""
         cfg = self.cfg
         h = self.ln1(x)
         b, s, _ = h.shape
@@ -209,15 +210,15 @@ class ViTBlock(nn.Module):
         h = self.fc2(ACT2FN[cfg.hidden_act](self.fc1(self.ln2(x))))
         if cfg.use_layerscale:
             h = h * self.ls2.to(h.dtype)
-        return (x + h, q, k) if return_qk else x + h
+        return (x + h, q, k, v) if return_qkv else x + h
 
 
 class ViTEncoder(nn.Module):
     """ViT trunk. `forward(pixel_values)` takes NHWC images already
     normalized for the tower and returns the last run block's output: of
-    the first `num_blocks` blocks, all by default. `return_qk=True` returns
-    (output, q, k), the q and k projections [B, S, H, Dh] of that last block
-    (the CLS-attention saliency of `models.facet`)."""
+    the first `num_blocks` blocks, all by default. `return_qkv=True`
+    returns (output, q, k, v), the projections [B, S, H, Dh] of that last
+    block (the CLS-attention saliency and the facets of `models.facet`)."""
 
     def __init__(self, cfg: ViTConfig,
                  precision: Precision = DEFAULT_PRECISION, *,
@@ -247,7 +248,7 @@ class ViTEncoder(nn.Module):
         self.pos_embed.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, pixel_values, *, num_blocks: int | None = None,
-                return_qk: bool = False):
+                return_qkv: bool = False):
         cfg = self.cfg
         b, h, w, c = pixel_values.shape
         p, st = cfg.patch_size, cfg.stride_
@@ -275,7 +276,9 @@ class ViTEncoder(nn.Module):
         blocks = self.blocks[:num_blocks]
         for blk in blocks[:-1]:
             x = blk(x)
-        return blocks[-1](x, return_qk=return_qk) if len(blocks) else x
+        if not len(blocks):
+            return x
+        return blocks[-1](x, return_qkv=return_qkv)
 
 
 class ViTTower(nn.Module):

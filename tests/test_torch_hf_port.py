@@ -201,9 +201,22 @@ def test_clip_vision_pooled_porter_matches_jax_and_hf():
     np.testing.assert_allclose(got, want.numpy(), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("fn", ["port_sam", "sam_config_from_hf"])
-def test_sam_porter_is_not_ported(fn):
-    args = ({}, None) if fn == "port_sam" else (None,)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP, queue 1: 8, C score / GeoAware"):
-        getattr(TH, fn)(*args)
+@pytest.mark.parametrize("window,global_idx", [(2, (1,)), (4, (0, 1))])
+def test_sam_porter_matches_jax(window, global_idx):
+    """`port_sam` on a tiny `SamModel` gives the JAX porter's tree, and
+    `sam_config_from_hf` on its config.json the JAX config's fields; the
+    tree loads strictly into the port's `SamModel` (the forward is held
+    in tests/test_torch_sam.py)."""
+    import json
+
+    from law_of_vision_representation_in_mllms_torch.models import sam as TS
+    from test_sam import _tiny_hf
+    hf, _ = _tiny_hf(seed=5, window=window, global_idx=global_idx)
+    cfg = TH.sam_config_from_hf(json.loads(hf.config.to_json_string()))
+    jcfg = JH.sam_config_from_hf(hf.config)
+    got = dataclasses.asdict(cfg)
+    assert got.pop("attention_downsample_rate") == 2
+    assert got == dataclasses.asdict(jcfg)
+    tree = TH.port_sam(hf.state_dict(), cfg)
+    assert_trees_equal(tree, JH.port_sam(hf.state_dict(), jcfg))
+    TS.SamModel(cfg).load_state_dict(from_jax.sam_state_dict(tree))

@@ -82,7 +82,11 @@ def test_every_port_module_imports_without_jax():
                 "eval.tasks.extra_tasks", "models.perceiver", "models.facet",
                 "models.anyres", "io.delta", "data.clean",
                 "utils.profiling", "utils.burner", "visualizations",
-                "visualizations.plots"):
+                "visualizations.plots", "models.sam",
+                "metrics.geoware_extras", "metrics.c_losses",
+                "metrics.flip_eval", "ops.deformable_attention",
+                "pipeline.geoware", "pipeline.sam_masks",
+                "train.c_score_train", "train.c_score_runner"):
         assert f"{PKG}.{mod}" in out["names"]
 
 

@@ -559,7 +559,9 @@ def test_not_ported_errors_point_at_roadmap_items():
                 found += re.findall(r"(\d+), ([A-Za-z][A-Za-z -]*)\"", src)
                 found += re.findall(r"queue 1: (\d+), ([A-Za-z][A-Za-z -]*)",
                                     src)
-    assert len(found) >= 10
+    # 9 citations remain: GeoAware's two (`cli.py`, `io/hf_port.py`) went
+    # with the refusals they explained
+    assert len(found) >= 9
     for n, title in found:
         assert int(n) in headings, (n, title)
         assert headings[int(n)].startswith(title.strip().lower()), (
