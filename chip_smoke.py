@@ -9,6 +9,7 @@ NVIDIA GPU (H100).
     python3 chip_smoke.py --tower-of ROOT   # the tower of the port in ROOT
     python3 chip_smoke.py --a-score-of ROOT # kernel 9 of the port in ROOT
     python3 chip_smoke.py --decode-of ROOT  # kernel 3 of the port in ROOT
+    python3 chip_smoke.py --int4-of ROOT    # kernel 10 at decode M in ROOT
     python3 chip_smoke.py --sass-of ROOT    # ROOT's kernels' SASS vs these
     python3 chip_smoke.py --a-score-variants  # kernel 9's floors, in turns
     python3 chip_smoke.py --sd15-split      # an SD1.5 featurization's split
@@ -64,7 +65,8 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      kernels 1 and 2 a repeat must give the same bits, and ptxas's
      registers and spills of their wgmma forward are printed.
      Quantisation: kernel 10 (W4A16 matmul) at the 7B shapes 4096->4096,
-     4096->11008, 11008->4096, 4096->32000 at M=4 (its small body), 64,
+     4096->11008, 11008->4096, 4096->32000 at M=4 (its decode body; also
+     M=1, 8 and 16 at 4096->4096, each with the split it took), 64,
      2,812 and 11,248 (its wgmma body), and its transposed form
      `int4_matmul_dx` at M=11,248 (library: `torch.matmul` on the bf16
      weight), and at M=4 on a weight of K=1,004 with one scale a channel
@@ -164,7 +166,9 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      token must lie within `ENGINE_TIE_REL_TOL` plus twice its logit gap,
      of max|logit|, below the eager top; the partings are counted),
      tokens/s,
-     each request's latency, captures, replays and the launches of kernels
+     each request's latency, captures, replays, the main run's replayed
+     chunks' host ms (median and range; a run with no replay fails) apart
+     from the chunks that captured a graph, and the launches of kernels
      1, 2, 3 and 10; in bf16 also `LMMServer(inflight=True)`: two
      concurrent chat completions, a `stream: true` request whose tokens
      arrive as deltas, and /health's engine counts. Every (kernel, shape)
@@ -335,6 +339,7 @@ import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1472,13 +1477,14 @@ def rotating(make, nbytes: float) -> list:
 
 def print_ptxas(tag: str, report: str) -> None:
     """The registers and spills `nvcc -Xptxas -v` reported for the wgmma
-    kernels: kernel 10's two bodies, the attention forward of kernels 1
+    kernels: kernel 10's three bodies (its decode body by the rows of x it
+    holds and its blocks an SM), the attention forward of kernels 1
     and 2 by its template arguments (head size, rows a block, causal,
     ALiBi), the backward of kernels 5 and 6 by theirs (head size, causal,
     ALiBi), kernel 9's two bodies (its SIMT body by input type) and kernel
     3 by head size, group size and cache type. Fails if kernel 9's wgmma
-    body, any form of the attention forward (DiT's D = 72 among them) or
-    any form of kernel 3 spills."""
+    body, any form of the attention forward (DiT's D = 72 among them), any
+    form of kernel 3 or of kernel 10's decode body spills."""
     import re
     name = None
     for line in report.splitlines():
@@ -1502,6 +1508,11 @@ def print_ptxas(tag: str, report: str) -> None:
                 simt = re.search(r"a_score_tile_kernelI(\w+?)EEv", line)
                 if simt:
                     name = f"a_score_tile_kernel<{simt[1]}>"
+                small = re.search(r"int4_decode_kernelILi(\d)ELi(\d)E",
+                                  line)
+                if small:
+                    name = (f"int4_decode_kernel<x rows {8 * int(small[1])}"
+                            f", {small[2]} blocks an SM>")
                 dec = re.search(r"decode_kernelILi(\d+)ELi(\d+)E(\w+?)EEv",
                                 line)
                 if dec:
@@ -1514,6 +1525,9 @@ def print_ptxas(tag: str, report: str) -> None:
                 fail(f"kernel 9's wgmma body spills: {line.strip()}")
             if name.startswith("decode_kernel") and spill and int(spill[1]):
                 fail(f"kernel 3 spills in {name}: {line.strip()}")
+            if name.startswith("int4_decode") and spill and int(spill[1]):
+                fail(f"kernel 10's decode body spills in {name}: "
+                     f"{line.strip()}")
             if name.startswith("flash_fwd") and spill and int(spill[1]):
                 fail(f"the attention forward spills in {name}: "
                      f"{line.strip()}")
@@ -1541,7 +1555,8 @@ def check_sass_tf32(tag: str, lib_path) -> None:
 
 def check_int4_matmul(tag: str, dev) -> dict:
     """Phase 2, kernel 10 against its plain version at the four 7B weight
-    shapes, at a decode step's M (4, the small body), the large body's 64, a
+    shapes, at a decode step's M (4, the decode body; also 1, 8 and 16 at
+    4096 -> 4096, with the split each launch took), the large body's 64, a
     prefill's (4 x 703) and a QLoRA training step's (16 x 703); at that M also
     its transposed form `int4_matmul_dx` (QLoRA's input gradient) against
     its plain version `dy @ dequant(W)`. Library yardsticks: `torch.matmul`
@@ -1564,7 +1579,10 @@ def check_int4_matmul(tag: str, dev) -> dict:
         dense = [Q.dequantize_int4(leaf, torch.bfloat16) for leaf in leaves]
         leaf_turn, dense_turn = itertools.cycle(leaves), itertools.cycle(dense)
         leaf = leaves[0]
-        for m in (4, 64, 2812, 11248):
+        # the decode body at every M it has a form for (n8, n16) at the
+        # decoder's square shape; M = 4 at all four
+        for m in ((1, 4, 8, 16, 64, 2812, 11248) if (di, do) == (4096, 4096)
+                  else (4, 64, 2812, 11248)):
             x = torch.randn((m, di), generator=g, device=dev,
                             dtype=torch.bfloat16)
 
@@ -1575,6 +1593,8 @@ def check_int4_matmul(tag: str, dev) -> dict:
                          for rows in x.split(2812)]
                 return parts[0] if len(parts) == 1 else torch.cat(parts)
             got = K.int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
+            split = (f", split {K.last_small_split()} (decode body)"
+                     if m <= 16 else "")
             ref = plain()
             tol = INT4_REL_TOL * max(1.0, ref.float().abs().max().item())
             lib_err = max_err(x @ dense[0].T, ref)
@@ -1596,7 +1616,7 @@ def check_int4_matmul(tag: str, dev) -> dict:
                 plain_ms=cuda_ms(plain, iters=3, warmup=1),
                 library_ms=timer(library), library_err=lib_err,
                 shape=f"M={m} {di}->{do} group 128, {len(leaves)} weights "
-                      f"in turn",
+                      f"in turn{split}",
                 # packed words and scales once, x in, out written; the
                 # operations run on the bf16 tensor cores
                 **bound(wbytes + x.numel() * 2 + m * do * 2,
@@ -1669,7 +1689,7 @@ INT4_ODD_K = (4, 1004, 4096)        # M, K, out
 def check_int4_odd_k(tag: str, dev, g) -> dict:
     """Phase 2, kernel 10 on a weight of K = 1,004 with one scale a channel
     (`group_size=None`): `quant.int4_matmul` pads x with zeros to the
-    stored 1,024 and launches the kernel (its small body), held to the
+    stored 1,024 and launches the kernel (its decode body), held to the
     plain version on the same padded x and to a repeat's bits."""
     import torch
     from law_of_vision_representation_in_mllms_torch.ops import (
@@ -3757,7 +3777,7 @@ def check_int4_at(tag: str, dev, g, leaves: dict, what: str, m: int, di: int,
     err = max_err(got, ref)
     tol = INT4_REL_TOL * max(1.0, ref.float().abs().max().item())
     shape = (f"M={m} {di}->{do} group {di // groups}, the "
-             f"{'mma.sync' if m <= 16 else 'wgmma'} body")
+             f"{'decode' if m <= 16 else 'wgmma'} body")
     same_bits(f"kernel 10 at {what}'s {shape}", lambda: K.int4_matmul_kernel(
         x, leaf["q4"], leaf["scale"]))
     print(f"{tag} kernel int4_matmul at {what}'s shape [{shape}]: "
@@ -3920,8 +3940,11 @@ def run_inflight(tag: str, dev, counters, lmm, label: str, quantize,
     try:
         t0 = time.perf_counter()
         # each chunk's host seconds: the inputs' copy, the replay (or the
-        # warm-up and the capture) and the read back, which syncs
-        with _Spy(eng, "_step") as chunk_spy, engine_shapes(seen):
+        # warm-up and the capture) and the read back, which syncs; and the
+        # engine's captures after it, which mark the chunks that captured
+        captures0 = eng.captures
+        with _Spy(eng, "_step", keep=lambda args, out: eng.captures) \
+                as chunk_spy, engine_shapes(seen):
             outs, launches = counted_run(counters, main_run, eng)
         wall = time.perf_counter() - t0
         n_tok = sum(len(v) for v in outs.values())
@@ -4001,14 +4024,21 @@ def run_inflight(tag: str, dev, counters, lmm, label: str, quantize,
           f"captures included); request latencies s {{{lat}}}; {stats}; the "
           f"repeat of request 0: {final['prefix_hits']} store hit, "
           f"{final['prefills'] - prefills} prefills, launches {rep_launches}")
-    secs = sorted(chunk_spy.seconds)
+    replay_ms, capture_ms = chunk_kinds(captures0, chunk_spy)
+    if not replay_ms:
+        fail(f"[{label}] the inflight engine's main run replayed no chunk "
+             f"without capturing one: chunks of {capture_ms} ms, each a "
+             f"capture")
+    med = statistics.median(replay_ms)
     print(f"{tag} [{label}] inflight engine: {captures} chunk graphs "
           f"captured ({sorted(k[0] for k in chunk_launches)} sampled), "
-          f"{replays} replays; the main run's chunks, host ms sorted "
-          f"{[round(x * 1e3, 2) for x in secs]} (median "
-          f"{secs[len(secs) // 2] * 1e3:.2f} ms, "
-          f"{secs[len(secs) // 2] * 1e3 / DECODE_CHUNK:.2f} ms a step of "
-          f"{INFLIGHT['n_slots']} slots); launches {launches} (kernel 3 "
+          f"{replays} replays; the main run's chunks, host ms: "
+          f"{len(replay_ms)} replays {replay_ms} (median {med:.2f} ms, range "
+          f"{min(replay_ms):.2f}-{max(replay_ms):.2f}; "
+          f"{med / DECODE_CHUNK:.2f} "
+          f"ms a step of {INFLIGHT['n_slots']} slots), {len(capture_ms)} "
+          f"captures (warm-up, capture and a replay each) {capture_ms}; "
+          f"launches {launches} (kernel 3 "
           f"{launches[dec_name]}, kernel 10 {launches['int4_matmul']}); "
           f"store {final['prefix_entries']} entries, "
           f"{final['prefix_bytes'] / 1e9:.2f} GB; phase 4c took "
@@ -4023,6 +4053,19 @@ def run_inflight(tag: str, dev, counters, lmm, label: str, quantize,
                                                 ENGINE_TIE_REL_TOL + 2 * full)
     hold_engine_shapes(tag, dev, label, seen, cases)
     return paths
+
+
+def chunk_kinds(captures0: int, spy) -> tuple:
+    """The host ms of the chunks `spy` timed (a `_Spy` of an engine's
+    `_step` whose `kept` is the engine's captures after each call; `captures0`
+    before the first), sorted, split into replays alone and the calls that
+    captured a graph (its warm-up chunk, the capture and its first
+    replay)."""
+    replays, captures = [], []
+    for sec, before, after in zip(spy.seconds, [captures0, *spy.kept],
+                                  spy.kept):
+        (captures if after > before else replays).append(round(sec * 1e3, 2))
+    return sorted(replays), sorted(captures)
 
 
 def serve_inflight(tag: str, label: str, lmm, counters, seen,
@@ -7820,7 +7863,6 @@ def time_tower(root: str) -> int:
     back at B=1 S=257, no graph); each the median of 7 trials, with their
     range. Run it for two roots in turns to compare them on one card;
     prints one JSON line."""
-    import statistics
     import torch
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -7877,7 +7919,6 @@ def time_a_score(root: str) -> int:
     events), with their range, and a hash of the scores' bits (inputs from
     one seed, so two roots see the same data). Run it for two roots in turns
     to compare them on one card; prints one JSON line."""
-    import statistics
     import torch
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -7919,7 +7960,6 @@ def time_decode_of(root: str) -> int:
     back to back, no graph; median of 5 runs of 500). Inputs come from one
     seed, so two roots see the same data. Run it for two roots in turns to
     compare them on one card; prints one JSON line."""
-    import statistics
     import torch
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -7983,6 +8023,140 @@ def time_decode_of(root: str) -> int:
                 torch.cuda.synchronize(dev)
             out["launch_host_us"] = statistics.median(us)
             out["launch_host_us_range"] = [min(us), max(us)]
+    print(json.dumps(out))
+    return 0
+
+
+# kernel 10's decode shapes for `--int4-of`: the 7B decoder's four weights
+# and the K = 1,004 one-scale weight of phase 2, at every M of a decode batch
+INT4_OF_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+                  (1004, 4096))
+INT4_OF_M = (1, 4, 8, 16)
+
+
+def time_decode_layer(matmul, g, dev) -> list:
+    """Five timings (ms, under a CUDA graph) of a decoder layer's seven
+    launches of kernel 10 at M = 4 in the order of a decode step
+    (`models/llama.py`), a PyTorch elementwise op standing in for what runs
+    between them there (RMSNorm, RoPE, the cache write and attention, the
+    residual, SiLU, the product: no launch of kernel 10 follows another),
+    over 8 layers' seeded weights in turn. `matmul(x, leaf)` is the
+    launch."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import quant as Q
+    shapes = {"wq": (4096, 4096), "wk": (4096, 4096), "wv": (4096, 4096),
+              "wo": (4096, 4096), "gate": (4096, 11008),
+              "up": (4096, 11008), "down": (11008, 4096)}
+    layers = [{name: Q.quantize_int4(torch.randn(
+        (do, di), generator=g, device=dev) * 0.02)
+        for name, (di, do) in shapes.items()} for _ in range(8)]
+    h = torch.randn((4, 4096), generator=g, device=dev, dtype=torch.bfloat16)
+    turn = itertools.cycle(layers)
+
+    def layer():
+        w = next(turn)
+        x = h * 1.0
+        q = matmul(x, w["wq"]) * 1.0
+        k = matmul(x, w["wk"]) * 1.0
+        a = matmul(x, w["wv"]) + q + k
+        x2 = matmul(a, w["wo"]) + h
+        gate = torch.nn.functional.silu(matmul(x2, w["gate"]))
+        return matmul(gate * matmul(x2, w["up"]), w["down"])
+    return [graph_ms(layer, launches=16, replays=10) for _ in range(5)]
+
+
+def time_int4_of(root: str) -> int:
+    """`python3 chip_smoke.py --int4-of ROOT`: kernel 10 of the port found in
+    ROOT (a checkout such as a parent commit unpacked by `git archive`) at a
+    decode step's M (INT4_OF_M) at the 7B decoder's four weight shapes and
+    at K = 1,004 with one scale a channel (its words zero-padded to 1,024, x
+    padded once outside the timing); group 128 elsewhere. First, what a
+    decode step sees: a decoder layer's seven launches at M = 4 in a decode
+    step's order with a PyTorch elementwise op between each (no launch of
+    kernel 10 follows another there), over 8 layers' weights in turn
+    (`layer_m4_ms`). Then each case: the median of 5 timings of a launch
+    followed by an elementwise op on x, less the op alone (`after_op_ms`,
+    as in the step), and of launches back to back (`ms`: where ROOT's
+    launcher uses programmatic dependent launch, a launch overlaps the end
+    of the one before it, which no decode step has), each under a CUDA
+    graph over rotating weights (cold L2, as `rotating` makes them) with
+    their range; the bound (packed words, scales, x and out once each at
+    3.35 TB/s), the max abs error against the plain version and the split
+    the launcher took where ROOT's port reports one; and the host time of
+    one eager launch at M = 4, 4096 -> 4096 (tensor-map encodes included;
+    median of 5 runs of 500 back to back). Inputs come from one seed, so
+    two roots see the same data. Run it for two roots in turns to compare
+    them on one card; prints one JSON line."""
+    import torch
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        int4_matmul as K, quant as Q)
+    if not os.path.abspath(K.__file__).startswith(root + os.sep):
+        fail(f"the port was imported from {K.__file__}, not from {root}")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(10)
+    out = {"root": root, "card": card_line()}
+    ms = time_decode_layer(lambda a, leaf: K.int4_matmul_kernel(
+        a, leaf["q4"], leaf["scale"]), g, dev)
+    out["layer_m4_ms"] = statistics.median(ms)
+    out["layer_m4_ms_range"] = [min(ms), max(ms)]
+    print(f"a decode layer's 7 launches at M = 4 with elementwise ops "
+          f"between: {out['layer_m4_ms']:.4f} ms {out['layer_m4_ms_range']}",
+          flush=True)
+    for di, do in INT4_OF_SHAPES:
+        groups = di // 128 if di % 128 == 0 else 1
+        stored = Q.stored_width(di, groups)
+        wbytes = do * stored // 2 + groups * do * 4
+
+        def make():
+            w = torch.randn((do, di), generator=g, device=dev) * 0.02
+            return Q.quantize_int4(w, group_size=di // groups)
+        leaves = rotating(make, wbytes)
+        first, turn = leaves[0], itertools.cycle(leaves)
+        for m in INT4_OF_M:
+            x = Q.pad_groups(torch.randn((m, di), generator=g, device=dev,
+                                         dtype=torch.bfloat16), groups,
+                             stored)
+
+            def call(leaf, fn=K.int4_matmul_kernel):
+                return fn(x, leaf["q4"], leaf["scale"])
+            key = f"m{m}_{di}_{do}"
+            got = call(first)
+            out[key + "_err"] = max_err(got, call(first, K.int4_matmul_plain))
+            split = getattr(K, "last_small_split", None)
+            out[key + "_split"] = split() if split else None
+            op = [graph_ms(lambda: x * 1.0) for _ in range(5)]
+            after = [graph_ms(lambda: (call(next(turn)), x * 1.0))
+                     - statistics.median(op) for _ in range(5)]
+            out[key + "_after_op_ms"] = statistics.median(after)
+            out[key + "_after_op_ms_range"] = [min(after), max(after)]
+            ms = [graph_ms(lambda: call(next(turn))) for _ in range(5)]
+            out[key + "_ms"] = statistics.median(ms)
+            out[key + "_ms_range"] = [min(ms), max(ms)]
+            out[key + "_bound_ms"] = bound(
+                wbytes + x.numel() * 2 + m * do * 2, 2.0 * m * di * do,
+                H100_BF16_TFLOPS)["bound_ms"]
+            if (m, di, do) == (4, 4096, 4096):
+                us = []
+                for _ in range(5):
+                    call(first)
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    for _ in range(500):
+                        call(first)
+                    us.append((time.perf_counter() - t0) / 500 * 1e6)
+                    torch.cuda.synchronize(dev)
+                out["launch_host_us"] = statistics.median(us)
+                out["launch_host_us_range"] = [min(us), max(us)]
+            print(f"{key}: after an op {out[key + '_after_op_ms']:.4f} ms "
+                  f"{out[key + '_after_op_ms_range']}, back to back "
+                  f"{out[key + '_ms']:.4f} ms {out[key + '_ms_range']}"
+                  f", bound {out[key + '_bound_ms']:.4f}, err "
+                  f"{out[key + '_err']:.3e}, split {out[key + '_split']}",
+                  flush=True)
+        del leaves, turn, first
+        torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 
@@ -8160,6 +8334,8 @@ def main() -> int:
         return time_a_score(sys.argv[2])
     if sys.argv[1:2] == ["--decode-of"] and len(sys.argv) == 3:
         return time_decode_of(sys.argv[2])
+    if sys.argv[1:2] == ["--int4-of"] and len(sys.argv) == 3:
+        return time_int4_of(sys.argv[2])
     if sys.argv[1:2] == ["--sass-of"] and len(sys.argv) == 3:
         return compare_sass(sys.argv[2])
     if sys.argv[1:] == ["--a-score-variants"]:

@@ -1,6 +1,6 @@
 // Pieces shared by the hand-written attention kernels: fragment packing,
 // quad reductions, the argument block and the ALiBi arithmetic, and the bf16
-// `mma.sync` product that kernel 10's small-M body uses. The attention
+// `mma.sync` product that kernel 10's decode body uses. The attention
 // kernels (the forward of kernels 1 and 2 in flash_fwd_hopper.cuh, the
 // backward of kernels 5 and 6 in flash_attention_bwd.cu) run on wgmma, whose
 // register fragments have the layout of mma.m16n8k16's.
@@ -42,10 +42,6 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
           << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -16,6 +16,8 @@
 // TF32 conversion and the rank-3 fp32 map over [N, S, D].
 // Decode attention adds copies that need no tensor map: the 4- and 16-byte
 // `cp.async`, whose arrival on an mbarrier comes when they have landed.
+// Kernel 10's decode body adds the tensor-map prefetch, the cluster barrier
+// in halves and programmatic dependent launch.
 //
 // Shared-memory operand tiles follow the 128-byte swizzle that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes and that a wgmma descriptor of layout
@@ -141,6 +143,39 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// brings a tensor map (a __grid_constant__ kernel parameter) into the TMA
+// unit's descriptor cache ahead of its first copy
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// the cluster barrier in two halves, for every thread of the block: a
+// relaxed arrival (it orders no memory) and the wait for every block of the
+// cluster to have arrived. A block may write another's shared memory only
+// after such a wait, which shows that the other has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// ---- programmatic dependent launch -----------------------------------------
+// the grids launched after this one with programmatic stream serialization
+// may be scheduled once every block of this grid has said so (or exited)
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// waits until the grids this one depends on have completed and their
+// memory is visible (at once where it was launched without the attribute)
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // the box of a rank-1 `map` at element coordinate c0

@@ -33,6 +33,9 @@ function returns `cudaGetLastError()` after its launch):
   lvr_a_score_tf32(target, anchor, target_mask, anchor_mask, row_max, out, N,
                    St, Sa, D, stream)
   lvr_int4_matmul(x, q4, scale, out, M, K, N, groups, stream)
+  lvr_int4_matmul_small_split() -> the contraction splits (blocks of a
+                      cluster) the last M <= 16 launch of `lvr_int4_matmul`
+                      took
   lvr_int4_matmul_dx(dy, q4, scale, dx, M, K, N, groups, stream)
   lvr_error_string(err) -> const char*
 """
@@ -75,6 +78,7 @@ _SIGNATURES = {
     "lvr_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lvr_int4_matmul_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "lvr_flash_attention_block_rows": (),
+    "lvr_int4_matmul_small_split": (),
 }
 
 

@@ -15,9 +15,16 @@ become bf16 without a convert (`0x4300 | nibble` is 128 + nibble in bf16,
 minus 136 gives the signed code exactly); no dequantised weight is ever
 written to device memory. Two bodies:
 
-- M <= 16: the block of eight warps that owns 16 output channels splits the
-  contraction, each lane unpacks `mma.sync.m16n8k16` B fragments from one
-  16-byte load of words;
+- M <= 16 (a decode step): the same swapped product, out^T = W x^T, on
+  `mma.sync.m16n8k16` with x^T as B (no padded row of x enters a product),
+  fed by a TMA ring of stages of two k-tiles a block of 128 channels (their
+  words, x's M rows, the scales), each stage issued once the one before
+  has landed; the k-tiles of a channel tile are split over a thread-block
+  cluster of up to 8 blocks, chosen from N, K, the SM count and what fits
+  on the card at once (`last_small_split` reads the choice back), whose
+  partials meet in distributed shared memory in a fixed order; launched
+  with programmatic dependent launch: a block copies its first words and
+  scales before the launch it follows has finished, and x after;
 - M > 16: a block owns 128 channels x 128 rows of x. One thread copies x, the
   packed words and the scales of each 128-deep stage by TMA into a ring of
   five; two warpgroups compute out^T = W x^T with `wgmma.mma_async`, the
@@ -165,6 +172,14 @@ def int4_matmul_dx(dy, q4, scale):
     do, di, _ = _groups(q4, scale)
     return _launch("lvr_int4_matmul_dx", int4_matmul_dx, dy, do, di, q4,
                    scale)
+
+
+def last_small_split() -> int:
+    """The blocks (one thread-block cluster) that the last M <= 16 launch of
+    `int4_matmul_kernel` split each channel tile's contraction over, as the
+    launcher chose them from N, K and the SM count (0 before the first). A
+    report of the card's launches: it builds the library."""
+    return _build.library().lvr_int4_matmul_small_split()
 
 
 int4_matmul_kernel.launches = 0

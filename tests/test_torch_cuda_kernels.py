@@ -28,7 +28,7 @@ from law_of_vision_representation_in_mllms_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_plain, last_block_rows)
 from law_of_vision_representation_in_mllms_torch.ops.int4_matmul import (
     int4_matmul_dx, int4_matmul_dx_plain, int4_matmul_kernel,
-    int4_matmul_plain)
+    int4_matmul_plain, last_small_split)
 from law_of_vision_representation_in_mllms_torch.ops.quant import (
     dequantize_int4, int4_matmul, pad_groups, quantize_int4, quantize_kv)
 
@@ -436,12 +436,19 @@ def test_decode_kernel_edges(cuda_device, b, t, kvh, g, d, int8, kind):
 @pytest.mark.parametrize("m,di,do,group", [
     (1, 128, 8, 128), (4, 4096, 4096, 128), (7, 512, 1000, 128),
     (13, 1024, 264, 256), (16, 11008, 512, 128), (17, 256, 72, 128),
-    (300, 4096, 1024, 128), (129, 768, 1000, None)])
+    (300, 4096, 1024, 128), (129, 768, 1000, None),
+    *((m, 4096, 4096, 128) for m in (1, 8, 9, 16)),
+    (4, 11008, 4096, 128), (9, 11008, 264, 256), (16, 1152, 72, 384),
+    (1, 4096, 1000, None)])
 def test_int4_matmul_kernel(cuda_device, m, di, do, group):
     """Kernel 10 against its plain version: both bodies (M <= 16 with 8 and
     16 rows, M > 16), ragged M and channel counts no tile divides, groups of
-    one and several k-tiles. The sums are exact products in fp32 in another
-    order, the outputs bf16: 2 bf16 ulps of the largest output."""
+    one and several k-tiles. The decode body (M <= 16) at M = 1, 4, 8, 9,
+    16; K = 11,008, whose 86 k-tiles no split divides; groups of 256 and
+    384 that a split cuts (11 and 2 k-tiles a block); the split it took,
+    more than one block at 4096 -> 4096. The sums are exact products in
+    fp32 in another order, the outputs bf16: 2 bf16 ulps of the largest
+    output."""
     rng = np.random.RandomState(m + di)
     w = torch.from_numpy(rng.randn(do, di).astype(np.float32) * 0.05)
     leaf = {k: v.to(cuda_device)
@@ -451,6 +458,10 @@ def test_int4_matmul_kernel(cuda_device, m, di, do, group):
     got = int4_matmul_kernel(x, leaf["q4"], leaf["scale"])
     torch.cuda.synchronize()
     assert int4_matmul_kernel.launches == before + 1
+    if m <= 16:
+        split = last_small_split()
+        assert 1 <= split <= min(8, di // 128)
+        assert split > 1 or (di, do) != (4096, 4096)
     want = int4_matmul_plain(x, leaf["q4"], leaf["scale"])
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2 ** -6 * max(1.0, want.float().abs().max().item())

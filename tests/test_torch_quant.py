@@ -223,11 +223,12 @@ def test_int4_matmul_matches_jax_xla_route(di, group):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **CLOSE)
 
 
-@pytest.mark.parametrize("m,do", [(3, 256), (96, 128)])
+@pytest.mark.parametrize("m,do", [(3, 256), (16, 256), (96, 128)])
 def test_int4_plain_matches_pallas_kernel(m, do):
     """Kernel 10's plain version against the TPU kernel in interpret mode,
-    at a decode-sized and a prefill-sized M (the TPU body branches at 64
-    rows). x is not bf16-representable: both sides round it."""
+    at decode-sized M (3, and 16: the card's decode body's largest) and a
+    prefill-sized M (the TPU body branches at 64 rows). x is not
+    bf16-representable: both sides round it."""
     rng = np.random.RandomState(4 + m)
     w = rng.randn(256, do).astype(np.float32) * 0.05
     x = rng.randn(m, 256).astype(np.float32)
