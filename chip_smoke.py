@@ -13,6 +13,7 @@ NVIDIA GPU (H100).
     python3 chip_smoke.py --sass-of ROOT    # ROOT's kernels' SASS vs these
     python3 chip_smoke.py --a-score-variants  # kernel 9's floors, in turns
     python3 chip_smoke.py --sd15-split      # an SD1.5 featurization's split
+    python3 chip_smoke.py --parallel        # the build and phase 17 alone
 
 Phases (any failure raises and exits non-zero; no phase swallows an error):
   1. build the CUDA kernels from law_of_vision_representation_in_mllms_torch/
@@ -280,11 +281,11 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      images, 32 new tokens: finite logits, kernels 2 (tower and prefill)
      and 3 launched, TTFT and tokens/s;
   12. (after phase 11, before phase 9) DiT-XL/2 and SD3-medium at full
-     width and half depth (14 and 12 blocks) at 512 px on seeded random
+     width and a quarter depth (7 and 6 blocks) at 512 px on seeded random
      weights, each written as a featurizer bundle (its configuration in the
      sidecar) and passed as `model.tower_weights`:
      (a) `extract_features` on one image, card bf16 against CPU fp32
-     (`TRANSFORMER_FEATURE_REL_TOL`), 14 / 12 kernel-2 launches a forward
+     (`TRANSFORMER_FEATURE_REL_TOL`), 7 / 6 kernel-2 launches a forward
      counted by shape, a repeat's bits, the featurizer at B = 1 and 16 with
      the VAE and the backbone (`featurizer.backbone_tokens`) apart; (b)
      `extract-features` over phase 6's synthetic SPair tree at batch 16 and
@@ -317,6 +318,26 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      weights bitwise those of a fresh build, every B non-zero (only W moved
      under switch), the saved files load back, and `load_pretrained` (which
      merges the adapters) then a prefill gives the adapted logits.
+
+  17. (after phase 10, before phase 5) parallelism on one card: (a) the
+     narrow stage-1 LLaVA, 3 steps on a mesh of one NCCL rank started by
+     `parallel.init_distributed` (every collective of the sharded step
+     runs), with zero 0, zero 2 with the moments offloaded and zero 3 with
+     both offloads, each against the same step without a process group
+     from the same weights (losses, grad norms, every parameter; the
+     largest difference printed beside a 1e-6 relative tolerance); (b) full
+     stage 2 of LLaVA-1.5-7B at B = 16, S = 703 with `offload_opt_state`
+     (the AdamW moments in pinned host memory, streamed leaf by leaf), 2
+     steps through `init_sharded_train_state` / `make_train_step`: step
+     ms, optimizer-pass ms, the moments' host-to-device and device-to-host
+     copy ms, the host link's GB/s each way and both at once (4 GiB of the
+     pinned moments), peak allocated GB (< 80), pinned host GB, MemTotal, finite
+     losses, the frozen tower bitwise unchanged, kernels 1, 2, 5 and 6
+     launched 23 / 64 / 32 / 32 a step; (c) the same with `offload_params`:
+     the GB held on the card between steps (< 1); (d) full width at 4
+     decoder layers, both offloads against none from the same seed: every
+     parameter after 2 steps within 1e-6 of max|p|.
+     `python3 chip_smoke.py --parallel` runs the build and this phase alone.
 
 TF32 is switched off (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`) so every plain version runs in
@@ -1895,10 +1916,10 @@ TRANSFORMER_ATTENTION = tuple(
     for s, h, d, what in ((1024, 16, 72, "DiT self"),
                           (1024 + 333, 24, 64, "SD3 joint"))) + (
     (4, 1357, 1357, 24, 64, "SD3 joint"),)    # phase 12 (c): 4 requests
-# phase 12 runs each tower at half its published depth (DiT-XL/2 28
-# blocks, SD3-medium 24; full width): the script's time limit. One kernel-2
-# launch a block
-TRANSFORMER_BLOCKS = {"DiT": 14, "SD3": 12}
+# phase 12 runs each tower at a quarter of its published depth (DiT-XL/2
+# 28 blocks, SD3-medium 24; full width): the script's time limit, which
+# phase 17 brought closer. One kernel-2 launch a block
+TRANSFORMER_BLOCKS = {"DiT": 7, "SD3": 6}
 
 
 def attn_key(sq: int, skv: int, h: int, d: int) -> str:
@@ -6467,8 +6488,8 @@ TRANSFORMER_TOWERS = (("DiT", DIT, 22), ("SD3", SD3, 23))
 # 512 px rounds every activation to bf16 (2^-9 relative on average) some
 # 60 times, each block ~10 times (adaLN, q / k / v, P, the attention output,
 # the MLP, two residual adds): ~340 roundings for DiT's 28 blocks, ~300 for
-# SD3's 24 (its latent stream; the context stream adds its own), half the
-# blocks' share at phase 12's half depth;
+# SD3's 24 (its latent stream; the context stream adds its own), a quarter
+# of the blocks' share at phase 12's quarter depth;
 # independent roundings add in quadrature, sqrt(340) x 2^-9 = 3.6 %, the
 # bound SD1.5 is held to (`SD_FEATURE_REL_TOL`, 250 roundings)
 TRANSFORMER_FEATURE_REL_TOL = 5e-2
@@ -6479,7 +6500,7 @@ def run_transformer_towers(tag: str, dev, counters, cases: list,
     """Phase 12: DiT-XL/2 (VAE encoder + blocks of 1,152 over 16 heads
     of 72) and SD3-medium (16-channel VAE + joint blocks of 1,536 over 24
     heads of 64, a 192² position table, 333 context tokens) at full width
-    and half depth (`TRANSFORMER_BLOCKS`: 14 of 28, 12 of 24) on seeded
+    and a quarter of their depth (`TRANSFORMER_BLOCKS`: 7 of 28, 6 of 24) on seeded
     random weights, each written as a featurizer bundle
     in a temporary directory and read back through `model.tower_weights`:
     (a) `extract_features` on one 512 px image, the last block harvested:
@@ -8324,6 +8345,455 @@ def compare_sass(root: str) -> int:
     return 0
 
 
+# phase 17: parallelism on one card. (a) the narrow model's sharded steps on
+# a one-rank NCCL mesh; (b) full stage 2 at B = FULL_BATCH with the AdamW
+# moments in pinned host memory; (c) the same with the parameters there
+# too; (d) offload against none at full width, PAR_SHORT_LAYERS layers
+PAR_NARROW_STEPS = 3
+PAR_FULL_STEPS = 2
+PAR_SHORT_LAYERS = 4
+PAR_LR = 2e-5                   # `finetune.sh`'s rate
+PAR_LINK_CHUNKS = 4             # 4 GiB of pinned chunks time the host link
+# (a): a one-rank all-reduce returns its input and the one-rank step runs the
+# ops of the step without a process group in their order, so the numbers
+# should be the same bits; the bound leaves room for a collective that rounds
+PAR_REL_TOL = 1e-6
+CARD_GB = 80.0
+
+
+def par_narrow_batches(dev, n: int):
+    """Phase 3b's narrow batch (B = 4, 40 tokens, right-padded), `n` draws."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models.splice import (
+        IGNORE_INDEX, IMAGE_TOKEN_INDEX)
+    out = []
+    for seed in range(n):
+        rng = np.random.RandomState(10 + seed)
+        b, t = 4, 40
+        ids = rng.randint(3, 1000, size=(b, t)).astype(np.int64)
+        ids[:, 1] = IMAGE_TOKEN_INDEX
+        labels = ids.copy()
+        labels[:, :2] = IGNORE_INDEX
+        mask = np.ones((b, t), bool)
+        for r in range(1, b):
+            mask[r, t - 6 * r:] = False
+            labels[r, t - 6 * r:] = IGNORE_INDEX
+        px = rng.randn(b, 336, 336, 3).astype(np.float32)
+        out.append({"input_ids": torch.from_numpy(ids).to(dev),
+                    "labels": torch.from_numpy(labels).to(dev),
+                    "text_mask": torch.from_numpy(mask).to(dev),
+                    "pixel_values": [torch.from_numpy(px).to(dev)]})
+    return out
+
+
+def pinned_blocks(opt) -> list:
+    """The pinned host blocks of an offloading optimizer: its moments' and
+    its parameters'."""
+    off = getattr(opt, "param_offload", None)
+    return [h for h in (getattr(opt, "host", None),
+                        off.host if off is not None else None)
+            if h is not None]
+
+
+def release_offload(opt) -> None:
+    """Unpin and drop what an offloading optimizer holds on the host."""
+    blocks = pinned_blocks(opt)
+    if getattr(opt, "param_offload", None) is not None:
+        opt.param_offload.release()
+    for h in blocks:
+        h.release()
+
+
+def check_parallel_narrow(tag: str, dev) -> None:
+    """Phase 17 (a): the narrow stage-1 LLaVA, PAR_NARROW_STEPS steps on a
+    mesh of one NCCL rank (started by `parallel.init_distributed`; every
+    collective of the step runs) with zero 0, zero 2 with the moments
+    offloaded and zero 3 with both offloads, against the step without a
+    process group (`init_train_state`, zero 0, resident) from the same
+    weights: losses, grad norms and every parameter."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.parallel import (
+        init_distributed, make_mesh)
+    from law_of_vision_representation_in_mllms_torch.train import (
+        train_step as TS)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if not init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda"):
+        fail("phase 17 (a): a process group already existed")
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"phase 17 (a): the card's group runs "
+                 f"{dist.get_backend()}, not nccl")
+        mesh = make_mesh(n_data=1, n_model=1)
+        if set(mesh.groups) != {"data", "model"}:
+            fail(f"phase 17 (a): mesh groups {sorted(mesh.groups)}")
+        cfg = narrow_config()
+        init = M.init_params(torch.Generator(device=dev).manual_seed(5), cfg,
+                             DEFAULT_PRECISION, dev).state_dict()
+        batches = par_narrow_batches(dev, PAR_NARROW_STEPS)
+        tc = TS.TrainConfig(stage=1, learning_rate=1e-2, warmup_ratio=0.0,
+                            total_steps=10, use_flash=True, remat=True)
+
+        def run(opts):
+            params = M.LlavaParams(cfg, DEFAULT_PRECISION, device=dev)
+            params.load_state_dict(init)
+            if opts is None:
+                state, opt = TS.init_train_state(params, tc)
+                step = TS.make_train_step(cfg, tc, opt)
+            else:
+                state, opt = TS.init_sharded_train_state(
+                    params, tc, cfg, mesh, min_size=0, **opts)
+                step = TS.make_train_step(cfg, tc, opt, mesh=mesh)
+            metrics = []
+            for b in batches:
+                _, m = step(state, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            with TS.whole_params(params, opt):
+                sd = {k: v.detach().clone()
+                      for k, v in params.state_dict().items()}
+            release_offload(opt)
+            return metrics, sd
+
+        ref_m, ref_sd = run(None)
+        scale = max(v.abs().max().item() for v in ref_sd.values())
+        for opts in ({"zero": 0}, {"zero": 2, "offload_opt_state": True},
+                     {"zero": 3, "offload_opt_state": True,
+                      "offload_params": True}):
+            got_m, got_sd = run(opts)
+            d_metric = max(abs(a - b) / abs(b) for g, r in zip(got_m, ref_m)
+                           for a, b in zip(g, r))
+            d_param = max((got_sd[k].float() - v.float()).abs().max().item()
+                          for k, v in ref_sd.items())
+            print(f"{tag} phase 17 (a) narrow stage 1 on one NCCL rank, "
+                  f"{opts}: {PAR_NARROW_STEPS} steps, losses "
+                  + " ".join(f"{m[0]:.6f}" for m in got_m)
+                  + f"; largest relative loss / grad-norm difference from "
+                  f"the step without a group {d_metric:.3e}, largest "
+                  f"parameter "
+                  f"difference {d_param:.3e} (tolerance {PAR_REL_TOL:g} "
+                  f"relative; of max|p| {scale:.3f})")
+            if d_metric > PAR_REL_TOL or d_param > PAR_REL_TOL * scale:
+                fail(f"phase 17 (a) {opts}: the sharded step parts from "
+                     f"the step without a group")
+    finally:
+        dist.destroy_process_group()
+
+
+def mem_total_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    fail("no MemTotal in /proc/meminfo")
+
+
+def par_stage2(tmp: str, dev, layers=None):
+    """LLaVA-1.5-7B for stage 2 (`runner.build_model` from the seed, fp32
+    weights, bf16 compute; `layers` cuts the decoder's depth), its
+    TrainConfig (block remat, the flash route) and one batch of FULL_BATCH
+    records through the stage-2 template."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.config import (
+        RunConfig)
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.data import (
+        SupervisedDataset, collate_batch, get_template)
+    from law_of_vision_representation_in_mllms_torch.train import (
+        runner, train_step as TS)
+
+    path = os.path.join(tmp, "data.json")
+    if not os.path.exists(path):
+        _training_records(tmp, FULL_BATCH)
+    model = {"decoder_layers": layers} if layers else {}
+    cfg = RunConfig.from_dict({"model": model, "train": {
+        "stage": 2, "batch_size": FULL_BATCH, "learning_rate": PAR_LR,
+        "gradient_checkpointing": True}, "data": {"data_path": path,
+                                                 "image_folder": tmp}})
+    model_cfg, params = runner.build_model(cfg, device=dev,
+                                           precision=DEFAULT_PRECISION)
+    ds = SupervisedDataset(path, tmp, model_cfg.tower_spec,
+                           get_template(cfg.model.conv_template),
+                           runner.build_tokenizer(cfg),
+                           max_length=cfg.train.max_length)
+    batch = runner.batch_to_device(collate_batch(
+        [ds[i] for i in range(FULL_BATCH)], max_length=cfg.train.max_length),
+        dev)
+    tcfg = TS.TrainConfig(stage=2, learning_rate=PAR_LR, warmup_ratio=0.0,
+                          total_steps=10, remat=True, use_flash=True)
+    torch.cuda.synchronize(dev)
+    return model_cfg, params, tcfg, batch
+
+
+def par_steps(dev, step, state, opt, batch, n: int) -> tuple:
+    """`n` steps: per step (host ms to a synchronise, optimizer-pass ms by
+    CUDA events, metrics)."""
+    import torch
+    spans = []
+    inner = opt.step
+
+    def timed(*a, **k):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        inner(*a, **k)
+        e1.record()
+        spans.append((e0, e1))
+    opt.step = timed
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(dev)
+        out.append([(time.perf_counter() - t0) * 1e3, None,
+                    {k: float(m[k]) for k in ("loss", "grad_norm",
+                                              "skipped_nonfinite")}])
+    opt.step = inner
+    for row, (e0, e1) in zip(out, spans):
+        row[1] = e0.elapsed_time(e1)
+    return out
+
+
+def host_link(chunks: list, dev) -> dict:
+    """GB/s of pinned host memory to the card, back, and both at once (half
+    the bytes each way on two streams), over `chunks` (pinned uint8 tensors
+    of the moments). What goes back is what came in: the chunks keep their
+    bytes."""
+    import torch
+    nbytes = sum(c.numel() for c in chunks)
+    bufs = [torch.empty_like(c, device=dev) for c in chunks]
+
+    def timed(fn) -> float:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize(dev)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize(dev)
+        return e0.elapsed_time(e1)
+
+    def h2d(pairs):
+        for c, b in pairs:
+            b.copy_(c, non_blocking=True)
+
+    def d2h(pairs):
+        for c, b in pairs:
+            c.copy_(b, non_blocking=True)
+
+    pairs = list(zip(chunks, bufs))
+    h2d(pairs)                                       # warm-up
+    t_in = timed(lambda: h2d(pairs))
+    t_out = timed(lambda: d2h(pairs))
+    half = len(pairs) // 2
+    s_in, s_out = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+
+    def both():
+        s_in.wait_stream(torch.cuda.current_stream(dev))
+        s_out.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s_in):
+            h2d(pairs[:half])
+        with torch.cuda.stream(s_out):
+            d2h(pairs[half:])
+        torch.cuda.current_stream(dev).wait_stream(s_in)
+        torch.cuda.current_stream(dev).wait_stream(s_out)
+    t_both = timed(both)
+    return {"gb": nbytes / 1e9, "h2d": nbytes / t_in / 1e6,
+            "d2h": nbytes / t_out / 1e6, "both": nbytes / t_both / 1e6}
+
+
+def run_parallel(tag: str, dev, counters) -> dict:
+    """Phase 17: (a) `check_parallel_narrow`; (b) full stage 2 of
+    LLaVA-1.5-7B at B = FULL_BATCH (S = 703 spliced) with
+    `offload_opt_state`, PAR_FULL_STEPS steps through
+    `init_sharded_train_state` / `make_train_step`: step ms with the
+    moments' copy ms apart, peak GB (< 80), pinned host GB, MemTotal, finite
+    losses, the frozen tower bitwise unchanged, the kernels' launches; (c)
+    the same model and moments with its parameters offloaded too (2 more
+    steps): the device GB held between steps; (d) at PAR_SHORT_LAYERS decoder layers, both offloads against
+    none from the same seed: every parameter after PAR_FULL_STEPS steps.
+    Returns (b)'s launches."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.parallel import (
+        fsdp, make_mesh)
+    from law_of_vision_representation_in_mllms_torch.train import (
+        train_step as TS)
+
+    t_phase = time.perf_counter()
+    check_parallel_narrow(tag, dev)
+    t_a = time.perf_counter() - t_phase
+    mesh = make_mesh(world_size=1)
+    mem_gb = mem_total_gb()
+    with tempfile.TemporaryDirectory(prefix="lvr_smoke_parallel_") as tmp:
+        t0 = time.perf_counter()
+        model_cfg, params, tcfg, batch = par_stage2(tmp, dev)
+        seq = batch["input_ids"].shape[1] + model_cfg.num_patches - 1
+        tower = {k: v.cpu() for k, v in params.towers.state_dict().items()}
+        t1 = time.perf_counter()
+        state, opt = TS.init_sharded_train_state(
+            params, tcfg, model_cfg, mesh, zero=0, offload_opt_state=True)
+        step = TS.make_train_step(model_cfg, tcfg, opt, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        set_up = {"b": t1 - t0, "pin b": time.perf_counter() - t1}
+        # (b), then (c): the same model and moments with its parameters
+        # offloaded too (what `init_sharded_train_state(offload_params=
+        # True)` attaches)
+        for part in ("b", "c"):
+            if part == "c":
+                t1 = time.perf_counter()
+                opt.param_offload = fsdp.ParamOffload(params, dev)
+                torch.cuda.synchronize(dev)
+                set_up["pin c"] = time.perf_counter() - t1
+            opt.copy_events = []
+            torch.cuda.reset_peak_memory_stats(dev)
+            if part == "b":
+                reset_counts(counters)
+            rows = par_steps(dev, step, state, opt, batch, PAR_FULL_STEPS)
+            if part == "b":
+                launches = read_counts(counters)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            held = torch.cuda.memory_allocated(dev) / 1e9
+            copy = opt.copy_ms()
+            moved = opt.moment_bytes()
+            n_train = sum(p.numel() for _, p in opt.named_params)
+            pinned = sum(h.nbytes for h in pinned_blocks(opt)) / 1e9
+            losses = [r[2]["loss"] for r in rows]
+            offloads = "the moments" + (" and the parameters"
+                                        if part == "c" else "")
+            print(f"{tag} phase 17 ({part}) LLaVA-1.5-7B full stage 2, "
+                  f"{offloads} in pinned host memory: {n_train / 1e9:.3f} B "
+                  f"trainable of "
+                  f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} "
+                  f"B, B={FULL_BATCH} S={seq}, fp32 weights and moments, "
+                  f"bf16 compute, block remat, flash route; set-up "
+                  + ", ".join(f"{k} {v:.1f} s" for k, v in set_up.items()))
+            print(f"{tag} phase 17 ({part}) steps "
+                  + "; ".join(f"{r[0]:.1f} ms (optimizer pass {r[1]:.1f} ms)"
+                              for r in rows)
+                  + f"; moments {moved / 1e9:.2f} GB each way a step: "
+                  f"copies host-to-device {copy['h2d']:.1f} ms, "
+                  f"device-to-host {copy['d2h']:.1f} ms over "
+                  f"{PAR_FULL_STEPS} steps ("
+                  f"{PAR_FULL_STEPS * moved / max(copy['h2d'], 1e-9) / 1e6:.1f}"
+                  f" / "
+                  f"{PAR_FULL_STEPS * moved / max(copy['d2h'], 1e-9) / 1e6:.1f}"
+                  f" GB/s); losses "
+                  + " ".join(f"{x:.5f}" for x in losses)
+                  + "; grad norms "
+                  + " ".join(f"{r[2]['grad_norm']:.4g}" for r in rows))
+            print(f"{tag} phase 17 ({part}) peak allocated {peak:.2f} GB "
+                  f"(the card {CARD_GB:.0f}); held between steps "
+                  f"{held:.2f} GB; pinned host {pinned:.2f} GB of MemTotal "
+                  f"{mem_gb:.2f} GB")
+            if part == "b":
+                print(f"{tag} phase 17 (b) launches {launches}")
+                link = host_link(opt.host.chunks[:PAR_LINK_CHUNKS], dev)
+                print(f"{tag} phase 17 (b) the host link over "
+                      f"{link['gb']:.2f} GB of the pinned moments: to the "
+                      f"card {link['h2d']:.1f} GB/s, back {link['d2h']:.1f} "
+                      f"GB/s, both ways at once {link['both']:.1f} GB/s in "
+                      f"all")
+            if not all(np.isfinite(x) for x in losses) or any(
+                    r[2]["skipped_nonfinite"] for r in rows):
+                fail(f"phase 17 ({part}): a loss is not finite or a step "
+                     f"was skipped")
+            if peak >= CARD_GB:
+                fail(f"phase 17 ({part}): peak {peak:.2f} GB is not under "
+                     f"{CARD_GB:.0f}")
+            if copy["h2d"] <= 0 or copy["d2h"] <= 0:
+                fail(f"phase 17 ({part}): no moment copy was timed")
+            if part == "c" and held > 1.0:
+                fail(f"phase 17 (c): {held:.2f} GB held on the card between "
+                     f"steps with the parameters offloaded")
+        opt.param_offload.to_device()
+        for k, v in params.towers.state_dict().items():
+            if not torch.equal(v.cpu(), tower[k]):
+                fail(f"phase 17 (b, c): the frozen tower's {k} changed")
+        print(f"{tag} phase 17 (b, c) the frozen tower is bitwise unchanged "
+              f"after {2 * PAR_FULL_STEPS} steps")
+        release_offload(opt)
+        del params, state, opt, step, batch, tower
+        gc.collect()
+        torch.cuda.empty_cache()
+        per_step = {"encoder_attention": 23, "flash_attention": 64,
+                    "flash_attention_bwd_dq": 32, "flash_attention_bwd_dkv": 32}
+        for name, n in per_step.items():
+            if launches[name] != n * PAR_FULL_STEPS:
+                fail(f"phase 17 (b): {name} launched {launches[name]} times "
+                     f"in {PAR_FULL_STEPS} steps, not {n} a step")
+        # (d): offloaded against resident, the same seed, short depth
+        finals = []
+        for opts in ({}, {"offload_opt_state": True,
+                          "offload_params": True}):
+            model_cfg, params, tcfg, batch = par_stage2(
+                tmp, dev, layers=PAR_SHORT_LAYERS)
+            state, opt = TS.init_sharded_train_state(
+                params, tcfg, model_cfg, mesh, zero=0, **opts)
+            step = TS.make_train_step(model_cfg, tcfg, opt, mesh=mesh)
+            rows = par_steps(dev, step, state, opt, batch, PAR_FULL_STEPS)
+            if opt.param_offload is not None:
+                opt.param_offload.to_device()
+            finals.append(({k: v.detach().cpu() for k, v in
+                            params.state_dict().items()}, rows))
+            release_offload(opt)
+            del params, state, opt, step, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        (a_sd, a_rows), (b_sd, b_rows) = finals
+        scale = max(v.abs().max().item() for v in a_sd.values())
+        diff = max((b_sd[k] - v).abs().max().item() for k, v in a_sd.items())
+        print(f"{tag} phase 17 (d) LLaVA-1.5-7B width, {PAR_SHORT_LAYERS} "
+              f"layers, {PAR_FULL_STEPS} stage-2 steps: resident "
+              + ", ".join(f"{r[0]:.1f} ms" for r in a_rows)
+              + "; both offloads " + ", ".join(f"{r[0]:.1f} ms"
+                                                for r in b_rows)
+              + f"; losses {[r[2]['loss'] for r in a_rows]} / "
+              f"{[r[2]['loss'] for r in b_rows]}; largest parameter "
+              f"difference {diff:.3e} (tolerance {PAR_REL_TOL:g} of max|p| "
+              f"{scale:.3f})")
+        if diff > PAR_REL_TOL * scale:
+            fail("phase 17 (d): the offloaded run's parameters part from "
+                 "the resident run's")
+    print(f"{tag} phase 17 took {time.perf_counter() - t_phase:.1f} s "
+          f"((a) {t_a:.1f} s)")
+    return launches
+
+
+def parallel_only() -> int:
+    """`--parallel`: the build and phase 17 alone."""
+    import torch
+    sys.path.insert(0, REPO)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        _build, decode_attention as dec, encoder_attention as enc,
+        flash_attention as fl, int4_matmul as k10)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    tag = f"[{card}]"
+    t0 = time.perf_counter()
+    _build.build()
+    _build.library()
+    print(f"{tag} kernels built in {time.perf_counter() - t0:.1f} s")
+    counters = {name: (wrapper, "launches") for name, wrapper in (
+        ("encoder_attention", enc.encoder_attention),
+        ("flash_attention", fl.flash_attention),
+        ("decode_attention", dec.decode_attention),
+        ("flash_attention_bwd_dq", fl.flash_attention_bwd_dq),
+        ("flash_attention_bwd_dkv", fl.flash_attention_bwd_dkv),
+        ("int4_matmul", k10.int4_matmul_kernel))}
+    run_parallel(tag, dev, counters)
+    print(card)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8342,6 +8812,8 @@ def main() -> int:
         return a_score_variants()
     if sys.argv[1:] == ["--sd15-split"]:
         return sd15_split()
+    if sys.argv[1:] == ["--parallel"]:
+        return parallel_only()
     sys.path.insert(0, REPO)
     try:
         from law_of_vision_representation_in_mllms_torch.ops import (
@@ -8474,7 +8946,7 @@ def main() -> int:
     paths.update(run_diffusion_tower(tag, dev, counters, unet_cases,
                                      tower_c, text_cases))
     mark("phase 11 (SD1.5)")
-    # DiT-XL/2 and SD3-medium at full width and half depth (phase 12), before
+    # DiT-XL/2 and SD3-medium at full width and a quarter depth (phase 12), before
     # torch.profiler first runs for the same reason
     paths.update(run_transformer_towers(tag, dev, counters, unet_cases,
                                         tower_c))
@@ -8495,6 +8967,11 @@ def main() -> int:
         paths[f"train_{variant}"] = run_full_width_variant(tag, dev, counters,
                                                            variant)
     mark("phase 10 (training variants)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train_parallel_offload"] = run_parallel(tag, dev, counters)
+    mark("phase 17 (parallelism: one-rank NCCL mesh, ZeRO, host offload, "
+         "full stage 2)")
     paths["train"] = run_full_width_training(tag, dev, counters)
     mark("phase 5 (stage-1 training)")
     gc.collect()
@@ -8590,8 +9067,9 @@ def main() -> int:
     # the launches derived from captures and replays) and its backends
     # (phase 4b), the training run (phase 5), the law chain and its C-score
     # leg (phase 6), the two quantised serving runs (phase 7), MPT-7B
-    # (phase 9) and the three training variants (phase 10), each counted
-    # from 0; the split is in "launches_by_path"
+    # (phase 9), the three training variants (phase 10) and phase 17's full
+    # stage 2 with the moments offloaded, each counted from 0; the split is
+    # in "launches_by_path"
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "routes": routes.get(name, []),

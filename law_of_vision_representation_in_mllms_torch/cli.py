@@ -44,6 +44,13 @@ Single components of HF / diffusers snapshots are ported by `python -m
 law_of_vision_representation_in_mllms_torch.io.port_cli`.
 Run on the card with `--device cuda` (the default); there is no silent CPU
 fallback, a CPU run takes an explicit `--device cpu`.
+
+Several processes (one a card): start each under torchrun, or set
+`LVR_DISTRIBUTED=1` with `LVR_COORDINATOR` (host:port),
+`LVR_NUM_PROCESSES` and `LVR_PROCESS_ID`; the process group starts before
+the command runs (NCCL, gloo under `--device cpu`). `train` then shards by
+the config's `parallel` section; `eval`, `extract-features` and
+`preprocess-map` each take every process_count-th document or image.
 """
 
 from __future__ import annotations
@@ -328,6 +335,13 @@ def main(argv=None):
     p.add_argument("--output", required=True)
 
     args = parser.parse_args(argv)
+    import os
+    # multi-process start (the JAX CLI's LVR_DISTRIBUTED block; torchrun
+    # sets WORLD_SIZE): the process group before any device work
+    if os.environ.get("LVR_DISTRIBUTED") or int(
+            os.environ.get("WORLD_SIZE", "1")) > 1:
+        from .parallel import init_distributed
+        init_distributed(device=getattr(args, "device", "cuda"))
     return DISPATCH[args.cmd](args)
 
 
@@ -432,11 +446,18 @@ def _cmd_eval(args):
     import os
 
     from .eval.runner import run_evaluation
+    from .parallel import world
     margs = _parse_model_args(args.model_args)
+    rank, n_procs = world()
     res = run_evaluation(_run_config(args), args.tasks, device=_device(args),
                          limit=args.limit, model=args.model,
                          model_args=margs or None,
-                         log_samples=args.log_samples)
+                         log_samples=args.log_samples, process_index=rank,
+                         process_count=n_procs)
+    if n_procs > 1:
+        # one file a process: `merge-results` joins their sample logs
+        base, ext = os.path.splitext(args.output)
+        args.output = f"{base}_rank{rank}{ext}"
     with open(args.output, "w") as f:
         json.dump({k: {kk: vv for kk, vv in v.items() if kk != "samples"}
                    for k, v in res.items()}, f, indent=1)
@@ -519,9 +540,12 @@ def _cmd_a_score(args):
 def _cmd_extract_features(args):
     from .pipeline.runner import run_feature_extraction
     device = _device(args)
+    from .parallel import world
+    rank, n_procs = world()
     n = run_feature_extraction(_run_config(args), args.images, args.out_dir,
                                device=device, batch_size=args.batch_size,
-                               suffix=args.suffix)
+                               suffix=args.suffix, process_index=rank,
+                               process_count=n_procs)
     print(f"extracted {n} feature files to {args.out_dir}")
     return 0
 
@@ -636,10 +660,12 @@ def _cmd_preprocess_map(args):
     else:
         with open(args.images) as f:
             paths = json.load(f)
+    from .parallel import world
+    rank, n_procs = world()
     written = preprocess_maps(
         paths, args.out_dir, sd_fn, dino_fn, device=device,
         real_size=args.real_size, dino_size=args.dino_size,
-        flips=not args.no_flips)
+        flips=not args.no_flips, process_index=rank, process_count=n_procs)
     print(f"wrote {len(written)} feature files -> {args.out_dir}")
     return 0
 

@@ -75,8 +75,8 @@ def run_evaluation(cfg: RunConfig, tasks: List[str], *, device,
     `device`; any other name resolves through the adapter registry with
     `model_args` kwargs and `device` (the reference's `--model X
     --model_args k=v`, `lmms_eval/__main__.py:43`). Docs are sharded
-    `docs[process_index::process_count]`; both stay 0/1 until the port has
-    multi-process runs."""
+    `docs[process_index::process_count]` (the CLI passes the process
+    group's rank and size)."""
     paths = [_resolve_task(t) for t in tasks]
     lmm = build_eval_model(cfg, model, model_args, device=device)
     return simple_evaluate(lmm, paths, limit=limit, log_samples=log_samples,

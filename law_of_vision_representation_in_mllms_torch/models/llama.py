@@ -34,7 +34,18 @@ LoRA: `forward(lora=...)` hands block i the adapters `lora.layers[i]`
 Training: a no-cache pass takes `remat` / `remat_policy` (the JAX `_remat`):
 "block" checkpoints every block (`torch.utils.checkpoint`, non-reentrant),
 "dots" checkpoints it selectively, saving the outputs of the block's weight
-matmuls and recomputing the rest. `causal_lm_loss` is the JAX loss.
+matmuls and recomputing the rest. `causal_lm_loss` is the JAX loss; given
+the data group it divides by the valid targets of the whole global batch.
+
+Tensor parallelism (`LlamaModel.shard_tensor_parallel`, the JAX
+`param_partition_specs` placement over the mesh's model axis): `wq`, `wk`,
+`wv`, `gate` and `up` are column-parallel (each rank holds H / n query heads
+and KV / n kv heads), `wo` and `down` row-parallel and followed by an
+all-reduce, `embed` vocab-parallel (ids another rank owns are masked, then
+an all-reduce) and `lm_head` vocab-sharded with its fp32 logits all-gathered
+(`parallel/comm.py`). Attention (kernels 2, 5 and 6) runs unchanged on each
+rank's local heads; the norms stay replicated. Training passes only: a KV
+cache holds every head.
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.quant import quantize_kv
+from ..parallel import comm
+from ..parallel.fsdp import P
 from .layers import Dense
 
 Cache = List[Tuple[torch.Tensor, ...]]
@@ -101,6 +114,27 @@ def tiny(vocab_size: int = 256, hidden_size: int = 64, num_layers: int = 2,
                        intermediate_size=intermediate_size,
                        num_layers=num_layers, num_heads=num_heads,
                        num_kv_heads=num_kv_heads, max_seq_len=max_seq_len)
+
+
+# the decoder matmuls of tensor parallelism: column-parallel (the output
+# features split over the model axis) and row-parallel (the input features)
+TP_COLUMN = ("wq", "wk", "wv", "gate", "up")
+TP_ROW = ("wo", "down")
+
+
+def param_partition_specs(cfg: LlamaConfig) -> dict:
+    """Parameter name -> spec over the mesh's model axis: the JAX
+    `param_partition_specs` (Megatron TP) in the port's layout (a Dense
+    weight is [out, in], one entry a block)."""
+    specs = {"embed": P("model", None), "final_norm": P(None),
+             "lm_head.weight": P("model", None)}
+    for i in range(cfg.num_layers):
+        for name in TP_COLUMN:
+            specs[f"layers.{i}.{name}.weight"] = P("model", None)
+        for name in TP_ROW:
+            specs[f"layers.{i}.{name}.weight"] = P(None, "model")
+        specs[f"layers.{i}.rms1"] = specs[f"layers.{i}.rms2"] = P(None)
+    return specs
 
 
 def rms_norm(x, weight, eps: float):
@@ -177,6 +211,7 @@ class LlamaBlock(nn.Module):
         self.gate = dense(d, i)
         self.up = dense(d, i)
         self.down = dense(i, d)
+        self.tp_group = None     # the model axis' group under TP
 
     def reset_parameters(self, generator):
         self.rms1.fill_(1.0)
@@ -188,7 +223,10 @@ class LlamaBlock(nn.Module):
         product, dense or quantised, gains its rank-r delta on top."""
         cfg = self.cfg
         b, s, _ = h.shape
-        nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        tp = self.tp_group
+        nh = cfg.num_heads // comm.size(tp)
+        nkv = cfg.num_kv_heads // comm.size(tp)
+        hd = cfg.head_dim
 
         def mm(x_, name):
             y = getattr(self, name)(x_)
@@ -196,7 +234,7 @@ class LlamaBlock(nn.Module):
                 x_.to(y.dtype), name, lora_scaling)
             return y if delta is None else y + delta
 
-        x = rms_norm(h, self.rms1, cfg.rms_eps)
+        x = comm.copy_to(rms_norm(h, self.rms1, cfg.rms_eps), tp)
         q = apply_rope(mm(x, "wq").view(b, s, nh, hd), cos, sin)
         k = apply_rope(mm(x, "wk").view(b, s, nkv, hd), cos, sin)
         v = mm(x, "wv").view(b, s, nkv, hd)
@@ -229,9 +267,10 @@ class LlamaBlock(nn.Module):
         else:
             attn = _attention(q, k_all, v_all, mask,
                               self.precision.accum_dtype, k_sc, v_sc)
-        h = h + mm(attn.reshape(b, s, nh * hd), "wo")
-        x = rms_norm(h, self.rms2, cfg.rms_eps)
-        return h + mm(F.silu(mm(x, "gate")) * mm(x, "up"), "down")
+        h = h + comm.reduce_from(mm(attn.reshape(b, s, nh * hd), "wo"), tp)
+        x = comm.copy_to(rms_norm(h, self.rms2, cfg.rms_eps), tp)
+        return h + comm.reduce_from(
+            mm(F.silu(mm(x, "gate")) * mm(x, "up"), "down"), tp)
 
 
 # "dots": the non-batched matmuls (the block's weight products) are saved;
@@ -280,10 +319,54 @@ class LlamaModel(nn.Module):
                                        requires_grad=False)
         self.lm_head = Dense(d, cfg.vocab_size, precision, bias=False,
                              init_std=INIT_STD, device=device)
+        self.tp_group = None
 
     def reset_parameters(self, generator):
         self.embed.normal_(0.0, INIT_STD, generator=generator)
         self.final_norm.fill_(1.0)
+
+    def _tp_leaves(self):
+        """(parameter, dim) of every tensor-parallel leaf."""
+        leaves = [(self.embed, 0), (self.lm_head.weight, 0)]
+        for blk in self.layers:
+            leaves += [(getattr(blk, n).weight, 0) for n in TP_COLUMN]
+            leaves += [(getattr(blk, n).weight, 1) for n in TP_ROW]
+        return leaves
+
+    @torch.no_grad()
+    def shard_tensor_parallel(self, group) -> None:
+        """Keep this rank's slice of every TP leaf (in place: the Parameter
+        objects stay) and run the forward tensor-parallel over `group`."""
+        cfg, n = self.cfg, comm.size(group)
+        for what, count in (("query heads", cfg.num_heads),
+                            ("kv heads", cfg.num_kv_heads),
+                            ("intermediate features", cfg.intermediate_size),
+                            ("vocabulary entries", cfg.vocab_size)):
+            if count % n:
+                raise ValueError(f"tensor parallelism over {n} ranks needs "
+                                 f"the {what} ({count}) to divide by {n}")
+        if any(not isinstance(getattr(blk, name), Dense)
+               for blk in self.layers for name in TP_COLUMN + TP_ROW):
+            raise NotImplementedError(
+                "tensor parallelism of a quantised decoder is not ported to "
+                "the PyTorch package yet (ROADMAP, queue 1: 10, parallelism)")
+        for p, dim in self._tp_leaves():
+            p.data = comm.local_slice(p.data, dim, group).clone()
+        self.tp_group = group
+        for blk in self.layers:
+            blk.tp_group = group
+
+    @torch.no_grad()
+    def unshard_tensor_parallel(self) -> None:
+        """Every rank holds the whole TP leaves again (all-gathered); the
+        forward stays tensor-parallel until `reshard_tensor_parallel`."""
+        for p, dim in self._tp_leaves():
+            p.data = comm.all_gather(p.data, dim, self.tp_group)
+
+    @torch.no_grad()
+    def reshard_tensor_parallel(self) -> None:
+        for p, dim in self._tp_leaves():
+            p.data = comm.local_slice(p.data, dim, self.tp_group).clone()
 
     def forward(self, embeds, positions, *, attn_mask=None,
                 cache: Optional[Cache] = None,
@@ -340,14 +423,31 @@ class LlamaModel(nn.Module):
 
 
 def logits_fn(params: LlamaModel, hidden):
-    return params.lm_head(hidden).float()
+    """fp32 logits [B, S, V]; under TP each rank's vocab slice, all-gathered
+    (every model rank then holds the whole logits and the same loss)."""
+    tp = params.tp_group
+    if tp is None:
+        return params.lm_head(hidden).float()
+    return comm.gather_from(params.lm_head(comm.copy_to(hidden, tp)).float(),
+                            -1, tp)
 
 
 def embed_tokens(params: LlamaModel, input_ids):
     """Token embedding lookup; out-of-range ids (the -200 image token) are
-    clamped, and callers overwrite those positions through the splice."""
-    ids = input_ids.clamp(0, params.embed.shape[0] - 1)
-    return params.embed[ids].to(params.precision.compute_dtype)
+    clamped, and callers overwrite those positions through the splice. Under
+    TP each rank looks up the ids of its vocab slice, zeroes the others'
+    rows and the slices are summed."""
+    weight = params.embed          # one read: one gather under ZeRO-3
+    tp = params.tp_group
+    ids = input_ids.clamp(0, params.cfg.vocab_size - 1)
+    if tp is None:
+        return weight[ids].to(params.precision.compute_dtype)
+    n_local = weight.shape[0]
+    local = ids - comm.rank(tp) * n_local
+    own = (local >= 0) & (local < n_local)
+    rows = weight[local.clamp(0, n_local - 1)] * own[..., None].to(
+        weight.dtype)
+    return comm.reduce_from(rows, tp).to(params.precision.compute_dtype)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -371,10 +471,14 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
             for _ in range(cfg.num_layers)]
 
 
-def causal_lm_loss(logits, labels, ignore_index: int = -100):
+def causal_lm_loss(logits, labels, ignore_index: int = -100, *,
+                   data_group=None):
     """Next-token cross-entropy with IGNORE_INDEX masking (HF shift
     convention, JAX `causal_lm_loss`). Labels outside the vocab are ignored
-    too; the log-softmax runs in fp32. Mean over the valid targets."""
+    too; the log-softmax runs in fp32. Mean over the valid targets; with
+    `data_group` (the data axis of a mesh) this rank's sum over the valid
+    targets of the whole global batch, so that the ranks' losses sum to the
+    global token mean and their gradients to its gradient."""
     shift_logits = logits[:, :-1]
     shift_labels = labels[:, 1:]
     valid = ((shift_labels != ignore_index) & (shift_labels >= 0)
@@ -383,4 +487,7 @@ def causal_lm_loss(logits, labels, ignore_index: int = -100):
     logp = torch.log_softmax(shift_logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp_min(1)
+    count = valid.sum()
+    if data_group is not None:
+        count = comm.all_reduce(count, data_group)
+    return nll.sum() / count.clamp_min(1)

@@ -16,7 +16,9 @@
   functions take the diffusion apply as an argument; every caller builds
   the same one from the config, so here `encode_images` builds it;
 - `loss_fn` is the training loss: splice, decoder (kernel 2 forward and
-  kernels 5/6 backward on the flash route, optional remat), causal LM loss;
+  kernels 5/6 backward on the flash route, optional remat, tensor-parallel
+  once `LlamaModel.shard_tensor_parallel` has run), causal LM loss (its
+  mean over the global batch of a mesh's data axis);
   with `LlavaParams.lora` set the decoder runs with the rank-r adapters
   (`models/lora.py`), and `models/switch.py` holds the switch variant's loss;
 - `generate_greedy` is `prefill` (kernel 2) + a Python loop of
@@ -258,14 +260,17 @@ def dump_image_embeds(params: LlavaParams, cfg: LlavaConfig, pixel_values):
 def loss_fn(params: LlavaParams, cfg: LlavaConfig,
             batch: Dict[str, torch.Tensor], *, remat: bool = False,
             remat_policy: Optional[str] = None, use_flash: bool = False,
-            lora_scaling: float = 1.0, cp=None, pp=None):
+            lora_scaling: float = 1.0, cp=None, pp=None, mesh=None):
     """Training loss (JAX `loss_fn`). batch: input_ids [B, L] (with -200
     image slots), labels [B, L], text_mask [B, L] bool, pixel_values: a list
     of NHWC tensors (or feature tensors) per tower entry. `use_flash` runs
     the decoder's attention through kernel 2 forward and kernels 5/6
     backward; the spliced batch is right-padded, as they require. With
     `params.lora` set the decoder runs with the adapters applied at
-    `lora_scaling` (alpha / r; the reference's peft-LoRA finetune). Context
+    `lora_scaling` (alpha / r; the reference's peft-LoRA finetune). With a
+    `mesh` (`parallel/mesh.py`) the batch is this data rank's rows and the
+    loss this rank's share of the global token mean (`causal_lm_loss`); a
+    decoder sharded by `shard_tensor_parallel` runs tensor-parallel. Context
     (`cp`) and pipeline (`pp`) parallelism are not ported."""
     if cp is not None or pp is not None:
         raise NotImplementedError(
@@ -280,7 +285,13 @@ def loss_fn(params: LlavaParams, cfg: LlavaConfig,
     h, _ = dec(embeds, plan.positions, attn_mask=plan.attn_mask,
                use_flash=use_flash, remat=remat, remat_policy=remat_policy,
                lora=params.lora, lora_scaling=lora_scaling)
-    return L.causal_lm_loss(L.logits_fn(dec, h), plan.labels)
+    return L.causal_lm_loss(L.logits_fn(dec, h), plan.labels,
+                            data_group=data_group(mesh))
+
+
+def data_group(mesh):
+    """The data axis' process group of `mesh` (None without one)."""
+    return None if mesh is None else mesh.group("data")
 
 
 @dataclasses.dataclass

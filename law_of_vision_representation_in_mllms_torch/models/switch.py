@@ -60,12 +60,14 @@ def apply_switch(switch: Switch, hidden, sigma: float = 1.0):
 
 def switch_loss_fn(params, model_cfg, batch: Dict[str, torch.Tensor],
                    sigma: float = 1.0, *, use_flash: bool = False,
-                   remat: bool = False, remat_policy: Optional[str] = None):
+                   remat: bool = False, remat_policy: Optional[str] = None,
+                   mesh=None):
     """LLaVA loss with the switch applied before the LM head. `params` is a
     `LlavaParams` whose `switch` is set; every other weight is frozen by the
     freeze labels. `use_flash` takes the decoder through kernel 2 (the JAX
-    function runs its plain attention; the result is the same function)."""
-    from .llava import encode_images
+    function runs its plain attention; the result is the same function).
+    `mesh`: as in `llava.loss_fn` (data parallelism; no TP)."""
+    from .llava import data_group, encode_images
     dec = params.decoder
     plan = splice_plan(batch["input_ids"], batch["labels"],
                        batch["text_mask"], model_cfg.num_patches)
@@ -75,4 +77,5 @@ def switch_loss_fn(params, model_cfg, batch: Dict[str, torch.Tensor],
     h, _ = dec(embeds, plan.positions, attn_mask=plan.attn_mask,
                use_flash=use_flash, remat=remat, remat_policy=remat_policy)
     h = apply_switch(params.switch, h, sigma)
-    return L.causal_lm_loss(L.logits_fn(dec, h), plan.labels)
+    return L.causal_lm_loss(L.logits_fn(dec, h), plan.labels,
+                            data_group=data_group(mesh))

@@ -16,7 +16,8 @@ from .features import (extract_tower_features, make_diffusion_extractor,
 
 def run_feature_extraction(cfg: RunConfig, images: str, out_dir: str, *,
                            device, batch_size: int = 16,
-                           suffix: str = "") -> int:
+                           suffix: str = "", process_index: int = 0,
+                           process_count: int = 1) -> int:
     """Dump the first tower's features of every image under `images` (a
     directory, searched recursively for jpg / jpeg / png, or a json list of
     paths) to `out_dir`; returns the file count.
@@ -30,7 +31,9 @@ def run_feature_extraction(cfg: RunConfig, images: str, out_dir: str, *,
     feature cache is the same bits from run to run
     (`C_score/extract_feature.py`), at the tower's image size (512 px for
     DiT-XL/2, SDXL and SD3-medium, 768 px for the others) unless
-    `model.img_size` sets another."""
+    `model.img_size` sets another. This process takes every
+    `process_count`-th image from `process_index` (the JAX runner's
+    `jax.process_index()` shard)."""
     precision = DEFAULT_PRECISION if cfg.train.bf16 else FP32_PRECISION
     if os.path.isdir(images):
         paths = sorted(p for ext in ("jpg", "jpeg", "png")
@@ -59,5 +62,7 @@ def run_feature_extraction(cfg: RunConfig, images: str, out_dir: str, *,
     del params
     proc = processor_for_tower(entry.name, entry.img_size)
     written = extract_tower_features(fn, paths, proc, out_dir,
-                                     batch_size=batch_size, suffix=suffix)
+                                     batch_size=batch_size, suffix=suffix,
+                                     process_index=process_index,
+                                     process_count=process_count)
     return len(written)

@@ -22,7 +22,7 @@ frozen decoder, built quantised block by block: stage 1, or with
 projector train), `train.switch_enable` the switch matrix
 (`models/switch.py`; only W trains).
 
-`run_training` is the single-device loop of the reference's `train.py` +
+`run_training` is the loop of the reference's `train.py` +
 `scripts/v1_5/train/{pretrain,finetune}.sh`: datasets, the modality-grouped
 sampler, batches prefetched on a host thread, `make_train_step`, JSONL
 metrics, `checkpoint-{step}` saves and the projector-only stage-1 save (a
@@ -30,6 +30,17 @@ perceiver's whole tree, MoF's per-tower projectors), in
 stage 2 `switch.npz` for a switch run and the LoRA-split save
 (`lora_adapters.npz`, the projector, `config.json` with `lora_r` and
 `lora_alpha`) for a LoRA run.
+
+Parallel runs (`cfg.parallel`; start the processes with torchrun or the
+`LVR_*` variables, `cli.py`): the mesh is built from `n_data` x `n_model`
+over the world's processes with the JAX runner's checks and messages;
+every rank builds the same whole model from the seed (or
+`model.checkpoint`) and keeps its shard (`init_sharded_train_state`:
+tensor parallelism, `zero` 2 / 3, `offload_opt_state`, `offload_params`),
+collates the same global batch and trains on its data rows. Rank 0 alone
+writes `train.jsonl` and the saved files, gathered to whole tensors first.
+`parallel.seq` and `parallel.pipeline` > 1 are refused (ROADMAP, queue 1:
+10, parallelism).
 
 Precision and attention route: `DEFAULT_PRECISION` (fp32 weights, bf16
 compute) when `train.bf16`, else fp32 throughout, as in the JAX runner. On a
@@ -68,25 +79,14 @@ from ..models.diffusion_blocks import check_attn_impl
 from ..models.switch import init_switch
 from ..models.towers import parse_tower_spec
 from ..models.vit import attention_route
+from ..parallel import local_device, make_mesh, shard_batch, world
 from ..utils import MetricsLogger, map_prefetch, rank0_print
-from .train_step import TrainConfig, init_train_state, make_train_step
+from .train_step import (GatheredOptState, TrainConfig,
+                         init_sharded_train_state, make_train_step,
+                         whole_params)
 
 _NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
                "(ROADMAP, queue 1: {item})")
-# RunConfig fields of training whose features the port does not have yet:
-# field -> the ROADMAP queue-1 item that brings them
-_UNPORTED_TRAIN = {
-    ("parallel", "zero"): "10, parallelism",
-    ("parallel", "offload_opt_state"): "10, parallelism",
-    ("parallel", "offload_params"): "10, parallelism",
-}
-
-
-def _refuse(cfg: RunConfig, table: Dict) -> None:
-    for (section, field), item in table.items():
-        if getattr(getattr(cfg, section), field):
-            raise NotImplementedError(_NOT_PORTED.format(
-                what=f"{section}.{field}", item=item))
 
 
 def build_tokenizer(cfg: RunConfig):
@@ -246,6 +246,39 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
             "pixel_values": [t(x) for x in batch["pixel_values"]]}
 
 
+def plan_mesh(cfg: RunConfig, *, world_size: Optional[int] = None,
+              rank: Optional[int] = None):
+    """The training mesh of `cfg.parallel` over the world's processes (or a
+    plan for `world_size` of them), with the JAX runner's checks and
+    messages: the mesh fits the world, the batch and each microbatch divide
+    over the data axis. Context and pipeline parallelism, and TP of a
+    quantised decoder, are refused."""
+    par = cfg.parallel
+    for field, what in (("seq", "context parallelism (parallel.seq > 1)"),
+                        ("pipeline",
+                         "pipeline parallelism (parallel.pipeline > 1)")):
+        if getattr(par, field) > 1:
+            raise NotImplementedError(_NOT_PORTED.format(
+                what=what, item="10, parallelism"))
+    mesh = make_mesh(n_data=par.n_data, n_model=par.n_model,
+                     world_size=world_size, rank=rank)
+    n_data = mesh.n("data")
+    bs, accum = cfg.train.batch_size, cfg.train.grad_accum
+    if bs % n_data:
+        raise ValueError(f"batch_size {bs} must divide over the data axis "
+                         f"({n_data} ways)")
+    if bs % max(1, accum):
+        raise ValueError("batch_size must divide by grad_accum")
+    if accum > 1 and (bs // accum) % n_data:
+        raise ValueError(f"microbatch {bs // accum} must divide over the "
+                         f"data axis ({n_data} ways)")
+    if mesh.n("model") > 1 and cfg.train.quantize_base:
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="tensor parallelism (parallel.n_model > 1) of a quantised "
+                 "decoder (train.quantize_base)", item="10, parallelism"))
+    return mesh
+
+
 @dataclasses.dataclass
 class TrainRun:
     """What `run_training` leaves: the final state ({"params", "step"}) and
@@ -256,24 +289,27 @@ class TrainRun:
     train_cfg: TrainConfig
     step_fn: Any
     dataset: Any
+    mesh: Any = None          # the parallel.Mesh of the run
 
 
 def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
-    """Train on one device (`cuda` by default; the CPU runs only when asked
-    for). Writes `<output_dir>/train.jsonl` (per step: loss, grad_norm,
+    """Train on the card (`cuda` by default: `cuda:LOCAL_RANK` in a run of
+    several processes; the CPU runs only when asked for). Writes
+    `<output_dir>/train.jsonl` (per step: loss, grad_norm,
     skipped_nonfinite, tokens, step_seconds), `checkpoint-{step}` every
     `save_steps`, and at the end the stage-1 projector (`mm_projector.npz`,
     `mm_projector.bin`, `config.json`) or, in stage 2, `switch.npz`, the
     LoRA-split save, or a final `checkpoint-{step}`."""
-    _refuse(cfg, _UNPORTED_TRAIN)
-    if (cfg.parallel.n_data or 1) * cfg.parallel.n_model * cfg.parallel.seq \
-            * cfg.parallel.pipeline > 1:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="training on more than one device", item="10, parallelism"))
+    mesh = plan_mesh(cfg)
+    rank, n_procs = world()
+    par = cfg.parallel
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to train with "
                            "the plain PyTorch path on the CPU")
+    if device.type == "cuda" and device.index is None and n_procs > 1:
+        device = local_device()
+    bs = cfg.train.batch_size
     precision = DEFAULT_PRECISION if cfg.train.bf16 else FP32_PRECISION
     tokenizer = build_tokenizer(cfg)
     template = get_template("plain" if cfg.train.stage == 1
@@ -318,9 +354,6 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
                                model_cfg.tower_spec, template, tokenizer,
                                pad_square=cfg.data.image_aspect_ratio
                                == "pad", max_length=cfg.train.max_length)
-    bs = cfg.train.batch_size
-    if bs % max(1, cfg.train.grad_accum):
-        raise ValueError("batch_size must divide by grad_accum")
     total = max(1, len(ds) // bs) * cfg.train.epochs
     tcfg = TrainConfig(stage=cfg.train.stage,
                        learning_rate=cfg.train.learning_rate,
@@ -339,13 +372,26 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
                        lora_alpha=cfg.train.lora_alpha,
                        switch_sigma=cfg.train.switch_sigma
                        if cfg.train.switch_enable else 0.0)
-    state, opt = init_train_state(params, tcfg)
-    step_fn = make_train_step(model_cfg, tcfg, opt)
+    state, opt = init_sharded_train_state(
+        params, tcfg, model_cfg, mesh, zero=par.zero,
+        offload_opt_state=par.offload_opt_state,
+        offload_params=par.offload_params)
+    step_fn = make_train_step(model_cfg, tcfg, opt, mesh=mesh)
 
     def make_batch(sl):
+        # every rank collates the same global batch (one padded length),
+        # then keeps its data rows
         samples = [ds[int(i)] for i in sl]
-        return batch_to_device(
-            collate_batch(samples, max_length=cfg.train.max_length), device)
+        batch = collate_batch(samples, max_length=cfg.train.max_length)
+        rows = batch["input_ids"].shape
+        batch = shard_batch(batch, mesh, cfg.train.grad_accum)
+        return rows, batch_to_device(batch, device)
+
+    def save(write) -> None:
+        """`write()` on rank 0 over the whole tensors (every rank gathers)."""
+        with whole_params(params, opt):
+            if rank == 0:
+                write()
 
     logger = MetricsLogger(cfg.train.output_dir, "train",
                            every=cfg.train.logging_steps)
@@ -363,48 +409,52 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
                       for s in range(0, len(order) - bs + 1, bs)]
             # batch N+1 decodes, collates and uploads on a host thread
             # while step N runs
-            for batch in map_prefetch(make_batch, slices, depth=2):
+            for (b, n), batch in map_prefetch(make_batch, slices, depth=2):
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
                 out = {k: float(metrics[k]) for k in
                        ("loss", "grad_norm", "skipped_nonfinite")}
                 out["step_seconds"] = time.perf_counter() - t0
-                b, n = batch["input_ids"].shape
                 out["tokens"] = b * (n + model_cfg.num_patches - 1)
                 out["epoch"] = epoch
                 step += 1
                 logger.log(step, out)
                 if step % cfg.train.save_steps == 0:
-                    checkpoint.save_train_state(
-                        cfg.train.output_dir, params, opt, step,
-                        keep=cfg.train.save_total_limit or None)
+                    moments = GatheredOptState(opt, mesh)
+                    save(lambda: checkpoint.save_train_state(
+                        cfg.train.output_dir, params, moments, step,
+                        keep=cfg.train.save_total_limit or None))
 
         if cfg.train.stage == 1:
             # MoF: one width a tower (the JAX runner asks the spec for one
             # width, which raises under MoF)
             spec = model_cfg.tower_spec
-            checkpoint.save_projector(
+            save(lambda: checkpoint.save_projector(
                 cfg.train.output_dir, params.projector,
                 config={"mm_projector_type": cfg.model.projector_type,
                         "mm_hidden_size":
                         [e.hidden_size for e in spec.entries]
                         if spec.join == "mof" else spec.mm_hidden_size},
-                proj_type=cfg.model.projector_type)
+                proj_type=cfg.model.projector_type))
             rank0_print(f"stage-1 projector saved to "
                         f"{cfg.train.output_dir}")
         elif cfg.train.switch_enable:
-            checkpoint.save_switch(cfg.train.output_dir, params.switch)
+            save(lambda: checkpoint.save_switch(cfg.train.output_dir,
+                                                params.switch))
             rank0_print(f"switch W saved to {cfg.train.output_dir}")
         elif cfg.train.lora_enable:
             # LoRA-split save (`train.py:1122-1132`): the adapters and the
             # other trainables (the projector), not the frozen base
-            checkpoint.save_lora(cfg.train.output_dir, params,
-                                 cfg.train.lora_r, cfg.train.lora_alpha)
+            save(lambda: checkpoint.save_lora(
+                cfg.train.output_dir, params, cfg.train.lora_r,
+                cfg.train.lora_alpha))
             rank0_print(f"LoRA adapters saved to {cfg.train.output_dir}")
         else:
-            checkpoint.save_train_state(cfg.train.output_dir, params, opt,
-                                        step)
+            moments = GatheredOptState(opt, mesh)
+            save(lambda: checkpoint.save_train_state(
+                cfg.train.output_dir, params, moments, step))
     finally:
         logger.close()
     return TrainRun(state=state, opt=opt, model_cfg=model_cfg,
-                    train_cfg=tcfg, step_fn=step_fn, dataset=ds)
+                    train_cfg=tcfg, step_fn=step_fn, dataset=ds,
+                    mesh=mesh)

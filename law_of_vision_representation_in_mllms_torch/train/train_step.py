@@ -25,20 +25,32 @@ projector train (peft semantics, `train.py:969-985`); with
 `LlavaParams.switch` set (`TrainConfig.switch_sigma`) only W trains
 (`train_switch.py:895-898`) and the loss is `models.switch.switch_loss_fn`.
 
-The sharded, ZeRO and offload variants are not ported (ROADMAP, queue 1: 10,
-parallelism).
+Parallel training (the JAX `init_sharded_train_state` and `make_train_step(
+mesh=...)`): `init_sharded_train_state` shards a whole model in place over a
+`parallel.Mesh` (tensor parallelism of the decoder over the model axis,
+ZeRO-2 / ZeRO-3 over the data axis, `parallel/fsdp.py`) and offloads the
+moments (`offload_opt_state`) and the parameters (`offload_params`) to
+pinned host memory; the step then takes this data rank's rows, divides its
+loss by the global batch's valid targets, reduces each gradient as its leaf
+is held (all-reduce, reduce-scatter, or already reduce-scattered under
+ZeRO-3) and counts each element once in the global norm, so every rank
+agrees on the loss, the norm and the nonfinite guard. Context and pipeline
+parallelism are not ported (ROADMAP, queue 1: 10, parallelism).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch import nn
 
-from ..models import llava
+from ..models import llama, llava
 from ..models.switch import switch_loss_fn
+from ..parallel import comm, fsdp, make_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,20 +151,60 @@ class FusedAdamW:
     Only trainable parameters carry moments. On the card this is a handful
     of elementwise torch ops per parameter; at stage 1 (21 M parameters) it
     is a small share of the step.
+
+    `moment_shapes`: the moments' shapes where they are a slice of each
+    leaf (ZeRO-2 / ZeRO-3); `step(..., params=...)` then names the slices to
+    update. `offload`: the moments live in pinned host memory (one block,
+    `fsdp.HostBlock`); on the card the update streams them leaf by leaf, the
+    next leaf's copied in on a side stream while one updates and each copied
+    back once updated (the two directions on two streams), so the card
+    holds about two leaves' moments, never the whole tree. The math is the
+    same either way.
     """
 
     def __init__(self, named_params: List[Tuple[str, torch.nn.Parameter]],
-                 cfg: TrainConfig):
+                 cfg: TrainConfig, *, moment_shapes=None,
+                 offload: bool = False):
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
         self.named_params = list(named_params)
         self.count = 0
-        self.mu = [torch.zeros_like(p) for _, p in self.named_params]
-        self.nu = [torch.zeros_like(p) for _, p in self.named_params]
+        self.offload = offload
+        self.host = None
+        # a list to collect ("h2d" | "d2h", start, end) CUDA events of the
+        # streamed update's copies (`copy_ms`); None records nothing
+        self.copy_events = None
+        shapes = [tuple(p.shape) for _, p in self.named_params] \
+            if moment_shapes is None else [tuple(s) for s in moment_shapes]
+        kinds = [(s, p.dtype) for s, (_, p) in zip(shapes, self.named_params)]
+        if offload:
+            device = (self.named_params[0][1].device if self.named_params
+                      else torch.device("cpu"))
+            self.host = fsdp.HostBlock(kinds + kinds, device)
+            n = len(kinds)
+            self.mu, self.nu = self.host.tensors[:n], self.host.tensors[n:]
+        else:
+            self.mu = [torch.zeros(s, dtype=p.dtype, device=p.device)
+                       for s, (_, p) in zip(shapes, self.named_params)]
+            self.nu = [torch.zeros_like(m) for m in self.mu]
+
+    def _update(self, p, g, m, v, finite, fin, scale, lr, c1, c2) -> None:
+        cfg = self.cfg
+        # a true select, not scale * 0: NaN * 0 is NaN
+        g32 = torch.where(finite, g.float() * scale,
+                          torch.zeros((), device=g.device))
+        m32 = cfg.b1 * m.float() + (1.0 - cfg.b1) * g32
+        v32 = cfg.b2 * v.float() + (1.0 - cfg.b2) * (g32 * g32)
+        u = (m32 / c1) / (torch.sqrt(v32 / c2) + 1e-8)
+        if cfg.weight_decay:
+            u = u + cfg.weight_decay * p.float()
+        p.copy_((p.float() + (-lr * fin) * u).to(p.dtype))
+        m.copy_(m32)
+        v.copy_(v32)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor], finite: torch.Tensor,
-             gnorm: torch.Tensor) -> None:
+             gnorm: torch.Tensor, params=None) -> None:
         cfg = self.cfg
         lr = self.schedule(self.count)
         t = self.count + 1
@@ -161,20 +213,81 @@ class FusedAdamW:
         scale = cfg.max_grad_norm / torch.clamp_min(gnorm.float(),
                                                     cfg.max_grad_norm)
         fin = finite.float()
-        for (_, p), g, m, v in zip(self.named_params, grads, self.mu,
-                                   self.nu):
-            # a true select, not scale * 0: NaN * 0 is NaN
-            g32 = torch.where(finite, g.float() * scale,
-                              torch.zeros((), device=g.device))
-            m32 = cfg.b1 * m.float() + (1.0 - cfg.b1) * g32
-            v32 = cfg.b2 * v.float() + (1.0 - cfg.b2) * (g32 * g32)
-            u = (m32 / c1) / (torch.sqrt(v32 / c2) + 1e-8)
-            if cfg.weight_decay:
-                u = u + cfg.weight_decay * p.float()
-            p.copy_((p.float() + (-lr * fin) * u).to(p.dtype))
-            m.copy_(m32)
-            v.copy_(v32)
+        if params is None:
+            params = [p for _, p in self.named_params]
+        args = (finite, fin, scale, lr, c1, c2)
+        if self.offload and params and params[0].device.type == "cuda":
+            self._streamed(params, grads, args)
+        else:
+            for p, g, m, v in zip(params, grads, self.mu, self.nu):
+                self._update(p, g, m, v, *args)
         self.count = t
+
+    def _streamed(self, params, grads, args) -> None:
+        """The update with host moments: leaf i + 1's moments are copied in
+        on one side stream while leaf i updates, and leaf i's copied back on
+        another behind its update (the two directions overlap)."""
+        dev = params[0].device
+        main = torch.cuda.current_stream(dev)
+        h2d, d2h = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        h2d.wait_stream(main)
+        d2h.wait_stream(main)
+        timing = self.copy_events is not None
+
+        def mark(stream):
+            e = torch.cuda.Event(enable_timing=timing)
+            e.record(stream)
+            return e
+
+        def fetch(i):
+            with torch.cuda.stream(h2d):
+                start = mark(h2d) if timing else None
+                m = self.mu[i].to(dev, non_blocking=True)
+                v = self.nu[i].to(dev, non_blocking=True)
+                landed = mark(h2d)
+            if timing:
+                self.copy_events.append(("h2d", start, landed))
+            return m, v, landed
+
+        nxt = fetch(0)
+        for i, (p, g) in enumerate(zip(params, grads)):
+            m, v, landed = nxt
+            if i + 1 < len(params):
+                nxt = fetch(i + 1)
+            main.wait_event(landed)
+            for t in (m, v):
+                t.record_stream(main)
+                t.record_stream(d2h)
+            self._update(p, g, m, v, *args)
+            done = mark(main)
+            with torch.cuda.stream(d2h):
+                d2h.wait_event(done)
+                start = mark(d2h) if timing else None
+                self.mu[i].copy_(m, non_blocking=True)
+                self.nu[i].copy_(v, non_blocking=True)
+                if timing:
+                    self.copy_events.append(("d2h", start, mark(d2h)))
+        main.wait_stream(h2d)
+        main.wait_stream(d2h)
+
+    def copy_ms(self) -> Dict[str, float]:
+        """Milliseconds the streamed updates since the last call spent in
+        host-to-device and device-to-host copies of the moments (summed
+        over leaves; they overlap the updates)."""
+        out = {"h2d": 0.0, "d2h": 0.0}
+        if self.copy_events:
+            torch.cuda.synchronize()
+            for kind, a, b in self.copy_events:
+                out[kind] += a.elapsed_time(b)
+            self.copy_events.clear()
+        return out
+
+    def moment_bytes(self) -> int:
+        return sum(m.numel() * m.element_size() for m in self.mu + self.nu)
+
+    def moments(self) -> Tuple[List, List]:
+        """(first moments, second moments), one a trainable leaf."""
+        return self.mu, self.nu
 
     def state_dict(self) -> Dict:
         return {"count": self.count,
@@ -183,57 +296,95 @@ class FusedAdamW:
 
 
 class TorchAdamW:
-    """`torch.optim.AdamW` + `clip_grad_norm_` + the same schedule: the
-    counterpart of the JAX optax chain (`clip_by_global_norm` + `adamw`). A
-    nonfinite step zeroes the grads, steps (the moments decay once and the
-    count advances) and restores the parameters, as the optax chain's
-    select-zeroed updates do."""
+    """`torch.optim.AdamW` + the global-norm clip + the same schedule: the
+    counterpart of the JAX optax chain (`clip_by_global_norm` + `adamw`).
+
+    It steps copies of what it updates (`moment_like`: a rank's slices under
+    ZeRO, by default the parameters), because `torch.optim` keys its state
+    by Parameter and a slice is a new view every step; it clips by the
+    global norm it is given (`clip_grad_norm_`'s formula) and keeps its
+    moments on the host between steps when `offload`. A nonfinite step
+    zeroes the grads and steps (the moments decay once and the count
+    advances) but copies nothing back, as the optax chain's select-zeroed
+    updates leave the parameters."""
 
     def __init__(self, named_params: List[Tuple[str, torch.nn.Parameter]],
-                 cfg: TrainConfig):
+                 cfg: TrainConfig, *, moment_like=None,
+                 offload: bool = False):
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
         self.named_params = list(named_params)
         self.count = 0
+        self.offload = offload
+        if moment_like is None:
+            moment_like = [p for _, p in self.named_params]
+        self.params = [nn.Parameter(t.detach().clone()) for t in moment_like]
         self.opt = torch.optim.AdamW(
-            [p for _, p in self.named_params], lr=self.schedule(0),
+            self.params, lr=self.schedule(0),
             betas=(cfg.b1, cfg.b2), eps=1e-8, weight_decay=cfg.weight_decay)
 
     def step(self, grads: List[torch.Tensor], finite: torch.Tensor,
-             gnorm: torch.Tensor) -> None:
+             gnorm: torch.Tensor, params=None) -> None:
         ok = bool(finite)
-        params = [p for _, p in self.named_params]
-        for p, g in zip(params, grads):
-            p.grad = g.to(p.dtype) if ok else torch.zeros_like(p)
-        torch.nn.utils.clip_grad_norm_(params, self.cfg.max_grad_norm)
+        if params is None:
+            params = [p for _, p in self.named_params]
+        coef = min(1.0, self.cfg.max_grad_norm / (float(gnorm) + 1e-6))
+        with torch.no_grad():
+            for c, t, g in zip(self.params, params, grads):
+                c.copy_(t)
+                c.grad = (g * coef).to(c.dtype) if ok else torch.zeros_like(c)
         for group in self.opt.param_groups:
             group["lr"] = self.schedule(self.count)
-        kept = None if ok else [p.detach().clone() for p in params]
+        offload = self.offload and self.params
+        if offload:
+            self._move_state(self.params[0].device)
         self.opt.step()
-        if kept is not None:
-            with torch.no_grad():
-                for p, k in zip(params, kept):
-                    p.copy_(k)
-        for p in params:
-            p.grad = None
+        if offload:
+            self._move_state(torch.device("cpu"))
+        with torch.no_grad():
+            for c, t in zip(self.params, params):
+                if ok:
+                    t.copy_(c)
+                c.grad = None
         self.count += 1
+
+    def _move_state(self, device) -> None:
+        for st in self.opt.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                t = st[k]
+                if device.type == "cpu" and t.is_cuda:
+                    st[k] = torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True).copy_(t)
+                else:
+                    st[k] = t.to(device, non_blocking=True)
+
+    def moments(self) -> Tuple[List, List]:
+        """(exp_avg, exp_avg_sq), one a trainable leaf (zeros before the
+        first step)."""
+        state = [self.opt.state.get(p, {}) for p in self.params]
+        return tuple([st.get(k, torch.zeros_like(p)) for st, p in
+                      zip(state, self.params)]
+                     for k in ("exp_avg", "exp_avg_sq"))
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "adamw": self.opt.state_dict()}
 
 
 def make_optimizer(named_params: List[Tuple[str, torch.nn.Parameter]],
-                   cfg: TrainConfig):
+                   cfg: TrainConfig, *, moment_like=None,
+                   offload: bool = False):
+    """FusedAdamW (or the torch.optim oracle) over the trainable
+    parameters; `moment_like`: the tensors whose shapes the moments take
+    (a rank's slices under ZeRO), `offload`: moments on the host."""
     if cfg.fused_optimizer:
-        return FusedAdamW(named_params, cfg)
-    return TorchAdamW(named_params, cfg)
+        return FusedAdamW(named_params, cfg, offload=offload,
+                          moment_shapes=None if moment_like is None else
+                          [t.shape for t in moment_like])
+    return TorchAdamW(named_params, cfg, moment_like=moment_like,
+                      offload=offload)
 
 
-def init_train_state(params: llava.LlavaParams, train_cfg: TrainConfig):
-    """Freeze per stage and build the optimizer over the trainable
-    parameters. Returns ({"params", "step"}, optimizer). `lora_rank` and
-    `switch_sigma` must agree with what `params` carries: the labels follow
-    the parameters, the loss follows the config."""
+def _check_variants(params: llava.LlavaParams, train_cfg: TrainConfig):
     if train_cfg.lora_rank and params.lora is None:
         raise ValueError(
             f"TrainConfig.lora_rank={train_cfg.lora_rank} but params.lora "
@@ -244,8 +395,183 @@ def init_train_state(params: llava.LlavaParams, train_cfg: TrainConfig):
             f"params.switch is "
             f"{'set' if params.switch is not None else 'None'}: attach "
             f"`models.switch.init_switch(...)` as params.switch")
-    opt = make_optimizer(apply_freeze(params, train_cfg.stage), train_cfg)
+
+
+def init_train_state(params: llava.LlavaParams, train_cfg: TrainConfig):
+    """`init_sharded_train_state` on one process without ZeRO: freeze per
+    stage and build the optimizer over the trainable parameters. Returns
+    ({"params", "step"}, optimizer). `lora_rank` and `switch_sigma` must
+    agree with what `params` carries: the labels follow the parameters, the
+    loss follows the config."""
+    return init_sharded_train_state(params, train_cfg, None,
+                                    make_mesh(world_size=1), zero=0)
+
+
+def param_partition_tree(params: llava.LlavaParams,
+                         model_cfg: llava.LlavaConfig, mesh, *,
+                         zero: int = 0, min_size: Optional[int] = None
+                         ) -> Dict[str, fsdp.P]:
+    """Parameter name -> spec over `mesh` for a whole (not yet sharded)
+    model: the decoder's TP specs (`llama.param_partition_specs`), the rest
+    replicated; `zero >= 3` adds the data axis to every leaf of at least
+    `min_size` elements (`fsdp.fsdp_spec`, the JAX placement)."""
+    if min_size is None:
+        min_size = fsdp.MIN_SIZE_TO_SHARD
+    tp = llama.param_partition_specs(model_cfg.decoder)
+    specs = {}
+    for name, p in params.named_parameters():
+        spec = fsdp.P(*([None] * p.dim()))
+        if name.startswith("decoder."):
+            spec = tp.get(name[len("decoder."):], spec)
+        if zero >= 3:
+            spec = fsdp.fsdp_spec(tuple(p.shape), spec, mesh.n("data"),
+                                  min_size=min_size)
+        specs[name] = spec
+    return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How a trainable leaf is held over the mesh. `mode`: "replicated"
+    (whole on every data rank, its gradient all-reduced), "scatter" (ZeRO-2:
+    the gradient reduce-scattered along `dp_dim`, the slice updated, the
+    leaf all-gathered again) or "sharded" (ZeRO-3: the leaf is a slice along
+    `dp_dim`, its gradient arrives reduce-scattered). `tp_dim`: the dim the
+    decoder's TP cut it along, None where it is whole on every model
+    rank."""
+    name: str
+    mode: str
+    dp_dim: Optional[int]
+    tp_dim: Optional[int]
+
+
+def init_sharded_train_state(params: llava.LlavaParams,
+                             train_cfg: TrainConfig,
+                             model_cfg: llava.LlavaConfig, mesh, *,
+                             zero: int = 2, offload_opt_state: bool = False,
+                             offload_params: bool = False,
+                             min_size: Optional[int] = None):
+    """The JAX `init_sharded_train_state` for a `parallel.Mesh`: `params` is
+    the whole model (every rank builds the same one) and is sharded in
+    place: its decoder tensor-parallel over the model axis, its leaves over
+    the data axis under `zero=3`; under `zero=2` each rank's moments are the
+    slice `fsdp_spec` picks. `offload_opt_state` keeps the moments, and
+    `offload_params` every parameter of at least 4,096 elements, in pinned
+    host memory between steps. `model_cfg` is read only for a model axis
+    or ZeRO (`param_partition_tree`). Returns ({"params", "step"},
+    optimizer); the optimizer carries the leaves' `plans` and the
+    `param_offload` for `make_train_step(..., mesh=mesh)`."""
+    _check_variants(params, train_cfg)
+    n_data, n_model = mesh.n("data"), mesh.n("model")
+    if n_model > 1 and (params.lora is not None or params.switch is not None):
+        raise NotImplementedError(
+            "tensor parallelism (parallel.n_model > 1) of the LoRA, QLoRA "
+            "and switch variants is not ported to the PyTorch package yet "
+            "(ROADMAP, queue 1: 10, parallelism)")
+    if min_size is None:
+        min_size = fsdp.MIN_SIZE_TO_SHARD
+    specs = param_partition_tree(params, model_cfg, mesh, zero=zero,
+                                 min_size=min_size) \
+        if n_model > 1 or zero >= 2 else {}
+    shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+    device = next(params.parameters()).device
+    trainable = apply_freeze(params, train_cfg.stage)
+    if n_model > 1:
+        params.decoder.shard_tensor_parallel(mesh.group("model"))
+    data_g = mesh.group("data")
+    sliced = {}
+    if zero >= 3:
+        sliced = {n: d for n, spec in specs.items()
+                  if (d := fsdp.spec_dim(spec, "data")) is not None}
+        fsdp.shard_parameters(params, sliced, data_g)
+    plans, like = [], []
+    for name, p in trainable:
+        tp_dim = fsdp.spec_dim(specs[name], "model") if n_model > 1 else None
+        dp_dim = fsdp.spec_dim(fsdp.fsdp_spec(
+            shapes[name], specs[name], n_data, min_size=min_size), "data") \
+            if zero >= 2 else None
+        if name in sliced:
+            plan = LeafPlan(name, "sharded", sliced[name], tp_dim)
+        elif dp_dim is not None:
+            plan = LeafPlan(name, "scatter", dp_dim, tp_dim)
+        else:
+            plan = LeafPlan(name, "replicated", None, tp_dim)
+        plans.append(plan)
+        like.append(comm.local_slice(p.data, dp_dim, data_g)
+                    if plan.mode == "scatter" else p.data)
+    opt = make_optimizer(trainable, train_cfg, moment_like=like,
+                         offload=offload_opt_state)
+    opt.plans, opt.device = plans, device
+    opt.param_offload = (fsdp.ParamOffload(params, device)
+                         if offload_params else None)
     return {"params": params, "step": 0}, opt
+
+
+def global_norm(grads, plans, data_group, model_group) -> torch.Tensor:
+    """The global gradient norm over the mesh: the squares of a leaf sliced
+    over an axis are summed over that axis, those of a leaf whole on it are
+    counted once."""
+    dev = grads[0].device if grads else torch.device("cpu")
+    sums = {k: torch.zeros((), device=dev)
+            for k in ("both", "data", "model", "none")}
+    for g, plan in zip(grads, plans):
+        dp, tp = plan.mode != "replicated", plan.tp_dim is not None
+        key = "both" if dp and tp else "data" if dp else \
+            "model" if tp else "none"
+        sums[key] = sums[key] + g.float().square().sum()
+    x = comm.all_reduce(torch.stack([sums["both"], sums["data"]]), data_group)
+    y = comm.all_reduce(torch.stack([x[0], sums["model"]]), model_group)
+    return torch.sqrt(y[0] + y[1] + x[1] + sums["none"])
+
+
+@contextlib.contextmanager
+def whole_params(params: llava.LlavaParams, opt=None):
+    """Every rank holds the whole model in place for the body (ZeRO-3 slices
+    and TP slices all-gathered, offloaded parameters on the device), and
+    its shards again after: how a sharded run saves. Every rank must enter
+    it (the gathers are collectives)."""
+    off = getattr(opt, "param_offload", None)
+    if off is not None:
+        off.to_device()
+    held = fsdp.unshard_parameters(params)
+    tp = params.decoder.tp_group is not None
+    if tp:
+        params.decoder.unshard_tensor_parallel()
+    try:
+        yield params
+    finally:
+        if tp:
+            params.decoder.reshard_tensor_parallel()
+        fsdp.reshard_parameters(held)
+        if off is not None:
+            off.to_host()
+
+
+class GatheredOptState:
+    """An optimizer's state for a checkpoint's `opt_state.pt`: `count` and
+    each leaf's whole moments `mu` / `nu`, every rank's slices all-gathered
+    when it is made (every rank must make it)."""
+
+    def __init__(self, opt, mesh):
+        device = getattr(opt, "device", torch.device("cpu"))
+        self.sd = {"count": opt.count, "mu": {}, "nu": {}}
+        for which, moments in zip(("mu", "nu"), opt.moments()):
+            for plan, t in zip(opt.plans, moments):
+                # a whole leaf's moments are saved where they live (no
+                # second copy of the tree on the host)
+                if plan.mode != "replicated" or plan.tp_dim is not None:
+                    t = t.to(device)
+                    if plan.mode != "replicated":
+                        t = comm.all_gather(t, plan.dp_dim,
+                                            mesh.group("data"))
+                    if plan.tp_dim is not None:
+                        t = comm.all_gather(t, plan.tp_dim,
+                                            mesh.group("model"))
+                    t = t.cpu()
+                self.sd[which][plan.name] = t
+
+    def state_dict(self) -> Dict:
+        return self.sd
 
 
 def _split(batch: Dict, a: int) -> List[Dict]:
@@ -260,20 +586,27 @@ def _split(batch: Dict, a: int) -> List[Dict]:
 
 
 def make_train_step(model_cfg: llava.LlavaConfig, train_cfg: TrainConfig,
-                    opt, *, cp=None, pp=None):
-    """Returns step(state, batch) -> (state, metrics). The metrics are
+                    opt, *, mesh=None, cp=None, pp=None):
+    """Returns step(state, batch) -> (state, metrics) for the optimizer of
+    `init_sharded_train_state` (or `init_train_state`). The metrics are
     device scalars `loss`, `grad_norm`, `skipped_nonfinite` and the int
-    `step`. The batch is the `collate_batch` dict as tensors on the model's
-    device (ids and labels as int64)."""
+    `step`, those of the global batch on every rank. The batch is the
+    `collate_batch` dict as tensors on the model's device (ids and labels as
+    int64): with a `mesh`, this data rank's rows of the global batch
+    (`parallel.shard_batch`); without one, or on a mesh without process
+    groups, every collective of the step is the identity."""
     if cp is not None or pp is not None:
         raise NotImplementedError(
             "context and pipeline parallelism are not ported to the PyTorch "
             "package yet (ROADMAP, queue 1: 10, parallelism)")
     trainable = [p for _, p in opt.named_params]
+    plans = opt.plans
+    data_g = None if mesh is None else mesh.group("data")
+    model_g = None if mesh is None else mesh.group("model")
 
     def loss_and_grads(params, batch):
         kw = dict(remat=train_cfg.remat, remat_policy=train_cfg.remat_policy,
-                  use_flash=train_cfg.use_flash)
+                  use_flash=train_cfg.use_flash, mesh=mesh)
         if train_cfg.switch_sigma:
             loss = switch_loss_fn(params, model_cfg, batch,
                                   train_cfg.switch_sigma, **kw)
@@ -282,27 +615,49 @@ def make_train_step(model_cfg: llava.LlavaConfig, train_cfg: TrainConfig,
                                  lora_scaling=train_cfg.lora_scaling, **kw)
         return loss.detach(), torch.autograd.grad(loss, trainable)
 
-    def step(state, batch):
-        params = state["params"]
+    def accumulated(params, batch):
         a = train_cfg.grad_accum
         if a <= 1:
-            loss, grads = loss_and_grads(params, batch)
-        else:
-            if batch["input_ids"].shape[0] % a:
-                raise ValueError("batch size must divide by grad_accum")
-            loss, grads = None, None
-            for mb in _split(batch, a):
-                l, g = loss_and_grads(params, mb)
-                loss = l if loss is None else loss + l
-                grads = list(g) if grads is None else [
-                    x + y for x, y in zip(grads, g)]
-            loss = loss / a
-            grads = [g / a for g in grads]
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            return loss_and_grads(params, batch)
+        if batch["input_ids"].shape[0] % a:
+            raise ValueError("batch size must divide by grad_accum")
+        loss, grads = None, None
+        for mb in _split(batch, a):
+            l, g = loss_and_grads(params, mb)
+            loss = l if loss is None else loss + l
+            grads = list(g) if grads is None else [
+                x + y for x, y in zip(grads, g)]
+        return loss / a, [g / a for g in grads]
+
+    def step(state, batch):
+        off = opt.param_offload
+        if off is not None:
+            off.to_device()
+        loss, grads = accumulated(state["params"], batch)
+        # the data ranks' shares sum to the global token mean
+        loss = comm.all_reduce(loss.clone(), data_g)
+        held = []
+        for g, plan in zip(grads, plans):
+            if plan.mode == "replicated":
+                g = comm.all_reduce(g.contiguous(), data_g)
+            elif plan.mode == "scatter":
+                g = comm.reduce_scatter(g, plan.dp_dim, data_g)
+            held.append(g)
+        gnorm = global_norm(held, plans, data_g, model_g)
         # production guard (absent in the reference): a nonfinite loss or
-        # gradient applies no update instead of poisoning the parameters
+        # gradient applies no update instead of poisoning the parameters;
+        # loss and norm are reduced values, so every rank takes one branch
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
-        opt.step(grads, finite, gnorm)
+        targets = [comm.local_slice(p.data, plan.dp_dim, data_g)
+                   if plan.mode == "scatter" else p
+                   for p, plan in zip(trainable, plans)]
+        opt.step(held, finite, gnorm, params=targets)
+        with torch.no_grad():
+            for p, t, plan in zip(trainable, targets, plans):
+                if plan.mode == "scatter":
+                    p.data.copy_(comm.all_gather(t, plan.dp_dim, data_g))
+        if off is not None:
+            off.to_host(trained_only=True)
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm,
                        "skipped_nonfinite": 1.0 - finite.float(),

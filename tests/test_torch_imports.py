@@ -86,7 +86,9 @@ def test_every_port_module_imports_without_jax():
                 "metrics.geoware_extras", "metrics.c_losses",
                 "metrics.flip_eval", "ops.deformable_attention",
                 "pipeline.geoware", "pipeline.sam_masks",
-                "train.c_score_train", "train.c_score_runner"):
+                "train.c_score_train", "train.c_score_runner",
+                "parallel", "parallel.mesh", "parallel.fsdp",
+                "parallel.comm"):
         assert f"{PKG}.{mod}" in out["names"]
 
 

@@ -513,24 +513,33 @@ def test_train_cli_from_yaml(tmp_path):
 
 
 def test_unported_training_options_raise():
+    """Context and pipeline parallelism, and tensor parallelism of the
+    training variants, stay refused with a ROADMAP pointer. (`parallel.zero`,
+    the offloads and `n_model` run: tests/test_torch_parallel_train.py.)"""
     base = {"model": {"decoder": "tiny", "vision_tower": "debug/tiny-vit"},
             "train": {"bf16": False}}
-    for section, key, value in (("parallel", "zero", 2),
-                                ("parallel", "offload_opt_state", True),
-                                ("parallel", "n_model", 2),
-                                ("parallel", "pipeline", 2)):
+    for section, key, value in (("parallel", "pipeline", 2),
+                                ("parallel", "seq", 2)):
         raw = json.loads(json.dumps(base))
         raw.setdefault(section, {})[key] = value
         with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
             runner.run_training(RunConfig.from_dict(raw), device="cpu")
-    # the training variants build now (tests/test_torch_lora.py trains them):
-    # the runner no longer refuses their fields, and a TrainConfig that asks
-    # for adapters the params lack says so
-    for key in ("lora_enable", "switch_enable"):
-        raw = json.loads(json.dumps(base))
-        raw["train"][key] = True
-        assert runner._refuse(RunConfig.from_dict(raw),
-                              runner._UNPORTED_TRAIN) is None
+    raw = json.loads(json.dumps(base))
+    raw["parallel"] = {"n_model": 2}
+    raw["train"]["quantize_base"] = "int4"
+    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
+        runner.plan_mesh(RunConfig.from_dict(raw), world_size=2)
+    from law_of_vision_representation_in_mllms_torch.models.lora import (
+        LoraConfig, init_lora)
+    from law_of_vision_representation_in_mllms_torch.parallel import (
+        make_mesh)
+    _, _, tcfg, params = _configs(0)
+    params.lora = init_lora(torch.Generator().manual_seed(0), tcfg.decoder,
+                            LoraConfig(rank=4, alpha=8.0), FP32_PRECISION)
+    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
+        TS.init_sharded_train_state(
+            params, TS.TrainConfig(lora_rank=4, lora_alpha=8.0), tcfg,
+            make_mesh(n_model=2, world_size=2))
     _, _, tcfg, params = _configs(0)
     with pytest.raises(ValueError, match="params.lora is None"):
         TS.init_train_state(params, TS.TrainConfig(lora_rank=8))
@@ -559,9 +568,15 @@ def test_not_ported_errors_point_at_roadmap_items():
                 found += re.findall(r"(\d+), ([A-Za-z][A-Za-z -]*)\"", src)
                 found += re.findall(r"queue 1: (\d+), ([A-Za-z][A-Za-z -]*)",
                                     src)
-    # 9 citations remain: GeoAware's two (`cli.py`, `io/hf_port.py`) went
-    # with the refusals they explained
-    assert len(found) >= 9
+    # 10 citations: GeoAware's two (`cli.py`, `io/hf_port.py`) went with
+    # the refusals they explained; item 10's four in `train/runner.py` (the
+    # `_UNPORTED_TRAIN` entries for `parallel.zero`, `offload_opt_state`,
+    # `offload_params` and the more-than-one-device check) went when those
+    # ran, and five came with what item 10 still refuses (`parallel.seq` /
+    # `pipeline` and TP of a quantised decoder in `train/runner.py`, TP of
+    # the variants and the module text in `train/train_step.py`, TP of a
+    # quantised decoder in `models/llama.py`)
+    assert len(found) >= 10
     for n, title in found:
         assert int(n) in headings, (n, title)
         assert headings[int(n)].startswith(title.strip().lower()), (
