@@ -14,6 +14,7 @@ NVIDIA GPU (H100).
     python3 chip_smoke.py --a-score-variants  # kernel 9's floors, in turns
     python3 chip_smoke.py --sd15-split      # an SD1.5 featurization's split
     python3 chip_smoke.py --parallel        # the build and phase 17 alone
+    python3 chip_smoke.py --context-pipeline  # the build and phase 18 alone
 
 Phases (any failure raises and exits non-zero; no phase swallows an error):
   1. build the CUDA kernels from law_of_vision_representation_in_mllms_torch/
@@ -281,11 +282,11 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      images, 32 new tokens: finite logits, kernels 2 (tower and prefill)
      and 3 launched, TTFT and tokens/s;
   12. (after phase 11, before phase 9) DiT-XL/2 and SD3-medium at full
-     width and a quarter depth (7 and 6 blocks) at 512 px on seeded random
+     width and 4 and 3 blocks (of 28 and 24) at 512 px on seeded random
      weights, each written as a featurizer bundle (its configuration in the
      sidecar) and passed as `model.tower_weights`:
      (a) `extract_features` on one image, card bf16 against CPU fp32
-     (`TRANSFORMER_FEATURE_REL_TOL`), 7 / 6 kernel-2 launches a forward
+     (`TRANSFORMER_FEATURE_REL_TOL`), 4 / 3 kernel-2 launches a forward
      counted by shape, a repeat's bits, the featurizer at B = 1 and 16 with
      the VAE and the backbone (`featurizer.backbone_tokens`) apart; (b)
      `extract-features` over phase 6's synthetic SPair tree at batch 16 and
@@ -338,6 +339,24 @@ Phases (any failure raises and exits non-zero; no phase swallows an error):
      decoder layers, both offloads against none from the same seed: every
      parameter after 2 steps within 1e-6 of max|p|.
      `python3 chip_smoke.py --parallel` runs the build and this phase alone.
+  18. context and pipeline parallelism on one card: (a) (after phase 17)
+     the flash ring (`ops/ring_attention.py`'s `RingFlashAttention`:
+     kernel 2 a block, the partials merged by their LSEs, kernels 5 and 6 a
+     block with the merged LSE and output) over a `LocalRing` of 4 ranks in
+     this process, 4 shards of 1,024 of
+     B = 2, S = 4,096, H = 32, D = 128 (KV = 32, and GQA KV = 8), bf16, row
+     1 valid to 3,500: out, LSE, dq, dk, dv against kernel 2 causal and
+     kernels 5 + 6 over the whole sequence, kv head 0 against the plain
+     ring (fp32, the key mask) at valid rows, 10 launches of each kernel a
+     case, the ring's ms beside the whole sequence's; (b) (inside phase 5,
+     on its model and first batch, before the profiler) `loss_fn(pp=...)`:
+     4 stages of 8 layers, 4 microbatches, block remat, the flash route,
+     all stages in this process through `LocalHandoff`, against
+     the unpipelined `loss_fn`: the loss, the gradients of the projector
+     and of each stage's first layer, kernels 2 / 5 / 6 launched 256 / 128
+     / 128 times (kernel 2 forward and recompute) against 64 / 32 / 32, both
+     step times. `python3 chip_smoke.py --context-pipeline` runs the build
+     and this phase alone (building phase 5's model for (b)).
 
 TF32 is switched off (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`) so every plain version runs in
@@ -1916,10 +1935,10 @@ TRANSFORMER_ATTENTION = tuple(
     for s, h, d, what in ((1024, 16, 72, "DiT self"),
                           (1024 + 333, 24, 64, "SD3 joint"))) + (
     (4, 1357, 1357, 24, 64, "SD3 joint"),)    # phase 12 (c): 4 requests
-# phase 12 runs each tower at a quarter of its published depth (DiT-XL/2
-# 28 blocks, SD3-medium 24; full width): the script's time limit, which
-# phase 17 brought closer. One kernel-2 launch a block
-TRANSFORMER_BLOCKS = {"DiT": 7, "SD3": 6}
+# phase 12 runs each tower at a seventh and an eighth of its published depth
+# (DiT-XL/2 28 blocks, SD3-medium 24; full width): the script's time limit,
+# which phases 17 and 18 brought closer. One kernel-2 launch a block
+TRANSFORMER_BLOCKS = {"DiT": 4, "SD3": 3}
 
 
 def attn_key(sq: int, skv: int, h: int, d: int) -> str:
@@ -4873,8 +4892,10 @@ def run_full_width_training(tag: str, dev, counters) -> dict:
         batch = runner.batch_to_device(collate_batch(
             [run.dataset[i] for i in range(FULL_BATCH)],
             max_length=cfg.train.max_length), dev)
+        # phase 18 (b) on this model and batch, before the profiler runs
+        gpipe = check_gpipe(tag, dev, counters, params, run.model_cfg, batch)
         profile_step(tag, run, batch)
-    return launches
+    return launches, gpipe
 
 
 VARIANT_STEPS = 3
@@ -6488,8 +6509,8 @@ TRANSFORMER_TOWERS = (("DiT", DIT, 22), ("SD3", SD3, 23))
 # 512 px rounds every activation to bf16 (2^-9 relative on average) some
 # 60 times, each block ~10 times (adaLN, q / k / v, P, the attention output,
 # the MLP, two residual adds): ~340 roundings for DiT's 28 blocks, ~300 for
-# SD3's 24 (its latent stream; the context stream adds its own), a quarter
-# of the blocks' share at phase 12's quarter depth;
+# SD3's 24 (its latent stream; the context stream adds its own), a seventh
+# or an eighth of the blocks' share at phase 12's depth;
 # independent roundings add in quadrature, sqrt(340) x 2^-9 = 3.6 %, the
 # bound SD1.5 is held to (`SD_FEATURE_REL_TOL`, 250 roundings)
 TRANSFORMER_FEATURE_REL_TOL = 5e-2
@@ -6500,7 +6521,7 @@ def run_transformer_towers(tag: str, dev, counters, cases: list,
     """Phase 12: DiT-XL/2 (VAE encoder + blocks of 1,152 over 16 heads
     of 72) and SD3-medium (16-channel VAE + joint blocks of 1,536 over 24
     heads of 64, a 192² position table, 333 context tokens) at full width
-    and a quarter of their depth (`TRANSFORMER_BLOCKS`: 7 of 28, 6 of 24) on seeded
+    and 4 of 28 and 3 of 24 blocks (`TRANSFORMER_BLOCKS`) on seeded
     random weights, each written as a featurizer bundle
     in a temporary directory and read back through `model.tower_weights`:
     (a) `extract_features` on one 512 px image, the last block harvested:
@@ -8766,6 +8787,348 @@ def run_parallel(tag: str, dev, counters) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: context and pipeline parallelism on one card (the card machine
+# has one H100, so no NCCL ring or stage hand-off crosses cards here; the
+# multi-rank numbers are the CPU tests' gloo worlds). (a) the flash ring
+# (`ops/ring_attention.py`) over a `LocalRing` of RING_N ranks in this
+# process at LLaVA-1.5-7B's decoder width against kernels 2, 5 and 6 over
+# the whole sequence; (b) the GPipe schedule (`parallel/pipeline.py`) of
+# PP_STAGES stages through `LocalHandoff` at phase 5's stage-1
+# shape against the unpipelined loss
+RING_B, RING_S, RING_N, RING_H, RING_D = 2, 4096, 4, 32, 128
+RING_VALID = 3500               # row 1's valid tokens (right-padded)
+RING_KV = (32, 8)               # MHA, and GQA of 4 query heads a kv head
+RING_BLOCKS = RING_N * (RING_N + 1) // 2    # causal: the diagonal and below
+# a ring's dq, dk and dv are sums of up to RING_N partials that kernels 5
+# and 6 each round to bf16 (the whole-sequence kernels and the plain ring
+# round once or never), so a row whose partials cancel in part carries up to
+# RING_N / 2 times a kernel's rounding of its largest partial: gradient rows
+# are held to twice KERNEL_REL_TOL, every tensor to KERNEL_REL_TOL of its max
+RING_GRAD_ROW_TOL = 2 * KERNEL_REL_TOL
+PP_STAGES, PP_MICRO = 4, 4
+# (b): the pipelined step runs the same per-row math as the unpipelined one
+# on 4 microbatches of B / 4 rows; cuBLAS may take other algorithms (other
+# fp32 summation orders) for the smaller products, and every activation is
+# rounded to bf16, so one ulp (2^-8 .. 2^-7 relative) may part a value: the
+# loss within PP_LOSS_TOL relative, each gradient within KERNEL_REL_TOL of
+# its max|unpipelined|
+PP_LOSS_TOL = 1e-3
+
+
+def ring_shards(x, n: int, grad: bool = False) -> list:
+    """x [B, S, ...]'s n sequence shards, each a contiguous tensor of its
+    own (a rank's), leaves that take a gradient with `grad`."""
+    return [p.contiguous().requires_grad_(grad) for p in x.chunk(n, dim=1)]
+
+
+def flash_ring(R, qs, ks, vs, dos) -> tuple:
+    """`ring_attention(flash=True)` over a `LocalRing` of len(qs) ranks,
+    each rank's shards given: the forward (`RingFlashAttention.apply`) and
+    its backward for the ranks' dO. Returns the outputs, the merged LSEs
+    the Function keeps for its backward, and the ranks' (dq, dk, dv)."""
+    import torch
+    outs = R.ring_attention(qs, ks, vs, ring=R.LocalRing(len(qs)),
+                            causal=True, flash=True)
+    lses = outs[0].grad_fn.saved_tensors[4 * len(qs):]
+    grads = torch.autograd.grad(outs, qs + ks + vs, dos)
+    n = len(qs)
+    return ([o.detach() for o in outs], list(lses), grads[:n],
+            grads[n:2 * n], grads[2 * n:])
+
+
+def plain_ring_slice(R, q, k, v, do, mask, n: int, kv: int):
+    """The plain ring (the JAX formula, fp32, the key mask rotating with
+    its block) over a `LocalRing` of n ranks for kv head `kv` and its query
+    heads, with its q / k / v gradients by autograd: (out, dq, dk, dv)."""
+    import torch
+    g = q.shape[2] // k.shape[2]
+    qh = q[:, :, kv * g:(kv + 1) * g].float().requires_grad_()
+    kh = k[:, :, kv:kv + 1].float().requires_grad_()
+    vh = v[:, :, kv:kv + 1].float().requires_grad_()
+    out = torch.cat(R.ring_attention(
+        qh.chunk(n, 1), kh.chunk(n, 1), vh.chunk(n, 1), ring=R.LocalRing(n),
+        causal=True, kv_masks=mask.chunk(n, 1)), 1)
+    grads = torch.autograd.grad(out, (qh, kh, vh),
+                                do[:, :, kv * g:(kv + 1) * g].float())
+    return (out.detach(), *grads)
+
+
+def check_ring(tag: str, dev, counters) -> dict:
+    """Phase 18 (a): the flash ring (`ring_attention` over a `LocalRing`,
+    i.e. `RingFlashAttention`) of RING_N ranks of RING_S / RING_N tokens at
+    B = RING_B, H = RING_H, D = RING_D, bf16, row 1 valid to RING_VALID,
+    MHA and GQA: out, the merged LSE, dq, dk, dv against kernel 2 causal
+    and kernels 5 + 6 over the whole sequence (every row: both take no key
+    mask), one kv head against the plain ring at valid rows, the launches
+    and the ring's ms against the whole sequence's. Returns the launches of
+    the counted ring runs."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        flash_attention as fl, ring_attention as R)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    mask = torch.ones(RING_B, RING_S, dtype=torch.bool, device=dev)
+    mask[1, RING_VALID:] = False
+    total = {name: 0 for name in counters}
+    for kvh in RING_KV:
+        def randn(h):
+            return torch.randn((RING_B, RING_S, h, RING_D), generator=gen,
+                               device=dev, dtype=torch.bfloat16)
+        q, k, v = randn(RING_H), randn(kvh), randn(kvh)
+        # the ignored labels of pad rows give them no gradient
+        do = randn(RING_H) * mask[:, :, None, None]
+        qs, ks, vs = (ring_shards(x, RING_N, grad=True) for x in (q, k, v))
+        dos = ring_shards(do, RING_N)
+        what = (f"ring of {RING_N} x {RING_S // RING_N} (B={RING_B} "
+                f"S={RING_S} H={RING_H} KV={kvh} D={RING_D})")
+        reset_counts(counters)
+        outs, lses, dq, dk, dv = flash_ring(R, qs, ks, vs, dos)
+        torch.cuda.synchronize(dev)
+        launches = read_counts(counters)
+        got = (torch.cat(outs, 1), torch.cat(lses, 2),
+               *(torch.cat(x, 1) for x in (dq, dk, dv)))
+        for name in total:
+            total[name] += launches[name]
+        for name in ("flash_attention", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            if launches[name] != RING_BLOCKS:
+                fail(f"phase 18 (a) {what}: {name} launched "
+                     f"{launches[name]} times, not {RING_BLOCKS}")
+        out_w, lse_w = fl.flash_attention(q, k, v, causal=True,
+                                          return_lse=True)
+        whole = (out_w, lse_w, *fl.flash_attention_bwd(
+            q, k, v, out_w, lse_w, do, causal=True))
+        errs = {}
+        for name, g_t, w_t in zip(("out", "lse", "dq", "dk", "dv"), got,
+                                  whole):
+            err = max_err(g_t, w_t)
+            if name == "lse":
+                tol, rows = LSE_TOL, 0.0
+            else:
+                tol = kernel_tol(w_t)
+                rows = (row_err if name == "out" else grad_row_err)(g_t, w_t)
+            row_tol = RING_GRAD_ROW_TOL if name[0] == "d" else \
+                KERNEL_REL_TOL
+            errs[name] = (err, tol, rows)
+            if not (err <= tol and rows <= row_tol):
+                fail(f"phase 18 (a) {what}: the ring's {name} parts from "
+                     f"the whole sequence's kernels by {err} (tol {tol}), "
+                     f"worst row {rows} (tol {row_tol})")
+        # one kv head against the plain ring (fp32, masked) at valid rows
+        plain = plain_ring_slice(R, q, k, v, do, mask, RING_N, 0)
+        g = RING_H // kvh
+        sl = (got[0][:, :, :g], got[2][:, :, :g], got[3][:, :, :1],
+              got[4][:, :, :1])
+        plain_errs = {}
+        for name, g_t, p_t in zip(("out", "dq", "dk", "dv"), sl, plain):
+            if name in ("out", "dq"):
+                g_t, p_t = g_t[mask], p_t[mask]
+            err, tol = max_err(g_t, p_t), kernel_tol(p_t)
+            rows = (row_err if name == "out" else grad_row_err)(g_t, p_t)
+            row_tol = RING_GRAD_ROW_TOL if name[0] == "d" else \
+                KERNEL_REL_TOL
+            plain_errs[name] = (err, tol, rows)
+            if not (err <= tol and rows <= row_tol):
+                fail(f"phase 18 (a) {what}: kv head 0's {name} parts from "
+                     f"the plain ring by {err} (tol {tol}), worst row "
+                     f"{rows} (tol {row_tol})")
+        ring_ms = cuda_ms(lambda: flash_ring(R, qs, ks, vs, dos), iters=5,
+                          warmup=1)
+
+        def ring_forward():
+            with torch.no_grad():
+                R.ring_attention(qs, ks, vs, ring=R.LocalRing(RING_N),
+                                 causal=True, flash=True)
+        ring_fwd_ms = cuda_ms(ring_forward, iters=5, warmup=1)
+
+        def whole_call():
+            o, lse = fl.flash_attention(q, k, v, causal=True,
+                                        return_lse=True)
+            fl.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        whole_ms = cuda_ms(whole_call, iters=5, warmup=1)
+        whole_fwd_ms = cuda_ms(lambda: fl.flash_attention(
+            q, k, v, causal=True, return_lse=True), iters=5, warmup=1)
+        print(f"{tag} phase 18 (a) {what}: launches kernel 2 / 5 / 6 "
+              f"{launches['flash_attention']} / "
+              f"{launches['flash_attention_bwd_dq']} / "
+              f"{launches['flash_attention_bwd_dkv']} over the {RING_N} "
+              f"ranks; against the whole sequence's kernels: " + ", ".join(
+                  f"{n} {e[0]:.3g} (tol {e[1]:.3g}, worst row {e[2]:.3g})"
+                  for n, e in errs.items())
+              + "; kv head 0 against the plain ring at valid rows: "
+              + ", ".join(f"{n} {e[0]:.3g} (tol {e[1]:.3g}, worst row "
+                          f"{e[2]:.3g})" for n, e in plain_errs.items()))
+        print(f"{tag} phase 18 (a) {what}: RingFlashAttention forward + "
+              f"backward over a LocalRing of {RING_N} ({RING_BLOCKS} blocks "
+              f"a kernel, the merges, the fp32 sums, autograd) "
+              f"{ring_ms:.4f} ms against {whole_ms:.4f} ms for kernel 2 + "
+              f"kernels 5 and 6 over the whole sequence "
+              f"({ring_ms / whole_ms:.2f}x); the forward alone "
+              f"{ring_fwd_ms:.4f} ms against kernel 2's {whole_fwd_ms:.4f} "
+              f"ms ({ring_fwd_ms / whole_fwd_ms:.2f}x)")
+        del q, k, v, do, qs, ks, vs, dos, outs, lses, dq, dk, dv, got, \
+            whole, plain
+    return total
+
+
+def check_gpipe(tag: str, dev, counters, params, model_cfg, batch) -> dict:
+    """Phase 18 (b): `llava.loss_fn(pp=...)`, PP_STAGES stages of
+    L / PP_STAGES layers over PP_MICRO microbatches through `LocalHandoff`,
+    block remat and the flash route, against the unpipelined `loss_fn` on
+    the same weights and batch: the loss and the gradients of the projector
+    and of each stage's first layer (which require a gradient for this
+    check only), the launches of kernels 2, 5 and 6 and both step times.
+    Returns the pipelined run's launches (its main path)."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.parallel import (
+        make_mesh)
+    from law_of_vision_representation_in_mllms_torch.parallel.pipeline import (
+        LocalHandoff, PipelineParallel)
+    t_phase = time.perf_counter()
+    dec = params.decoder
+    per = model_cfg.decoder.num_layers // PP_STAGES
+    firsts = [dec.layers[k * per] for k in range(PP_STAGES)]
+    # stage 1's trainables and the checked layers take a gradient here
+    flags = [(p, p.requires_grad) for p in params.parameters()]
+    params.projector.requires_grad_(True)
+    for blk in firsts:
+        blk.requires_grad_(True)
+    named = [(f"projector.{n}", p) for n, p in
+             params.projector.named_parameters()]
+    for k, blk in enumerate(firsts):
+        named += [(f"decoder.layers.{k * per}.{n}", p)
+                  for n, p in blk.named_parameters()]
+    wanted = [p for _, p in named]
+    pp = PipelineParallel(make_mesh(n_stage=PP_STAGES, world_size=PP_STAGES),
+                          microbatches=PP_MICRO,
+                          handoff=LocalHandoff(PP_STAGES))
+    try:
+        def step(pipe):
+            loss = M.loss_fn(params, model_cfg, batch, remat=True,
+                             use_flash=True, pp=pipe)
+            return loss.detach(), torch.autograd.grad(loss, wanted)
+        results, launches, times = {}, {}, {}
+        for label, pipe in (("unpipelined", None), ("pipelined", pp)):
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            results[label] = step(pipe)
+            torch.cuda.synchronize(dev)
+            times[label] = [(time.perf_counter() - t0) * 1e3]
+            launches[label] = read_counts(counters)
+        for label, pipe in (("unpipelined", None), ("pipelined", pp)):
+            t0 = time.perf_counter()
+            step(pipe)
+            torch.cuda.synchronize(dev)
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for p, flag in flags:
+            p.requires_grad_(flag)
+    (l0, g0), (l1, g1) = results["unpipelined"], results["pipelined"]
+    loss_err = abs(float(l1) - float(l0)) / abs(float(l0))
+    worst = max(((max_err(a, b) / max(b.float().abs().max().item(), 1e-30),
+                  n) for (n, _), a, b in zip(named, g1, g0)))
+    b = batch["input_ids"].shape[0]
+    print(f"{tag} phase 18 (b) LLaVA-1.5-7B stage 1 at B={b}, GPipe of "
+          f"{PP_STAGES} stages x {per} layers, {PP_MICRO} microbatches, "
+          f"block remat, flash route: loss {float(l1):.6f} against "
+          f"{float(l0):.6f} unpipelined (rel {loss_err:.3g}, tol "
+          f"{PP_LOSS_TOL}); the gradients of the projector and of layers "
+          f"{[k * per for k in range(PP_STAGES)]} (all their leaves): worst "
+          f"{worst[0]:.3g} of max|unpipelined| at {worst[1]} (tol "
+          f"{KERNEL_REL_TOL})")
+    for label in ("unpipelined", "pipelined"):
+        n = launches[label]
+        print(f"{tag} phase 18 (b) {label}: kernel 1 / 2 / 5 / 6 launches "
+              f"{n['encoder_attention']} / {n['flash_attention']} / "
+              f"{n['flash_attention_bwd_dq']} / "
+              f"{n['flash_attention_bwd_dkv']} (kernel 2: forward and block "
+              f"remat's recompute); loss and gradients "
+              + " / ".join(f"{t:.1f}" for t in times[label])
+              + " ms (first, second call)")
+    if not (torch.isfinite(l1) and loss_err <= PP_LOSS_TOL):
+        fail(f"phase 18 (b): the pipelined loss {float(l1)} parts from the "
+             f"unpipelined {float(l0)} by {loss_err} (tol {PP_LOSS_TOL})")
+    if not worst[0] <= KERNEL_REL_TOL:
+        fail(f"phase 18 (b): the pipelined gradient of {worst[1]} parts "
+             f"from the unpipelined by {worst[0]} of its max (tol "
+             f"{KERNEL_REL_TOL})")
+    n_layers = model_cfg.decoder.num_layers
+    want = {"flash_attention": 2 * PP_MICRO * n_layers,
+            "flash_attention_bwd_dq": PP_MICRO * n_layers,
+            "flash_attention_bwd_dkv": PP_MICRO * n_layers}
+    for name, n in want.items():
+        if launches["pipelined"][name] != n:
+            fail(f"phase 18 (b): {name} launched "
+                 f"{launches['pipelined'][name]} times in the pipelined "
+                 f"step, not {n}")
+    if launches["pipelined"]["encoder_attention"] != \
+            launches["unpipelined"]["encoder_attention"]:
+        fail("phase 18 (b): the pipelined step ran the tower another number "
+             "of times than the unpipelined one")
+    del results, g0, g1
+    print(f"{tag} phase 18 (b) took {time.perf_counter() - t_phase:.1f} s")
+    return launches["pipelined"]
+
+
+def full_stage1(dev, tmp: str):
+    """Phase 5's model and first batch (for `--context-pipeline`):
+    (LlavaConfig, LlavaParams, batch on the card)."""
+    from law_of_vision_representation_in_mllms_torch.core.config import (
+        RunConfig)
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.data import (
+        SupervisedDataset, collate_batch, get_template)
+    from law_of_vision_representation_in_mllms_torch.train import runner
+    cfg = RunConfig.from_dict({
+        "train": {"stage": 1, "batch_size": FULL_BATCH},
+        "data": {"data_path": _training_records(tmp, FULL_BATCH),
+                 "image_folder": tmp}})
+    model_cfg, params = runner.build_model(cfg, device=dev,
+                                           precision=DEFAULT_PRECISION)
+    ds = SupervisedDataset(cfg.data.data_path, cfg.data.image_folder,
+                           model_cfg.tower_spec, get_template("plain"),
+                           runner.build_tokenizer(cfg),
+                           pad_square=cfg.data.image_aspect_ratio == "pad",
+                           max_length=cfg.train.max_length)
+    batch = runner.batch_to_device(collate_batch(
+        [ds[i] for i in range(FULL_BATCH)],
+        max_length=cfg.train.max_length), dev)
+    return model_cfg, params, batch
+
+
+def context_pipeline_only() -> int:
+    """`--context-pipeline`: the build and phase 18 alone (phase 5's model
+    built here for (b))."""
+    import torch
+    sys.path.insert(0, REPO)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        _build, encoder_attention as enc, flash_attention as fl)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    tag = f"[{card}]"
+    t0 = time.perf_counter()
+    _build.build()
+    _build.library()
+    print(f"{tag} kernels built in {time.perf_counter() - t0:.1f} s")
+    counters = {name: (wrapper, "launches") for name, wrapper in (
+        ("encoder_attention", enc.encoder_attention),
+        ("flash_attention", fl.flash_attention),
+        ("flash_attention_bwd_dq", fl.flash_attention_bwd_dq),
+        ("flash_attention_bwd_dkv", fl.flash_attention_bwd_dkv))}
+    t0 = time.perf_counter()
+    check_ring(tag, dev, counters)
+    print(f"{tag} phase 18 (a) took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="lvr_smoke_pp_") as tmp:
+        model_cfg, params, batch = full_stage1(dev, tmp)
+        check_gpipe(tag, dev, counters, params, model_cfg, batch)
+    print(card)
+    return 0
+
+
 def parallel_only() -> int:
     """`--parallel`: the build and phase 17 alone."""
     import torch
@@ -8814,6 +9177,8 @@ def main() -> int:
         return sd15_split()
     if sys.argv[1:] == ["--parallel"]:
         return parallel_only()
+    if sys.argv[1:] == ["--context-pipeline"]:
+        return context_pipeline_only()
     sys.path.insert(0, REPO)
     try:
         from law_of_vision_representation_in_mllms_torch.ops import (
@@ -8946,7 +9311,7 @@ def main() -> int:
     paths.update(run_diffusion_tower(tag, dev, counters, unet_cases,
                                      tower_c, text_cases))
     mark("phase 11 (SD1.5)")
-    # DiT-XL/2 and SD3-medium at full width and a quarter depth (phase 12), before
+    # DiT-XL/2 and SD3-medium at full width and cut depth (phase 12), before
     # torch.profiler first runs for the same reason
     paths.update(run_transformer_towers(tag, dev, counters, unet_cases,
                                         tower_c))
@@ -8972,8 +9337,11 @@ def main() -> int:
     paths["train_parallel_offload"] = run_parallel(tag, dev, counters)
     mark("phase 17 (parallelism: one-rank NCCL mesh, ZeRO, host offload, "
          "full stage 2)")
-    paths["train"] = run_full_width_training(tag, dev, counters)
-    mark("phase 5 (stage-1 training)")
+    paths["ring"] = check_ring(tag, dev, counters)
+    mark("phase 18 (a) (context parallelism: the flash ring)")
+    paths["train"], paths["gpipe"] = run_full_width_training(tag, dev,
+                                                             counters)
+    mark("phase 5 (stage-1 training) and phase 18 (b) (the GPipe schedule)")
     gc.collect()
     torch.cuda.empty_cache()
     paths["law_chain"], paths["c_score"] = run_law_chain(tag, dev, counters,

@@ -63,6 +63,7 @@ from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.quant import quantize_kv
+from ..ops.ring_attention import ring_attention
 from ..parallel import comm
 from ..parallel.fsdp import P
 from .layers import Dense
@@ -218,9 +219,12 @@ class LlamaBlock(nn.Module):
         self.rms2.fill_(1.0)
 
     def forward(self, h, cos, sin, mask, kv_cache, cache_index,
-                use_flash: bool, lora=None, lora_scaling: float = 1.0):
+                use_flash: bool, lora=None, lora_scaling: float = 1.0,
+                ring=None):
         """`lora`: this block's `models.lora.LoraLayer` or None. Each weight
-        product, dense or quantised, gains its rank-r delta on top."""
+        product, dense or quantised, gains its rank-r delta on top. `ring`:
+        a context-parallel attention `ring(q, k, v)` over this rank's
+        sequence shard (`LlamaModel.forward(cp=...)`), or None."""
         cfg = self.cfg
         b, s, _ = h.shape
         tp = self.tp_group
@@ -259,7 +263,11 @@ class LlamaBlock(nn.Module):
             k_all, v_all = ck, cv
         else:
             k_all, v_all = k, v
-        if use_flash:
+        if ring is not None:
+            # the sequence sharded over the seq axis, K/V rotating
+            # (`ops/ring_attention.py`): causality and padding in the ring
+            attn = ring(q, k, v)
+        elif use_flash:
             # right-padded prefill over the local K/V (kernel 2's contract)
             attn = flash_attention(q, k, v, causal=True)
         elif s == 1 and k_all.shape[1] > 1:
@@ -299,6 +307,10 @@ def _remat(block, policy: Optional[str]):
     raise ValueError(f"unknown remat_policy {policy!r}")
 
 
+class Absent(nn.Module):
+    """The place of a block that another pipeline stage holds."""
+
+
 class LlamaModel(nn.Module):
     """The decoder's weights: embed [V, d], per-layer blocks, final norm,
     lm_head (a Dense of weight [V, d])."""
@@ -320,6 +332,7 @@ class LlamaModel(nn.Module):
         self.lm_head = Dense(d, cfg.vocab_size, precision, bias=False,
                              init_std=INIT_STD, device=device)
         self.tp_group = None
+        self.held = range(cfg.num_layers)    # the blocks this process holds
 
     def reset_parameters(self, generator):
         self.embed.normal_(0.0, INIT_STD, generator=generator)
@@ -328,7 +341,7 @@ class LlamaModel(nn.Module):
     def _tp_leaves(self):
         """(parameter, dim) of every tensor-parallel leaf."""
         leaves = [(self.embed, 0), (self.lm_head.weight, 0)]
-        for blk in self.layers:
+        for blk in self.held_blocks():
             leaves += [(getattr(blk, n).weight, 0) for n in TP_COLUMN]
             leaves += [(getattr(blk, n).weight, 1) for n in TP_ROW]
         return leaves
@@ -346,14 +359,14 @@ class LlamaModel(nn.Module):
                 raise ValueError(f"tensor parallelism over {n} ranks needs "
                                  f"the {what} ({count}) to divide by {n}")
         if any(not isinstance(getattr(blk, name), Dense)
-               for blk in self.layers for name in TP_COLUMN + TP_ROW):
+               for blk in self.held_blocks() for name in TP_COLUMN + TP_ROW):
             raise NotImplementedError(
                 "tensor parallelism of a quantised decoder is not ported to "
                 "the PyTorch package yet (ROADMAP, queue 1: 10, parallelism)")
         for p, dim in self._tp_leaves():
             p.data = comm.local_slice(p.data, dim, group).clone()
         self.tp_group = group
-        for blk in self.layers:
+        for blk in self.held_blocks():
             blk.tp_group = group
 
     @torch.no_grad()
@@ -368,11 +381,46 @@ class LlamaModel(nn.Module):
         for p, dim in self._tp_leaves():
             p.data = comm.local_slice(p.data, dim, self.tp_group).clone()
 
+    def held_blocks(self) -> List["LlamaBlock"]:
+        return [blk for blk in self.layers if isinstance(blk, LlamaBlock)]
+
+    def hold_layers(self, layers: range) -> None:
+        """Keep only the blocks of `layers` (a pipeline stage's), each
+        other one replaced by an `Absent` place holder: the held blocks
+        keep their global names (`layers.{i}.`)."""
+        for i in range(len(self.layers)):
+            if i not in layers:
+                self.layers[i] = Absent()
+        self.held = layers
+
+    @torch.no_grad()
+    def gather_stages(self, group) -> None:
+        """Every rank of the stage group holds every block, all-gathered
+        over the group in place of the `Absent` ones (each stage holds as
+        many blocks, in the same order); `drop_unheld` undoes it."""
+        held = self.held
+        for j, i in enumerate(held):
+            parts = {name: comm.all_gather(p.data[None], 0, group)
+                     for name, p in self.layers[i].named_parameters()}
+            for k in range(comm.size(group)):
+                dst = k * len(held) + j
+                if dst in held:
+                    continue
+                blk = LlamaBlock(self.cfg, self.precision,
+                                 device=self.embed.device)
+                blk.tp_group = self.tp_group
+                blk.load_state_dict({n: x[k] for n, x in parts.items()})
+                self.layers[dst] = blk
+
+    def drop_unheld(self) -> None:
+        self.hold_layers(self.held)
+
     def forward(self, embeds, positions, *, attn_mask=None,
                 cache: Optional[Cache] = None,
                 cache_index: Optional[int] = None, use_flash: bool = False,
                 remat: bool = False, remat_policy: Optional[str] = None,
-                lora=None, lora_scaling: float = 1.0):
+                lora=None, lora_scaling: float = 1.0, cp=None,
+                layers: Optional[range] = None, final_norm: bool = True):
         """embeds [B, S, D]; positions [B, S] (RoPE); attn_mask [B, T] bool
         validity of key slots (T = S without a cache, else the cache
         length), combined with causality over positions (no cache) or over
@@ -383,8 +431,15 @@ class LlamaModel(nn.Module):
         step is read back to the host and the step can be captured in a CUDA
         graph. `remat` checkpoints every block of a no-cache
         pass with `remat_policy`. `lora`: optional `models.lora.LoraAdapters`,
-        applied per block with `lora_scaling` (alpha / r). Returns (hidden
-        [B, S, D], cache)."""
+        applied per block with `lora_scaling` (alpha / r). `cp`: an
+        `ops.ring_attention.ContextParallel`; a no-cache pass then holds this
+        rank's shard of the sequence (embeds, positions and attn_mask [B,
+        S / n_seq]) and its attention is the ring, on the flash route
+        (kernels 2, 5, 6) with `use_flash`, else on the plain one with the
+        key mask; causality over array order (right-padded batches).
+        `layers`: run only these blocks (a pipeline stage's; None: all);
+        `final_norm`: end with the final RMSNorm.
+        Returns (hidden [B, S, D], cache)."""
         cfg = self.cfg
         b, s, _ = embeds.shape
         h = embeds.to(self.precision.compute_dtype)
@@ -396,10 +451,19 @@ class LlamaModel(nn.Module):
             cache_index = cache_index.reshape(b, -1) + (
                 torch.arange(s, device=h.device)
                 if cache_index.dim() == 1 else 0)
+        ring = None
+        if cp is not None and cache is None:
+            flash, group_ring = use_flash, cp.ring
+            keys = None if flash else [attn_mask]
+
+            def ring(q, k, v):
+                return ring_attention([q], [k], [v], ring=group_ring,
+                                      causal=True, kv_masks=keys,
+                                      flash=flash)[0]
         flash_ok = use_flash and s > 1 and (
             cache is None or (not on_device and cache_index == 0))
         mask = None
-        if not flash_ok:
+        if not flash_ok and ring is None:
             if cache is None:
                 causal = positions[:, None, :] <= positions[:, :, None]
             else:
@@ -413,13 +477,16 @@ class LlamaModel(nn.Module):
                 causal & attn_mask[:, None, :])
         if remat and cache is not None:
             raise ValueError("remat applies to no-cache (training) passes")
-        for i, layer in enumerate(self.layers):
+        for i in range(len(self.layers)) if layers is None else layers:
+            layer = self.layers[i]
             run = _remat(layer, remat_policy) if remat else layer
             h = run(h, cos, sin, mask,
                     None if cache is None else cache[i], cache_index,
                     flash_ok, None if lora is None else lora.layers[i],
-                    lora_scaling)
-        return rms_norm(h, self.final_norm, cfg.rms_eps), cache
+                    lora_scaling, ring)
+        if final_norm:
+            h = rms_norm(h, self.final_norm, cfg.rms_eps)
+        return h, cache
 
 
 def logits_fn(params: LlamaModel, hidden):
@@ -471,6 +538,24 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
             for _ in range(cfg.num_layers)]
 
 
+def valid_targets(targets, vocab_size: int, ignore_index: int = -100):
+    """[B, S] bool: the targets that count (not ignored, inside the
+    vocab)."""
+    return ((targets != ignore_index) & (targets >= 0)
+            & (targets < vocab_size))
+
+
+def target_nll(logits, targets, ignore_index: int = -100):
+    """(the summed NLL of the valid targets, their count) for targets
+    [B, S] aligned with logits [B, S, V] (no shift); fp32 log-softmax."""
+    valid = valid_targets(targets, logits.shape[-1], ignore_index)
+    safe = torch.where(valid, targets, torch.zeros_like(targets))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum(), valid.sum()
+
+
 def causal_lm_loss(logits, labels, ignore_index: int = -100, *,
                    data_group=None):
     """Next-token cross-entropy with IGNORE_INDEX masking (HF shift
@@ -479,15 +564,7 @@ def causal_lm_loss(logits, labels, ignore_index: int = -100, *,
     `data_group` (the data axis of a mesh) this rank's sum over the valid
     targets of the whole global batch, so that the ranks' losses sum to the
     global token mean and their gradients to its gradient."""
-    shift_logits = logits[:, :-1]
-    shift_labels = labels[:, 1:]
-    valid = ((shift_labels != ignore_index) & (shift_labels >= 0)
-             & (shift_labels < logits.shape[-1]))
-    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
-    logp = torch.log_softmax(shift_logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
-    nll = torch.where(valid, nll, torch.zeros_like(nll))
-    count = valid.sum()
+    nll, count = target_nll(logits[:, :-1], labels[:, 1:], ignore_index)
     if data_group is not None:
         count = comm.all_reduce(count, data_group)
-    return nll.sum() / count.clamp_min(1)
+    return nll / count.clamp_min(1)

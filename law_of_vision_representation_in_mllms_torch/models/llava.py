@@ -33,7 +33,8 @@
 - `generate_speculative` verifies prompt-lookup drafts (`models/
   speculative.py`), one verify round a captured CUDA graph on the card.
 
-Not ported yet: context and pipeline parallelism.
+Context and pipeline parallelism enter through `loss_fn(cp=...)` (ring
+attention over the seq axis) and `loss_fn(pp=...)` (the GPipe trunk).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from torch import nn
 
 from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops.quant import materialize_quantized
+from ..parallel import comm
 from . import llama as L
 from .facet import cls_scores_from_qk
 from .layers import init_weights
@@ -270,23 +272,81 @@ def loss_fn(params: LlavaParams, cfg: LlavaConfig,
     `lora_scaling` (alpha / r; the reference's peft-LoRA finetune). With a
     `mesh` (`parallel/mesh.py`) the batch is this data rank's rows and the
     loss this rank's share of the global token mean (`causal_lm_loss`); a
-    decoder sharded by `shard_tensor_parallel` runs tensor-parallel. Context
-    (`cp`) and pipeline (`pp`) parallelism are not ported."""
-    if cp is not None or pp is not None:
-        raise NotImplementedError(
-            "context and pipeline parallelism are not ported to the PyTorch "
-            "package yet (ROADMAP, queue 1: 10, parallelism)")
+    decoder sharded by `shard_tensor_parallel` runs tensor-parallel.
+
+    `cp` (`ops.ring_attention.ContextParallel`): the spliced sequence is
+    right-padded to a multiple of the seq axis (padded keys invalid, padded
+    labels ignored), the labels are shifted over the whole sequence, and
+    this rank keeps its shard of the embeddings, positions, mask and
+    shifted targets; the decoder's attention is the ring, and the loss this
+    rank's share of the token mean over the data x seq ranks.
+    `pp` (`parallel.pipeline.PipelineParallel`): the decoder runs the GPipe
+    schedule (`parallel.pipeline.gpipe_loss`); only a process that runs
+    stage 0 encodes the images and embeds the tokens, and the loss is this
+    process's share (its last stage's). Not with `cp` or LoRA."""
+    if pp is not None and (cp is not None or params.lora is not None):
+        raise ValueError("pipeline parallelism composes with data/tensor "
+                         "parallelism, not with cp or LoRA (v1)")
     dec = params.decoder
     plan = splice_plan(batch["input_ids"], batch["labels"],
                        batch["text_mask"], cfg.num_patches)
+    dg = data_group(mesh)
+    if pp is not None:
+        from ..parallel.pipeline import gpipe_loss
+        count = L.valid_targets(plan.labels[:, 1:],
+                                cfg.decoder.vocab_size).sum()
+        count = comm.all_reduce(count, dg)
+        embeds = None
+        if 0 in pp.link().stages:
+            img = encode_images(params, cfg, batch["pixel_values"])
+            embeds = splice_embeds(plan, L.embed_tokens(
+                dec, batch["input_ids"]), img)
+        return gpipe_loss(dec, pp, embeds, plan.positions, plan.attn_mask,
+                          plan.labels, count,
+                          trainable=[p for p in params.parameters()
+                                     if p.requires_grad],
+                          use_flash=use_flash, remat=remat,
+                          remat_policy=remat_policy)
     img = encode_images(params, cfg, batch["pixel_values"])
     txt = L.embed_tokens(dec, batch["input_ids"])
     embeds = splice_embeds(plan, txt, img)
-    h, _ = dec(embeds, plan.positions, attn_mask=plan.attn_mask,
+    positions, attn_mask, labels = plan.positions, plan.attn_mask, plan.labels
+    if cp is not None:
+        return _cp_loss(params, cp, embeds, positions, attn_mask, labels,
+                        dg, remat=remat, remat_policy=remat_policy,
+                        use_flash=use_flash, lora_scaling=lora_scaling)
+    h, _ = dec(embeds, positions, attn_mask=attn_mask,
                use_flash=use_flash, remat=remat, remat_policy=remat_policy,
                lora=params.lora, lora_scaling=lora_scaling)
-    return L.causal_lm_loss(L.logits_fn(dec, h), plan.labels,
-                            data_group=data_group(mesh))
+    return L.causal_lm_loss(L.logits_fn(dec, h), labels, data_group=dg)
+
+
+def _cp_loss(params: LlavaParams, cp, embeds, positions, attn_mask, labels,
+             dg, **kw):
+    """`loss_fn` under context parallelism (JAX `models/llava.py:276-292`
+    with the loss over the shards): pad, shift the labels whole, shard,
+    run the ring decoder on this rank's shard."""
+    dec = params.decoder
+    n, c = cp.n_seq, cp.coord
+    pad = (-embeds.shape[1]) % n
+    if pad:
+        embeds = torch.nn.functional.pad(embeds, (0, 0, 0, pad))
+        positions = torch.nn.functional.pad(positions, (0, pad))
+        attn_mask = torch.nn.functional.pad(attn_mask, (0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad),
+                                         value=IGNORE_INDEX)
+    # the target of position i is label i + 1: shifted over the whole
+    # sequence, so that each shard's last token keeps its target
+    targets = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                        IGNORE_INDEX)], 1)
+    count = comm.all_reduce(L.valid_targets(
+        targets, dec.cfg.vocab_size).sum(), dg)
+    sl = embeds.shape[1] // n
+    part = slice(c * sl, (c + 1) * sl)
+    h, _ = dec(embeds[:, part], positions[:, part],
+               attn_mask=attn_mask[:, part], cp=cp, lora=params.lora, **kw)
+    nll, _ = L.target_nll(L.logits_fn(dec, h), targets[:, part])
+    return nll / count.clamp_min(1)
 
 
 def data_group(mesh):

@@ -15,6 +15,15 @@ raises: nothing here falls back to a local result.
 - `gather_shard(x, dim, g)`: all-gather forward, reduce-scatter backward
   (a ZeRO-3 parameter gathered for its use; its gradient, summed over the
   data ranks, lands on each rank's slice).
+
+Point to point, for context and pipeline parallelism:
+
+- `ring_shift(xs, g)`: each tensor of `xs` sent to the next rank of the
+  group's line and replaced by the one from the rank before (`shift=-1`:
+  the other way round), every send and receive issued together by
+  `dist.batch_isend_irecv`, so that a ring of two does not deadlock;
+- `send_to(x, dst, g)` / `recv_from(x, src, g)`: a tensor to / into the
+  rank `dst` / from `src` of the group (ranks within the group).
 """
 
 from __future__ import annotations
@@ -127,3 +136,45 @@ def gather_from(x, dim: int, group):
 
 def gather_shard(x, dim: int, group):
     return x if group is None else _GatherShard.apply(x, dim, group)
+
+
+def _global(group, r: int) -> int:
+    return dist.get_global_rank(group, r)
+
+
+def ring_shift(xs, group, shift: int = 1):
+    """`xs` (a tensor or a list of tensors) sent `shift` places along the
+    group's ring, as new tensors: rank r's arrive at rank r + shift (mod
+    n), and rank r returns those of rank r - shift. The identity without a
+    group or on a group of one."""
+    one = torch.is_tensor(xs)
+    xs = [xs] if one else list(xs)
+    n = size(group)
+    if n == 1:
+        return xs[0] if one else xs
+    r = rank(group)
+    dst, src = _global(group, (r + shift) % n), _global(group, (r - shift) % n)
+    xs = [x.contiguous() for x in xs]
+    out = [torch.empty_like(x) for x in xs]
+    ops = []
+    for x, y in zip(xs, out):
+        ops.append(dist.P2POp(dist.isend, x, dst, group))
+        ops.append(dist.P2POp(dist.irecv, y, src, group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out[0] if one else out
+
+
+def send_to(x: torch.Tensor, dst: int, group) -> None:
+    """Send x to rank `dst` of the group (blocking; nothing without a
+    group)."""
+    if group is not None:
+        dist.send(x.contiguous(), _global(group, dst), group=group)
+
+
+def recv_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Receive into x from rank `src` of the group (blocking; x as it is
+    without a group); returns x."""
+    if group is not None:
+        dist.recv(x, _global(group, src), group=group)
+    return x

@@ -9,9 +9,10 @@ GSPMD insert every collective. Here each process drives one card
   state and the parameters over it, `parallel/fsdp.py`),
 - ``model`` — Megatron tensor parallelism of the LLaMA decoder
   (`models/llama.py`),
-- ``stage`` / ``seq`` — pipeline and context parallelism, laid out as in
-  the JAX mesh but refused by the trainer (ROADMAP, queue 1: 10,
-  parallelism),
+- ``stage`` — pipeline parallelism: a stage's decoder layers and the GPipe
+  hand-off between neighbours (`parallel/pipeline.py`),
+- ``seq`` — context parallelism: the sequence's shards and the ring of
+  K / V blocks (`ops/ring_attention.py`),
 
 with one `torch.distributed` process group a line of each axis (a line of
 one process too, so that a one-card run with a process group runs every

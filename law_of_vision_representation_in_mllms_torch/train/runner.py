@@ -32,15 +32,18 @@ stage 2 `switch.npz` for a switch run and the LoRA-split save
 `lora_alpha`) for a LoRA run.
 
 Parallel runs (`cfg.parallel`; start the processes with torchrun or the
-`LVR_*` variables, `cli.py`): the mesh is built from `n_data` x `n_model`
-over the world's processes with the JAX runner's checks and messages;
-every rank builds the same whole model from the seed (or
-`model.checkpoint`) and keeps its shard (`init_sharded_train_state`:
-tensor parallelism, `zero` 2 / 3, `offload_opt_state`, `offload_params`),
-collates the same global batch and trains on its data rows. Rank 0 alone
-writes `train.jsonl` and the saved files, gathered to whole tensors first.
-`parallel.seq` and `parallel.pipeline` > 1 are refused (ROADMAP, queue 1:
-10, parallelism).
+`LVR_*` variables, `cli.py`): the mesh is built from `n_data` x `pipeline`
+x `seq` x `n_model` over the world's processes with the JAX runner's
+checks and messages; every rank builds the same whole model from the seed
+(or `model.checkpoint`) and keeps its shard (`init_sharded_train_state`:
+tensor parallelism, `zero` 2 / 3, `offload_opt_state`, `offload_params`,
+a pipeline stage's layers), collates the same global batch and trains on
+its data rows. `parallel.seq` > 1 runs the decoder's attention as a ring
+over the seq axis (`ops/ring_attention.py`); `parallel.pipeline` > 1 runs
+the trunk as a GPipe schedule of `pp_microbatches` microbatches over the
+stage axis (`parallel/pipeline.py`, `pp_remat_ticks`). Rank 0 alone writes
+`train.jsonl` and the saved files, gathered to whole tensors (every
+stage's layers) first.
 
 Precision and attention route: `DEFAULT_PRECISION` (fp32 weights, bf16
 compute) when `train.bf16`, else fp32 throughout, as in the JAX runner. On a
@@ -79,7 +82,9 @@ from ..models.diffusion_blocks import check_attn_impl
 from ..models.switch import init_switch
 from ..models.towers import parse_tower_spec
 from ..models.vit import attention_route
+from ..ops.ring_attention import ContextParallel
 from ..parallel import local_device, make_mesh, shard_batch, world
+from ..parallel.pipeline import PipelineParallel
 from ..utils import MetricsLogger, map_prefetch, rank0_print
 from .train_step import (GatheredOptState, TrainConfig,
                          init_sharded_train_state, make_train_step,
@@ -251,31 +256,58 @@ def plan_mesh(cfg: RunConfig, *, world_size: Optional[int] = None,
     """The training mesh of `cfg.parallel` over the world's processes (or a
     plan for `world_size` of them), with the JAX runner's checks and
     messages: the mesh fits the world, the batch and each microbatch divide
-    over the data axis. Context and pipeline parallelism, and TP of a
-    quantised decoder, are refused."""
+    over the data axis, the decoder layers over the pipeline stages and the
+    batch into the pipeline's microbatches; a pipeline composes with
+    neither `seq` nor LoRA nor ZeRO-3. TP or a pipeline of a quantised
+    decoder, and the switch variant with `seq` or a pipeline, are
+    refused."""
     par = cfg.parallel
-    for field, what in (("seq", "context parallelism (parallel.seq > 1)"),
-                        ("pipeline",
-                         "pipeline parallelism (parallel.pipeline > 1)")):
-        if getattr(par, field) > 1:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what=what, item="10, parallelism"))
-    mesh = make_mesh(n_data=par.n_data, n_model=par.n_model,
-                     world_size=world_size, rank=rank)
+    mesh = make_mesh(n_data=par.n_data, n_model=par.n_model, n_seq=par.seq,
+                     n_stage=par.pipeline, world_size=world_size, rank=rank)
     n_data = mesh.n("data")
     bs, accum = cfg.train.batch_size, cfg.train.grad_accum
+    a = max(1, accum)
+    if par.pipeline > 1:
+        layers = cfg.model.decoder_layers or (
+            llama.tiny() if cfg.model.decoder == "tiny"
+            else llama.vicuna_7b()).num_layers
+        if layers % par.pipeline:
+            raise ValueError(f"decoder layers {layers} must divide over "
+                             f"{par.pipeline} pipeline stages")
+        micro = par.pp_microbatches or par.pipeline
+        if bs % (micro * a):
+            raise ValueError(f"batch_size {bs} must divide into {micro} "
+                             f"pipeline microbatches (x grad_accum)")
+        if par.seq > 1 or cfg.train.lora_enable:
+            raise ValueError("pipeline parallelism composes with data/tensor "
+                             "parallelism, not with cp or LoRA (v1)")
+        if par.zero >= 3:
+            raise ValueError("pipeline parallelism composes with zero<=2 "
+                             "(stage-sharded layers; re-sharding them on "
+                             "the data axis is not supported)")
     if bs % n_data:
         raise ValueError(f"batch_size {bs} must divide over the data axis "
                          f"({n_data} ways)")
-    if bs % max(1, accum):
+    if bs % a:
         raise ValueError("batch_size must divide by grad_accum")
     if accum > 1 and (bs // accum) % n_data:
         raise ValueError(f"microbatch {bs // accum} must divide over the "
                          f"data axis ({n_data} ways)")
-    if mesh.n("model") > 1 and cfg.train.quantize_base:
+    if par.pipeline > 1 and (bs // (a * (par.pp_microbatches
+                                         or par.pipeline))) % n_data:
+        # a data rank holds its share of each pipeline microbatch
+        raise ValueError(f"pipeline microbatch "
+                         f"{bs // (a * (par.pp_microbatches or par.pipeline))}"
+                         f" must divide over the data axis ({n_data} ways)")
+    if (mesh.n("model") > 1 or par.pipeline > 1) and cfg.train.quantize_base:
         raise NotImplementedError(_NOT_PORTED.format(
-            what="tensor parallelism (parallel.n_model > 1) of a quantised "
-                 "decoder (train.quantize_base)", item="10, parallelism"))
+            what="tensor or pipeline parallelism (parallel.n_model, "
+                 "parallel.pipeline > 1) of a quantised decoder "
+                 "(train.quantize_base)", item="10, parallelism"))
+    if (par.seq > 1 or par.pipeline > 1) and cfg.train.switch_enable:
+        raise ValueError("context and pipeline parallelism do not compose "
+                         "with the switch variant (its loss runs the whole "
+                         "trunk)")
     return mesh
 
 
@@ -372,11 +404,22 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
                        lora_alpha=cfg.train.lora_alpha,
                        switch_sigma=cfg.train.switch_sigma
                        if cfg.train.switch_enable else 0.0)
+    cp = pp = None
+    if par.seq > 1:
+        # the spliced sequence pads to a seq-axis multiple inside loss_fn
+        cp = ContextParallel(mesh)
+    if par.pipeline > 1:
+        pp = PipelineParallel(mesh, microbatches=par.pp_microbatches,
+                              remat_ticks=par.pp_remat_ticks)
     state, opt = init_sharded_train_state(
         params, tcfg, model_cfg, mesh, zero=par.zero,
         offload_opt_state=par.offload_opt_state,
-        offload_params=par.offload_params)
-    step_fn = make_train_step(model_cfg, tcfg, opt, mesh=mesh)
+        offload_params=par.offload_params, pipeline=pp is not None)
+    step_fn = make_train_step(model_cfg, tcfg, opt, mesh=mesh, cp=cp, pp=pp)
+    # a data rank's rows: its share of each grad-accumulation microbatch's
+    # pipeline microbatches
+    splits = max(1, cfg.train.grad_accum) * (pp.n_micro if pp is not None
+                                             else 1)
 
     def make_batch(sl):
         # every rank collates the same global batch (one padded length),
@@ -384,12 +427,12 @@ def run_training(cfg: RunConfig, *, device="cuda") -> TrainRun:
         samples = [ds[int(i)] for i in sl]
         batch = collate_batch(samples, max_length=cfg.train.max_length)
         rows = batch["input_ids"].shape
-        batch = shard_batch(batch, mesh, cfg.train.grad_accum)
+        batch = shard_batch(batch, mesh, splits)
         return rows, batch_to_device(batch, device)
 
     def save(write) -> None:
         """`write()` on rank 0 over the whole tensors (every rank gathers)."""
-        with whole_params(params, opt):
+        with whole_params(params, opt, mesh):
             if rank == 0:
                 write()
 

@@ -34,8 +34,19 @@ pinned host memory; the step then takes this data rank's rows, divides its
 loss by the global batch's valid targets, reduces each gradient as its leaf
 is held (all-reduce, reduce-scatter, or already reduce-scattered under
 ZeRO-3) and counts each element once in the global norm, so every rank
-agrees on the loss, the norm and the nonfinite guard. Context and pipeline
-parallelism are not ported (ROADMAP, queue 1: 10, parallelism).
+agrees on the loss, the norm and the nonfinite guard.
+
+Context parallelism (`make_train_step(cp=...)`, the seq axis): every leaf
+is whole on each seq rank, so its gradient is summed over the seq group
+before the data axis' reduction, and the loss over the seq ranks too.
+Pipeline parallelism (`init_sharded_train_state(pipeline=True)`,
+`make_train_step(pp=...)`, the stage axis): each stage keeps only its
+decoder layers (`LlamaModel.hold_layers`), whose gradients stay on their
+stage and whose squares the global norm sums over the stage group; the
+gradients of the leaves every stage holds whole (tower, projector,
+embedding, final norm, `lm_head`) are summed over the stage group, as is
+the loss (the last stage's). ZeRO <= 2 and no LoRA with it, as in the JAX
+package; the switch variant takes neither.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from torch import nn
 from ..models import llama, llava
 from ..models.switch import switch_loss_fn
 from ..parallel import comm, fsdp, make_mesh
+from ..parallel.pipeline import stage_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -409,12 +421,18 @@ def init_train_state(params: llava.LlavaParams, train_cfg: TrainConfig):
 
 def param_partition_tree(params: llava.LlavaParams,
                          model_cfg: llava.LlavaConfig, mesh, *,
-                         zero: int = 0, min_size: Optional[int] = None
-                         ) -> Dict[str, fsdp.P]:
+                         zero: int = 0, min_size: Optional[int] = None,
+                         pipeline: bool = False) -> Dict[str, fsdp.P]:
     """Parameter name -> spec over `mesh` for a whole (not yet sharded)
     model: the decoder's TP specs (`llama.param_partition_specs`), the rest
     replicated; `zero >= 3` adds the data axis to every leaf of at least
-    `min_size` elements (`fsdp.fsdp_spec`, the JAX placement)."""
+    `min_size` elements (`fsdp.fsdp_spec`, the JAX placement). `pipeline`:
+    the decoder layers are held by stage (`LlamaModel.hold_layers`, the JAX
+    `pp_layer_specs`), which ZeRO-3 does not compose with."""
+    if pipeline and zero >= 3:
+        raise ValueError("pipeline parallelism composes with zero<=2 "
+                         "(stage-sharded layers; re-sharding them on "
+                         "the data axis is not supported)")
     if min_size is None:
         min_size = fsdp.MIN_SIZE_TO_SHARD
     tp = llama.param_partition_specs(model_cfg.decoder)
@@ -438,11 +456,12 @@ class LeafPlan:
     leaf all-gathered again) or "sharded" (ZeRO-3: the leaf is a slice along
     `dp_dim`, its gradient arrives reduce-scattered). `tp_dim`: the dim the
     decoder's TP cut it along, None where it is whole on every model
-    rank."""
+    rank. `staged`: a decoder layer's leaf, held by one pipeline stage."""
     name: str
     mode: str
     dp_dim: Optional[int]
     tp_dim: Optional[int]
+    staged: bool = False
 
 
 def init_sharded_train_state(params: llava.LlavaParams,
@@ -450,15 +469,18 @@ def init_sharded_train_state(params: llava.LlavaParams,
                              model_cfg: llava.LlavaConfig, mesh, *,
                              zero: int = 2, offload_opt_state: bool = False,
                              offload_params: bool = False,
-                             min_size: Optional[int] = None):
+                             min_size: Optional[int] = None,
+                             pipeline: bool = False):
     """The JAX `init_sharded_train_state` for a `parallel.Mesh`: `params` is
     the whole model (every rank builds the same one) and is sharded in
     place: its decoder tensor-parallel over the model axis, its leaves over
     the data axis under `zero=3`; under `zero=2` each rank's moments are the
     slice `fsdp_spec` picks. `offload_opt_state` keeps the moments, and
     `offload_params` every parameter of at least 4,096 elements, in pinned
-    host memory between steps. `model_cfg` is read only for a model axis
-    or ZeRO (`param_partition_tree`). Returns ({"params", "step"},
+    host memory between steps. `pipeline`: this rank keeps only its stage's
+    decoder layers (`parallel.pipeline.stage_layers` of its stage-axis
+    coordinate). `model_cfg` is read only for a model axis, ZeRO or a
+    pipeline (`param_partition_tree`). Returns ({"params", "step"},
     optimizer); the optimizer carries the leaves' `plans` and the
     `param_offload` for `make_train_step(..., mesh=mesh)`."""
     _check_variants(params, train_cfg)
@@ -471,8 +493,12 @@ def init_sharded_train_state(params: llava.LlavaParams,
     if min_size is None:
         min_size = fsdp.MIN_SIZE_TO_SHARD
     specs = param_partition_tree(params, model_cfg, mesh, zero=zero,
-                                 min_size=min_size) \
-        if n_model > 1 or zero >= 2 else {}
+                                 min_size=min_size, pipeline=pipeline) \
+        if n_model > 1 or zero >= 2 or pipeline else {}
+    if pipeline:
+        params.decoder.hold_layers(stage_layers(
+            model_cfg.decoder.num_layers, mesh.n("stage"),
+            mesh.coord("stage")))
     shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
     device = next(params.parameters()).device
     trainable = apply_freeze(params, train_cfg.stage)
@@ -486,62 +512,82 @@ def init_sharded_train_state(params: llava.LlavaParams,
         fsdp.shard_parameters(params, sliced, data_g)
     plans, like = [], []
     for name, p in trainable:
+        staged = pipeline and name.startswith("decoder.layers.")
         tp_dim = fsdp.spec_dim(specs[name], "model") if n_model > 1 else None
         dp_dim = fsdp.spec_dim(fsdp.fsdp_spec(
             shapes[name], specs[name], n_data, min_size=min_size), "data") \
             if zero >= 2 else None
         if name in sliced:
-            plan = LeafPlan(name, "sharded", sliced[name], tp_dim)
+            plan = LeafPlan(name, "sharded", sliced[name], tp_dim, staged)
         elif dp_dim is not None:
-            plan = LeafPlan(name, "scatter", dp_dim, tp_dim)
+            plan = LeafPlan(name, "scatter", dp_dim, tp_dim, staged)
         else:
-            plan = LeafPlan(name, "replicated", None, tp_dim)
+            plan = LeafPlan(name, "replicated", None, tp_dim, staged)
         plans.append(plan)
         like.append(comm.local_slice(p.data, dp_dim, data_g)
                     if plan.mode == "scatter" else p.data)
     opt = make_optimizer(trainable, train_cfg, moment_like=like,
                          offload=offload_opt_state)
     opt.plans, opt.device = plans, device
+    opt.held = params.decoder.held
     opt.param_offload = (fsdp.ParamOffload(params, device)
                          if offload_params else None)
     return {"params": params, "step": 0}, opt
 
 
-def global_norm(grads, plans, data_group, model_group) -> torch.Tensor:
+def global_norm(grads, plans, data_group, model_group,
+                stage_group=None) -> torch.Tensor:
     """The global gradient norm over the mesh: the squares of a leaf sliced
-    over an axis are summed over that axis, those of a leaf whole on it are
-    counted once."""
+    over an axis (data, model, or held by one pipeline stage) are summed
+    over that axis, those of a leaf whole on it are counted once (every
+    leaf is whole on the seq axis)."""
     dev = grads[0].device if grads else torch.device("cpu")
-    sums = {k: torch.zeros((), device=dev)
-            for k in ("both", "data", "model", "none")}
-    for g, plan in zip(grads, plans):
-        dp, tp = plan.mode != "replicated", plan.tp_dim is not None
-        key = "both" if dp and tp else "data" if dp else \
-            "model" if tp else "none"
-        sums[key] = sums[key] + g.float().square().sum()
-    x = comm.all_reduce(torch.stack([sums["both"], sums["data"]]), data_group)
-    y = comm.all_reduce(torch.stack([x[0], sums["model"]]), model_group)
-    return torch.sqrt(y[0] + y[1] + x[1] + sums["none"])
+
+    def part(which) -> torch.Tensor:
+        sums = {k: torch.zeros((), device=dev)
+                for k in ("both", "data", "model", "none")}
+        for g, plan in zip(grads, plans):
+            if plan.staged != which:
+                continue
+            dp, tp = plan.mode != "replicated", plan.tp_dim is not None
+            key = "both" if dp and tp else "data" if dp else \
+                "model" if tp else "none"
+            sums[key] = sums[key] + g.float().square().sum()
+        x = comm.all_reduce(torch.stack([sums["both"], sums["data"]]),
+                            data_group)
+        y = comm.all_reduce(torch.stack([x[0], sums["model"]]), model_group)
+        return y[0] + y[1] + x[1] + sums["none"]
+    total = part(False)
+    if any(plan.staged for plan in plans):
+        total = total + comm.all_reduce(part(True), stage_group)
+    return torch.sqrt(total)
 
 
 @contextlib.contextmanager
-def whole_params(params: llava.LlavaParams, opt=None):
+def whole_params(params: llava.LlavaParams, opt=None, mesh=None):
     """Every rank holds the whole model in place for the body (ZeRO-3 slices
-    and TP slices all-gathered, offloaded parameters on the device), and
-    its shards again after: how a sharded run saves. Every rank must enter
-    it (the gathers are collectives)."""
+    and TP slices all-gathered, offloaded parameters on the device, and
+    under pipeline parallelism every stage's layers, gathered over the
+    `mesh`'s stage group), and its shards again after: how a sharded run
+    saves. Every rank must enter it (the gathers are collectives)."""
     off = getattr(opt, "param_offload", None)
     if off is not None:
         off.to_device()
     held = fsdp.unshard_parameters(params)
-    tp = params.decoder.tp_group is not None
+    dec = params.decoder
+    tp = dec.tp_group is not None
+    staged = len(dec.held) < dec.cfg.num_layers
     if tp:
-        params.decoder.unshard_tensor_parallel()
+        dec.unshard_tensor_parallel()
+    if staged:
+        dec.gather_stages(mesh.group("stage"))
     try:
         yield params
     finally:
+        if staged:
+            dec.drop_unheld()
         if tp:
-            params.decoder.reshard_tensor_parallel()
+            dec.reshard_tensor_parallel()
         fsdp.reshard_parameters(held)
         if off is not None:
             off.to_host()
@@ -555,11 +601,13 @@ class GatheredOptState:
     def __init__(self, opt, mesh):
         device = getattr(opt, "device", torch.device("cpu"))
         self.sd = {"count": opt.count, "mu": {}, "nu": {}}
+        stage_g = mesh.group("stage")
         for which, moments in zip(("mu", "nu"), opt.moments()):
             for plan, t in zip(opt.plans, moments):
                 # a whole leaf's moments are saved where they live (no
                 # second copy of the tree on the host)
-                if plan.mode != "replicated" or plan.tp_dim is not None:
+                if plan.mode != "replicated" or plan.tp_dim is not None \
+                        or plan.staged:
                     t = t.to(device)
                     if plan.mode != "replicated":
                         t = comm.all_gather(t, plan.dp_dim,
@@ -567,11 +615,30 @@ class GatheredOptState:
                     if plan.tp_dim is not None:
                         t = comm.all_gather(t, plan.tp_dim,
                                             mesh.group("model"))
+                    if plan.staged:
+                        # every stage's moments of this leaf, by the same
+                        # position in each stage's layers
+                        for name, x in zip(_stage_names(
+                                plan.name, opt.held, mesh.n("stage")),
+                                           comm.all_gather(t[None], 0,
+                                                           stage_g)):
+                            self.sd[which][name] = x.cpu()
+                        continue
                     t = t.cpu()
                 self.sd[which][plan.name] = t
 
     def state_dict(self) -> Dict:
         return self.sd
+
+
+def _stage_names(name: str, held: range, n_stages: int) -> List[str]:
+    """`decoder.layers.{i}.<leaf>` of this stage's `held` layers -> the
+    names of the leaf at the same place in each stage's layers, in stage
+    order."""
+    _, _, i, leaf = name.split(".", 3)
+    j = int(i) - held.start
+    return [f"decoder.layers.{k * len(held) + j}.{leaf}"
+            for k in range(n_stages)]
 
 
 def _split(batch: Dict, a: int) -> List[Dict]:
@@ -594,15 +661,22 @@ def make_train_step(model_cfg: llava.LlavaConfig, train_cfg: TrainConfig,
     `collate_batch` dict as tensors on the model's device (ids and labels as
     int64): with a `mesh`, this data rank's rows of the global batch
     (`parallel.shard_batch`); without one, or on a mesh without process
-    groups, every collective of the step is the identity."""
-    if cp is not None or pp is not None:
-        raise NotImplementedError(
-            "context and pipeline parallelism are not ported to the PyTorch "
-            "package yet (ROADMAP, queue 1: 10, parallelism)")
+    groups, every collective of the step is the identity. `cp`
+    (`ops.ring_attention.ContextParallel`) and `pp`
+    (`parallel.pipeline.PipelineParallel`, with a state from
+    `init_sharded_train_state(pipeline=True)`) run the loss context- or
+    pipeline-parallel (`llava.loss_fn`)."""
     trainable = [p for _, p in opt.named_params]
     plans = opt.plans
-    data_g = None if mesh is None else mesh.group("data")
-    model_g = None if mesh is None else mesh.group("model")
+    group = (lambda axis: None) if mesh is None else mesh.group
+    data_g, model_g = group("data"), group("model")
+    seq_g = group("seq") if cp is not None else None
+    stage_g = group("stage") if pp is not None else None
+    # (`llava.loss_fn` refuses a pipeline with LoRA, with the JAX words)
+    if (cp is not None or pp is not None) and train_cfg.switch_sigma:
+        raise ValueError("context and pipeline parallelism do not compose "
+                         "with the switch variant (its loss runs the whole "
+                         "trunk)")
 
     def loss_and_grads(params, batch):
         kw = dict(remat=train_cfg.remat, remat_policy=train_cfg.remat_policy,
@@ -612,7 +686,8 @@ def make_train_step(model_cfg: llava.LlavaConfig, train_cfg: TrainConfig,
                                   train_cfg.switch_sigma, **kw)
         else:
             loss = llava.loss_fn(params, model_cfg, batch,
-                                 lora_scaling=train_cfg.lora_scaling, **kw)
+                                 lora_scaling=train_cfg.lora_scaling, cp=cp,
+                                 pp=pp, **kw)
         return loss.detach(), torch.autograd.grad(loss, trainable)
 
     def accumulated(params, batch):
@@ -634,16 +709,23 @@ def make_train_step(model_cfg: llava.LlavaConfig, train_cfg: TrainConfig,
         if off is not None:
             off.to_device()
         loss, grads = accumulated(state["params"], batch)
-        # the data ranks' shares sum to the global token mean
+        # the data (x seq) ranks' shares sum to the global token mean; the
+        # last pipeline stage holds it
         loss = comm.all_reduce(loss.clone(), data_g)
+        loss = comm.all_reduce(comm.all_reduce(loss, seq_g), stage_g)
         held = []
         for g, plan in zip(grads, plans):
+            # every leaf is whole on the seq ranks, and all but a stage's
+            # layers on the stages: their gradients are summed there first
+            g = comm.all_reduce(g.contiguous(), seq_g)
+            if not plan.staged:
+                g = comm.all_reduce(g, stage_g)
             if plan.mode == "replicated":
                 g = comm.all_reduce(g.contiguous(), data_g)
             elif plan.mode == "scatter":
                 g = comm.reduce_scatter(g, plan.dp_dim, data_g)
             held.append(g)
-        gnorm = global_norm(held, plans, data_g, model_g)
+        gnorm = global_norm(held, plans, data_g, model_g, stage_g)
         # production guard (absent in the reference): a nonfinite loss or
         # gradient applies no update instead of poisoning the parameters;
         # loss and norm are reduced values, so every rank takes one branch

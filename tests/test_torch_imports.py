@@ -88,7 +88,7 @@ def test_every_port_module_imports_without_jax():
                 "pipeline.geoware", "pipeline.sam_masks",
                 "train.c_score_train", "train.c_score_runner",
                 "parallel", "parallel.mesh", "parallel.fsdp",
-                "parallel.comm"):
+                "parallel.comm", "parallel.pipeline", "ops.ring_attention"):
         assert f"{PKG}.{mod}" in out["names"]
 
 

@@ -188,11 +188,19 @@ def test_plan_mesh_checks_use_the_jax_runners_words():
     with pytest.raises(ValueError, match=r"^microbatch 2 must divide over "
                        r"the data axis \(4 ways\)$"):
         runner.plan_mesh(RunConfig.from_dict(raw), world_size=4)
+    # context and pipeline parallelism run (their refusals:
+    # tests/test_torch_pipeline.py)
+    raw = {"train": {"batch_size": 8}, "model": {"decoder": "tiny"},
+           "parallel": {"pipeline": 2}}
+    with pytest.raises(ValueError, match=r"^batch_size 8 must divide into 3 "
+                       r"pipeline microbatches \(x grad_accum\)$"):
+        raw["parallel"]["pp_microbatches"] = 3
+        runner.plan_mesh(RunConfig.from_dict(raw), world_size=2)
     for key in ("seq", "pipeline"):
-        raw = {"parallel": {key: 2}}
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP, queue 1: 10, parallelism"):
-            runner.plan_mesh(RunConfig.from_dict(raw), world_size=2)
+        raw = {"model": {"decoder": "tiny"}, "parallel": {key: 2}}
+        mesh = runner.plan_mesh(RunConfig.from_dict(raw), world_size=2)
+        assert mesh.shape == {"data": 1, {"seq": "seq", "pipeline": "stage"}[
+            key]: 2, "model": 1}
 
 
 def test_tp_specs_match_jax_layout(mesh8):

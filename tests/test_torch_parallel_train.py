@@ -14,6 +14,19 @@ and projector; data 2 x model 2 with ZeRO-3 at lr 0, whose saved files hold
 the same bits as a one-rank run's). The batches' rows hold 9 to 3 valid
 targets, so the data ranks' counts differ: a per-rank mean would show.
 
+Context and pipeline parallelism: `ring_attention` over a seq group of 4
+(both routes) against the JAX `make_ring_attention` (tolerances of
+tests/test_torch_ring_attention.py: atol 2e-5, rtol 1e-4; the flash route
+at valid rows); the decoder with `cp` on (data 2, seq 2) against the JAX
+`forward(cp=...)` (hidden atol 2e-5, rtol 1e-4; loss rtol 1e-5; gradients
+atol 3e-5, rtol 1e-3, tests/test_context_parallel.py's); and
+`run_training` with `parallel.seq: 2` (stage 1) and `parallel.pipeline: 2`
+(stage 2 over 4 steps: data 2 with ZeRO-2 at 2 microbatches; model 2 at 4
+microbatches with `pp_remat_ticks` and block remat) against the JAX
+runner's `train.jsonl` (as above), the stage-1 projector against the JAX
+runner's and a pipeline run's gathered `checkpoint-{step}` against a
+one-rank run of the same config (`_check_trained`).
+
 Tolerances (as tests/test_torch_train.py; the collectives add other
 summation orders): loss 1e-5 relative, grad norm 1e-4 relative, every
 rank's metrics the same bits; trained parameters PARAM_TOL plus Adam's
@@ -37,6 +50,7 @@ from jax.sharding import PartitionSpec as JP
 import pytest
 import torch
 
+import test_torch_ring_attention as ring_test
 import test_torch_train as base
 from law_of_vision_representation_in_mllms_tpu.core.config import (
     RunConfig as JRunConfig)
@@ -51,6 +65,8 @@ from law_of_vision_representation_in_mllms_tpu.models import llava as JM
 from law_of_vision_representation_in_mllms_tpu.models import towers as JT
 from law_of_vision_representation_in_mllms_tpu.models import vit as JV
 from law_of_vision_representation_in_mllms_tpu.ops import quant as JQ
+from law_of_vision_representation_in_mllms_tpu.ops.ring_attention import (
+    ContextParallel as JContextParallel)
 from law_of_vision_representation_in_mllms_tpu.parallel import (
     make_mesh as jmake_mesh)
 from law_of_vision_representation_in_mllms_tpu.train import runner as jrunner
@@ -66,6 +82,8 @@ from law_of_vision_representation_in_mllms_torch.models import llava as TM
 from law_of_vision_representation_in_mllms_torch.models import lora as TLora
 from law_of_vision_representation_in_mllms_torch.models import towers as TT
 from law_of_vision_representation_in_mllms_torch.models import vit as TV
+from law_of_vision_representation_in_mllms_torch.models.layers import (
+    init_weights)
 from law_of_vision_representation_in_mllms_torch.train import runner
 
 torch.set_num_threads(1)
@@ -215,23 +233,75 @@ def _feature_run(tmp, name, **parallel):
             "parallel": parallel}
 
 
+# name -> (parallel, train options) of the runs held to the JAX runner
+PAR_RUNS = {
+    "runner_seq2": (dict(n_data=2, seq=2), {}),
+    "runner_pp2_zero2": (dict(n_data=2, pipeline=2, pp_microbatches=2,
+                              zero=2), dict(stage=2, epochs=2)),
+    "runner_pp2_tp2_remat": (dict(pipeline=2, n_model=2, pp_microbatches=4,
+                                  pp_remat_ticks=True),
+                             dict(stage=2, epochs=2,
+                                  gradient_checkpointing=True)),
+}
+
+
 def _runner_cases(tmp):
-    """(JAX-side configs, the world's runner cases)."""
+    """(the JAX-side configs by name, the world's runner cases)."""
     raw = _feature_run(tmp, "runner_zero3", n_data=4, zero=3)
     jcfg = JRunConfig.from_dict(raw)
     _, jparams = jrunner.build_model(jcfg)
     init = str(tmp / "runner_init.npz")
     jio.save_params(init, base._jax_tree_np(jparams))
-    port = json.loads(json.dumps(raw))
-    port["train"]["output_dir"] += "_port"
-    port["model"]["checkpoint"] = init
+    jraws = {"runner_zero3": raw}
+    for name, (parallel, train) in PAR_RUNS.items():
+        jraws[name] = _feature_run(tmp, name, **parallel)
+        jraws[name]["train"].update(train)
+    runs = []
+    for name, jraw in jraws.items():
+        port = json.loads(json.dumps(jraw))
+        port["train"]["output_dir"] += "_port"
+        port["model"]["checkpoint"] = init
+        runs.append({"kind": "runner", "name": name, "config": port})
     # stage 2 at lr 0 with TP and ZeRO-3: a whole checkpoint-{step} and
     # its one-rank twin
     lr0 = _feature_run(tmp, "runner_tp_lr0", n_data=2, n_model=2, zero=3)
     lr0["train"].update(stage=2, learning_rate=0.0, save_steps=1)
     lr0["model"]["checkpoint"] = init
-    return raw, [{"kind": "runner", "name": "runner_zero3", "config": port},
-                 {"kind": "runner", "name": "runner_tp_lr0", "config": lr0}]
+    return jraws, runs + [{"kind": "runner", "name": "runner_tp_lr0",
+                           "config": lr0}]
+
+
+def _cp_inputs():
+    """The decoder, embeddings, positions, mask and labels of
+    tests/test_context_parallel.py's set-up (B 2, S 32, row 1's last 8
+    tokens padding), the decoder's weights drawn by the port's init."""
+    cfg = TL.tiny()
+    dec = TL.LlamaModel(cfg, FP32_PRECISION)
+    init_weights(dec, torch.Generator().manual_seed(SEED))
+    b, s = 2, 32
+    embeds = np.random.RandomState(1).randn(
+        b, s, cfg.hidden_size).astype(np.float32) * 0.1
+    mask = np.array([[True] * s, [True] * (s - 8) + [False] * 8])
+    labels = np.random.RandomState(2).randint(0, cfg.vocab_size, (b, s))
+    labels = np.where(mask, labels, -100)
+    return dec.state_dict(), dict(
+        embeds=embeds, positions=np.broadcast_to(np.arange(s), (b, s)).copy(),
+        mask=mask, labels=labels)
+
+
+def _cp_cases(tmp):
+    """The ring case's inputs (tests/test_torch_ring_attention.py's,
+    causal with the padded row) and the CP decoder case's."""
+    inputs = str(tmp / "ring_inputs.npz")
+    np.savez(inputs, **dict(zip(("q", "k", "v", "do", "mask"),
+                                ring_test._inputs(True))))
+    sd, arrays = _cp_inputs()
+    init, cp_inputs = str(tmp / "cp_init.pt"), str(tmp / "cp_inputs.npz")
+    torch.save(sd, init)
+    np.savez(cp_inputs, **arrays)
+    return [{"kind": "ring", "name": "ring_seq4", "inputs": inputs},
+            {"kind": "cp_decoder", "name": "cp_decoder", "init": init,
+             "inputs": cp_inputs}]
 
 
 @pytest.fixture(scope="module")
@@ -240,9 +310,9 @@ def world(tmp_path_factory):
     name -> [rank 0's result, ..., rank 3's]."""
     tmp = tmp_path_factory.mktemp("world")
     cases = [_step_case(tmp, name) for name in STEP_CASES]
-    jraw, runs = _runner_cases(tmp)
+    jraws, runs = _runner_cases(tmp)
     job = {"world": WORLD, "store": str(tmp / "store"), "out": str(tmp),
-           "cases": cases + runs}
+           "cases": cases + runs + _cp_cases(tmp)}
     with open(tmp / "job.json", "w") as f:
         json.dump(job, f)
     env = dict(os.environ, PYTHONPATH=base.REPO, OMP_NUM_THREADS="1")
@@ -256,7 +326,8 @@ def world(tmp_path_factory):
     encode = jpre.SimpleTokenizer.encode
     jpre.SimpleTokenizer.encode = crc_encode
     try:
-        assert jrunner.run_training(JRunConfig.from_dict(jraw)) == 0
+        for jraw in jraws.values():
+            assert jrunner.run_training(JRunConfig.from_dict(jraw)) == 0
     finally:
         jpre.SimpleTokenizer.encode = encode
     logs = [p.communicate(timeout=240)[0] for p in procs]
@@ -265,7 +336,8 @@ def world(tmp_path_factory):
     out = {c["name"]: [torch.load(str(tmp / f"{c['name']}.rank{r}.pt"),
                                   weights_only=False) for r in range(WORLD)]
            for c in job["cases"]}
-    return {"tmp": tmp, "results": out, "jraw": jraw, "cases": job["cases"]}
+    return {"tmp": tmp, "results": out, "jraw": jraws["runner_zero3"],
+            "jraws": jraws, "cases": job["cases"]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -434,3 +506,117 @@ def test_sharded_saves_hold_a_one_rank_runs_bits(world, monkeypatch):
         for k in a.files:
             assert a[k].dtype == b[k].dtype and a[k].tobytes() == \
                 b[k].tobytes(), k
+
+
+def test_ring_attention_over_a_seq_group_matches_jax(world):
+    """`ring_attention` over a seq group of 4 ranks, causal, GQA, a padded
+    row: the plain route at every row, the flash route (the kernels' plain
+    versions) at valid rows with dO zero at pad rows, against the JAX ring
+    on 4 devices."""
+    ranks = world["results"]["ring_seq4"]
+    mask = ring_test._inputs(True)[4]
+    for route, zero_pad in (("plain", False), ("flash", True)):
+        want_out, want_grads = ring_test._jax_ring(True, True, zero_pad)
+        got = [torch.cat([r[route][i] for r in ranks], 1).numpy()
+               for i in range(4)]
+        rows = mask if route == "flash" else np.ones_like(mask)
+        np.testing.assert_allclose(got[0][rows], want_out[rows],
+                                   **ring_test.TOL)
+        np.testing.assert_allclose(got[1][rows], want_grads[0][rows],
+                                   **ring_test.TOL)
+        for g, w in zip(got[2:], want_grads[1:]):
+            np.testing.assert_allclose(g, w, **ring_test.TOL)
+
+
+def test_cp_decoder_matches_jax(world):
+    """The decoder with `cp` on (data 2, seq 2): every rank's hidden shard,
+    the loss and the decoder gradients summed over the ranks, against the
+    JAX `forward(cp=...)` on the same mesh shape, fp32."""
+    sd, arrays = _cp_inputs()
+    jparams = jax.tree.map(jnp.asarray, from_jax.llama_tree(sd))
+    cfg = JL.tiny()
+    mesh = jmake_mesh(n_data=2, n_seq=2, n_model=1,
+                      devices=jax.devices()[:4])
+    cp = JContextParallel(mesh, head_axis=None)
+    embeds, positions, mask, labels = (jnp.asarray(arrays[k]) for k in (
+        "embeds", "positions", "mask", "labels"))
+
+    def loss(p):
+        h, _ = JL.forward(p, cfg, embeds, positions, attn_mask=mask, cp=cp,
+                          precision=J_FP32)
+        return JL.causal_lm_loss(JL.logits_fn(p, h), labels), h
+    (want_loss, want_h), want_g = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(jparams)
+    want_h = np.asarray(want_h)
+    ranks = world["results"]["cp_decoder"]
+    sl = want_h.shape[1] // 2
+    for r in ranks:
+        c = r["coord"]
+        np.testing.assert_allclose(
+            r["hidden"].numpy(),
+            want_h[r["rows"].numpy()][:, c * sl:(c + 1) * sl],
+            atol=2e-5, rtol=1e-4)
+    assert len({r["loss"] for r in ranks}) == 1
+    np.testing.assert_allclose(ranks[0]["loss"], float(want_loss),
+                               rtol=base.LOSS_RTOL)
+    want = from_jax.llama_state_dict(base._jax_tree_np(want_g))
+    for name, g in ranks[0]["grads"].items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(),
+                                   atol=3e-5, rtol=1e-3, err_msg=name)
+
+
+def _one_rank_twin(config, monkeypatch):
+    """The port's one-process run of a world run's config (no parallel
+    section); returns its output directory."""
+    monkeypatch.setattr(preprocess.SimpleTokenizer, "encode", crc_encode)
+    one = json.loads(json.dumps(config))
+    one["train"]["output_dir"] += "_one"
+    one["parallel"] = {}
+    runner.run_training(RunConfig.from_dict(one), device="cpu")
+    return one["train"]["output_dir"]
+
+
+@pytest.mark.parametrize("name", list(PAR_RUNS))
+def test_seq_and_pipeline_runs_match_jax_runner(world, name, monkeypatch):
+    """`run_training` with `parallel.seq: 2` or `parallel.pipeline: 2`:
+    `train.jsonl` step by step against the JAX runner's on its mesh; the
+    stage-1 projector against the JAX runner's, a pipeline run's final
+    `checkpoint-{step}` (every stage's layers, gathered to rank 0) against
+    a one-rank run of the same config."""
+    raw = world["jraws"][name]
+    out = raw["train"]["output_dir"]
+    want_logs, got_logs = _logs(out), _logs(out + "_port")
+    n_steps = 2 * raw["train"]["epochs"]
+    assert len(got_logs) == len(want_logs) == n_steps
+    for g, w in zip(got_logs, want_logs):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=base.LOSS_RTOL)
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"],
+                                   rtol=1e-4)
+        assert g["skipped_nonfinite"] == 0.0
+    ranks = world["results"][name]
+    assert {r["steps"] for r in ranks} == {n_steps}
+    r0 = ranks[0]
+    lr = raw["train"]["learning_rate"]
+    if raw["train"]["stage"] == 1:
+        want = jckpt.load_projector(out)
+        got = tckpt.load_projector(out + "_port")
+        want_sd = {}
+        for i, layer in enumerate(want["layers"]):
+            want_sd[f"layers.{i}.weight"] = torch.from_numpy(
+                layer["kernel"].T)
+            want_sd[f"layers.{i}.bias"] = torch.from_numpy(layer["bias"])
+        _check_trained(got, {k[len("projector."):]: v
+                             for k, v in r0["nu"].items()}, r0["count"], lr,
+                       want_sd, 0.99)
+        return
+    case = next(c for c in world["cases"] if c["name"] == name)
+    one = _one_rank_twin(case["config"], monkeypatch)
+    path = f"checkpoint-{n_steps}/params.npz"
+    got = from_jax.load_llava_npz(os.path.join(out + "_port", path))
+    want = from_jax.load_llava_npz(os.path.join(one, path))
+    assert sorted(got) == sorted(want)
+    # the moments of every stage's trainable leaves, gathered
+    assert set(r0["nu"]) == {k for k in want
+                             if k.startswith(("decoder.", "projector."))}
+    _check_trained(got, r0["nu"], r0["count"], lr,
+                   {k: want[k] for k in r0["nu"]}, 0.99)

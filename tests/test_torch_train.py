@@ -513,22 +513,19 @@ def test_train_cli_from_yaml(tmp_path):
 
 
 def test_unported_training_options_raise():
-    """Context and pipeline parallelism, and tensor parallelism of the
-    training variants, stay refused with a ROADMAP pointer. (`parallel.zero`,
-    the offloads and `n_model` run: tests/test_torch_parallel_train.py.)"""
+    """Tensor (or pipeline) parallelism of a quantised decoder and tensor
+    parallelism of the training variants stay refused with a ROADMAP
+    pointer; a pipeline with LoRA with the JAX words. (`parallel.zero`, the
+    offloads, `n_model`, `seq` and `pipeline` run:
+    tests/test_torch_parallel_train.py.)"""
     base = {"model": {"decoder": "tiny", "vision_tower": "debug/tiny-vit"},
             "train": {"bf16": False}}
-    for section, key, value in (("parallel", "pipeline", 2),
-                                ("parallel", "seq", 2)):
+    for parallel in ({"n_model": 2}, {"pipeline": 2}):
         raw = json.loads(json.dumps(base))
-        raw.setdefault(section, {})[key] = value
+        raw["parallel"] = parallel
+        raw["train"]["quantize_base"] = "int4"
         with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
-            runner.run_training(RunConfig.from_dict(raw), device="cpu")
-    raw = json.loads(json.dumps(base))
-    raw["parallel"] = {"n_model": 2}
-    raw["train"]["quantize_base"] = "int4"
-    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
-        runner.plan_mesh(RunConfig.from_dict(raw), world_size=2)
+            runner.plan_mesh(RunConfig.from_dict(raw), world_size=2)
     from law_of_vision_representation_in_mllms_torch.models.lora import (
         LoraConfig, init_lora)
     from law_of_vision_representation_in_mllms_torch.parallel import (
@@ -543,8 +540,10 @@ def test_unported_training_options_raise():
     _, _, tcfg, params = _configs(0)
     with pytest.raises(ValueError, match="params.lora is None"):
         TS.init_train_state(params, TS.TrainConfig(lora_rank=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
-        TM.loss_fn(params, tcfg, _port_batch(_batch(0)), cp=object())
+    params.lora = init_lora(torch.Generator().manual_seed(0), tcfg.decoder,
+                            LoraConfig(rank=4, alpha=8.0), FP32_PRECISION)
+    with pytest.raises(ValueError, match=r"not with cp or LoRA \(v1\)"):
+        TM.loss_fn(params, tcfg, _port_batch(_batch(0)), pp=object())
 
 
 def _queue1_headings():
@@ -568,15 +567,18 @@ def test_not_ported_errors_point_at_roadmap_items():
                 found += re.findall(r"(\d+), ([A-Za-z][A-Za-z -]*)\"", src)
                 found += re.findall(r"queue 1: (\d+), ([A-Za-z][A-Za-z -]*)",
                                     src)
-    # 10 citations: GeoAware's two (`cli.py`, `io/hf_port.py`) went with
+    # 6 citations: GeoAware's two (`cli.py`, `io/hf_port.py`) went with
     # the refusals they explained; item 10's four in `train/runner.py` (the
     # `_UNPORTED_TRAIN` entries for `parallel.zero`, `offload_opt_state`,
     # `offload_params` and the more-than-one-device check) went when those
-    # ran, and five came with what item 10 still refuses (`parallel.seq` /
-    # `pipeline` and TP of a quantised decoder in `train/runner.py`, TP of
-    # the variants and the module text in `train/train_step.py`, TP of a
-    # quantised decoder in `models/llama.py`)
-    assert len(found) >= 10
+    # ran; item 10's four for context and pipeline parallelism (the
+    # `parallel.seq` / `pipeline` refusal in `train/runner.py`, the refusals
+    # of `cp` / `pp` in `train/train_step.py` and `models/llava.py`, the
+    # module text of `train/train_step.py`) went when those ran. What stays:
+    # item 10's TP (and pipeline) of a quantised decoder (`train/runner.py`,
+    # `models/llama.py`) and TP of the variants (`train/train_step.py`),
+    # and item 12's three (`train/runner.py`, `io/delta.py` twice)
+    assert len(found) >= 6
     for n, title in found:
         assert int(n) in headings, (n, title)
         assert headings[int(n)].startswith(title.strip().lower()), (

@@ -6,8 +6,11 @@ for tests/test_torch_parallel_train.py:
 JOB.json names the world size, a `FileStore` path and the cases; each case
 writes `<out>/<name>.rank<RANK>.pt`: every rank's per-step metrics, and on
 rank 0 the whole trained state (gathered) and FusedAdamW's gathered second
-moments. This module imports the port and torch only: the JAX references
-are computed by the test process.
+moments; a ring case every rank's output and q / k / v gradient shards of
+both routes, a context-parallel decoder case every rank's hidden shard and
+the loss and decoder gradients summed over the ranks. This module imports
+the port and torch only: the JAX references are computed by the test
+process.
 """
 
 import json
@@ -31,9 +34,9 @@ from law_of_vision_representation_in_mllms_torch.data import (  # noqa: E402
 from law_of_vision_representation_in_mllms_torch.models import (  # noqa: E402
     llama as TL, llava as TM, lora as TLora, towers as TT, vit as TV)
 from law_of_vision_representation_in_mllms_torch.ops import (  # noqa: E402
-    quant as TQ)
+    quant as TQ, ring_attention as TR)
 from law_of_vision_representation_in_mllms_torch.parallel import (  # noqa: E402
-    make_mesh, shard_batch)
+    comm, data_rows, make_mesh, shard_batch)
 from law_of_vision_representation_in_mllms_torch.train import (  # noqa: E402
     runner, train_step as TS)
 
@@ -119,6 +122,70 @@ def run_runner(case, rank):
     return out
 
 
+def _part(x, mesh, axis, dim=1):
+    """This rank's shard of x along `dim` over the mesh axis."""
+    n, c = mesh.n(axis), mesh.coord(axis)
+    sl = x.shape[dim] // n
+    return x.narrow(dim, c * sl, sl)
+
+
+def run_ring(case, rank):
+    """`ring_attention` over a seq group of 4, causal, both routes: this
+    rank's output shard and the q / k / v gradient shards of
+    sum(out * dO) (dO zero at pad rows for the flash route, which takes no
+    key mask)."""
+    mesh = make_mesh(n_data=1, n_seq=4)
+    d = {k: torch.from_numpy(v) for k, v in np.load(case["inputs"]).items()}
+    mask = _part(d["mask"], mesh, "seq")
+    out = {}
+    for flash in (False, True):
+        q, k, v = (_part(d[n], mesh, "seq").clone().requires_grad_()
+                   for n in "qkv")
+        do = _part(d["do"], mesh, "seq")
+        if flash:
+            do = do * mask[:, :, None, None]
+        (o,) = TR.ring_attention([q], [k], [v],
+                                 ring=TR.GroupRing(mesh.group("seq")),
+                                 causal=True, kv_masks=[mask], flash=flash)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        out["flash" if flash else "plain"] = [o.detach(), *grads]
+    return out
+
+
+def run_cp_decoder(case, rank):
+    """The decoder over (data 2, seq 2) with `cp`: this rank's hidden
+    shard; the loss and the decoder gradients summed over the ranks."""
+    mesh = make_mesh(n_data=2, n_seq=2)
+    cfg = TL.tiny()
+    dec = TL.LlamaModel(cfg, FP32_PRECISION)
+    dec.load_state_dict(torch.load(case["init"]))
+    dec.requires_grad_(True)
+    d = {k: torch.from_numpy(v) for k, v in np.load(case["inputs"]).items()}
+    rows = torch.from_numpy(data_rows(d["embeds"].shape[0], mesh))
+    embeds, positions, mask, labels = (d[k][rows] for k in (
+        "embeds", "positions", "mask", "labels"))
+    targets = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                        -100)], 1)
+    count = comm.all_reduce(TL.valid_targets(
+        targets, cfg.vocab_size).sum(), mesh.group("data"))
+    h, _ = dec(_part(embeds, mesh, "seq"), _part(positions, mesh, "seq"),
+               attn_mask=_part(mask, mesh, "seq"),
+               cp=TR.ContextParallel(mesh))
+    nll, _ = TL.target_nll(TL.logits_fn(dec, h), _part(targets, mesh, "seq"))
+    loss = nll / count
+    names, leaves = zip(*dec.named_parameters())
+    # the embedding takes no gradient here (the embeddings are given)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+    total = loss.detach().clone()
+    for g in (mesh.group("data"), mesh.group("seq")):
+        comm.all_reduce(total, g)
+        for x in grads:
+            comm.all_reduce(x, g)
+    return {"hidden": h.detach(), "rows": rows, "coord": mesh.coord("seq"),
+            "loss": float(total), "grads": dict(zip(names, grads))}
+
+
 def main(job_path, rank):
     with open(job_path) as f:
         job = json.load(f)
@@ -128,7 +195,9 @@ def main(job_path, rank):
                             world_size=job["world"])
     try:
         for case in job["cases"]:
-            fn = run_runner if case["kind"] == "runner" else run_steps
+            fn = {"runner": run_runner, "steps": run_steps,
+                  "ring": run_ring, "cp_decoder": run_cp_decoder}[
+                      case["kind"]]
             result = fn(case, rank)
             torch.save(result, os.path.join(
                 job["out"], f"{case['name']}.rank{rank}.pt"))
