@@ -2205,6 +2205,31 @@ def check_narrow_llava(tag: str, dev, quantize=None, kv_quant=None) -> None:
         fail(f"{label} logits disagree: {err} > {tol}")
 
 
+def narrow_batch(device) -> dict:
+    """The narrow training batch of phases 3b-3d and 19 (c) on `device`: 4
+    right-padded rows of 40 ids (an image slot at 1), a 336 px image
+    each."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models.splice import (
+        IGNORE_INDEX, IMAGE_TOKEN_INDEX)
+    rng = np.random.RandomState(1)
+    b, n = 4, 40
+    ids = rng.randint(3, 1000, size=(b, n)).astype(np.int64)
+    ids[:, 1] = IMAGE_TOKEN_INDEX
+    labels = ids.copy()
+    labels[:, :2] = IGNORE_INDEX
+    mask = np.ones((b, n), bool)
+    for r in range(1, b):                          # right-padded rows
+        mask[r, n - 6 * r:] = False
+        labels[r, n - 6 * r:] = IGNORE_INDEX
+    px = rng.randn(b, 336, 336, 3).astype(np.float32)
+    return {"input_ids": torch.from_numpy(ids).to(device),
+            "labels": torch.from_numpy(labels).to(device),
+            "text_mask": torch.from_numpy(mask).to(device),
+            "pixel_values": [torch.from_numpy(px).to(device)]}
+
+
 def check_narrow_training(tag: str, dev, quantize_base=None,
                           variant=None) -> None:
     """Phase 3b: 3 stage-1 `make_train_step` steps on one batch of the
@@ -2227,8 +2252,6 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
     from law_of_vision_representation_in_mllms_torch.models import llava as M
     from law_of_vision_representation_in_mllms_torch.models import (
         lora as LR, switch as SW)
-    from law_of_vision_representation_in_mllms_torch.models.splice import (
-        IGNORE_INDEX, IMAGE_TOKEN_INDEX)
     from law_of_vision_representation_in_mllms_torch.ops import (
         flash_attention as fl)
     from law_of_vision_representation_in_mllms_torch.train import (
@@ -2276,24 +2299,6 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
                     + ([f"quantize_base={quantize_base}"] if quantize_base
                        else []))
 
-    rng = np.random.RandomState(1)
-    b, n = 4, 40
-    ids = rng.randint(3, 1000, size=(b, n)).astype(np.int64)
-    ids[:, 1] = IMAGE_TOKEN_INDEX
-    labels = ids.copy()
-    labels[:, :2] = IGNORE_INDEX
-    mask = np.ones((b, n), bool)
-    for r in range(1, b):                          # right-padded rows
-        mask[r, n - 6 * r:] = False
-        labels[r, n - 6 * r:] = IGNORE_INDEX
-    px = rng.randn(b, 336, 336, 3).astype(np.float32)
-
-    def batch(device):
-        return {"input_ids": torch.from_numpy(ids).to(device),
-                "labels": torch.from_numpy(labels).to(device),
-                "text_mask": torch.from_numpy(mask).to(device),
-                "pixel_values": [torch.from_numpy(px).to(device)]}
-
     tc_ref = TS.TrainConfig(**dict(dict(
         stage=1, learning_rate=1e-2, warmup_ratio=0.0,
         total_steps=TRAIN_STEPS), **extra))
@@ -2301,7 +2306,7 @@ def check_narrow_training(tag: str, dev, quantize_base=None,
     sides = []
     for params, tc, device in ((cpu, tc_ref, "cpu"), (gpu, tc_got, dev)):
         state, opt = TS.init_train_state(params, tc)
-        sides.append((params, tc, batch(device), state,
+        sides.append((params, tc, narrow_batch(device), state,
                       TS.make_train_step(cfg, tc, opt),
                       [p for _, p in opt.named_params]))
     trained = sorted({n.split(".")[0] for n, _ in opt.named_params})
@@ -8971,14 +8976,20 @@ def check_ring(tag: str, dev, counters) -> dict:
     return total
 
 
-def check_gpipe(tag: str, dev, counters, params, model_cfg, batch) -> dict:
+def check_gpipe(tag: str, dev, counters, params, model_cfg, batch,
+                phase: str = "18 (b)", loss_tol: float = PP_LOSS_TOL,
+                kernel10: bool = False) -> dict:
     """Phase 18 (b): `llava.loss_fn(pp=...)`, PP_STAGES stages of
     L / PP_STAGES layers over PP_MICRO microbatches through `LocalHandoff`,
     block remat and the flash route, against the unpipelined `loss_fn` on
     the same weights and batch: the loss and the gradients of the projector
     and of each stage's first layer (which require a gradient for this
     check only), the launches of kernels 2, 5 and 6 and both step times.
-    Returns the pipelined run's launches (its main path)."""
+    Returns the pipelined run's launches (its main path). Phase 19 (b) runs
+    it on a quantised decoder (`kernel10`): each stage's layers and the
+    head run kernel 10 forward and `int4_matmul_dx` backward, and every
+    kernel of the step runs PP_MICRO times as often pipelined as not (one
+    launch a microbatch where the unpipelined step has one)."""
     import torch
     from law_of_vision_representation_in_mllms_torch.models import llava as M
     from law_of_vision_representation_in_mllms_torch.parallel import (
@@ -9029,51 +9040,57 @@ def check_gpipe(tag: str, dev, counters, params, model_cfg, batch) -> dict:
     worst = max(((max_err(a, b) / max(b.float().abs().max().item(), 1e-30),
                   n) for (n, _), a, b in zip(named, g1, g0)))
     b = batch["input_ids"].shape[0]
-    print(f"{tag} phase 18 (b) LLaVA-1.5-7B stage 1 at B={b}, GPipe of "
+    what = "int4 decoder" if kernel10 else "LLaVA-1.5-7B"
+    print(f"{tag} phase {phase} {what} stage 1 at B={b}, GPipe of "
           f"{PP_STAGES} stages x {per} layers, {PP_MICRO} microbatches, "
           f"block remat, flash route: loss {float(l1):.6f} against "
           f"{float(l0):.6f} unpipelined (rel {loss_err:.3g}, tol "
-          f"{PP_LOSS_TOL}); the gradients of the projector and of layers "
+          f"{loss_tol}); the gradients of the projector and of layers "
           f"{[k * per for k in range(PP_STAGES)]} (all their leaves): worst "
           f"{worst[0]:.3g} of max|unpipelined| at {worst[1]} (tol "
           f"{KERNEL_REL_TOL})")
+    k10 = ("int4_matmul", "int4_matmul_dx") if kernel10 else ()
     for label in ("unpipelined", "pipelined"):
         n = launches[label]
-        print(f"{tag} phase 18 (b) {label}: kernel 1 / 2 / 5 / 6 launches "
+        print(f"{tag} phase {phase} {label}: kernel 1 / 2 / 5 / 6 launches "
               f"{n['encoder_attention']} / {n['flash_attention']} / "
               f"{n['flash_attention_bwd_dq']} / "
               f"{n['flash_attention_bwd_dkv']} (kernel 2: forward and block "
-              f"remat's recompute); loss and gradients "
+              f"remat's recompute)"
+              + "".join(f", {k} {n[k]}" for k in k10)
+              + "; loss and gradients "
               + " / ".join(f"{t:.1f}" for t in times[label])
               + " ms (first, second call)")
-    if not (torch.isfinite(l1) and loss_err <= PP_LOSS_TOL):
-        fail(f"phase 18 (b): the pipelined loss {float(l1)} parts from the "
-             f"unpipelined {float(l0)} by {loss_err} (tol {PP_LOSS_TOL})")
+    if not (torch.isfinite(l1) and loss_err <= loss_tol):
+        fail(f"phase {phase}: the pipelined loss {float(l1)} parts from the "
+             f"unpipelined {float(l0)} by {loss_err} (tol {loss_tol})")
     if not worst[0] <= KERNEL_REL_TOL:
-        fail(f"phase 18 (b): the pipelined gradient of {worst[1]} parts "
+        fail(f"phase {phase}: the pipelined gradient of {worst[1]} parts "
              f"from the unpipelined by {worst[0]} of its max (tol "
              f"{KERNEL_REL_TOL})")
     n_layers = model_cfg.decoder.num_layers
     want = {"flash_attention": 2 * PP_MICRO * n_layers,
             "flash_attention_bwd_dq": PP_MICRO * n_layers,
             "flash_attention_bwd_dkv": PP_MICRO * n_layers}
+    want.update({k: PP_MICRO * launches["unpipelined"][k] for k in k10})
     for name, n in want.items():
-        if launches["pipelined"][name] != n:
-            fail(f"phase 18 (b): {name} launched "
+        if launches["pipelined"][name] != n or not n:
+            fail(f"phase {phase}: {name} launched "
                  f"{launches['pipelined'][name]} times in the pipelined "
                  f"step, not {n}")
     if launches["pipelined"]["encoder_attention"] != \
             launches["unpipelined"]["encoder_attention"]:
-        fail("phase 18 (b): the pipelined step ran the tower another number "
-             "of times than the unpipelined one")
+        fail(f"phase {phase}: the pipelined step ran the tower another "
+             f"number of times than the unpipelined one")
     del results, g0, g1
-    print(f"{tag} phase 18 (b) took {time.perf_counter() - t_phase:.1f} s")
+    print(f"{tag} phase {phase} took {time.perf_counter() - t_phase:.1f} s")
     return launches["pipelined"]
 
 
-def full_stage1(dev, tmp: str):
-    """Phase 5's model and first batch (for `--context-pipeline`):
-    (LlavaConfig, LlavaParams, batch on the card)."""
+def full_stage1(dev, tmp: str, layers=None, quantize_bits=None):
+    """Phase 5's model and first batch (for `--context-pipeline`; phase 19
+    (b) cuts the decoder to `layers` and quantises it): (LlavaConfig,
+    LlavaParams, batch on the card)."""
     from law_of_vision_representation_in_mllms_torch.core.config import (
         RunConfig)
     from law_of_vision_representation_in_mllms_torch.core.precision import (
@@ -9082,11 +9099,13 @@ def full_stage1(dev, tmp: str):
         SupervisedDataset, collate_batch, get_template)
     from law_of_vision_representation_in_mllms_torch.train import runner
     cfg = RunConfig.from_dict({
+        "model": {"decoder_layers": layers},
         "train": {"stage": 1, "batch_size": FULL_BATCH},
         "data": {"data_path": _training_records(tmp, FULL_BATCH),
                  "image_folder": tmp}})
     model_cfg, params = runner.build_model(cfg, device=dev,
-                                           precision=DEFAULT_PRECISION)
+                                           precision=DEFAULT_PRECISION,
+                                           quantize_bits=quantize_bits)
     ds = SupervisedDataset(cfg.data.data_path, cfg.data.image_folder,
                            model_cfg.tower_spec, get_template("plain"),
                            runner.build_tokenizer(cfg),
@@ -9129,6 +9148,464 @@ def context_pipeline_only() -> int:
     return 0
 
 
+# phase 19: the variants' tensor and pipeline parallelism, and the orbax
+# reader. (a) kernel 10 and its transposed form at a model rank's slices of
+# Vicuna-7B's products (n_model 2 and 4) at QLoRA's M = 16 x 703: column
+# slices (out channels) of wq / wk / wv, gate / up and lm_head, row slices
+# (contraction) of wo and down; down over 4 ranks cuts 11,008 into 2,752
+# rows a rank, 21.5 groups of 128, which `quant.row_slice` pads to 22
+# groups of 2,816 (`QuantDense` places x among the padding)
+TP_M = 16 * 703
+TP_SHAPES = tuple(
+    (n, name, kind) for n in (2, 4) for name, kind in (
+        ("wq", "column"), ("gate", "column"), ("lm_head", "column"),
+        ("wo", "row"), ("down", "row")))
+# (b): a quantised decoder of TP_PIPE_LAYERS layers (4 stages of 2) at full
+# width: the same per-row math pipelined or not, so the loss within 1e-4
+TP_PIPE_LAYERS = 8
+TP_PIPE_LOSS_TOL = 1e-4
+ORBAX_FIXTURE = os.path.join("tests", "data", "orbax_tiny", "checkpoint-1")
+ORBAX_ARRAYS = os.path.join("tests", "data", "orbax_tiny_arrays.npz")
+# the fixture's RunConfig (tests/make_orbax_fixture.py FIXTURE_CONFIG)
+ORBAX_CONFIG = {"model": {"decoder": "tiny", "vision_tower": "debug/tiny-vit",
+                          "decoder_layers": 1},
+                "train": {"bf16": False, "seed": 0}}
+
+
+def tp_leaf(g, dev, name: str, n: int):
+    """(what, QuantDense of rank 1's part, x width) for `name`'s slice over
+    `n` model ranks of Vicuna-7B, from a seeded whole weight."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models.layers import (
+        QuantDense)
+    from law_of_vision_representation_in_mllms_torch.ops import quant as Q
+    dims = {"wq": (4096, 4096), "gate": (4096, 11008),
+            "lm_head": (4096, 32000), "wo": (4096, 4096),
+            "down": (11008, 4096)}
+    di, do = dims[name]
+    whole = Q.quantize_int4(torch.randn((do, di), generator=g, device=dev)
+                            * 0.02)
+    module = QuantDense(whole, DEFAULT_PRECISION)
+    dim = 1 if name in ("wo", "down") else 0
+    # rank 1 of n: its slice, without a process group
+    r, c = 1, (di if dim else do) // n
+    if dim:
+        leaf, x_index = Q.row_slice(whole, r * c, (r + 1) * c, di)
+        module.tp, module.whole_scale = (1, None, di), whole["scale"]
+    else:
+        leaf, x_index = Q.column_slice(whole, r * c, (r + 1) * c), None
+    module._set(leaf, x_index)
+    k_in = c if dim else di
+    return module, k_in
+
+
+def check_tp_kernel10(tag: str, dev) -> tuple:
+    """Phase 19 (a): kernel 10 (through `QuantDense`, which pads x where a
+    row slice splits groups) and `int4_matmul_dx` at TP_SHAPES against
+    their plain versions, with times, bounds and `torch.matmul` on the
+    slice's bf16 weight. Returns the two kernels' cases."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        int4_matmul as K, quant as Q)
+    g = torch.Generator(device=dev).manual_seed(19)
+    cases, dx_cases = [], []
+    m = TP_M
+    for n, name, kind in TP_SHAPES:
+        module, k_in = tp_leaf(g, dev, name, n)
+        q4, scale = module.q4, module.scale
+        do, di = q4.shape[0], q4.shape[1] * 8
+        x = torch.randn((m, k_in), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        before = K.int4_matmul_kernel.launches
+        got = module(x)
+        if K.int4_matmul_kernel.launches != before + 1:
+            fail(f"phase 19 (a): {name} over {n} ranks did not launch "
+                 f"kernel 10")
+        xp = x if module.x_index is None else x.new_zeros(
+            (m, di)).index_copy(1, module.x_index, x)
+
+        def plain():
+            parts = [K.int4_matmul_plain(rows, q4, scale)
+                     for rows in xp.split(2812)]
+            return torch.cat(parts)
+        ref = plain()
+        if not torch.equal(got, module(x)):
+            fail(f"phase 19 (a): {name} over {n} ranks gave other bits on a "
+                 f"second run")
+        dense = Q.dequantize_int4({"q4": q4, "scale": scale}, torch.bfloat16)
+        # the bounds count the rank's k_in real contraction rows, not the
+        # padding a split group adds (its cost shows as lost efficiency)
+        wbytes = do * k_in // 2 + scale.numel() * 4
+        pad = ("" if module.x_index is None else
+               f", x padded {k_in} -> {di} ({scale.shape[0]} groups)")
+        r = dict(err=max_err(got, ref),
+                 tol=INT4_REL_TOL * max(1.0, ref.float().abs().max().item()),
+                 ms=cuda_ms(lambda: module(x)),
+                 plain_ms=cuda_ms(plain, iters=2, warmup=1),
+                 library_ms=cuda_ms(lambda: xp @ dense.T),
+                 shape=f"TP {n} rank 1, {name} ({kind}): M={m} {k_in}->{do} "
+                       f"group 128{pad}, one weight",
+                 **bound(wbytes + x.numel() * 2 + m * do * 2,
+                         2.0 * m * k_in * do, H100_BF16_TFLOPS))
+        report_kernel(tag, "int4_matmul", r)
+        cases.append({k: r[k] for k in (
+            "shape", "err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")})
+        dy = torch.randn((m, do), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+        got = K.int4_matmul_dx(dy, q4, scale)
+        ref = K.int4_matmul_dx_plain(dy, q4, scale)
+        if not torch.equal(got, K.int4_matmul_dx(dy, q4, scale)):
+            fail(f"phase 19 (a): int4_matmul_dx for {name} over {n} ranks "
+                 f"gave other bits on a second run")
+        r = dict(err=max_err(got, ref),
+                 tol=INT4_REL_TOL * max(1.0, ref.float().abs().max().item()),
+                 ms=cuda_ms(lambda: K.int4_matmul_dx(dy, q4, scale)),
+                 plain_ms=cuda_ms(lambda: K.int4_matmul_dx_plain(
+                     dy, q4, scale), iters=3, warmup=1),
+                 library_ms=cuda_ms(lambda: dy @ dense),
+                 shape=f"TP {n} rank 1, {name} ({kind}): M={m} dy [M, {do}] "
+                       f"@ W [{do}, {di}] group 128, one weight",
+                 **bound(wbytes + dy.numel() * 2 + m * k_in * 2,
+                         2.0 * m * k_in * do, H100_BF16_TFLOPS))
+        report_kernel(tag, "int4_matmul_dx", r)
+        dx_cases.append({k: r[k] for k in (
+            "shape", "err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")})
+        del module, x, xp, dy, got, ref, dense
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cases, dx_cases
+
+
+# (c): the variants' TP steps in two processes on the one card over gloo
+# (NCCL refuses two ranks on one device; gloo stages CUDA tensors through
+# the host), against one rank: the narrow LLaVA with a vocabulary of 1,024
+# (kernel 10 wants output channels in multiples of 8 a rank) and 640
+# intermediate features (a rank's `down` slice is 2.5 int4 groups, padded
+# to 3)
+TP_GLOO_VARIANTS = (("lora", None), ("qlora", "int4"), ("switch", None))
+TP_GLOO_STEPS = 3       # the first step's rate is 0 (warm-up), so 3
+
+
+def tp_gloo_case(dev, variant: str, quantize_base):
+    """(config, params on `dev`, TrainConfig, batch) of a phase 19 (c) case,
+    the same on every rank (CPU-seeded weights)."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        DEFAULT_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models import (
+        lora as LR, switch as SW)
+    from law_of_vision_representation_in_mllms_torch.ops import quant as Q
+    from law_of_vision_representation_in_mllms_torch.train import (
+        train_step as TS)
+    cfg = narrow_config(640)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, vocab_size=1024))
+    params = M.init_params(torch.Generator().manual_seed(1), cfg,
+                           DEFAULT_PRECISION, "cpu")
+    extra = dict(stage=2, switch_sigma=1.0)
+    if variant != "switch":
+        lcfg = LR.LoraConfig(rank=8, alpha=16.0)
+        params.lora = LR.init_lora(torch.Generator().manual_seed(2),
+                                   cfg.decoder, lcfg, DEFAULT_PRECISION,
+                                   "cpu")
+        with torch.no_grad():
+            g = torch.Generator().manual_seed(3)
+            for layer in params.lora.layers:
+                for t in layer.targets:
+                    getattr(layer, f"{t}_b").normal_(0.0, 0.02, generator=g)
+        extra = dict(stage=2, lora_rank=lcfg.rank, lora_alpha=lcfg.alpha)
+    else:
+        params.switch = SW.init_switch(torch.Generator().manual_seed(2),
+                                       cfg.decoder.hidden_size,
+                                       DEFAULT_PRECISION, "cpu")
+    params = params.to(dev)
+    if quantize_base:
+        Q.quantize_decoder(params.decoder, bits=4)
+    tc = TS.TrainConfig(**dict(dict(
+        learning_rate=1e-3, warmup_ratio=0.0, total_steps=10,
+        use_flash=True, remat=True), **extra))
+    return cfg, params, tc, narrow_batch(dev)
+
+
+def tp_gloo_steps(dev, variant: str, quantize_base, mesh) -> dict:
+    """One case on `mesh` (one rank without groups, or the model axis of
+    2): the gradient of every trainable leaf at the start, gathered whole
+    over the model ranks, then TP_GLOO_STEPS `make_train_step` steps'
+    losses and gradient norms."""
+    import torch
+    from law_of_vision_representation_in_mllms_torch.models import llava as M
+    from law_of_vision_representation_in_mllms_torch.models import (
+        switch as SW)
+    from law_of_vision_representation_in_mllms_torch.parallel import comm
+    from law_of_vision_representation_in_mllms_torch.train import (
+        train_step as TS)
+    cfg, params, tc, batch = tp_gloo_case(dev, variant, quantize_base)
+    state, opt = TS.init_sharded_train_state(params, tc, cfg, mesh, zero=0)
+    trainable = [p for _, p in opt.named_params]
+    kw = dict(use_flash=True, remat=True, mesh=mesh)
+    loss = (SW.switch_loss_fn(params, cfg, batch, tc.switch_sigma, **kw)
+            if tc.switch_sigma else
+            M.loss_fn(params, cfg, batch, lora_scaling=tc.lora_scaling, **kw))
+    grads = {}
+    for plan, g in zip(opt.plans, torch.autograd.grad(loss, trainable)):
+        if plan.tp_dim is not None:
+            g = comm.all_gather(g, plan.tp_dim, mesh.group("model"))
+        grads[plan.name] = g.float().cpu()
+    step = TS.make_train_step(cfg, tc, opt, mesh=mesh)
+    metrics = []
+    for _ in range(TP_GLOO_STEPS):
+        state, m = step(state, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return {"grads": grads, "metrics": metrics}
+
+
+def tp_gloo_rank(rank: int, port: int, out: str) -> int:
+    """`--tp-gloo-rank RANK PORT OUT`: rank RANK of phase 19 (c)'s gloo
+    world of two on cuda:0; writes its cases' results (rank 0) and its
+    kernel launches to OUT."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        encoder_attention as enc, flash_attention as fl, int4_matmul as k10)
+    from law_of_vision_representation_in_mllms_torch.parallel import (
+        make_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the card (a CPU run rehearses the ranks' logic)
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else \
+        torch.device("cpu")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    counted = {"encoder_attention": enc.encoder_attention,
+               "flash_attention": fl.flash_attention,
+               "flash_attention_bwd_dq": fl.flash_attention_bwd_dq,
+               "flash_attention_bwd_dkv": fl.flash_attention_bwd_dkv,
+               "int4_matmul": k10.int4_matmul_kernel,
+               "int4_matmul_dx": k10.int4_matmul_dx}
+    try:
+        mesh = make_mesh(n_model=2)
+        results = {v: tp_gloo_steps(dev, v, q, mesh)
+                   for v, q in TP_GLOO_VARIANTS}
+        torch.save({"results": results if rank == 0 else None,
+                    "launches": {k: w.launches for k, w in counted.items()}},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_tp_gloo(tag: str, dev, counters) -> dict:
+    """Phase 19 (c): the LoRA, QLoRA (int4) and switch TP steps over a
+    model axis of 2, in two processes on the card over gloo, against the
+    same cases on one rank in this process: every trainable leaf's
+    gradient at the start (gathered whole; within TRAIN_GRAD_REL_TOL of the
+    one-rank gradient's norm) and each step's loss and gradient norm
+    (within TRAIN_LOSS_REL_TOL and TRAIN_GRAD_REL_TOL). Returns the two
+    ranks' kernel launches (their main path)."""
+    import socket
+    import torch
+    from law_of_vision_representation_in_mllms_torch.parallel import (
+        make_mesh)
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="lvr_smoke_gloo_") as out:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--tp-gloo-rank", str(r), str(port), out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=600)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                logs.append(p.communicate()[0])
+        if any(p.returncode for p in procs):
+            fail(f"phase 19 (c): a gloo rank failed:\n"
+                 + "\n".join(log[-2000:] for log in logs))
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
+                 for r in range(2)]
+    world_s = time.perf_counter() - t0
+    one = make_mesh(world_size=1)
+    reset_counts(counters)
+    for (variant, q), (name, got) in zip(TP_GLOO_VARIANTS,
+                                         ranks[0]["results"].items()):
+        want = tp_gloo_steps(dev, variant, q, one)
+        if sorted(got["grads"]) != sorted(want["grads"]):
+            fail(f"phase 19 (c) {name}: other trainable leaves under TP")
+        rel = max((torch.linalg.vector_norm(got["grads"][k] - w)
+                   / torch.linalg.vector_norm(w).clamp_min(1e-30)).item()
+                  for k, w in want["grads"].items())
+        loss_rel = max(abs(a[0] - b[0]) / abs(b[0])
+                       for a, b in zip(got["metrics"], want["metrics"]))
+        norm_rel = max(abs(a[1] - b[1]) / abs(b[1])
+                       for a, b in zip(got["metrics"], want["metrics"]))
+        print(f"{tag} phase 19 (c) {name} TP 2 (two processes on the card, "
+              f"gloo) against one rank: worst leaf gradient "
+              f"{rel:.3g} of its norm (tol {TRAIN_GRAD_REL_TOL}), losses "
+              + " / ".join(f"{a[0]:.6f}" for a in got["metrics"])
+              + " against " + " / ".join(f"{b[0]:.6f}"
+                                          for b in want["metrics"])
+              + f" (rel {loss_rel:.3g}, tol {TRAIN_LOSS_REL_TOL}), "
+              f"gradient norms rel {norm_rel:.3g}")
+        if not (rel <= TRAIN_GRAD_REL_TOL and loss_rel <= TRAIN_LOSS_REL_TOL
+                and norm_rel <= TRAIN_GRAD_REL_TOL):
+            fail(f"phase 19 (c) {name}: the TP steps part from one rank")
+    launches = read_counts(counters)
+    for name in launches:
+        launches[name] = sum(r["launches"].get(name, 0) for r in ranks)
+    print(f"{tag} phase 19 (c) the two ranks' launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"; the gloo world {world_s:.1f} s, the whole (c) "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in ("int4_matmul", "int4_matmul_dx", "flash_attention",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if name in launches and not launches[name]:
+            fail(f"phase 19 (c): {name} was not launched by the TP ranks")
+    return launches
+
+
+def check_orbax_reader(tag: str, dev) -> None:
+    """Phase 19 (d): the orbax fixture (tests/make_orbax_fixture.py: the
+    JAX `save_train_state` of the tiny LLaVA from 4 host devices, with bf16
+    and int8 leaves and a step) read on this host: `restore_raw` against
+    the arrays saved beside it, bit for bit; `consolidate` against them;
+    `build_model(model.checkpoint=...)` on the card, every parameter equal
+    to its array; the MB/s of the system's zstd library, through
+    `io/zstd.py`, over the fixture's chunk frames."""
+    import numpy as np
+    import torch
+    from law_of_vision_representation_in_mllms_torch.core.config import (
+        RunConfig)
+    from law_of_vision_representation_in_mllms_torch.core.precision import (
+        FP32_PRECISION)
+    from law_of_vision_representation_in_mllms_torch.io import (
+        delta, from_jax, ocdbt, orbax_state, param_io, zstd)
+    from law_of_vision_representation_in_mllms_torch.train import runner
+    fixture = os.path.join(REPO, ORBAX_FIXTURE)
+    zstd.library()
+    want = {}
+    param_io._flatten(param_io.load_params(os.path.join(REPO, ORBAX_ARRAYS)),
+                      "", want)
+    got = {}
+    t0 = time.perf_counter()
+    param_io._flatten(orbax_state.restore_raw(fixture), "", got)
+    read_s = time.perf_counter() - t0
+    if sorted(got) != sorted(want) or any(
+            got[k].dtype != want[k].dtype or got[k].tobytes()
+            != want[k].tobytes() for k in want):
+        fail("phase 19 (d): restore_raw of the orbax fixture differs from "
+             "its arrays")
+    with tempfile.TemporaryDirectory(prefix="lvr_smoke_orbax_") as tmp:
+        out = os.path.join(tmp, "flat.npz")
+        n = delta.consolidate(fixture, out)
+        flat = np.load(out)
+        params_want = {k[len("params/"):]: v for k, v in want.items()
+                       if k.startswith("params/")}
+        if sorted(flat.files) != sorted(params_want) or any(
+                flat[k].tobytes() != params_want[k].tobytes()
+                for k in flat.files):
+            fail("phase 19 (d): consolidate of the orbax fixture differs "
+                 "from its params")
+    cfg = dict(ORBAX_CONFIG, model=dict(ORBAX_CONFIG["model"],
+                                        checkpoint=fixture))
+    _, params = runner.build_model(RunConfig.from_dict(cfg), device=dev,
+                                   precision=FP32_PRECISION)
+    sd = from_jax.llava_state_dict(param_io.load_params(
+        os.path.join(REPO, ORBAX_ARRAYS))["params"])
+    own = params.state_dict()
+    bad = [k for k, v in own.items()
+           if v.device.type != "cuda" or not torch.equal(v.cpu(), sd[k])]
+    if bad or sorted(own) != sorted(sd):
+        fail(f"phase 19 (d): model.checkpoint of the orbax fixture gave "
+             f"other parameters: {bad[:3]}")
+    frames = [v.read() for k, v in ocdbt.Database(fixture).items().items()
+              if not k.endswith(b".zarray")]
+    frames = [f for f in frames if f[:4] == b"\x28\xb5\x2f\xfd"]
+    sizes = [zstd.decompress(f).size for f in frames]
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for f in frames:
+            zstd.decompress(f)
+    dt = time.perf_counter() - t0
+    out_mb = reps * sum(sizes) / 1e6
+    print(f"{tag} phase 19 (d) orbax fixture ({len(want)} arrays, "
+          f"{len(frames)} zstd chunk frames, {sum(map(len, frames))} bytes "
+          f"compressed): restore_raw bit-equal to its arrays in "
+          f"{read_s * 1e3:.1f} ms; "
+          f"consolidate {n} arrays equal; model.checkpoint -> "
+          f"{len(own)} parameters on {dev}, all equal; libzstd via ctypes "
+          f"{out_mb / dt:.1f} MB/s of output on this host ({reps} passes, "
+          f"{dt * 1e3:.1f} ms, {dt / (reps * len(frames)) * 1e6:.1f} us a "
+          f"frame of {sum(sizes) / len(frames) / 1e3:.1f} kB)")
+
+
+def run_tp_variants(tag: str, dev, counters, kernels=None) -> dict:
+    """Phase 19: (a) into `kernels`' int4 cases, (b) the quantised GPipe
+    step, (c) the variants' TP steps over gloo, (d) the orbax reader.
+    Returns the launches of (b) and of (c) (their main paths)."""
+    import torch
+    t_phase = time.perf_counter()
+    cases, dx_cases = check_tp_kernel10(tag, dev)
+    if kernels is not None:
+        kernels["int4_matmul"]["cases"] += cases
+        kernels["int4_matmul_dx"]["cases"] += dx_cases
+        for name in ("int4_matmul", "int4_matmul_dx"):
+            kernels[name]["err"] = max(c["err"]
+                                       for c in kernels[name]["cases"])
+    print(f"{tag} phase 19 (a) took {time.perf_counter() - t_phase:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="lvr_smoke_tp_") as tmp:
+        model_cfg, params, batch = full_stage1(dev, tmp, TP_PIPE_LAYERS, 4)
+        launches = check_gpipe(tag, dev, counters, params, model_cfg, batch,
+                               phase="19 (b)", loss_tol=TP_PIPE_LOSS_TOL,
+                               kernel10=True)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches = run_tp_gloo(tag, dev, counters)
+    check_orbax_reader(tag, dev)
+    print(f"{tag} phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, tp_launches
+
+
+def tp_variants_only() -> int:
+    """`--tp-variants`: the build and phase 19 alone."""
+    import torch
+    sys.path.insert(0, REPO)
+    from law_of_vision_representation_in_mllms_torch.ops import (
+        _build, encoder_attention as enc, flash_attention as fl,
+        int4_matmul as k10)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    tag = f"[{card}]"
+    t0 = time.perf_counter()
+    _build.build()
+    _build.library()
+    print(f"{tag} kernels built in {time.perf_counter() - t0:.1f} s")
+    counters = {name: (wrapper, "launches") for name, wrapper in (
+        ("encoder_attention", enc.encoder_attention),
+        ("flash_attention", fl.flash_attention),
+        ("flash_attention_bwd_dq", fl.flash_attention_bwd_dq),
+        ("flash_attention_bwd_dkv", fl.flash_attention_bwd_dkv),
+        ("int4_matmul", k10.int4_matmul_kernel),
+        ("int4_matmul_dx", k10.int4_matmul_dx))}
+    run_tp_variants(tag, dev, counters)
+    print(card)
+    return 0
+
+
 def parallel_only() -> int:
     """`--parallel`: the build and phase 17 alone."""
     import torch
@@ -9159,6 +9636,9 @@ def parallel_only() -> int:
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--tp-gloo-rank"] and len(sys.argv) == 5:
+        # a rank of phase 19 (c)'s gloo world (on the CPU: a rehearsal)
+        return tp_gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: needs an NVIDIA GPU")
     if sys.argv[1:2] == ["--tower-of"] and len(sys.argv) == 3:
@@ -9179,6 +9659,8 @@ def main() -> int:
         return parallel_only()
     if sys.argv[1:] == ["--context-pipeline"]:
         return context_pipeline_only()
+    if sys.argv[1:] == ["--tp-variants"]:
+        return tp_variants_only()
     sys.path.insert(0, REPO)
     try:
         from law_of_vision_representation_in_mllms_torch.ops import (
@@ -9342,6 +9824,12 @@ def main() -> int:
     paths["train"], paths["gpipe"] = run_full_width_training(tag, dev,
                                                              counters)
     mark("phase 5 (stage-1 training) and phase 18 (b) (the GPipe schedule)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["tp_gpipe_int4"], paths["tp_gloo_variants"] = run_tp_variants(
+        tag, dev, counters, kernels)
+    mark("phase 19 (the variants' TP and pipeline: kernel 10 at a rank's "
+         "shapes, a quantised GPipe, gloo on the card, the orbax reader)")
     gc.collect()
     torch.cuda.empty_cache()
     paths["law_chain"], paths["c_score"] = run_law_chain(tag, dev, counters,

@@ -26,9 +26,8 @@ Commands:
                     (the prompt encoded on the card: kernel 2, causal)
   apply-delta       target = base + delta over flat .npz parameter files
   make-delta        delta = target - base over flat .npz parameter files
-  consolidate       a checkpoint of the port's runner -> one flat params
-                    .npz (orbax train states are refused: ROADMAP, queue
-                    1: 12, orbax train states)
+  consolidate       a train checkpoint (the port's runner's, or the JAX
+                    runner's orbax one) -> one flat params .npz
 
   preprocess-map    GeoAware-SC: multi-scale SD maps and DINOv2 facet
                     descriptors of every image and its mirror (kernels 2
@@ -329,7 +328,8 @@ def main(argv=None):
     p.add_argument("--delta", required=True)
 
     p = sub.add_parser("consolidate",
-                       help="the port's train checkpoint -> flat .npz")
+                       help="a train checkpoint (the port's or the JAX "
+                            "runner's orbax one) -> flat .npz")
     p.add_argument("--checkpoint", required=True,
                    help="checkpoint-N dir (or run dir; newest is used)")
     p.add_argument("--output", required=True)

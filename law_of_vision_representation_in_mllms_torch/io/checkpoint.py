@@ -45,6 +45,7 @@ import torch
 from ..models.perceiver import PerceiverResampler
 from ..models.projector import Projector, parse_projector_type, port_perceiver
 from . import from_jax
+from .orbax_state import is_orbax_checkpoint, restore_params
 from .param_io import load_params, save_params
 
 PROJECTOR_NPZ = "mm_projector.npz"
@@ -223,7 +224,8 @@ def save_switch(ckpt_dir: str, switch) -> str:
 def load_pretrained(model_dir: str, params, *, lora_cfg=None):
     """Apply the checkpoint directory `model_dir` over `params` (a
     `LlavaParams`, changed IN PLACE and returned): the newest
-    `checkpoint-{step}` if there is one; else LoRA adapters, merged into the
+    `checkpoint-{step}` if there is one (the port's runner's, or the JAX
+    runner's orbax train state); else LoRA adapters, merged into the
     decoder's dense weights, and/or a projector (`mm_projector.npz`, then
     `mm_projector.bin`, which wins where both are there; either of a
     perceiver, MoF's `.npz` of per-tower projectors).
@@ -236,7 +238,9 @@ def load_pretrained(model_dir: str, params, *, lora_cfg=None):
     from ..models.lora import LoraAdapters, LoraConfig, merge_lora
     latest = latest_checkpoint(model_dir)
     if latest is not None:
-        sd = from_jax.load_llava_npz(os.path.join(latest, "params.npz"))
+        sd = (from_jax.llava_state_dict(restore_params(latest))
+              if is_orbax_checkpoint(latest) else
+              from_jax.load_llava_npz(os.path.join(latest, "params.npz")))
         have = set(params.state_dict())
         params.load_state_dict({k: v for k, v in sd.items() if k in have})
         return params

@@ -15,11 +15,11 @@ with the JAX package's rules:
 - a key of the base missing from the delta (or the target) raises;
 - `make_delta` is the exact inverse of `apply_delta`.
 
-`consolidate` writes the parameters of a training checkpoint that the port's
-runner saved (`io.checkpoint.save_train_state`: `checkpoint-{step}/
-params.npz`) as one flat `.npz` in the JAX `param_io` key layout. It does
-not read orbax train states (the JAX runner's): their OCDBT manifests and
-zstd-framed chunks need orbax or tensorstore, which the port does not use.
+`consolidate` writes the parameters of a training checkpoint as one flat
+`.npz` in the JAX `param_io` key layout: one that the port's runner saved
+(`io.checkpoint.save_train_state`: `checkpoint-{step}/params.npz`), or an
+orbax train state that the JAX runner saved, read by `io.orbax_state`
+(OCDBT and zstd read by the port's own code; no orbax or tensorstore).
 """
 
 from __future__ import annotations
@@ -29,10 +29,8 @@ from typing import Dict
 
 import numpy as np
 
+from .orbax_state import is_orbax_checkpoint, restore_raw
 from .param_io import load_params, save_params
-
-# files that only an orbax checkpoint directory holds
-_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt")
 
 
 def _load_flat(path: str) -> Dict[str, np.ndarray]:
@@ -84,33 +82,27 @@ def make_delta(base_path: str, target_path: str, delta_path: str) -> int:
     return len(out)
 
 
-def is_orbax_checkpoint(path: str) -> bool:
-    """Whether `path` is an orbax checkpoint directory (the JAX runner's
-    `checkpoint-{step}`)."""
-    return os.path.isdir(path) and any(
-        os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS)
-
-
 def consolidate(ckpt_path: str, out_path: str) -> int:
     """A training checkpoint -> one flat params `.npz` (`consolidate.py`).
 
-    `ckpt_path` is a `params.npz`, a `checkpoint-{step}` directory of the
-    port's runner, or a run directory (its newest `checkpoint-{step}` is
-    taken). Returns the number of arrays written. An orbax checkpoint
-    raises NotImplementedError."""
+    `ckpt_path` is a `params.npz`, a `checkpoint-{step}` directory (the
+    port's runner's, or the JAX runner's orbax one, whose `params` are
+    written, as the JAX `consolidate` writes them), or a run directory (its
+    newest `checkpoint-{step}` is taken). Returns the number of arrays
+    written."""
     from .checkpoint import latest_checkpoint
     if os.path.isdir(ckpt_path) and not is_orbax_checkpoint(ckpt_path):
         ckpt_path = latest_checkpoint(ckpt_path) or ckpt_path
     if is_orbax_checkpoint(ckpt_path):
-        raise NotImplementedError(
-            f"{ckpt_path} is an orbax train state, which is not ported to "
-            f"the PyTorch package yet (ROADMAP, queue 1: 12, orbax train "
-            f"states); consolidate it with the JAX CLI, or give a "
-            f"checkpoint that the port's runner wrote")
-    if os.path.isdir(ckpt_path):
-        ckpt_path = os.path.join(ckpt_path, "params.npz")
-    if not os.path.exists(ckpt_path):
-        raise FileNotFoundError(f"no params.npz at {ckpt_path}")
-    save_params(out_path, load_params(ckpt_path))
+        # the params alone (a state without them is written whole, as the
+        # JAX `consolidate` writes it)
+        state = restore_raw(ckpt_path, "params") or restore_raw(ckpt_path)
+        save_params(out_path, state.get("params", state))
+    else:
+        if os.path.isdir(ckpt_path):
+            ckpt_path = os.path.join(ckpt_path, "params.npz")
+        if not os.path.exists(ckpt_path):
+            raise FileNotFoundError(f"no params.npz at {ckpt_path}")
+        save_params(out_path, load_params(ckpt_path))
     with np.load(out_path) as z:
         return len(z.files)

@@ -86,6 +86,8 @@ def _t(x) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":          # ml_dtypes bf16 from JAX
         a = a.astype(np.float32)
+    elif a.dtype == np.dtype("V2"):         # bf16 read from a .npz or orbax
+        a = (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
     return torch.from_numpy(np.array(a))       # a writable copy
 
 

@@ -11,7 +11,8 @@ children's, so every weight is sampled once.
 
 `QuantDense` stands where a `Dense` stood once `ops.quant.quantize_decoder`
 has run: it holds the integer codes and the scales as buffers and no dense
-weight.
+weight. Under tensor parallelism it holds this rank's part of them
+(`shard_tensor_parallel`, `ops.quant.column_slice` / `row_slice`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch import nn
 
 from ..core.precision import Precision
 from ..ops import quant
+from ..parallel import comm
 
 
 class Dense(nn.Module):
@@ -66,13 +68,76 @@ class QuantDense(nn.Module):
         self.kind = "q4" if "q4" in leaf else "q8"
         self.register_buffer(self.kind, leaf[self.kind])
         self.register_buffer("scale", leaf["scale"])
+        # under row-parallel TP of an int4 leaf: where the rank's inputs go
+        # among the zero padding of split groups (`ops.quant.row_slice`),
+        # and the whole leaf's scales, which every rank keeps (as the JAX
+        # placement replicates them)
+        self.register_buffer("x_index", None, persistent=False)
+        self.register_buffer("whole_scale", None, persistent=False)
+        self.tp = None           # (dim, group, true contraction dim)
 
     def leaf(self):
         return {self.kind: getattr(self, self.kind), "scale": self.scale}
 
     def forward(self, x):
-        return quant.quant_matmul(x.to(self.precision.compute_dtype),
-                                  self.leaf())
+        x = x.to(self.precision.compute_dtype)
+        if self.x_index is not None:
+            gs = self.tp[2] // self.whole_scale.shape[0]
+            x = x.new_zeros(*x.shape[:-1], self.scale.shape[0] * gs
+                            ).index_copy(-1, self.x_index, x)
+        return quant.quant_matmul(x, self.leaf())
+
+    def _set(self, leaf, x_index=None) -> None:
+        setattr(self, self.kind, leaf[self.kind])
+        self.scale = leaf["scale"]
+        self.x_index = x_index
+
+    @torch.no_grad()
+    def shard_tensor_parallel(self, dim: int, group, di: int) -> None:
+        """Keep this rank's part of a product split over `group`: dim 0 its
+        output channels (column-parallel), dim 1 its share of the true
+        contraction dim `di` (row-parallel)."""
+        self.tp = (dim, group, di)
+        if dim == 1 and self.kind == "q4":
+            self.whole_scale = self.scale
+        self._set(*self._slice(self.leaf()))
+
+    def _slice(self, whole):
+        dim, group, di = self.tp
+        n, r = comm.size(group), comm.rank(group)
+        if dim == 0:
+            c = whole["scale"].shape[-1] // n
+            return quant.column_slice(whole, r * c, (r + 1) * c), None
+        c = di // n
+        return quant.row_slice(whole, r * c, (r + 1) * c, di)
+
+    @torch.no_grad()
+    def unshard_tensor_parallel(self) -> None:
+        """The whole leaf again on every rank (all-gathered)."""
+        dim, group, di = self.tp
+        codes = getattr(self, self.kind)
+        if dim == 0:
+            whole = {self.kind: comm.all_gather(codes, 0, group),
+                     "scale": comm.all_gather(self.scale, self.scale.dim() - 1,
+                                              group)}
+        elif self.kind == "q8":
+            whole = {"q8": comm.all_gather(codes, 1, group),
+                     "scale": self.scale}
+        else:
+            ng = self.whole_scale.shape[0]
+            width = (di // comm.size(group) if self.x_index is None
+                     else self.scale.shape[0] * (di // ng))
+            part = quant.int4_codes(self.leaf(), width)
+            if self.x_index is not None:
+                part = part[:, self.x_index]
+            whole = {"q4": quant.pack_int4(comm.all_gather(part, 1, group),
+                                           ng),
+                     "scale": self.whole_scale}
+        self._set(whole)
+
+    @torch.no_grad()
+    def reshard_tensor_parallel(self) -> None:
+        self._set(*self._slice(self.leaf()))
 
 
 class LayerNorm32(nn.Module):

@@ -29,7 +29,7 @@ product on the cast codes; int4: kernel 10), called like a `Dense`.
 
 LoRA: `forward(lora=...)` hands block i the adapters `lora.layers[i]`
 (`models/lora.py`); every weight product of the block, `QuantDense` included
-(QLoRA), gains its rank-r delta.
+(QLoRA), gains its rank-r delta, added after the product's TP reduction.
 
 Training: a no-cache pass takes `remat` / `remat_policy` (the JAX `_remat`):
 "block" checkpoints every block (`torch.utils.checkpoint`, non-reentrant),
@@ -45,7 +45,17 @@ all-reduce, `embed` vocab-parallel (ids another rank owns are masked, then
 an all-reduce) and `lm_head` vocab-sharded with its fp32 logits all-gathered
 (`parallel/comm.py`). Attention (kernels 2, 5 and 6) runs unchanged on each
 rank's local heads; the norms stay replicated. Training passes only: a KV
-cache holds every head.
+cache holds every head. A quantised product is cut the same way
+(`layers.QuantDense.shard_tensor_parallel`: codes and scales of its output
+channels, or of its contraction range). The adapters of a column-parallel
+product keep A whole and B's output columns (`lora.LoraAdapters.
+shard_tensor_parallel`): x·A is the same on every rank, so A runs on the
+norm's output before its `copy_to`, and its own `copy_to` sums the
+gradient of x·A over the ranks. Those of a row-parallel product keep A's
+input rows and B whole: the rank's partial x_r·A_r is all-reduced
+(`reduce_from`) before B. So every leaf that is whole on the model ranks
+gets the whole gradient on each of them, and no gradient is reduced over
+the model axis by the step.
 """
 
 from __future__ import annotations
@@ -66,7 +76,7 @@ from ..ops.quant import quantize_kv
 from ..ops.ring_attention import ring_attention
 from ..parallel import comm
 from ..parallel.fsdp import P
-from .layers import Dense
+from .layers import Dense, QuantDense
 
 Cache = List[Tuple[torch.Tensor, ...]]
 DECODE_ATTN_ROUTES = ("xla", "pallas", "pallas_stacked")
@@ -232,16 +242,23 @@ class LlamaBlock(nn.Module):
         nkv = cfg.num_kv_heads // comm.size(tp)
         hd = cfg.head_dim
 
-        def mm(x_, name):
+        def mm(x_, name, src=None):
+            """The product `name` of x_, reduced over the model ranks where
+            it is row-parallel, plus its adapters' delta; `src`: x_ before
+            its `copy_to` (a column-parallel product's adapters read it)."""
             y = getattr(self, name)(x_)
+            if name in TP_ROW:
+                y = comm.reduce_from(y, tp)
             delta = None if lora is None else lora.delta(
-                x_.to(y.dtype), name, lora_scaling)
+                (x_ if src is None else src).to(y.dtype), name, lora_scaling,
+                tp)
             return y if delta is None else y + delta
 
-        x = comm.copy_to(rms_norm(h, self.rms1, cfg.rms_eps), tp)
-        q = apply_rope(mm(x, "wq").view(b, s, nh, hd), cos, sin)
-        k = apply_rope(mm(x, "wk").view(b, s, nkv, hd), cos, sin)
-        v = mm(x, "wv").view(b, s, nkv, hd)
+        xn = rms_norm(h, self.rms1, cfg.rms_eps)
+        x = comm.copy_to(xn, tp)
+        q = apply_rope(mm(x, "wq", xn).view(b, s, nh, hd), cos, sin)
+        k = apply_rope(mm(x, "wk", xn).view(b, s, nkv, hd), cos, sin)
+        v = mm(x, "wv", xn).view(b, s, nkv, hd)
         k_sc = v_sc = None
         if kv_cache is not None:
             ck, cv = kv_cache[:2]
@@ -275,10 +292,10 @@ class LlamaBlock(nn.Module):
         else:
             attn = _attention(q, k_all, v_all, mask,
                               self.precision.accum_dtype, k_sc, v_sc)
-        h = h + comm.reduce_from(mm(attn.reshape(b, s, nh * hd), "wo"), tp)
-        x = comm.copy_to(rms_norm(h, self.rms2, cfg.rms_eps), tp)
-        return h + comm.reduce_from(
-            mm(F.silu(mm(x, "gate")) * mm(x, "up"), "down"), tp)
+        h = h + mm(attn.reshape(b, s, nh * hd), "wo")
+        xn = rms_norm(h, self.rms2, cfg.rms_eps)
+        x = comm.copy_to(xn, tp)
+        return h + mm(F.silu(mm(x, "gate", xn)) * mm(x, "up", xn), "down")
 
 
 # "dots": the non-batched matmuls (the block's weight products) are saved;
@@ -339,12 +356,23 @@ class LlamaModel(nn.Module):
         self.final_norm.fill_(1.0)
 
     def _tp_leaves(self):
-        """(parameter, dim) of every tensor-parallel leaf."""
-        leaves = [(self.embed, 0), (self.lm_head.weight, 0)]
-        for blk in self.held_blocks():
-            leaves += [(getattr(blk, n).weight, 0) for n in TP_COLUMN]
-            leaves += [(getattr(blk, n).weight, 1) for n in TP_ROW]
-        return leaves
+        """(parameter, dim) of every dense tensor-parallel leaf, and
+        (`QuantDense`, dim, its true contraction dim) of every quantised
+        one."""
+        cfg = self.cfg
+        din = {"wo": cfg.num_heads * cfg.head_dim,
+               "down": cfg.intermediate_size}
+        leaves, quantised = [(self.embed, 0)], []
+        for owner, name in [(self, "lm_head")] + [
+                (blk, n) for blk in self.held_blocks()
+                for n in TP_COLUMN + TP_ROW]:
+            module, dim = getattr(owner, name), 1 if name in TP_ROW else 0
+            if isinstance(module, QuantDense):
+                quantised.append((module, dim,
+                                  din.get(name, cfg.hidden_size)))
+            else:
+                leaves.append((module.weight, dim))
+        return leaves, quantised
 
     @torch.no_grad()
     def shard_tensor_parallel(self, group) -> None:
@@ -358,13 +386,11 @@ class LlamaModel(nn.Module):
             if count % n:
                 raise ValueError(f"tensor parallelism over {n} ranks needs "
                                  f"the {what} ({count}) to divide by {n}")
-        if any(not isinstance(getattr(blk, name), Dense)
-               for blk in self.held_blocks() for name in TP_COLUMN + TP_ROW):
-            raise NotImplementedError(
-                "tensor parallelism of a quantised decoder is not ported to "
-                "the PyTorch package yet (ROADMAP, queue 1: 10, parallelism)")
-        for p, dim in self._tp_leaves():
+        dense, quantised = self._tp_leaves()
+        for p, dim in dense:
             p.data = comm.local_slice(p.data, dim, group).clone()
+        for module, dim, di in quantised:
+            module.shard_tensor_parallel(dim, group, di)
         self.tp_group = group
         for blk in self.held_blocks():
             blk.tp_group = group
@@ -373,13 +399,19 @@ class LlamaModel(nn.Module):
     def unshard_tensor_parallel(self) -> None:
         """Every rank holds the whole TP leaves again (all-gathered); the
         forward stays tensor-parallel until `reshard_tensor_parallel`."""
-        for p, dim in self._tp_leaves():
+        dense, quantised = self._tp_leaves()
+        for p, dim in dense:
             p.data = comm.all_gather(p.data, dim, self.tp_group)
+        for module, *_ in quantised:
+            module.unshard_tensor_parallel()
 
     @torch.no_grad()
     def reshard_tensor_parallel(self) -> None:
-        for p, dim in self._tp_leaves():
+        dense, quantised = self._tp_leaves()
+        for p, dim in dense:
             p.data = comm.local_slice(p.data, dim, self.tp_group).clone()
+        for module, *_ in quantised:
+            module.reshard_tensor_parallel()
 
     def held_blocks(self) -> List["LlamaBlock"]:
         return [blk for blk in self.layers if isinstance(blk, LlamaBlock)]
@@ -400,14 +432,22 @@ class LlamaModel(nn.Module):
         many blocks, in the same order); `drop_unheld` undoes it."""
         held = self.held
         for j, i in enumerate(held):
-            parts = {name: comm.all_gather(p.data[None], 0, group)
-                     for name, p in self.layers[i].named_parameters()}
+            own = self.layers[i]
+            parts = {name: comm.all_gather(t[None], 0, group)
+                     for name, t in own.state_dict().items()}
             for k in range(comm.size(group)):
                 dst = k * len(held) + j
                 if dst in held:
                     continue
-                blk = LlamaBlock(self.cfg, self.precision,
-                                 device=self.embed.device)
+                blk = LlamaBlock(self.cfg, self.precision, device="meta")
+                blk.to_empty(device=self.embed.device)
+                for name, module in own.named_children():
+                    # a quantised product of this stage's block: the same
+                    # kind of leaf in the gathered one
+                    if isinstance(module, QuantDense):
+                        setattr(blk, name, QuantDense(
+                            {key: torch.empty_like(t) for key, t in
+                             module.leaf().items()}, module.precision))
                 blk.tp_group = self.tp_group
                 blk.load_state_dict({n: x[k] for n, x in parts.items()})
                 self.layers[dst] = blk

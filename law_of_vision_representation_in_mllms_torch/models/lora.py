@@ -14,6 +14,16 @@ base weights in fp32 for serving.
 
 Freeze rule (`train.train_step._freeze_labels`): with adapters present the
 decoder is frozen, the adapters and the projector train, the towers never.
+
+Tensor parallelism (`LoraAdapters.shard_tensor_parallel`, beside the
+decoder's `shard_tensor_parallel`): the adapters of a column-parallel
+product keep A whole and B's columns of the rank's output channels; those
+of a row-parallel product A's rows of the rank's input features and B
+whole (`param_partition_specs`; `models/llama.py` says how each gets its
+whole gradient). The JAX package keeps the adapters whole on every model
+rank (its `param_partition_tree` gives them no spec); the numbers are the
+same. `unshard_tensor_parallel` gathers them for a save, which writes the
+JAX `lora` tree's whole [L, din, r] / [L, r, dout] tensors.
 """
 
 from __future__ import annotations
@@ -25,8 +35,10 @@ import torch
 from torch import nn
 
 from ..core.precision import DEFAULT_PRECISION, Precision
+from ..parallel import comm
+from ..parallel.fsdp import P
 from .layers import Dense, init_weights, round_to_dtype
-from .llama import LlamaConfig, LlamaModel
+from .llama import TP_ROW, LlamaConfig, LlamaModel
 
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 A_INIT_STD = 0.01     # A ~ 0.01 * N(0, 1), B = 0: the delta starts at 0
@@ -79,15 +91,19 @@ class LoraLayer(nn.Module):
                                             generator=generator)
             getattr(self, f"{t}_b").zero_()
 
-    def delta(self, x, name: str, scaling: float):
+    def delta(self, x, name: str, scaling: float, tp=None):
         """(x · A) · B · scaling in x.dtype, or None where `name` has no
         adapters. The scaling is rounded to x.dtype first, as the JAX
-        `lora_matmul` does."""
+        `lora_matmul` does. `tp`: the model axis' group of a decoder under
+        tensor parallelism, over which x · A is all-reduced (a row-parallel
+        product's: x and A are the rank's rows) or has its gradient
+        all-reduced (a column-parallel product's: x is the whole input)."""
         if name not in self.targets:
             return None
         a = getattr(self, f"{name}_a").to(x.dtype)
         b = getattr(self, f"{name}_b").to(x.dtype)
-        return ((x @ a) @ b) * round_to_dtype(scaling, x.dtype)
+        u = (comm.reduce_from if name in TP_ROW else comm.copy_to)(x @ a, tp)
+        return (u @ b) * round_to_dtype(scaling, x.dtype)
 
 
 class LoraAdapters(nn.Module):
@@ -100,6 +116,45 @@ class LoraAdapters(nn.Module):
         self.layers = nn.ModuleList(
             LoraLayer(cfg, lora_cfg, precision, device=device)
             for _ in range(cfg.num_layers))
+        self.tp_group = None
+
+    def _tp_leaves(self):
+        """(parameter, dim) of every adapter the model axis cuts."""
+        return [(getattr(layer, f"{t}_{'a' if t in TP_ROW else 'b'}"),
+                 0 if t in TP_ROW else 1)
+                for layer in self.layers for t in layer.targets]
+
+    @torch.no_grad()
+    def shard_tensor_parallel(self, group) -> None:
+        """Keep this rank's slice of each cut adapter (in place: the
+        Parameter objects stay); the decoder's blocks hand their model
+        group to `LoraLayer.delta`."""
+        for p, dim in self._tp_leaves():
+            p.data = comm.local_slice(p.data, dim, group).clone()
+        self.tp_group = group
+
+    @torch.no_grad()
+    def unshard_tensor_parallel(self) -> None:
+        for p, dim in self._tp_leaves():
+            p.data = comm.all_gather(p.data, dim, self.tp_group)
+
+    @torch.no_grad()
+    def reshard_tensor_parallel(self) -> None:
+        for p, dim in self._tp_leaves():
+            p.data = comm.local_slice(p.data, dim, self.tp_group).clone()
+
+
+def param_partition_specs(cfg: LlamaConfig, lora_cfg: LoraConfig) -> dict:
+    """Adapter name (under `LlavaParams.lora`) -> spec over the mesh's
+    model axis: B of a column-parallel product by its output columns, A of
+    a row-parallel one by its input rows, the rest whole."""
+    specs = {}
+    for i in range(cfg.num_layers):
+        for t in lora_cfg.targets:
+            row = t in TP_ROW
+            specs[f"layers.{i}.{t}_a"] = P("model" if row else None, None)
+            specs[f"layers.{i}.{t}_b"] = P(None, None if row else "model")
+    return specs
 
 
 def init_lora(generator: torch.Generator, cfg: LlamaConfig,

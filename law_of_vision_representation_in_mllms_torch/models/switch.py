@@ -11,6 +11,14 @@ with everything else frozen. The matrix lives in `LlavaParams.switch`;
 `train.train_step._freeze_labels` trains it alone. Since W sits behind the
 decoder, a switch step runs no decoder backward at all: autograd stops at
 the frozen hidden state.
+
+On a mesh the loss is the JAX one, which runs the whole trunk: under tensor
+parallelism W sits before the vocab-parallel head, whose `copy_to` sums its
+input's gradient over the model ranks, so W's gradient is whole on each;
+under `seq` every seq rank runs the whole sequence; under a pipeline
+(`pp`) the stages run the trunk forward and the last one the switch, the
+head and the loss, W's gradient on it alone (`parallel.pipeline.
+gpipe_loss(head=)`: W is the one trainable tensor, outside the decoder).
 """
 
 from __future__ import annotations
@@ -61,21 +69,38 @@ def apply_switch(switch: Switch, hidden, sigma: float = 1.0):
 def switch_loss_fn(params, model_cfg, batch: Dict[str, torch.Tensor],
                    sigma: float = 1.0, *, use_flash: bool = False,
                    remat: bool = False, remat_policy: Optional[str] = None,
-                   mesh=None):
+                   mesh=None, pp=None):
     """LLaVA loss with the switch applied before the LM head. `params` is a
     `LlavaParams` whose `switch` is set; every other weight is frozen by the
     freeze labels. `use_flash` takes the decoder through kernel 2 (the JAX
     function runs its plain attention; the result is the same function).
-    `mesh`: as in `llava.loss_fn` (data parallelism; no TP)."""
+    `mesh`: as in `llava.loss_fn`; `pp`: a `parallel.pipeline.
+    PipelineParallel` (the module text)."""
     from .llava import data_group, encode_images
     dec = params.decoder
     plan = splice_plan(batch["input_ids"], batch["labels"],
                        batch["text_mask"], model_cfg.num_patches)
+
+    def head(h):
+        return L.logits_fn(dec, apply_switch(params.switch, h, sigma))
+    if pp is not None:
+        from ..parallel import comm
+        from ..parallel.pipeline import gpipe_loss
+        count = comm.all_reduce(L.valid_targets(
+            plan.labels[:, 1:], model_cfg.decoder.vocab_size).sum(),
+            data_group(mesh))
+        embeds = None
+        if 0 in pp.link().stages:
+            embeds = splice_embeds(plan, L.embed_tokens(
+                dec, batch["input_ids"]), encode_images(
+                    params, model_cfg, batch["pixel_values"]))
+        return gpipe_loss(dec, pp, embeds, plan.positions, plan.attn_mask,
+                          plan.labels, count, trainable=[params.switch.w],
+                          use_flash=use_flash, head=head)
     img = encode_images(params, model_cfg, batch["pixel_values"])
     txt = L.embed_tokens(dec, batch["input_ids"])
     embeds = splice_embeds(plan, txt, img)
     h, _ = dec(embeds, plan.positions, attn_mask=plan.attn_mask,
                use_flash=use_flash, remat=remat, remat_policy=remat_policy)
-    h = apply_switch(params.switch, h, sigma)
-    return L.causal_lm_loss(L.logits_fn(dec, h), plan.labels,
+    return L.causal_lm_loss(head(h), plan.labels,
                             data_group=data_group(mesh))

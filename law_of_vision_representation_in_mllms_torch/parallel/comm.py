@@ -16,6 +16,11 @@ raises: nothing here falls back to a local result.
   (a ZeRO-3 parameter gathered for its use; its gradient, summed over the
   data ranks, lands on each rank's slice).
 
+The training variants need no Function of their own: a LoRA product's
+x·A passes through `copy_to` or `reduce_from`, and the switch sits before
+the vocab-parallel head's `copy_to`, so every leaf whole on the model ranks
+gets its whole gradient on each (`models/llama.py`, `models/switch.py`).
+
 Point to point, for context and pipeline parallelism:
 
 - `ring_shift(xs, g)`: each tensor of `xs` sent to the next rank of the

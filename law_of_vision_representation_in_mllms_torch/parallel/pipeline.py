@@ -36,6 +36,18 @@ of this process (zero for those no stage here uses: they come through the
 embeddings, or from another stage), so the backward schedule runs on every
 stage whatever the step asks for.
 
+`head` replaces the last stage's logits (`head(h)` of the final-normed
+hidden states, the switch's steered head). The trainable tensors outside
+the decoder are then the head's, which the last stage differentiates, and
+a gradient crosses a stage only where a decoder weight trains (the freeze
+labels set that alike on every process): with the decoder frozen (a
+switch step) the trunk runs forward only, and embeddings that take a
+gradient are refused. Without a `head` the relay always runs: the
+trainable tensors outside the decoder (the projector's) take their
+gradient through the embeddings. A frozen quantised trunk (stage 1 with `train.quantize_base`) runs
+as a dense one: each stage holds its layers' codes and scales, and the
+relay carries the gradient through them to the projector.
+
 Not with context parallelism or LoRA (the JAX refusal), nor with ZeRO-3.
 """
 
@@ -140,8 +152,14 @@ class _Schedule:
 
     def __init__(self, dec, pp: PipelineParallel, embeds, positions,
                  attn_mask, labels, count, *, use_flash, remat,
-                 remat_policy):
+                 remat_policy, trainable=(), head=None):
         self.dec, self.pp = dec, pp
+        own = {id(p) for p in dec.parameters()}
+        self.head = head or functools.partial(L.logits_fn, dec)
+        self.head_params = [] if head is None else [
+            w for w in trainable if w.requires_grad and id(w) not in own]
+        self.trunk_grad = head is None or any(
+            p.requires_grad for p in dec.parameters())
         self.link = pp.link()
         self.stages = tuple(sorted(self.link.stages))
         self.S, self.M = pp.n_stages, pp.n_micro
@@ -170,21 +188,25 @@ class _Schedule:
         dec = self.dec
         ws = [p for i in self.layers[k] for p in dec.layers[i].parameters()]
         if k == self.S - 1:
-            ws += [dec.final_norm, *dec.lm_head.parameters()]
+            ws += [dec.final_norm, *dec.lm_head.parameters(),
+                   *self.head_params]
         return [w for w in ws if w.requires_grad]
 
     def stage_forward(self, k: int, m: int, x):
         """Stage k on microbatch m: its layers, and on the last stage the
-        final norm, the logits and the microbatch's share of the loss."""
+        final norm, the head and the microbatch's share of the loss (the
+        head differentiated even where the trunk is not)."""
         dec, rows, last = self.dec, self.rows(m), k == self.S - 1
-        h, _ = dec(x, self.positions[rows], attn_mask=self.attn_mask[rows],
-                   use_flash=self.use_flash, remat=self.remat,
-                   remat_policy=self.remat_policy, layers=self.layers[k],
-                   final_norm=last)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and self.trunk_grad):
+            h, _ = dec(x, self.positions[rows],
+                       attn_mask=self.attn_mask[rows],
+                       use_flash=self.use_flash, remat=self.remat,
+                       remat_policy=self.remat_policy,
+                       layers=self.layers[k], final_norm=last)
         if not last:
             return h
-        nll, _ = L.target_nll(L.logits_fn(dec, h)[:, :-1],
-                              self.labels[rows][:, 1:])
+        nll, _ = L.target_nll(self.head(h)[:, :-1], self.labels[rows][:, 1:])
         return nll / self.count.clamp_min(1)
 
     def forward(self, keep: bool):
@@ -196,15 +218,20 @@ class _Schedule:
         for m in range(self.M):
             for k in self.stages:
                 if k == 0:
+                    if self.embeds.requires_grad and not self.trunk_grad:
+                        raise ValueError(
+                            "gpipe_loss: the embeddings take a gradient, but "
+                            "with a `head` the trainable tensors outside the "
+                            "decoder are the head's")
                     x = self.embeds[self.rows(m)].to(self.template.dtype)
                     x = x.detach().requires_grad_(
-                        keep and self.embeds.requires_grad)
+                        keep and self.trunk_grad and self.embeds.requires_grad)
                 else:
                     x = self.link.recv(self.template, k - 1, k, ("h", m))
-                    x.requires_grad_(keep)
+                    x.requires_grad_(keep and self.trunk_grad)
                 fn = functools.partial(self.stage_forward, k, m)
                 with torch.set_grad_enabled(keep):
-                    if keep and self.pp.remat_ticks:
+                    if keep and self.trunk_grad and self.pp.remat_ticks:
                         y = ckpt.checkpoint(fn, x, use_reentrant=False)
                     else:
                         y = fn(x)
@@ -227,6 +254,8 @@ class _Schedule:
         for m in reversed(range(self.M)):
             for k in reversed(self.stages):
                 x, y = self.saved.pop((k, m))
+                if not (self.trunk_grad or k == self.S - 1):
+                    continue
                 if k == self.S - 1:
                     g_y = g_loss.to(y.dtype)
                 else:
@@ -267,7 +296,7 @@ class _GPipe(torch.autograd.Function):
 def gpipe_loss(dec, pp: PipelineParallel, embeds, positions, attn_mask,
                labels, count, *, trainable: Sequence[torch.Tensor] = (),
                use_flash: bool = False, remat: bool = False,
-               remat_policy: Optional[str] = None):
+               remat_policy: Optional[str] = None, head=None):
     """The pipelined loss of this process: the sum of the microbatches'
     shares of the global token mean (`count`: the global batch's valid
     targets) on the last stage's process, 0 on the others.
@@ -278,10 +307,12 @@ def gpipe_loss(dec, pp: PipelineParallel, embeds, positions, attn_mask,
     on every process. `trainable`: every tensor of this process that takes
     a gradient (`params.parameters()` that require one): the backward
     returns one for each, so the backward schedule runs whatever the
-    caller differentiates. Without grad mode the forward runs alone."""
+    caller differentiates. Without grad mode the forward runs alone.
+    `head`: as in the module text."""
     run = _Schedule(dec, pp, embeds, positions, attn_mask, labels, count,
                     use_flash=use_flash, remat=remat,
-                    remat_policy=remat_policy)
+                    remat_policy=remat_policy, trainable=trainable,
+                    head=head)
     if not torch.is_grad_enabled():
         return run.forward(keep=False)
     weights = [w for w in trainable if w.requires_grad]

@@ -9,7 +9,8 @@ replaces the tower's preset and sets the entry's token grid and width; a
 diffusion tower without one has no weights and refuses to run, as in the JAX
 package), a full LLaVA parameter file in
 `model.checkpoint` (a `param_io` .npz such as either package's
-`consolidate` or the port's `save_train_state` writes, or a directory of
+`consolidate` or the port's `save_train_state` writes, the JAX runner's
+orbax `checkpoint-{step}` (`io.orbax_state`), or a directory of
 `checkpoint-{step}`), and a stage-1 projector in
 `train.pretrain_mm_mlp_adapter`. Any projector type (a perceiver too), MoF
 tower specs (per-tower projectors) and `model.visual_keep` pruning build.
@@ -73,7 +74,7 @@ from ..data import (FeatureDataset, SupervisedDataset, collate_batch,
                     get_template, length_grouped_indices)
 from ..data.preprocess import SimpleTokenizer
 from ..io import checkpoint, from_jax
-from ..io.delta import is_orbax_checkpoint
+from ..io.orbax_state import is_orbax_checkpoint, restore_params
 from ..io.featurizer_bundle import load_featurizer_bundle
 from ..io.param_io import load_params
 from ..models import featurizer, llama, llava
@@ -89,9 +90,6 @@ from ..utils import MetricsLogger, map_prefetch, rank0_print
 from .train_step import (GatheredOptState, TrainConfig,
                          init_sharded_train_state, make_train_step,
                          whole_params)
-
-_NOT_PORTED = ("{what} is not ported to the PyTorch package yet "
-               "(ROADMAP, queue 1: {item})")
 
 
 def build_tokenizer(cfg: RunConfig):
@@ -189,16 +187,12 @@ def build_model(cfg: RunConfig, *, device, precision: Precision =
     if cfg.model.checkpoint:
         path = checkpoint.latest_checkpoint(cfg.model.checkpoint) or \
             cfg.model.checkpoint
-        if os.path.isdir(path) and not is_orbax_checkpoint(path):
-            path = os.path.join(path, "params.npz")
-        if not path.endswith(".npz"):
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="reading an orbax train state (model.checkpoint must be "
-                     "a flat params .npz or a directory of checkpoint-{step} "
-                     "saves; the JAX CLI's `consolidate` turns an orbax "
-                     "checkpoint into one)",
-                item="12, orbax train states"))
-        state = from_jax.load_llava_npz(path)
+        if is_orbax_checkpoint(path):
+            state = from_jax.llava_state_dict(restore_params(path))
+        else:
+            if os.path.isdir(path):
+                path = os.path.join(path, "params.npz")
+            state = from_jax.load_llava_npz(path)
     params = llava.init_params(
         generator, model_cfg, precision, device, quantize_bits=quantize_bits,
         decoder_weights=None if state is None else {
@@ -258,9 +252,7 @@ def plan_mesh(cfg: RunConfig, *, world_size: Optional[int] = None,
     messages: the mesh fits the world, the batch and each microbatch divide
     over the data axis, the decoder layers over the pipeline stages and the
     batch into the pipeline's microbatches; a pipeline composes with
-    neither `seq` nor LoRA nor ZeRO-3. TP or a pipeline of a quantised
-    decoder, and the switch variant with `seq` or a pipeline, are
-    refused."""
+    neither `seq` nor LoRA nor ZeRO-3."""
     par = cfg.parallel
     mesh = make_mesh(n_data=par.n_data, n_model=par.n_model, n_seq=par.seq,
                      n_stage=par.pipeline, world_size=world_size, rank=rank)
@@ -299,15 +291,6 @@ def plan_mesh(cfg: RunConfig, *, world_size: Optional[int] = None,
         raise ValueError(f"pipeline microbatch "
                          f"{bs // (a * (par.pp_microbatches or par.pipeline))}"
                          f" must divide over the data axis ({n_data} ways)")
-    if (mesh.n("model") > 1 or par.pipeline > 1) and cfg.train.quantize_base:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="tensor or pipeline parallelism (parallel.n_model, "
-                 "parallel.pipeline > 1) of a quantised decoder "
-                 "(train.quantize_base)", item="10, parallelism"))
-    if (par.seq > 1 or par.pipeline > 1) and cfg.train.switch_enable:
-        raise ValueError("context and pipeline parallelism do not compose "
-                         "with the switch variant (its loss runs the whole "
-                         "trunk)")
     return mesh
 
 

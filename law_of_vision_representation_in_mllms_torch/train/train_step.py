@@ -46,7 +46,16 @@ stage and whose squares the global norm sums over the stage group; the
 gradients of the leaves every stage holds whole (tower, projector,
 embedding, final norm, `lm_head`) are summed over the stage group, as is
 the loss (the last stage's). ZeRO <= 2 and no LoRA with it, as in the JAX
-package; the switch variant takes neither.
+package.
+
+The variants on a mesh: LoRA and QLoRA adapters are cut over the model axis
+beside the decoder (`models.lora.param_partition_specs`), and a quantised
+decoder's codes and scales with its products (`layers.QuantDense`). The
+switch loss runs the whole trunk, as the JAX one does: under `seq` every seq
+rank computes the whole sequence's loss, so nothing is summed over the seq
+axis; under a pipeline the stages run the trunk forward only and the last
+one differentiates the switch and the head (`models.switch.
+switch_loss_fn`).
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..models import llama, llava
+from ..models import llama, llava, lora
 from ..models.switch import switch_loss_fn
 from ..parallel import comm, fsdp, make_mesh
 from ..parallel.pipeline import stage_layers
@@ -424,7 +433,8 @@ def param_partition_tree(params: llava.LlavaParams,
                          zero: int = 0, min_size: Optional[int] = None,
                          pipeline: bool = False) -> Dict[str, fsdp.P]:
     """Parameter name -> spec over `mesh` for a whole (not yet sharded)
-    model: the decoder's TP specs (`llama.param_partition_specs`), the rest
+    model: the decoder's and the adapters' TP specs
+    (`llama.param_partition_specs`, `lora.param_partition_specs`), the rest
     replicated; `zero >= 3` adds the data axis to every leaf of at least
     `min_size` elements (`fsdp.fsdp_spec`, the JAX placement). `pipeline`:
     the decoder layers are held by stage (`LlamaModel.hold_layers`, the JAX
@@ -435,12 +445,14 @@ def param_partition_tree(params: llava.LlavaParams,
                          "the data axis is not supported)")
     if min_size is None:
         min_size = fsdp.MIN_SIZE_TO_SHARD
-    tp = llama.param_partition_specs(model_cfg.decoder)
+    tp = {f"decoder.{k}": v for k, v in
+          llama.param_partition_specs(model_cfg.decoder).items()}
+    if params.lora is not None:
+        tp.update({f"lora.{k}": v for k, v in lora.param_partition_specs(
+            model_cfg.decoder, params.lora.lora_cfg).items()})
     specs = {}
     for name, p in params.named_parameters():
-        spec = fsdp.P(*([None] * p.dim()))
-        if name.startswith("decoder."):
-            spec = tp.get(name[len("decoder."):], spec)
+        spec = tp.get(name, fsdp.P(*([None] * p.dim())))
         if zero >= 3:
             spec = fsdp.fsdp_spec(tuple(p.shape), spec, mesh.n("data"),
                                   min_size=min_size)
@@ -485,11 +497,6 @@ def init_sharded_train_state(params: llava.LlavaParams,
     `param_offload` for `make_train_step(..., mesh=mesh)`."""
     _check_variants(params, train_cfg)
     n_data, n_model = mesh.n("data"), mesh.n("model")
-    if n_model > 1 and (params.lora is not None or params.switch is not None):
-        raise NotImplementedError(
-            "tensor parallelism (parallel.n_model > 1) of the LoRA, QLoRA "
-            "and switch variants is not ported to the PyTorch package yet "
-            "(ROADMAP, queue 1: 10, parallelism)")
     if min_size is None:
         min_size = fsdp.MIN_SIZE_TO_SHARD
     specs = param_partition_tree(params, model_cfg, mesh, zero=zero,
@@ -504,6 +511,8 @@ def init_sharded_train_state(params: llava.LlavaParams,
     trainable = apply_freeze(params, train_cfg.stage)
     if n_model > 1:
         params.decoder.shard_tensor_parallel(mesh.group("model"))
+        if params.lora is not None:
+            params.lora.shard_tensor_parallel(mesh.group("model"))
     data_g = mesh.group("data")
     sliced = {}
     if zero >= 3:
@@ -575,10 +584,11 @@ def whole_params(params: llava.LlavaParams, opt=None, mesh=None):
         off.to_device()
     held = fsdp.unshard_parameters(params)
     dec = params.decoder
-    tp = dec.tp_group is not None
+    tp = [m for m in (dec, params.lora)
+          if m is not None and m.tp_group is not None]
     staged = len(dec.held) < dec.cfg.num_layers
-    if tp:
-        dec.unshard_tensor_parallel()
+    for m in tp:
+        m.unshard_tensor_parallel()
     if staged:
         dec.gather_stages(mesh.group("stage"))
     try:
@@ -586,8 +596,8 @@ def whole_params(params: llava.LlavaParams, opt=None, mesh=None):
     finally:
         if staged:
             dec.drop_unheld()
-        if tp:
-            dec.reshard_tensor_parallel()
+        for m in tp:
+            m.reshard_tensor_parallel()
         fsdp.reshard_parameters(held)
         if off is not None:
             off.to_host()
@@ -670,20 +680,19 @@ def make_train_step(model_cfg: llava.LlavaConfig, train_cfg: TrainConfig,
     plans = opt.plans
     group = (lambda axis: None) if mesh is None else mesh.group
     data_g, model_g = group("data"), group("model")
-    seq_g = group("seq") if cp is not None else None
+    # the switch loss runs the whole sequence on every seq rank: nothing to
+    # sum there (`llava.loss_fn` refuses a pipeline with LoRA, with the JAX
+    # words)
+    seq_g = group("seq") if cp is not None and not train_cfg.switch_sigma \
+        else None
     stage_g = group("stage") if pp is not None else None
-    # (`llava.loss_fn` refuses a pipeline with LoRA, with the JAX words)
-    if (cp is not None or pp is not None) and train_cfg.switch_sigma:
-        raise ValueError("context and pipeline parallelism do not compose "
-                         "with the switch variant (its loss runs the whole "
-                         "trunk)")
 
     def loss_and_grads(params, batch):
         kw = dict(remat=train_cfg.remat, remat_policy=train_cfg.remat_policy,
                   use_flash=train_cfg.use_flash, mesh=mesh)
         if train_cfg.switch_sigma:
             loss = switch_loss_fn(params, model_cfg, batch,
-                                  train_cfg.switch_sigma, **kw)
+                                  train_cfg.switch_sigma, pp=pp, **kw)
         else:
             loss = llava.loss_fn(params, model_cfg, batch,
                                  lora_scaling=train_cfg.lora_scaling, cp=cp,

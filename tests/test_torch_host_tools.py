@@ -1,10 +1,11 @@
 """The port's host tools against the JAX package, on the CPU: anyres
 (`tests/test_anyres.py`'s four cases, the masked splice through the port's
 `splice_plan`), `apply-delta` / `make-delta` / `consolidate` (both
-packages' CLIs on the same files, equal arrays; an orbax train state
-refused with the ROADMAP citation), `clean_conversations`, the figures and
-`AC_score.csv`, the phase timers and the torch profiler's trace, and the
-burner on the CPU.
+packages' CLIs on the same files, equal arrays; the JAX runner's orbax
+train state through both packages' `consolidate` and the port's
+`model.checkpoint` and `load_pretrained`), `clean_conversations`, the
+figures and `AC_score.csv`, the phase timers and the torch profiler's
+trace, and the burner on the CPU.
 """
 
 import json
@@ -40,7 +41,6 @@ from law_of_vision_representation_in_mllms_torch.utils import (
 torch.set_num_threads(1)
 
 PINPOINTS = [(336, 672), (672, 336), (672, 672), (1008, 336), (336, 1008)]
-ORBAX_ITEM = "queue 1: 12, orbax train states"
 
 
 # ---- anyres ---------------------------------------------------------------
@@ -190,21 +190,54 @@ def test_consolidate_a_port_run_for_the_jax_loader(tmp_path):
 
 
 def test_orbax_train_state_is_refused(tmp_path):
-    """A JAX runner's orbax `checkpoint-{step}` (written by the JAX
-    `save_train_state`) is refused by `consolidate` and by
-    `model.checkpoint`, with the ROADMAP item that brings it."""
+    """A JAX runner's orbax `checkpoint-{step}` (stage 2, two steps of the
+    tiny LLaVA: params, optimizer state and step) through the port's
+    reader: the CLI `consolidate` of the run directory and of the
+    checkpoint writes, array for array and bit for bit, the JAX
+    `consolidate`'s file; `model.checkpoint` and `load_pretrained` give the
+    model those arrays (the JAX ones read this save only template-free: its
+    `restore_train_state(path, {"params": ...})` refuses a tree that also
+    holds the optimizer state)."""
+    import test_torch_lora as lora_test
+    from law_of_vision_representation_in_mllms_tpu.core.config import (
+        RunConfig as JRunConfig)
     from law_of_vision_representation_in_mllms_tpu.io import (
-        checkpoint as jckpt)
-    run = str(tmp_path / "jax_run")
-    jckpt.save_train_state(run, {"params": {"w": jnp.ones((3,))}}, 2)
-    for path in (run, os.path.join(run, "checkpoint-2")):
-        with pytest.raises(NotImplementedError, match=ORBAX_ITEM):
-            tdelta.consolidate(path, str(tmp_path / "out.npz"))
-    with pytest.raises(NotImplementedError, match=ORBAX_ITEM):
-        runner.build_model(RunConfig.from_dict(
-            {"model": {"decoder": "tiny", "vision_tower": "debug/tiny-vit",
-                       "checkpoint": run}, "train": {"bf16": False}}),
-            device="cpu")
+        delta as jdelta)
+    from law_of_vision_representation_in_mllms_tpu.train import (
+        runner as jrunner)
+    raw = lora_test._feature_run(tmp_path, batch_size=6, epochs=2)
+    assert jrunner.run_training(JRunConfig.from_dict(raw)) == 0
+    run = raw["train"]["output_dir"]
+    ckpt = os.path.join(run, "checkpoint-2")
+    assert tdelta.is_orbax_checkpoint(ckpt)
+    want_path = str(tmp_path / "jax.npz")
+    n = jdelta.consolidate(ckpt, want_path)
+    want = np.load(want_path)
+    for src in (run, ckpt):
+        out = str(tmp_path / "port.npz")
+        assert cli.main(["consolidate", "--checkpoint", src, "--output",
+                         out]) == 0
+        got = np.load(out)
+        assert sorted(got.files) == sorted(want.files) and len(want.files) \
+            == n
+        for k in want.files:
+            assert got[k].dtype == want[k].dtype and \
+                got[k].tobytes() == want[k].tobytes(), k
+    sd = from_jax.llava_state_dict(jio.load_params(want_path))
+    raw["model"]["checkpoint"] = run
+    _, params = runner.build_model(RunConfig.from_dict(raw), device="cpu",
+                                   precision=FP32_PRECISION)
+    assert {k: v for k, v in params.state_dict().items()}.keys() == sd.keys()
+    for k, v in params.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    raw["model"]["checkpoint"] = None
+    _, fresh = runner.build_model(RunConfig.from_dict(raw), device="cpu",
+                                  precision=FP32_PRECISION)
+    assert not torch.equal(fresh.projector.state_dict()["layers.0.weight"],
+                           sd["projector.layers.0.weight"])
+    tckpt.load_pretrained(run, fresh)
+    for k, v in fresh.state_dict().items():
+        assert torch.equal(v, sd[k]), k
 
 
 # ---- clean, figures, timers, burner ------------------------------------

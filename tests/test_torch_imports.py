@@ -44,7 +44,8 @@ def test_every_port_module_imports_without_jax():
         for name in names:
             if name not in plots:
                 importlib.import_module(name)
-        frameworks = [m for m in ("jax", "flax", "optax", "orbax")
+        frameworks = [m for m in ("jax", "flax", "optax", "orbax",
+                                  "tensorstore", "zstandard")
                       if m in sys.modules]
         # host-side packages the card machine may lack stay unloaded
         optional = [m for m in ("PIL", "yaml", "transformers",
@@ -124,6 +125,25 @@ def test_porting_a_snapshot_loads_no_jax_and_no_hf_package(tmp_path):
     assert out == {"loaded": [], "prompt": [1, 77, 16]}
 
 
+def test_reading_an_orbax_state_loads_no_orbax_stack(tmp_path):
+    """The orbax fixture (tests/make_orbax_fixture.py) read and
+    consolidated in a fresh interpreter, which loads none of JAX, orbax,
+    tensorstore or zstandard: the port reads OCDBT and zstd itself."""
+    ckpt = os.path.join(REPO, "tests", "data", "orbax_tiny", "checkpoint-1")
+    out = _run(f"""
+        import json, sys
+        from {PKG}.io import delta, orbax_state
+        state = orbax_state.restore_raw("{ckpt}")
+        n = delta.consolidate("{ckpt}", "{tmp_path}/flat.npz")
+        loaded = [m for m in sys.modules if m.split(".")[0] in (
+            "jax", "flax", "optax", "orbax", "tensorstore", "zstandard",
+            "{TPU}")]
+        print(json.dumps({{"loaded": loaded, "n": n,
+                          "step": int(state["step"])}}))
+    """)
+    assert out["loaded"] == [] and out["n"] >= 35 and out["step"] == 7
+
+
 def test_cli_tasks_runs_without_jax():
     """`lvr-torch tasks` lists the 44 bundled tasks (the paper's 11 among
     them) and loads no JAX."""
@@ -150,11 +170,13 @@ def test_cli_tasks_runs_without_jax():
 
 def test_no_port_source_names_a_jax_import():
     """No module of the port and no line of chip_smoke.py imports JAX, Flax,
-    Optax, Orbax or the JAX package (a static check beside the runtime
-    one, which also covers lazy imports inside functions)."""
+    Optax, Orbax, tensorstore, zstandard or the JAX package (a static check
+    beside the runtime one, which also covers lazy imports inside
+    functions)."""
     import re
     pattern = re.compile(
-        rf"^\s*(import|from)\s+(jax|flax|optax|orbax|{TPU})\b", re.M)
+        rf"^\s*(import|from)\s+(jax|flax|optax|orbax|tensorstore|zstandard|"
+        rf"{TPU})\b", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, PKG)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

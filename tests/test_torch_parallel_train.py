@@ -80,10 +80,12 @@ from law_of_vision_representation_in_mllms_torch.io import checkpoint as tckpt
 from law_of_vision_representation_in_mllms_torch.models import llama as TL
 from law_of_vision_representation_in_mllms_torch.models import llava as TM
 from law_of_vision_representation_in_mllms_torch.models import lora as TLora
+from law_of_vision_representation_in_mllms_torch.models import switch as TSw
 from law_of_vision_representation_in_mllms_torch.models import towers as TT
 from law_of_vision_representation_in_mllms_torch.models import vit as TV
 from law_of_vision_representation_in_mllms_torch.models.layers import (
     init_weights)
+from law_of_vision_representation_in_mllms_torch.ops import quant as TQ
 from law_of_vision_representation_in_mllms_torch.train import runner
 
 torch.set_num_threads(1)
@@ -95,7 +97,11 @@ SEED = 7
 RANK, ALPHA = 4, 12.0
 TRAIN = dict(stage=2, learning_rate=1e-3, weight_decay=0.01, total_steps=20,
              warmup_ratio=0.1)
-# name -> (n_data, n_model, zero, TrainConfig / state options)
+LORA = dict(lora_rank=RANK, lora_alpha=ALPHA)
+# a decoder for 4 model ranks whose products' contraction slices cut int4
+# groups: `down` holds 3 groups of 128 (96 rows a rank), `wo` one of 32
+SPLIT_GROUPS = dict(num_kv_heads=4, intermediate_size=384)
+# name -> (n_data, n_model, zero, TrainConfig / state / variant options)
 STEP_CASES = {
     "tp_stage1_zero0": (2, 2, 0, dict(stage=1)),
     "tp_zero0": (2, 2, 0, {}),
@@ -109,10 +115,19 @@ STEP_CASES = {
                                                    offload_opt_state=True)),
     "tp_zero2_torch_adamw": (2, 2, 2, dict(fused_optimizer=False)),
     "tp_zero2_grad_accum_nonfinite": (2, 2, 2, dict(grad_accum=2)),
-    "lora_zero3": (4, 1, 3, dict(lora_rank=RANK, lora_alpha=ALPHA)),
-    "qlora_zero3": (4, 1, 3, dict(lora_rank=RANK, lora_alpha=ALPHA)),
+    "lora_zero3": (4, 1, 3, LORA),
+    "qlora_zero3": (4, 1, 3, dict(LORA, bits=4)),
+    # the variants tensor-parallel (the adapters cut beside the decoder,
+    # the quantised codes and scales with their products)
+    "tp_lora_zero2": (2, 2, 2, LORA),
+    "tp_qlora_zero3": (2, 2, 3, dict(LORA, bits=4)),
+    "tp_qlora8_zero2": (2, 2, 2, dict(LORA, bits=8)),
+    "tp_switch_zero2": (2, 2, 2, dict(switch_sigma=1.0)),
+    "tp4_qlora_split_groups": (1, 4, 0, dict(LORA, bits=4,
+                                             decoder=SPLIT_GROUPS)),
 }
 STATE_KEYS = ("offload_opt_state", "offload_params")
+VARIANT_KEYS = ("bits", "decoder")
 # the references compile at XLA's lowest CPU backend optimisation: most of
 # their cost is compiling, and the numbers are fp32 either way
 JIT_OPTIONS = {"xla_backend_optimization_level": 0,
@@ -144,32 +159,47 @@ def _batches(name):
     return [base._batch(s) for s in (1, 2, 3)]
 
 
+def _train_opts(opts):
+    return {k: v for k, v in opts.items()
+            if k not in STATE_KEYS + VARIANT_KEYS}
+
+
+def _decoder(name):
+    return tuple(sorted(STEP_CASES[name][3].get("decoder", {}).items()))
+
+
 @functools.lru_cache(maxsize=None)
-def _configs():
+def _configs(decoder=()):
     """(JAX config, port config, the port's initial state dict, the
-    adapters' state dict): weights drawn by the port's seeded init and
-    carried to the JAX tree by `from_jax` (a JAX init of the tiny LLaVA
-    costs ~10 s of eager dispatch)."""
-    jcfg, tcfg = _tiny_configs()
+    adapters' state dict, the switch's): weights drawn by the port's seeded
+    init and carried to the JAX tree by `from_jax` (a JAX init of the tiny
+    LLaVA costs ~10 s of eager dispatch). `decoder`: (field, value) pairs
+    of the decoder to change."""
+    jcfg, tcfg = _tiny_configs(dict(decoder))
     params = TM.init_params(torch.Generator().manual_seed(SEED), tcfg,
                             FP32_PRECISION)
     lora = TLora.init_lora(torch.Generator().manual_seed(SEED + 1),
                            tcfg.decoder, TLora.LoraConfig(rank=RANK,
                                                           alpha=ALPHA),
                            FP32_PRECISION)
-    return jcfg, tcfg, params.state_dict(), lora.state_dict()
+    switch = TSw.init_switch(torch.Generator().manual_seed(SEED + 2),
+                             tcfg.decoder.hidden_size, FP32_PRECISION)
+    return (jcfg, tcfg, params.state_dict(), lora.state_dict(),
+            switch.state_dict())
 
 
-def _tiny_configs():
-    """The JAX and port configs of `test_torch_train._configs`."""
+def _tiny_configs(decoder=None):
+    """The JAX and port configs of `test_torch_train._configs` (`decoder`:
+    fields of the decoder to change)."""
     def entry(tower_mod, cfg_cls):
         vit = cfg_cls(image_size=14, patch_size=7, hidden_size=16,
                       num_layers=2, num_heads=2, intermediate_size=32)
         return tower_mod.TowerEntry(name="tiny", kind="vit", vit_config=vit,
                                     vit_family="clip", hidden_size=16,
                                     num_patches=vit.num_patches)
-    dec = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
-               num_kv_heads=2, intermediate_size=64)
+    dec = dict(dict(vocab_size=64, hidden_size=32, num_layers=2,
+                    num_heads=4, num_kv_heads=2, intermediate_size=64),
+               **(decoder or {}))
     jcfg = JM.LlavaConfig(
         tower_spec=JT.TowerSpec(entries=[entry(JT, JV.ViTConfig)],
                                 join="single"), decoder=JL.tiny(**dec))
@@ -180,37 +210,44 @@ def _tiny_configs():
 
 
 def _jax_params(name):
-    jcfg, tcfg, sd, lora_sd = _configs()
+    opts = STEP_CASES[name][3]
+    jcfg, tcfg, sd, lora_sd, switch_sd = _configs(_decoder(name))
     params = TM.LlavaParams(tcfg, FP32_PRECISION)
     params.load_state_dict(sd)
     jparams = jax.tree.map(jnp.asarray, from_jax.llava_tree(params))
-    if name.startswith(("lora", "qlora")):
+    if opts.get("lora_rank"):
         jparams["lora"] = jax.tree.map(jnp.asarray,
                                        from_jax.lora_tree(lora_sd))
-    if name.startswith("qlora"):
-        jparams["decoder"] = JQ.quantize_decoder(jparams["decoder"], bits=4)
+    if opts.get("bits"):
+        jparams["decoder"] = JQ.quantize_decoder(jparams["decoder"],
+                                                 bits=opts["bits"])
+    if opts.get("switch_sigma"):
+        jparams["switch"] = jax.tree.map(jnp.asarray,
+                                         from_jax.switch_tree(switch_sd))
     return jcfg, jparams
 
 
 def _step_case(tmp, name):
     n_data, n_model, zero, opts = STEP_CASES[name]
+    _, _, sd, lora_sd, switch_sd = _configs(_decoder(name))
     init = str(tmp / f"{name}.init.pt")
-    torch.save(_configs()[2], init)
+    torch.save(sd, init)
     batches = str(tmp / f"{name}.batches.npz")
     arr = np.empty(len(_batches(name)), dtype=object)
     arr[:] = _batches(name)
     np.savez(batches, batches=arr)
     case = {"kind": "steps", "name": name, "init": init, "batches": batches,
             "n_data": n_data, "n_model": n_model, "zero": zero,
-            "train": dict(TRAIN, **{k: v for k, v in opts.items()
-                                    if k not in STATE_KEYS})}
-    case.update({k: opts[k] for k in STATE_KEYS if k in opts})
-    if name.startswith(("lora", "qlora")):
+            "train": dict(TRAIN, **_train_opts(opts))}
+    case.update({k: opts[k] for k in STATE_KEYS + VARIANT_KEYS
+                 if k in opts})
+    if opts.get("lora_rank"):
         path = str(tmp / f"{name}.lora.pt")
-        torch.save(_configs()[3], path)
+        torch.save(lora_sd, path)
         case["lora"] = {"rank": RANK, "alpha": ALPHA, "init": path}
-    if name.startswith("qlora"):
-        case["bits"] = 4
+    if opts.get("switch_sigma"):
+        case["switch"] = str(tmp / f"{name}.switch.pt")
+        torch.save(switch_sd, case["switch"])
     return case
 
 
@@ -242,7 +279,28 @@ PAR_RUNS = {
                                   pp_remat_ticks=True),
                              dict(stage=2, epochs=2,
                                   gradient_checkpointing=True)),
+    # a quantised trunk in stages; the switch over seq ranks and stages;
+    # QLoRA and the switch tensor-parallel (the tiny decoder's `down` and
+    # `wo` contraction slices split int4 groups at 2 model ranks)
+    "runner_pp2_int4": (dict(n_data=2, pipeline=2, pp_microbatches=2),
+                        dict(quantize_base="int4")),
+    "runner_seq2_switch": (dict(n_data=2, seq=2),
+                           dict(stage=2, switch_enable=True)),
+    "runner_pp2_switch": (dict(n_data=2, pipeline=2, pp_microbatches=2),
+                          dict(stage=2, switch_enable=True)),
+    "runner_tp2_qlora": (dict(n_data=2, n_model=2, zero=2),
+                         dict(stage=2, lora_enable=True, lora_r=4,
+                              lora_alpha=8.0, quantize_base="int4")),
+    "runner_tp2_switch": (dict(n_data=2, n_model=2),
+                          dict(stage=2, switch_enable=True)),
 }
+
+
+# the JAX runner cannot pipeline a quantised decoder (its GPipe maps the
+# layer specs over the layers' leaves and meets a quantised leaf's dict):
+# the port's pipelined run is held to the JAX runner's run of the same
+# config without the pipeline, which is the same loss
+JAX_UNPIPELINED = ("runner_pp2_int4",)
 
 
 def _runner_cases(tmp):
@@ -256,12 +314,19 @@ def _runner_cases(tmp):
     for name, (parallel, train) in PAR_RUNS.items():
         jraws[name] = _feature_run(tmp, name, **parallel)
         jraws[name]["train"].update(train)
+    inits = _jax_runner_inits(tmp, jcfg)
     runs = []
     for name, jraw in jraws.items():
         port = json.loads(json.dumps(jraw))
         port["train"]["output_dir"] += "_port"
         port["model"]["checkpoint"] = init
-        runs.append({"kind": "runner", "name": name, "config": port})
+        if name in JAX_UNPIPELINED:
+            port["parallel"] = PAR_RUNS[name][0]
+            jraw["parallel"] = {k: v for k, v in jraw["parallel"].items()
+                                if not k.startswith(("pipeline", "pp_"))}
+            # its checkpoint-{step}s gather every stage's quantised layers
+            port["train"]["save_steps"] = 1
+        runs.append(dict(inits, kind="runner", name=name, config=port))
     # stage 2 at lr 0 with TP and ZeRO-3: a whole checkpoint-{step} and
     # its one-rank twin
     lr0 = _feature_run(tmp, "runner_tp_lr0", n_data=2, n_model=2, zero=3)
@@ -269,6 +334,27 @@ def _runner_cases(tmp):
     lr0["model"]["checkpoint"] = init
     return jraws, runs + [{"kind": "runner", "name": "runner_tp_lr0",
                            "config": lr0}]
+
+
+def _jax_runner_inits(tmp, jcfg):
+    """The adapters (rank 4, alpha 8) and the switch matrix the JAX runner
+    draws from PRNGKey(seed + 1) / (seed + 2), as port state dicts saved
+    under `tmp`, for the world's runs to take in place of their own
+    seeded init (`torch_parallel_worker.carry_inits`)."""
+    from law_of_vision_representation_in_mllms_tpu.models import lora as JLora
+    from law_of_vision_representation_in_mllms_tpu.models import (
+        switch as JSwitch)
+    seed, dec = jcfg.train.seed, JL.tiny()
+    jl = JLora.init_lora(jax.random.PRNGKey(seed + 1), dec,
+                         JLora.LoraConfig(rank=4, alpha=8.0))
+    sw = JSwitch.init_switch(jax.random.PRNGKey(seed + 2), dec.hidden_size)
+    out = {"lora_init": str(tmp / "runner_lora_init.pt"),
+           "switch_init": str(tmp / "runner_switch_init.pt")}
+    torch.save(from_jax.lora_state_dict(base._jax_tree_np(jl)),
+               out["lora_init"])
+    torch.save(from_jax.switch_state_dict(base._jax_tree_np(sw)),
+               out["switch_init"])
+    return out
 
 
 def _cp_inputs():
@@ -346,8 +432,7 @@ def _jax_steps(name):
     jcfg, jparams = _jax_params(name)
     mesh = jmake_mesh(n_data=n_data, n_model=n_model,
                       devices=jax.devices()[:n_data * n_model])
-    jtc = JS.TrainConfig(**dict(TRAIN, **{k: v for k, v in opts.items()
-                                          if k not in STATE_KEYS}))
+    jtc = JS.TrainConfig(**dict(TRAIN, **_train_opts(opts)))
     if zero or any(opts.get(k) for k in STATE_KEYS):
         state, opt, o_dev, o_host, p_dev, p_host = \
             JS.init_sharded_train_state(
@@ -439,10 +524,14 @@ def test_sharded_steps_match_jax(world, name):
         STEP_CASES[name][2] == 0 or modes - {"replicated"}), modes
     got = ranks[0]["state"]
     trained = set(ranks[0]["nu"])
-    if name.startswith(("lora", "qlora")):
+    opts = STEP_CASES[name][3]
+    if opts.get("lora_rank"):
         want = from_jax.projector_state_dict(jp["projector"], "projector.")
         want.update(from_jax.lora_state_dict(jp["lora"], "lora."))
         min_tight = 0.9
+    elif opts.get("switch_sigma"):
+        want = from_jax.switch_state_dict(jp["switch"], "switch.")
+        min_tight = 0.99
     else:
         want = {k: v for k, v in from_jax.llava_state_dict(jp).items()
                 if k in trained}
@@ -450,10 +539,20 @@ def test_sharded_steps_match_jax(world, name):
     assert set(want) == trained
     _check_trained(got, ranks[0]["nu"], ranks[0]["count"], TRAIN[
         "learning_rate"], want, min_tight)
-    dense = _configs()[2]
+    _, tcfg, dense = _configs(_decoder(name))[:3]
     for k, v in got.items():
         if k not in trained and k in dense:
             assert torch.equal(v, dense[k]), k
+    if opts.get("bits"):
+        # the codes and scales gathered from the model ranks' slices (split
+        # groups put back together) are the one-rank quantisation's
+        params = TM.LlavaParams(tcfg, FP32_PRECISION)
+        params.load_state_dict(dense)
+        TQ.quantize_decoder(params.decoder, bits=opts["bits"])
+        codes = {k: v for k, v in params.state_dict().items()
+                 if k.endswith((".q4", ".q8", ".scale"))}
+        assert codes and all(torch.equal(got[k], v)
+                             for k, v in codes.items())
 
 
 def _logs(path):
@@ -565,10 +664,16 @@ def test_cp_decoder_matches_jax(world):
                                    atol=3e-5, rtol=1e-3, err_msg=name)
 
 
-def _one_rank_twin(config, monkeypatch):
+def _one_rank_twin(config, monkeypatch, case=None):
     """The port's one-process run of a world run's config (no parallel
-    section); returns its output directory."""
+    section), from the case's carried adapters / switch matrix; returns its
+    output directory."""
     monkeypatch.setattr(preprocess.SimpleTokenizer, "encode", crc_encode)
+    if case is not None:
+        import torch_parallel_worker as worker
+        for fn in ("init_lora", "init_switch"):
+            monkeypatch.setattr(runner, fn, getattr(runner, fn))
+        worker.carry_inits(case["lora_init"], case["switch_init"])
     one = json.loads(json.dumps(config))
     one["train"]["output_dir"] += "_one"
     one["parallel"] = {}
@@ -576,13 +681,24 @@ def _one_rank_twin(config, monkeypatch):
     return one["train"]["output_dir"]
 
 
+def _variant_state(path):
+    """A saved `lora_adapters.npz` / `switch.npz` as port state dict
+    entries (`lora.` / `switch.`)."""
+    tree = jio.load_params(path)
+    if path.endswith("switch.npz"):
+        return from_jax.switch_state_dict(tree, "switch.")
+    return from_jax.lora_state_dict(tree, "lora.")
+
+
 @pytest.mark.parametrize("name", list(PAR_RUNS))
 def test_seq_and_pipeline_runs_match_jax_runner(world, name, monkeypatch):
-    """`run_training` with `parallel.seq: 2` or `parallel.pipeline: 2`:
-    `train.jsonl` step by step against the JAX runner's on its mesh; the
-    stage-1 projector against the JAX runner's, a pipeline run's final
-    `checkpoint-{step}` (every stage's layers, gathered to rank 0) against
-    a one-rank run of the same config."""
+    """`run_training` with `parallel.seq: 2`, `parallel.pipeline: 2` or a
+    variant tensor-parallel: `train.jsonl` step by step against the JAX
+    runner's on its mesh; the stage-1 projector against the JAX runner's,
+    a pipeline run's final `checkpoint-{step}` (every stage's layers,
+    gathered to rank 0) against a one-rank run of the same config, a
+    variant's saved adapters / switch matrix against the JAX runner's (and
+    a one-rank run's under TP)."""
     raw = world["jraws"][name]
     out = raw["train"]["output_dir"]
     want_logs, got_logs = _logs(out), _logs(out + "_port")
@@ -597,6 +713,23 @@ def test_seq_and_pipeline_runs_match_jax_runner(world, name, monkeypatch):
     assert {r["steps"] for r in ranks} == {n_steps}
     r0 = ranks[0]
     lr = raw["train"]["learning_rate"]
+    variant = ("lora_adapters.npz" if raw["train"].get("lora_enable") else
+               "switch.npz" if raw["train"].get("switch_enable") else None)
+    if variant:
+        # rank 0's save of the gathered adapters / switch matrix against
+        # the JAX runner's, and against a one-rank run's where the run is
+        # tensor-parallel
+        case = next(c for c in world["cases"] if c["name"] == name)
+        dirs = [out]
+        if raw["parallel"].get("n_model", 1) > 1:
+            dirs.append(_one_rank_twin(case["config"], monkeypatch, case))
+        got = _variant_state(os.path.join(out + "_port", variant))
+        assert set(got) == {k for k in r0["nu"]
+                            if not k.startswith("projector.")}
+        for d in dirs:
+            want = _variant_state(os.path.join(d, variant))
+            _check_trained(got, r0["nu"], r0["count"], lr, want, 0.9)
+        return
     if raw["train"]["stage"] == 1:
         want = jckpt.load_projector(out)
         got = tckpt.load_projector(out + "_port")
@@ -608,6 +741,19 @@ def test_seq_and_pipeline_runs_match_jax_runner(world, name, monkeypatch):
         _check_trained(got, {k[len("projector."):]: v
                              for k, v in r0["nu"].items()}, r0["count"], lr,
                        want_sd, 0.99)
+        if name in JAX_UNPIPELINED:
+            # the frozen int4 decoder that rank 0 saved, gathered from the
+            # stages, holds a one-rank run's codes and scales
+            case = next(c for c in world["cases"] if c["name"] == name)
+            one = _one_rank_twin(case["config"], monkeypatch)
+            path = f"checkpoint-{n_steps}/params.npz"
+            a = np.load(os.path.join(out + "_port", path))
+            b = np.load(os.path.join(one, path))
+            dec = [k for k in b.files if k.startswith("decoder/")]
+            assert sorted(a.files) == sorted(b.files) and any(
+                "q4" in k for k in dec)
+            for k in dec:
+                assert a[k].tobytes() == b[k].tobytes(), k
         return
     case = next(c for c in world["cases"] if c["name"] == name)
     one = _one_rank_twin(case["config"], monkeypatch)

@@ -12,7 +12,8 @@ package's, in one process:
 - `pp_layer_specs`, `memory_report` and `derived_state_specs` of the 7B
   tree with stage-sharded layers, equal to the JAX functions';
 - every refusal of context and pipeline parallelism through
-  `plan_mesh(world_size=...)`, with the JAX words.
+  `plan_mesh(world_size=...)`, with the JAX words, and the variants'
+  combinations it accepts.
 """
 
 import functools
@@ -211,6 +212,25 @@ def test_plan_mesh_accepts_seq_and_pipeline():
     assert mesh.shape == {"data": 2, "stage": 2, "model": 1}
 
 
+@pytest.mark.parametrize("parallel,train", [
+    (dict(pipeline=2), dict(quantize_base="int4")),
+    (dict(n_model=2), dict(stage=2, lora_enable=True,
+                           quantize_base="int8")),
+    (dict(seq=2), dict(stage=2, switch_enable=True)),
+    (dict(pipeline=2, n_model=2), dict(stage=2, switch_enable=True)),
+])
+def test_plan_mesh_accepts_the_variants(parallel, train):
+    """A quantised decoder in a pipeline or tensor-parallel, and the switch
+    with `seq` or a pipeline, plan their mesh (the gloo world of
+    tests/test_torch_parallel_train.py trains them)."""
+    raw = _raw(**parallel)
+    raw["train"].update(train)
+    mesh = runner.plan_mesh(RunConfig.from_dict(raw), world_size=4)
+    assert {k: mesh.n(k) for k in ("stage", "seq", "model")} == {
+        "stage": parallel.get("pipeline", 1), "seq": parallel.get("seq", 1),
+        "model": parallel.get("n_model", 1)}
+
+
 def _jax_loss_fn_refusal():
     """The JAX `loss_fn`'s words for a pipeline with cp."""
     jcfg, jparams, _, _ = _models()
@@ -247,13 +267,6 @@ def _jax_zero3_refusal():
     # the port's own
     (dict(n_data=4, pipeline=2, pp_microbatches=4), {}, ValueError,
      "pipeline microbatch 2 must divide over the data axis (4 ways)"),
-    (dict(pipeline=2), dict(quantize_base="int4"), NotImplementedError,
-     "tensor or pipeline parallelism (parallel.n_model, parallel.pipeline "
-     "> 1) of a quantised decoder (train.quantize_base) is not ported to "
-     "the PyTorch package yet (ROADMAP, queue 1: 10, parallelism)"),
-    (dict(seq=2), dict(switch_enable=True), ValueError,
-     "context and pipeline parallelism do not compose with the switch "
-     "variant (its loss runs the whole trunk)"),
 ])
 def test_plan_mesh_refusals(parallel, train, exc, words):
     if words == "loss_fn":

@@ -513,30 +513,21 @@ def test_train_cli_from_yaml(tmp_path):
 
 
 def test_unported_training_options_raise():
-    """Tensor (or pipeline) parallelism of a quantised decoder and tensor
-    parallelism of the training variants stay refused with a ROADMAP
-    pointer; a pipeline with LoRA with the JAX words. (`parallel.zero`, the
-    offloads, `n_model`, `seq` and `pipeline` run:
-    tests/test_torch_parallel_train.py.)"""
+    """Every training option of the JAX package runs on the port (tensor
+    and pipeline parallelism of a quantised decoder and of the variants
+    too: tests/test_torch_parallel_train.py); what stays refused is a
+    variant without its weights, and a pipeline with LoRA, with the JAX
+    words."""
     base = {"model": {"decoder": "tiny", "vision_tower": "debug/tiny-vit"},
             "train": {"bf16": False}}
     for parallel in ({"n_model": 2}, {"pipeline": 2}):
         raw = json.loads(json.dumps(base))
         raw["parallel"] = parallel
         raw["train"]["quantize_base"] = "int4"
-        with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
-            runner.plan_mesh(RunConfig.from_dict(raw), world_size=2)
+        assert runner.plan_mesh(RunConfig.from_dict(raw),
+                                world_size=2).size == 2
     from law_of_vision_representation_in_mllms_torch.models.lora import (
         LoraConfig, init_lora)
-    from law_of_vision_representation_in_mllms_torch.parallel import (
-        make_mesh)
-    _, _, tcfg, params = _configs(0)
-    params.lora = init_lora(torch.Generator().manual_seed(0), tcfg.decoder,
-                            LoraConfig(rank=4, alpha=8.0), FP32_PRECISION)
-    with pytest.raises(NotImplementedError, match="ROADMAP, queue 1"):
-        TS.init_sharded_train_state(
-            params, TS.TrainConfig(lora_rank=4, lora_alpha=8.0), tcfg,
-            make_mesh(n_model=2, world_size=2))
     _, _, tcfg, params = _configs(0)
     with pytest.raises(ValueError, match="params.lora is None"):
         TS.init_train_state(params, TS.TrainConfig(lora_rank=8))
@@ -555,7 +546,8 @@ def _queue1_headings():
 
 def test_not_ported_errors_point_at_roadmap_items():
     """Every `ROADMAP, queue 1: N, title` in the port names a queue-1 item
-    of ROADMAP.md whose heading starts with that title."""
+    of ROADMAP.md whose heading starts with that title and does not say
+    DONE."""
     headings = _queue1_headings()
     assert len(headings) >= 9
     pkg = os.path.join(REPO, "law_of_vision_representation_in_mllms_torch")
@@ -567,19 +559,12 @@ def test_not_ported_errors_point_at_roadmap_items():
                 found += re.findall(r"(\d+), ([A-Za-z][A-Za-z -]*)\"", src)
                 found += re.findall(r"queue 1: (\d+), ([A-Za-z][A-Za-z -]*)",
                                     src)
-    # 6 citations: GeoAware's two (`cli.py`, `io/hf_port.py`) went with
-    # the refusals they explained; item 10's four in `train/runner.py` (the
-    # `_UNPORTED_TRAIN` entries for `parallel.zero`, `offload_opt_state`,
-    # `offload_params` and the more-than-one-device check) went when those
-    # ran; item 10's four for context and pipeline parallelism (the
-    # `parallel.seq` / `pipeline` refusal in `train/runner.py`, the refusals
-    # of `cp` / `pp` in `train/train_step.py` and `models/llava.py`, the
-    # module text of `train/train_step.py`) went when those ran. What stays:
-    # item 10's TP (and pipeline) of a quantised decoder (`train/runner.py`,
-    # `models/llama.py`) and TP of the variants (`train/train_step.py`),
-    # and item 12's three (`train/runner.py`, `io/delta.py` twice)
-    assert len(found) >= 6
+    # no citation is left: the last refusals (item 10's TP and pipeline of
+    # a quantised decoder and TP of the variants; item 12's orbax train
+    # states) went when those ran. A citation that comes back must name an
+    # item still to do, under its heading
     for n, title in found:
         assert int(n) in headings, (n, title)
         assert headings[int(n)].startswith(title.strip().lower()), (
             n, title, headings[int(n)])
+        assert "done" not in headings[int(n)], (n, headings[int(n)])

@@ -32,7 +32,8 @@ from law_of_vision_representation_in_mllms_torch.core.precision import (  # noqa
 from law_of_vision_representation_in_mllms_torch.data import (  # noqa: E402
     preprocess)
 from law_of_vision_representation_in_mllms_torch.models import (  # noqa: E402
-    llama as TL, llava as TM, lora as TLora, towers as TT, vit as TV)
+    llama as TL, llava as TM, lora as TLora, switch as TSw, towers as TT,
+    vit as TV)
 from law_of_vision_representation_in_mllms_torch.ops import (  # noqa: E402
     quant as TQ, ring_attention as TR)
 from law_of_vision_representation_in_mllms_torch.parallel import (  # noqa: E402
@@ -55,7 +56,8 @@ def crc_encode(self, text, add_special_tokens=False):
     return [self.bos_token_id] + ids if add_special_tokens else ids
 
 
-def tiny_config():
+def tiny_config(decoder=None):
+    """The tiny LLaVA; `decoder`: fields of its decoder to change."""
     vit = TV.ViTConfig(image_size=14, patch_size=7, hidden_size=16,
                        num_layers=2, num_heads=2, intermediate_size=32)
     entry = TT.TowerEntry(name="tiny", kind="vit", vit_config=vit,
@@ -63,7 +65,7 @@ def tiny_config():
                           num_patches=vit.num_patches)
     return TM.LlavaConfig(tower_spec=TT.TowerSpec(entries=[entry],
                                                   join="single"),
-                          decoder=TL.tiny(**DECODER))
+                          decoder=TL.tiny(**dict(DECODER, **(decoder or {}))))
 
 
 def build_params(case, cfg):
@@ -77,12 +79,15 @@ def build_params(case, cfg):
             FP32_PRECISION)
         lora.load_state_dict(torch.load(case["lora"]["init"]))
         params.lora = lora
+    if case.get("switch"):
+        params.switch = TSw.Switch(cfg.decoder.hidden_size, FP32_PRECISION)
+        params.switch.load_state_dict(torch.load(case["switch"]))
     return params.eval()
 
 
 def run_steps(case, rank):
     """`make_train_step` over the case's global batches on its mesh."""
-    cfg = tiny_config()
+    cfg = tiny_config(case.get("decoder"))
     params = build_params(case, cfg)
     mesh = make_mesh(n_data=case["n_data"], n_model=case["n_model"])
     tcfg = TS.TrainConfig(**case["train"])
@@ -110,8 +115,28 @@ def run_steps(case, rank):
     return out
 
 
+def carry_inits(lora_path=None, switch_path=None):
+    """Hand `run_training` the adapters / switch matrix saved at these
+    paths (the JAX runner's initial ones) in place of its seeded init."""
+    def lora(generator, cfg, lora_cfg, precision, device):
+        adapters = TLora.LoraAdapters(cfg, lora_cfg, precision,
+                                      device=device)
+        adapters.load_state_dict(torch.load(lora_path))
+        return adapters
+
+    def switch(generator, hidden_size, precision, device):
+        sw = TSw.Switch(hidden_size, precision, device=device)
+        sw.load_state_dict(torch.load(switch_path))
+        return sw
+    if lora_path:
+        runner.init_lora = lora
+    if switch_path:
+        runner.init_switch = switch
+
+
 def run_runner(case, rank):
     """`run_training` on the case's RunConfig; returns its metrics log."""
+    carry_inits(case.get("lora_init"), case.get("switch_init"))
     run = runner.run_training(RunConfig.from_dict(case["config"]),
                               device="cpu")
     out = {"steps": run.state["step"]}
